@@ -1,9 +1,10 @@
-"""QASR port to PyTorch and CUDA: integer-only QuartzNet serving on Hopper.
+"""QASR port to PyTorch and CUDA: integer-only QuartzNet and Conformer-CTC
+serving on Hopper.
 
 The JAX package ``qasr_tpu`` is the reference; this package mirrors its
-layout (``ops/``, ``models/``, ``quantize/``, ``kernels/``) and never
-imports jax.  Jax-free host modules of ``qasr_tpu`` (model configs, CTC
-decoding, audio I/O) are imported, not copied.
+layout (``ops/``, ``models/``, ``quantize/``, ``kernels/``) and imports
+nothing of it, nor jax: it keeps its own copies of the host modules it
+needs (model configs, CTC decoding, audio input, the range assets).
 
     from qasr_tpu_torch.models.ctc_model import ASRModel, make_frozen_fn
     model = ASRModel.from_pretrained("QuartzNet15x5Base-En",

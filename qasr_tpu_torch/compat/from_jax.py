@@ -3,7 +3,10 @@
 The JAX package keeps params, range state and frozen tables as numpy
 pytrees on the host (or arrays convertible with ``np.asarray``); the port
 takes the same host structures and puts frozen tables on a torch device
-(``quantize.freeze.tables_to_numpy`` goes back).  Nothing here imports jax.
+(``quantize.freeze.tables_to_numpy`` goes back).  This holds for both
+model families: QuartzNet (``tables_from_jax``) and the Conformer
+(``conformer_tables_from_jax``; its params and range state carry over
+through ``state_from_jax`` too).  Nothing here imports jax.
 """
 from __future__ import annotations
 
@@ -12,6 +15,7 @@ from typing import Any
 import numpy as np
 
 from qasr_tpu_torch.device import as_device
+from qasr_tpu_torch.quantize.conformer_freeze import conformer_tables_to_device
 from qasr_tpu_torch.quantize.freeze import tables_to_device
 
 
@@ -29,6 +33,12 @@ def state_from_jax(tree: Any) -> Any:
 
 
 def tables_from_jax(tables: Any, device=None) -> Any:
-    """JAX frozen tables -> the port's torch tables on ``device``; static
-    exponents stay Python ints."""
+    """JAX frozen tables -> the port's torch tables on ``device`` (None:
+    the CUDA device); static exponents stay Python ints."""
     return tables_to_device(state_from_jax(tables), as_device(device))
+
+
+def conformer_tables_from_jax(tables: Any, device=None) -> Any:
+    """JAX frozen Conformer tables (``freeze_conformer``) -> the port's
+    device tables on ``device`` (None: the CUDA device)."""
+    return conformer_tables_to_device(state_from_jax(tables), as_device(device))

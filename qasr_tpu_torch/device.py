@@ -17,10 +17,11 @@ def require_cuda(index: int = 0) -> torch.device:
 
 
 def as_device(device) -> torch.device:
-    """Normalize a device spec; ``None`` means the CPU (say "cuda" to get
-    the GPU, which then must exist)."""
+    """Normalize a device spec.  ``None`` means the CUDA device, which must
+    exist (``require_cuda`` raises otherwise); the CPU is used only when
+    asked for by name."""
     if device is None:
-        return torch.device("cpu")
+        return require_cuda(0)
     dev = torch.device(device)
     if dev.type == "cuda":
         return require_cuda(dev.index or 0)

@@ -1,10 +1,11 @@
 """Build the port's CUDA kernels from ``kernels/csrc`` at first use.
 
-Every ``csrc/*.cu`` is compiled by nvcc for ``sm_90a`` into one shared
-library with a plain C interface, which is loaded with ``ctypes``.  Each C
-entry takes pointers and the stream as ``void*`` and returns
-``cudaGetLastError()`` after its launch; ``check`` raises on anything but 0.
-The library's file name carries a hash of the sources and flags, so an
+Every ``csrc/*.cu`` is compiled by nvcc for ``sm_90a`` (one nvcc process
+per source, all started together) and the objects are linked into one
+shared library with a plain C interface, which is loaded with ``ctypes``.
+Each C entry takes pointers and the stream as ``void*`` and returns
+``cudaGetLastError()`` after its launch; ``check`` raises on anything but
+0.  The library's file name carries a hash of the sources and flags, so an
 edited source rebuilds.  A failed build raises with nvcc's output.
 """
 from __future__ import annotations
@@ -22,7 +23,7 @@ from typing import Optional
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C prototypes of the entries in csrc/*.cu (pointers and the stream as void*)
@@ -30,6 +31,10 @@ _SIGNATURES = {
     "qasr_dw_conv": [_P] * 6 + [_I] * 13 + [_P],
     "qasr_pw_gemm": [_P] * 8 + [_I] * 10 + [_P],
     "qasr_requant_check": [_P] * 4 + [_I, _P],
+    "qasr_int_attention": [_P] * 7 + [_I] * 13 + [_P],
+    "qasr_conv_block": [_P] * 11 + [_I] * 6 + [_P],
+    "qasr_int_fn_check": [_I] + [_P] * 3 + [_I, _P],
+    "qasr_ln_check": [_P] * 2 + [_I] * 2 + [_P],
 }
 
 _lock = threading.Lock()
@@ -79,13 +84,26 @@ def build() -> str:
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
+    nvcc = find_nvcc()
+    objs = [f"{tmp}.{os.path.basename(c)}.o" for c in cu]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, cwd=CSRC)
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, c], cwd=CSRC,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c, o in zip(cu, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]
+    failed = [(c, p.returncode, lg) for c, p, lg in zip(cu, procs, logs) if p.returncode]
+    link = None if failed else subprocess.run(cmd, capture_output=True, text=True, cwd=CSRC)
     BuildInfo.seconds = time.perf_counter() - t0
-    BuildInfo.log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
+    BuildInfo.log = "".join(logs) + ("" if link is None else link.stdout + link.stderr)
+    for o in objs:
+        if os.path.exists(o):
+            os.remove(o)
+    if failed:
+        c, rc, lg = failed[0]
+        raise RuntimeError(f"nvcc failed on {os.path.basename(c)} (exit {rc}):\n{lg}")
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed (exit {link.returncode}):\n"
                            f"{' '.join(cmd)}\n{BuildInfo.log}")
     os.replace(tmp, out)
     BuildInfo.compiled = True

@@ -16,9 +16,10 @@ from typing import Any, Dict, List, Sequence
 import numpy as np
 import torch
 
-from qasr_tpu.decode.ctc import ctc_collapse
-from qasr_tpu.models.config import PRESETS, ModelConfig, QuantConfig
+from qasr_tpu_torch.data.audio import read_audio_pcm16
+from qasr_tpu_torch.decode.ctc import ctc_collapse
 from qasr_tpu_torch.device import as_device
+from qasr_tpu_torch.models.config import PRESETS, ModelConfig, QuantConfig
 from qasr_tpu_torch.models.jasper import (
     EncoderPlan,
     build_encoder_plan,
@@ -171,15 +172,15 @@ class ASRModel:
                             dyadic_mode=dyadic_mode)
 
     def freeze(self, dyadic_mode: str = "static_e", device=None):
-        """Frozen tables as torch tensors on ``device`` (default CPU)."""
+        """Frozen tables as torch tensors on ``device`` (None: the CUDA
+        device, which must exist; pass "cpu" for the CPU)."""
         return tables_to_device(self.freeze_host(dyadic_mode), as_device(device))
 
     def transcribe(self, audio: List[Any], batch_size: int = 4, device=None,
                    dyadic_mode: str = "static_e") -> List[str]:
         """Greedy transcripts of wav paths or 1-D int16/float32 PCM arrays,
-        padded into batches of ``batch_size``, on the fused frozen path."""
-        from qasr_tpu.data.audio import read_audio_pcm16
-
+        padded into batches of ``batch_size``, on the fused frozen path, on
+        ``device`` (None: the CUDA device)."""
         dev = as_device(device)
         key = (dyadic_mode, str(dev), self.qcfg)
         if key not in self._fn_cache:

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from qasr_tpu.models.config import DecoderConfig, EncoderConfig
+from qasr_tpu_torch.models.config import DecoderConfig, EncoderConfig
 
 BN_EPS = 1e-3  # nn.BatchNorm1d(eps=1e-3) in the reference's JasperBlock
 

@@ -47,6 +47,20 @@ class Dyadic(NamedTuple):
     e: object
 
 
+def symmetric_scale(x_min: torch.Tensor, x_max: torch.Tensor, bits: int) -> torch.Tensor:
+    """clamp(max(|x_min|, |x_max|), 1e-8) / (2^(bits-1) - 1), elementwise,
+    in the inputs' float dtype (per tensor or per channel)."""
+    n = 2 ** (bits - 1) - 1
+    return torch.maximum(x_min.abs(), x_max.abs()).clamp_min(1e-8) / n
+
+
+def quantize(x: torch.Tensor, scale: torch.Tensor, bits: int) -> torch.Tensor:
+    """round_half_even(f32(1/scale) * x) clipped to [-n, n-1], int32 (the
+    reciprocal-then-multiply of the reference's linear_quantize)."""
+    n = 2 ** (bits - 1) - 1
+    return torch.round(torch.reciprocal(scale) * x).clamp(-n, n - 1).to(torch.int32)
+
+
 def dyadic_from_scale_host(new_scale, max_bit: int = 31) -> Dyadic:
     """Per-channel exact decomposition of ``new_scale`` (copy of the JAX
     package's host builder): np.frexp in float64, Decimal ROUND_HALF_UP of
@@ -106,7 +120,9 @@ def _requant_i64(z: torch.Tensor, m, e) -> torch.Tensor:
     """sign(z) * min(round_half_even(|z| * m / 2**e), 2**26) for e in
     [1, 62]; e a Python int or an int64 tensor broadcast against z."""
     z = z.to(torch.int64)
-    p = z.abs() * _as_i64(m, z.device)
+    # a Python-int mantissa stays a scalar: a host array would be copied to
+    # the card, and that copy waits for the stream
+    p = z.abs() * (m if isinstance(m, int) else _as_i64(m, z.device))
     fl = p >> e
     rem = p - (fl << e)
     if isinstance(e, int):

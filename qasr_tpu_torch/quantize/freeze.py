@@ -18,15 +18,15 @@ Executors, over (B, T, C):
 from __future__ import annotations
 
 import hashlib
+import logging
 from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
 
-from qasr_tpu.models.config import DecoderConfig, QuantConfig
-from qasr_tpu.utils.logging import logging
 from qasr_tpu_torch.kernels.dw_conv import dw_conv, dw_conv_plain
 from qasr_tpu_torch.kernels.pw_gemm import pw_gemm, pw_gemm_plain
+from qasr_tpu_torch.models.config import DecoderConfig, QuantConfig
 from qasr_tpu_torch.models.jasper import (
     ConvSpec,
     EncoderPlan,
@@ -46,6 +46,16 @@ from qasr_tpu_torch.ops.quant_prims import (
     dyadic_requant_static16,
     requant_clamp,
 )
+
+log = logging.getLogger(__name__)
+_warned = set()
+
+
+def _warn_once(msg: str) -> None:
+    if msg not in _warned:
+        _warned.add(msg)
+        log.warning(msg)
+
 
 # ---------------------------------------------------------------------------
 # Host half: scale propagation and tables (numpy)
@@ -160,9 +170,8 @@ class ScaleFreezeExec:
         acc = (contraction * (1 << (bits - 1)) * int(np.abs(w_int).max())
                + (int(np.abs(b_int).max()) if b_int is not None else 0))
         if acc >= (1 << 31):
-            logging.warning(
-                f"conv site {site}: worst-case accumulator {acc} exceeds "
-                f"int32 — consider lower weight/act bits", once=True)
+            _warn_once(f"conv site {site}: worst-case accumulator {acc} exceeds "
+                       f"int32 — consider lower weight/act bits")
         return _SVal(out_scale, acc), conv_out_len(np.asarray(lens), spec)
 
     def residual_add(self, block_idx: int, pane: int, out: _SVal, res_out: _SVal,
@@ -222,7 +231,7 @@ def freeze_model(plan: EncoderPlan, enc_params, dec_params, qstate,
     out_sval, _ = encoder_forward(fx, plan, _SVal(None), np.zeros((1,), np.int64))
     fx._check_e16(out_sval)  # the decoder's act requant consumes this
     if fx.e16_overflow:
-        logging.warning("static_e16 requant could overflow on this model "
+        log.warning("static_e16 requant could overflow on this model "
                         "(worst-case accumulator >= 2**30); falling back to "
                         "dyadic_mode='static_e'")
         return freeze_model(plan, enc_params, dec_params, qstate, qcfg,
@@ -321,8 +330,9 @@ def tables_to_numpy(tables) -> Dict[str, Any]:
 
 def tables_digest(tables) -> str:
     """SHA-256 over a canonical serialization of numpy tables: keys sorted,
-    lists in order, arrays as dtype + shape + C-order bytes, Python ints
-    and bools tagged by type (a static exponent and a 0-d array differ)."""
+    lists and tuples in order, arrays as dtype + shape + C-order bytes,
+    Python ints and bools tagged by type (a static exponent and a 0-d array
+    differ), Python floats by their exact hex form."""
     h = hashlib.sha256()
 
     def walk(t):
@@ -343,6 +353,8 @@ def tables_digest(tables) -> str:
             h.update(a.tobytes())
         elif isinstance(t, (bool, int)) or t is None:
             h.update(f"{type(t).__name__}:{t};".encode())
+        elif isinstance(t, float):  # the Conformer's static site scales
+            h.update(f"float:{t.hex()};".encode())
         else:
             raise TypeError(f"tables_digest: unexpected leaf {type(t)}")
     walk(tables)

@@ -9,11 +9,16 @@
     libraries), first-site int8 codes flip on <= 0.1% of elements and only
     by +-1, and make_frozen_fn gives equal enc_lens (ids equal whenever the
     codes are).
-(c) Importing the port and a CPU forward never import jax.
+(c) Importing the port and a CPU forward never import jax or qasr_tpu;
+    the port's sources import nothing of qasr_tpu; device=None means the
+    CUDA device.
 Full-width QuartzNet15x5 is held to the committed golden record.
 """
+import dataclasses
+import glob
 import importlib.util
 import os
+import re
 import subprocess
 import sys
 
@@ -151,14 +156,21 @@ def test_slice_from_pcm_within_frontend_tolerance(models, monkeypatch, capsys):
 
 
 def test_port_imports_no_jax():
+    """With ``qasr_tpu`` made unimportable, import every module of the
+    port, build and serve a tiny QuartzNet and a tiny Conformer-CTC on the
+    CPU: neither jax nor any part of qasr_tpu is imported."""
     code = """
 import importlib, pkgutil, sys
+sys.modules["qasr_tpu"] = None   # any import of the JAX package now fails
 import numpy as np, torch
 import qasr_tpu_torch
 for mod in pkgutil.walk_packages(qasr_tpu_torch.__path__, "qasr_tpu_torch."):
     importlib.import_module(mod.name)
+from qasr_tpu_torch.models.config import BlockConfig, DecoderConfig, EncoderConfig, ModelConfig
+from qasr_tpu_torch.models.conformer import ConformerConfig
+from qasr_tpu_torch.models.conformer_ctc import ConformerCTC
 from qasr_tpu_torch.models.ctc_model import ASRModel, make_frozen_fn
-from qasr_tpu.models.config import BlockConfig, DecoderConfig, EncoderConfig, ModelConfig
+from qasr_tpu_torch.quantize.conformer_ptq import ConformerQuantConfig, init_conformer_qstate
 blocks = (BlockConfig(filters=16, repeat=1, kernel=(5,), stride=(2,), residual=False,
                       separable=True),
           BlockConfig(filters=16, repeat=2, kernel=(3,), residual=True, separable=True))
@@ -172,7 +184,28 @@ m.qstate_from_json(m.qstate_to_json().replace('"x_max": 0.0', '"x_max": 2.0'))
 ids, el = make_frozen_fn(m, m.freeze(device="cpu"), argmax=True)(
     torch.zeros(2, 4000, dtype=torch.int16), torch.tensor([4000, 3000]))
 assert ids.shape[0] == 2
+ccfg = ConformerConfig(feat_in=16, n_layers=1, d_model=64, n_heads=4,
+                       subsampling_conv_channels=8, conv_kernel_size=5, dropout=0.0)
+mcfg = ModelConfig(encoder=EncoderConfig(feat_in=16, blocks=()),
+                   decoder=DecoderConfig(feat_in=64, num_classes=28),
+                   preprocessor={"features": 16, "dither": 0.0})
+c = ConformerCTC.from_config(mcfg, ccfg)
+c.enc_qcfg = ConformerQuantConfig(quantize_attention=True, integer_softmax=True,
+                                  integer_layernorm=True, integer_activations=True,
+                                  static_attention=True)
+qs = init_conformer_qstate(ccfg, c.enc_qcfg)
+qs["dec_in"] = {"x_min": np.float32(0), "x_max": np.float32(0)}
+for site in [qs["pre_out"], qs["dec_in"]] + [s for layer in qs["layers"] for s in layer.values()]:
+    site["x_min"], site["x_max"] = np.float32(-1.5), np.float32(2.0)
+c.enc_qstate = qs
+rng = np.random.default_rng(0)
+pcm = (rng.normal(size=(2, 8000)) * 3000).astype(np.int16)
+texts = c.transcribe_greedy(pcm, np.asarray([8000, 6000]), device="cpu")
+assert len(texts) == 2
 assert "jax" not in sys.modules, sorted(k for k in sys.modules if k.startswith("jax"))
+bad = sorted(k for k, v in sys.modules.items()
+             if (k == "qasr_tpu" or k.startswith("qasr_tpu.")) and v is not None)
+assert not bad, bad
 print("no-jax ok")
 """
     env = dict(os.environ)
@@ -180,6 +213,79 @@ print("no-jax ok")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0 and "no-jax ok" in proc.stdout, proc.stderr[-3000:]
+
+
+def test_port_sources_import_nothing_of_qasr_tpu():
+    """No module of the port, and not chip_smoke.py, imports qasr_tpu (at
+    top level or inside a function)."""
+    pat = re.compile(r"^\s*(from|import)\s+qasr_tpu(\.|\s|$)")
+    files = glob.glob(os.path.join(ROOT, "qasr_tpu_torch", "**", "*.py"), recursive=True)
+    files.append(os.path.join(ROOT, "chip_smoke.py"))
+    assert len(files) > 20
+    hits = []
+    for path in files:
+        with open(path) as f:
+            hits += [f"{os.path.relpath(path, ROOT)}:{i}: {line.strip()}"
+                     for i, line in enumerate(f, 1) if pat.match(line)]
+    assert hits == []
+
+
+def test_entry_points_default_to_cuda():
+    """device=None means the CUDA device: without a GPU every entry point
+    raises instead of running on the CPU; with one it is cuda:0."""
+    from qasr_tpu_torch.compat.from_jax import conformer_tables_from_jax
+    from qasr_tpu_torch.device import as_device
+
+    if torch.cuda.is_available():
+        assert as_device(None) == torch.device("cuda", 0)
+        return
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        as_device(None)
+    assert as_device("cpu") == torch.device("cpu")
+    model = golden.quartznet15x5_w6a6()
+    for call in (lambda: model.freeze(), lambda: model.transcribe([np.zeros(1600, np.int16)]),
+                 lambda: tables_from_jax({"blocks": []}),
+                 lambda: conformer_tables_from_jax({"layers": []})):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    conf = golden.conformer16x256_w8a8()
+    for call in (lambda: conf.freeze(), lambda: conf.forward(np.zeros((1, 1600), np.int16),
+                                                             np.asarray([1600])),
+                 lambda: conf.transcribe_greedy(np.zeros((1, 1600), np.int16),
+                                                np.asarray([1600]))):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+
+
+def test_port_host_copies_match_jax(tmp_path):
+    """The port's own copies of the JAX package's host modules: the
+    QuartzNet range asset byte for byte, the model presets, greedy CTC
+    collapse and the WAV reader."""
+    from qasr_tpu.data.audio import read_audio_pcm16 as jax_read, write_wav
+    from qasr_tpu.decode.ctc import ctc_collapse as jax_collapse
+    from qasr_tpu.models.config import PRESETS as JAX_PRESETS
+    from qasr_tpu_torch.data.audio import read_audio_pcm16
+    from qasr_tpu_torch.decode.ctc import ctc_collapse
+    from qasr_tpu_torch.models.config import PRESETS
+
+    with open(os.path.join(ROOT, "qasr_tpu", "assets",
+                           "quartznet15x5_noise_qstate_w6a6_s0.json"), "rb") as f:
+        want = f.read()
+    with open(golden.QSTATE_PATH, "rb") as f:
+        assert f.read() == want
+    # other test files register extra presets into the JAX dict at run time
+    assert set(PRESETS) <= set(JAX_PRESETS) and "QuartzNet15x5Base-En" in PRESETS
+    for name in PRESETS:
+        assert dataclasses.asdict(PRESETS[name]()) == dataclasses.asdict(JAX_PRESETS[name]())
+    rng = np.random.default_rng(2)
+    ids = rng.integers(0, 29, size=(3, 40))
+    lens = np.asarray([40, 17, 0])
+    labels = [chr(ord("a") + i) for i in range(28)]
+    assert ctc_collapse(ids, 28, labels, lens) == jax_collapse(ids, 28, labels, lens)
+    for sr in (16000, 8000):
+        path = str(tmp_path / f"x{sr}.wav")
+        write_wav(path, rng.uniform(-0.5, 0.5, 4000).astype(np.float32), sr=sr)
+        np.testing.assert_array_equal(read_audio_pcm16(path), jax_read(path))
 
 
 def test_flagship_port_cpu_matches_golden(monkeypatch):
