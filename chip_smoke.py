@@ -19,24 +19,31 @@ non-zero before the result line.  Phases:
    int_attention at T in {1, 37, 128, 129, 375, 500} with ragged lengths
    and contexts -1, (8, 0), (4, 2), and at d_k in {16, 96, 128} besides
    the flagship's 64; conv_block at d in {64, 256, 512}, T in {1, 31, 375}
-   with ragged lengths;
-4. the golden checks, on the kernel path and on the plain path:
-   full-width QuartzNet15x5 reproduces the JAX record exactly; the
-   flagship Conformer-CTC's x8 is within 0.1% of codes at +-1 of the JAX
-   record and its integer stack from the golden x8 reproduces the
-   encodings' hash, ids and lengths exactly;
+   with ragged lengths; lin_epilogue in its three modes at every (K, D)
+   of the Conformer path, with and without bias, at N in {1, 37, 12000},
+   on the flagship's sites and on seeded sites with exponents above 31;
+   ffn_ln at d in {64, 256, 512} x T in {1, 31, 375}, tail on and off;
+4. the golden checks: full-width QuartzNet15x5 reproduces the JAX record
+   exactly on the kernel and plain paths; the flagship Conformer-CTC's x8
+   is within 0.1% of codes at +-1 of the JAX record and its integer stack
+   from the golden x8 reproduces the encodings' hash, ids and lengths
+   exactly under the plans ("1", True) (the default), ("conv", True),
+   ("conv", False) and on the plain path;
 5. serve 4 seeded int16 PCM requests (4.0, 7.3, 11.6, 15.0 s) through
-   ASRModel.transcribe and through ConformerCTC.transcribe_greedy, with
+   ASRModel.transcribe and through ConformerCTC.transcribe_greedy (the
+   default plan), and the same batch once more under ("conv", True), with
    every launch count set to 0 just before each and read just after: each
    path launches its own kernels as its plan predicts (QuartzNet 77
-   dw_conv + 94 pw_gemm, the Conformer 16 int_attention + 16 conv_block)
-   and gives the ids of its plain executor;
-6. time the QuartzNet B=64 x 15 s step and the Conformer B=32 x 15 s step
-   (kernel path and plain path, median of 10 after 3 warm-ups, CUDA
-   events), and each kernel against its plain version at its path's
-   shapes, with its bound (bytes over 3.35 TB/s or int8 operations over
-   1,979 TOP/s, from this run's inputs) and, where one PyTorch call
-   computes the same function, that call's time.
+   dw_conv + 94 pw_gemm; the Conformer 16 int_attention + 16 conv_block +
+   32 ffn_ln + 81 lin_epilogue, and 16 + 16 + 145 lin_epilogue under
+   ("conv", True)) and gives the ids of its plain executor;
+6. time the QuartzNet B=64 x 15 s step (kernel path and plain path) and
+   the Conformer B=32 x 15 s step (default plan; ("conv", False), the
+   attention and conv-module kernels with plain glue; plain), median of 10
+   after 3 warm-ups, CUDA events, in turns; and each kernel against its
+   plain version at its path's shapes, with its bound (bytes over 3.35
+   TB/s or int8 operations over 1,979 TOP/s, from this run's inputs) and,
+   where one PyTorch call computes the same function, that call's time.
 
 Prints the card line, a {"kernels": [...]} line, then as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -64,9 +71,11 @@ ATT_T = (1, 37, 128, 129, 375, 500)
 ATT_CTX = ((-1, -1), (8, 0), (4, 2))
 ATT_DK = (16, 96, 128)             # the other head widths the kernel takes (d_k 64 above)
 CONV_D, CONV_T = (64, 256, 512), (1, 31, 375)
+FFN_D, FFN_T = (64, 256, 512), (1, 31, 375)
+LIN_N = (1, 37, 12000)
 # the H100 SXM's published peaks (NVIDIA data sheet, dense, 700 W)
 HBM_BYTES_PER_S, INT8_OPS_PER_S = 3.35e12, 1979e12
-KERNELS = ("dw_conv", "pw_gemm", "int_attention", "conv_block")
+KERNELS = ("dw_conv", "pw_gemm", "int_attention", "conv_block", "lin_epilogue", "ffn_ln")
 
 
 def log(msg: str) -> None:
@@ -129,11 +138,18 @@ def bound(nbytes: float, int8_ops: float):
 def wrappers():
     from qasr_tpu_torch.kernels.conv_block import conv_block
     from qasr_tpu_torch.kernels.dw_conv import dw_conv
+    from qasr_tpu_torch.kernels.ffn_ln import ffn_ln
     from qasr_tpu_torch.kernels.int_attention import int_attention
+    from qasr_tpu_torch.kernels.lin_epilogue import lin_epilogue
     from qasr_tpu_torch.kernels.pw_gemm import pw_gemm
 
     return {"dw_conv": dw_conv, "pw_gemm": pw_gemm, "int_attention": int_attention,
-            "conv_block": conv_block}
+            "conv_block": conv_block, "lin_epilogue": lin_epilogue, "ffn_ln": ffn_ln}
+
+
+def planned(counts):
+    """Every kernel's expected count: 0 unless ``counts`` names it."""
+    return {**{k: 0 for k in KERNELS}, **counts}
 
 
 def reset_counts() -> None:
@@ -279,7 +295,7 @@ def phase_serve(model, tables, dev):
     reset_counts()
     texts = model.transcribe(utts, batch_size=4, device=dev)
     counts = read_counts()
-    expect = dict(kernel_launches(model.plan), int_attention=0, conv_block=0)
+    expect = planned(kernel_launches(model.plan))
     if counts != expect:
         raise AssertionError(f"QuartzNet launch counts {counts} != plan {expect}")
     batch, lens = pad_batch(utts)
@@ -331,10 +347,10 @@ def timed_pair(chk, kind, label, kern, plain, card, rows, library=None):
 
 def step_times(fns, args, card, tag, batch, seconds, report):
     steps = {}
-    for name in ("plain", "kernel", "kernel", "plain"):  # in turns, 2 x 5 each
+    for name in list(fns) + list(fns)[::-1]:  # in turns, 2 x 5 each
         steps.setdefault(name, []).extend(cuda_ms(lambda fn=fns[name]: fn(*args), reps=5))
     step = {k: statistics.median(v) for k, v in steps.items()}
-    for k in ("kernel", "plain"):
+    for k in fns:
         log(f"[6] {tag} B={batch} x {seconds:g} s step, {k} path: median {step[k]:.3f} ms "
             f"of {len(steps[k])} ({batch * seconds / step[k] * 1e3:.1f} audio-s/s) [{card}]")
     report[f"{tag.lower()}_step_ms"] = step
@@ -535,21 +551,108 @@ def phase_conv_block(chk, dev, tables):
     log(f"[3] conv_block == plain at d in {CONV_D} x T in {CONV_T}, ragged lengths")
 
 
+def _lin_sites(tables):
+    """The Conformer path's Kernel 5 sites on the flagship's layer 0:
+    (label, mode, site, epilogue kwargs, K)."""
+    from qasr_tpu_torch.quantize.conformer_freeze import _pos_tables
+
+    enc = tables["encoder"]
+    tbl = enc["layers"][0]
+    pos = _pos_tables(enc, 375)[1][0]
+    sites = [("q_u", "rq", tbl["att_q_u"], {}), ("pre", "rq", enc["pre"], {}),
+             ("pos", "rq", pos, {}),
+             ("ff1 l1", "swish", tbl["ff1_l1"], dict(swish=(tbl["ff1_grid"], tbl["ff1_prod"]))),
+             ("ff1 l2", "join", tbl["ff1_l2"], dict(stream_rq=tbl["j1_stream"]))]
+    return [(f"{name} {s['wt'].shape[1]}->{s['wt'].shape[0]}" + ("" if "b" in s else " no bias"),
+             mode, s, kw) for name, mode, s, kw in sites]
+
+
+def phase_lin_epilogue(chk, dev, tables):
+    import numpy as np
+    import torch
+
+    from qasr_tpu_torch.kernels.lin_epilogue import lin_epilogue, lin_epilogue_plain
+
+    rng = np.random.default_rng(9)
+    sites = _lin_sites(tables)
+    # seeded sites with exponents above 31 in every requant of each mode
+    for mode, (k, d) in (("rq", (256, 256)), ("swish", (256, 1024)), ("join", (1024, 256))):
+        site = {"wt": torch.from_numpy(rng.integers(-127, 127, (d, k)).astype(np.int8)).to(dev),
+                "b": torch.from_numpy(rng.integers(-2**15, 2**15, d).astype(np.int32)).to(dev),
+                "m": torch.from_numpy(rng.integers(2**29, 2**31 - 1, d).astype(np.int32)).to(dev),
+                "e": 37}
+        kw = {"rq": {}, "swish": dict(swish=((2**30 + 7, 36), (1234567, 40))),
+              "join": dict(stream_rq=(2**31 - 1, 33))}[mode]
+        sites.append((f"seeded {k}->{d} e>31", mode, site, kw))
+    n_cases = 0
+    for label, mode, site, kw in sites:
+        d, k = site["wt"].shape
+        for bias in (True, False):
+            s_ = site if bias else {n: v for n, v in site.items() if n != "b"}
+            for n in LIN_N:
+                x = torch.from_numpy(rng.integers(-127, 127, (n, k)).astype(np.int8)).to(dev)
+                args = dict(kw, nbits=8)
+                if mode == "join":
+                    args["stream8"] = torch.from_numpy(
+                        rng.integers(-127, 127, (n, d)).astype(np.int8)).to(dev)
+                chk.equal("lin_epilogue", f"lin_epilogue {label} {mode} bias={bias} N={n}",
+                          lin_epilogue(x, s_, **args), lin_epilogue_plain(x, s_, **args))
+                n_cases += 1
+    log(f"[3] lin_epilogue == plain at {n_cases} cases: every path (K, D) in rq / swish / "
+        f"join, with and without bias, N in {LIN_N}, and seeded e > 31")
+
+
+def phase_ffn_ln(chk, dev, tables):
+    import numpy as np
+    import torch
+
+    from qasr_tpu_torch.kernels.ffn_ln import ffn_ln, ffn_ln_plain
+
+    rng = np.random.default_rng(10)
+    layers = {64: small_conformer(dev, 64), 256: tables["encoder"]["layers"][0],
+              512: small_conformer(dev, 512)}
+    for d in FFN_D:
+        tbl = layers[d]
+        for t in FFN_T:
+            b = (32 if d == 256 else 4) if t == 375 else 3
+            x = torch.from_numpy(rng.integers(-127, 127, (b, t, d)).astype(np.int8)).to(dev)
+            for tail in (tbl["ln_att"], None):
+                args = (x, tbl["ln_ff1"], tbl["ff1_l1"], tbl["ff1_grid"], tbl["ff1_prod"],
+                        tbl["ff1_l2"], tbl["j1_stream"], tail)
+                (got, got_t), (want, want_t) = ffn_ln(*args, nbits=8), ffn_ln_plain(*args, nbits=8)
+                what = f"ffn_ln d={d} B={b} T={t} tail={tail is not None}"
+                chk.equal("ffn_ln", what, got, want)
+                if tail is not None:
+                    chk.equal("ffn_ln", what + " (tail)", got_t, want_t)
+                elif got_t is not None:
+                    raise AssertionError(f"{what}: a tail without a tail table")
+    log(f"[3] ffn_ln == plain at d in {FFN_D} x T in {FFN_T}, tail on and off")
+
+
+def conformer_plans():
+    from qasr_tpu_torch.quantize.conformer_freeze import DEFAULT_PLAN, ConformerPlan
+
+    return DEFAULT_PLAN, ConformerPlan("conv", True), ConformerPlan("conv", False)
+
+
 def phase_conformer_golden(dev):
     from qasr_tpu_torch import golden
     from qasr_tpu_torch.quantize.conformer_freeze import conformer_tables_digest
 
     model = golden.conformer16x256_w8a8()
     tables = model.freeze(dev)
-    for kernels in (True, False):
-        res = golden.check_conformer_golden(model, tables, kernels=kernels)
+    plans = conformer_plans()
+    runs = [(True, plan) for plan in plans] + [(False, plans[0])]
+    for kernels, plan in runs:
+        res = golden.check_conformer_golden(model, tables, kernels=kernels, plan=plan)
         if res["bad"]:
-            raise AssertionError(f"Conformer golden mismatch ({'kernel' if kernels else 'plain'}"
-                                 f" path) in {res['bad']}: {res}")
+            raise AssertionError(f"Conformer golden mismatch ({plan if kernels else 'plain'} "
+                                 f"path) in {res['bad']}: {res}")
     log(f"[4] Conformer golden: tables {conformer_tables_digest(tables['encoder'])[:16]}; x8 "
         f"{res['x8_flips']} of {res['x8_size']} codes flipped (max |d| {res['x8_max_diff']}, "
         f"limit 0.1% at 1); from the golden x8 the encodings' hash, ids and enc_lens "
-        f"{res['enc_lens']} equal the JAX record on the kernel and plain paths, log-probs "
+        f"{res['enc_lens']} equal the JAX record under the plans "
+        f"{[(p.mod, p.fused) for p in plans]} and on the plain path, log-probs "
         f"within {res['log_prob_max_err']:.2e}")
     return model, tables, res
 
@@ -557,34 +660,40 @@ def phase_conformer_golden(dev):
 def phase_conformer_serve(model, tables, dev):
     import torch
 
+    from qasr_tpu_torch.decode.ctc import ctc_collapse
     from qasr_tpu_torch.models.conformer_ctc import make_conformer_frozen_fn
     from qasr_tpu_torch.quantize.conformer_freeze import kernel_launches
 
     utts, secs = seeded_requests(8)
     batch, lens = pad_batch(utts)
-    model.transcribe_greedy(batch[:1, :len(utts[0])], lens[:1], device=dev)  # build + cache
-    reset_counts()
-    texts = model.transcribe_greedy(batch, lens, device=dev)
-    counts = read_counts()
-    expect = dict(kernel_launches(model.ccfg), dw_conv=0, pw_gemm=0)
-    if counts != expect:
-        raise AssertionError(f"Conformer launch counts {counts} != plan {expect}")
-    ids_k, el_k = make_conformer_frozen_fn(model, tables, argmax=True)(batch, lens)
     ids_p, el_p = make_conformer_frozen_fn(model, tables, argmax=True, kernels=False)(batch, lens)
-    if not (torch.equal(ids_k, ids_p) and torch.equal(el_k, el_p)):
-        raise AssertionError("Conformer kernel path ids differ from the plain executor's")
-    from qasr_tpu_torch.decode.ctc import ctc_collapse
-
-    if texts != ctc_collapse(ids_p.cpu().numpy(), model.blank_id, model.vocabulary,
-                             el_p.cpu().numpy()):
-        raise AssertionError("transcribe_greedy differs from the plain executor's transcripts")
-    if len(torch.unique(ids_k)) < 2:
-        raise AssertionError("degenerate Conformer ids")
-    for s_, txt in zip(secs, texts):
+    plain_texts = ctc_collapse(ids_p.cpu().numpy(), model.blank_id, model.vocabulary,
+                               el_p.cpu().numpy())
+    default, conv_fused, _ = conformer_plans()
+    main_counts = None
+    for plan in (default, conv_fused):
+        model.transcribe_greedy(batch[:1, :len(utts[0])], lens[:1], device=dev,
+                                plan=plan)  # build + cache
+        reset_counts()
+        texts = model.transcribe_greedy(batch, lens, device=dev, plan=plan)
+        counts = read_counts()
+        expect = planned(kernel_launches(model.ccfg, plan))
+        if counts != expect:
+            raise AssertionError(f"Conformer launch counts under {plan}: {counts} != {expect}")
+        main_counts = main_counts or counts
+        ids_k, el_k = make_conformer_frozen_fn(model, tables, argmax=True, plan=plan)(batch, lens)
+        if not (torch.equal(ids_k, ids_p) and torch.equal(el_k, el_p)):
+            raise AssertionError(f"Conformer ids under {plan} differ from the plain executor's")
+        if texts != plain_texts:
+            raise AssertionError(f"transcribe_greedy under {plan} differs from the plain "
+                                 f"executor's transcripts")
+        if len(torch.unique(ids_k)) < 2:
+            raise AssertionError("degenerate Conformer ids")
+        log(f"[5] Conformer served 4 requests under ({plan.mod!r}, {plan.fused}) (enc_lens "
+            f"{el_k.tolist()}); launches {counts} == plan; ids == plain executor")
+    for s_, txt in zip(secs, plain_texts):
         log(f"[5] Conformer {s_:5.1f} s -> {txt[:100]!r}")
-    log(f"[5] Conformer served 4 requests (enc_lens {el_k.tolist()}); launches {counts} == "
-        f"plan; ids == plain executor")
-    return counts
+    return main_counts
 
 
 def phase_conformer_time(chk, model, tables, dev, card, report):
@@ -592,7 +701,9 @@ def phase_conformer_time(chk, model, tables, dev, card, report):
     import torch
 
     from qasr_tpu_torch.kernels.conv_block import conv_block, conv_block_plain
+    from qasr_tpu_torch.kernels.ffn_ln import ffn_ln, ffn_ln_plain
     from qasr_tpu_torch.kernels.int_attention import int_attention, int_attention_plain
+    from qasr_tpu_torch.kernels.lin_epilogue import lin_epilogue, lin_epilogue_plain
     from qasr_tpu_torch.models.conformer_ctc import make_conformer_frozen_fn
 
     batch, seconds = 32, 15.0
@@ -600,7 +711,10 @@ def phase_conformer_time(chk, model, tables, dev, card, report):
     rng = np.random.default_rng(0)
     audio = torch.from_numpy((rng.normal(size=(batch, n)) * 0.1).astype(np.float32)).to(dev)
     lens = torch.full((batch,), n, dtype=torch.int32, device=dev)
-    fns = {"kernel": make_conformer_frozen_fn(model, tables, argmax=True),
+    default, _, conv_only = conformer_plans()
+    fns = {"kernel": make_conformer_frozen_fn(model, tables, argmax=True, plan=default),
+           "kernel_conv_only": make_conformer_frozen_fn(model, tables, argmax=True,
+                                                        plan=conv_only),
            "plain": make_conformer_frozen_fn(model, tables, argmax=True, kernels=False)}
     step = step_times(fns, (audio, lens), card, "Conformer", batch, seconds, report)
 
@@ -637,6 +751,34 @@ def phase_conformer_time(chk, model, tables, dev, card, report):
     weights = 4 * d * d + k_size * d + 14 * 4 * d + 16 * 4
     r["bound"] = bound(3 * batch * t * d + weights + 4 * batch,
                        2 * batch * t * d * (4 * d + k_size))
+    # Kernel 5 at each of its path's sites (the pos projection has 2T-1 rows)
+    for label, mode, site, kw in _lin_sites(tables):
+        dout, kin = site["wt"].shape
+        rows_ = 2 * t - 1 if label.startswith("pos") else batch * t
+        x = t8(rows_, kin)
+        args = dict(kw, nbits=8)
+        if mode == "join":
+            args["stream8"] = t8(rows_, dout)
+        wt_t = site["wt"].t()
+        r = timed_pair(chk, "lin_epilogue", f"lin_epilogue N={rows_} {label} {mode}",
+                       lambda x=x, s_=site, a=args: lin_epilogue(x, s_, **a),
+                       lambda x=x, s_=site, a=args: lin_epilogue_plain(x, s_, **a), card, rows,
+                       lambda x=x, w=wt_t: torch._int_mm(x, w))
+        vec_bytes = 4 * dout * (1 + ("b" in site))
+        r["bound"] = bound(x.numel() + site["wt"].numel() + vec_bytes
+                           + rows_ * dout * (1 + (mode == "join")), 2 * rows_ * kin * dout)
+    # Kernel 6: the FFN1 half with its ln_att tail
+    f = tbl["ff1_l1"]["wt"].shape[0]
+    args = (x8, tbl["ln_ff1"], tbl["ff1_l1"], tbl["ff1_grid"], tbl["ff1_prod"], tbl["ff1_l2"],
+            tbl["j1_stream"], tbl["ln_att"])
+    r = timed_pair(chk, "ffn_ln", f"ffn_ln B={batch} T={t} d={d} f={f} tail",
+                   lambda: ffn_ln(*args, nbits=8)[1], lambda: ffn_ln_plain(*args, nbits=8)[1],
+                   card, rows)
+    chk.equal("ffn_ln", "ffn_ln at the serving shape (joined stream)",
+              ffn_ln(*args, nbits=8)[0], ffn_ln_plain(*args, nbits=8)[0])
+    # x in, stream and tail out; both weights; the (3, d) / (2, f) / (2, d) rows
+    r["bound"] = bound(3 * batch * t * d + 2 * d * f + 4 * (3 * d + 2 * f + 2 * d + 3 * d),
+                       2 * 2 * batch * t * d * f)
     report["conformer_per_kernel"] = rows
     return step, rows
 
@@ -682,6 +824,8 @@ def main() -> int:
     conf_model, conf_tables, conf_golden = phase_conformer_golden(dev)
     phase_int_attention(chk, dev, conf_tables)
     phase_conv_block(chk, dev, conf_tables)
+    phase_lin_epilogue(chk, dev, conf_tables)
+    phase_ffn_ln(chk, dev, conf_tables)
     log(f"[3] {chk.n} kernel-vs-plain comparisons pass at tolerance exact "
         f"(torch.equal); max |d| {chk.max_err}")
     report["conformer_golden"] = conf_golden
@@ -689,7 +833,8 @@ def main() -> int:
     model, tables = phase_golden(dev)
     counts = phase_serve(model, tables, dev)
     conf_counts = phase_conformer_serve(conf_model, conf_tables, dev)
-    counts.update({k: conf_counts[k] for k in ("int_attention", "conv_block")})
+    counts.update({k: conf_counts[k] for k in
+                   ("int_attention", "conv_block", "lin_epilogue", "ffn_ln")})
     phase_time(chk, model, tables, dev, card, report)
     phase_conformer_time(chk, conf_model, conf_tables, dev, card, report)
     log(f"[6] {chk.n} kernel-vs-plain comparisons in all, the main paths' shapes included, "
@@ -701,7 +846,9 @@ def main() -> int:
             ("dw_conv", "qasr_tpu/kernels/cm_fused.py:248", "C=512 K=75"),
             ("pw_gemm", "qasr_tpu/kernels/cm_fused.py:131", "512->512 requant"),
             ("int_attention", "qasr_tpu/kernels/int_attention.py:170", "int_attention B="),
-            ("conv_block", "qasr_tpu/kernels/conf_module.py:341", "conv_block B=")]:
+            ("conv_block", "qasr_tpu/kernels/conf_module.py:341", "conv_block B="),
+            ("lin_epilogue", "qasr_tpu/kernels/gemm_fused.py:159", "q_u 256->256"),
+            ("ffn_ln", "qasr_tpu/kernels/conf_module.py:206", "ffn_ln B=")]:
         r = next(r for r in rows if label in r["shape"])
         kernels.append({"name": kind, "route": "cuda",
                         "source": f"qasr_tpu_torch/kernels/csrc/{kind}.cu",

@@ -39,6 +39,8 @@ from qasr_tpu_torch.models.conformer import ConformerConfig
 from qasr_tpu_torch.models.conformer_ctc import ConformerCTC
 from qasr_tpu_torch.models.ctc_model import ASRModel, frozen_forward
 from qasr_tpu_torch.quantize.conformer_freeze import (
+    DEFAULT_PLAN,
+    ConformerPlan,
     conformer_encode,
     conformer_tables_digest,
     conformer_x8,
@@ -183,10 +185,14 @@ def load_conformer_golden():
 
 
 @torch.no_grad()
-def check_conformer_golden(model: ConformerCTC, tables, kernels: bool = True) -> Dict[str, Any]:
+def check_conformer_golden(model: ConformerCTC, tables, kernels: bool = True,
+                           plan: ConformerPlan = DEFAULT_PLAN) -> Dict[str, Any]:
     """Hold the port's frozen Conformer (tables from ``model.freeze``) to
-    the golden record on the tables' device.  Returns the numbers of the
-    check and the list of failures under "bad" (empty when it passes)."""
+    the golden record on the tables' device, its encoder run with
+    ``kernels`` under ``plan``.  Every plan is
+    bit-identical to the JAX package's XLA composition, so one record holds
+    them all.  Returns the numbers of the check and the list of failures
+    under "bad" (empty when it passes)."""
     rec, gx8, glp = load_conformer_golden()
     enc_t = tables["encoder"]
     dev = enc_t["device"]
@@ -203,7 +209,7 @@ def check_conformer_golden(model: ConformerCTC, tables, kernels: bool = True) ->
     if diff is None or flips > X8_FLIP_SHARE or diff.max() > 1:
         bad.append("x8")
     enc, enc_lens = conformer_encode(enc_t, model.ccfg, torch.from_numpy(gx8).to(dev),
-                                     sub_lens, kernels=kernels)
+                                     sub_lens, kernels=kernels, plan=plan)
     lp = model.head(tables, enc).cpu().numpy()
     got = conformer_record(rec["tables_sha256"], gx8, enc.cpu().numpy(),
                            enc_lens.cpu().numpy(), lp)

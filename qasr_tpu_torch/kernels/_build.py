@@ -35,6 +35,8 @@ _SIGNATURES = {
     "qasr_conv_block": [_P] * 11 + [_I] * 6 + [_P],
     "qasr_int_fn_check": [_I] + [_P] * 3 + [_I, _P],
     "qasr_ln_check": [_P] * 2 + [_I] * 2 + [_P],
+    "qasr_lin_epilogue": [_P] * 6 + [_I] * 10 + [_P],
+    "qasr_ffn_ln": [_P] * 9 + [_I] * 14 + [_P],
 }
 
 _lock = threading.Lock()

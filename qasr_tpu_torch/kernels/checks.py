@@ -38,3 +38,13 @@ def epilogue_bounds(name: str, e, bits) -> Tuple[int, int, int]:
         raise ValueError(f"{name}: epilogue writes int8, bits must be in [2, 8], got {bits!r}")
     n = 2 ** (bits - 1) - 1
     return -n - 1, n, e
+
+
+def static_pair(name: str, arg: str, pair) -> Tuple[int, int]:
+    """A scalar requant (m, e) a kernel takes by value: 0 < m < 2^31 and a
+    static int exponent e >= 1."""
+    m, e = int(pair[0]), pair[1]
+    if not (isinstance(e, int) and e >= 1 and 0 < m < 2 ** 31):
+        raise ValueError(f"{name}: {arg} must be a static (m, e) with 0 < m < 2^31, "
+                         f"e >= 1; got {tuple(pair)!r}")
+    return m, e

@@ -29,13 +29,12 @@ import torch
 from qasr_tpu_torch.kernels import _build
 from qasr_tpu_torch.kernels.checks import check_vec, check_x
 from qasr_tpu_torch.models.jasper import mask_values
-from qasr_tpu_torch.ops.integer_layernorm import i_layernorm_core
 from qasr_tpu_torch.ops.quant_prims import dyadic_requant_static
 from qasr_tpu_torch.quantize.conformer_int import (
-    _apply_affine_rq,
     _conv_tail_mid,
     _glu_int,
     _join_lin,
+    _ln_rq,
     clip8,
 )
 
@@ -49,7 +48,7 @@ def conv_block_plain(c8: torch.Tensor, x8: torch.Tensor, lens: torch.Tensor,
     depthwise -> BN -> i-swish -> pw2 join.  Same arguments and result as
     ``conv_block``."""
     x1 = _join_lin(c8, tbl["att_out"], x8, tbl["j2_stream"], nbits)
-    yln = _apply_affine_rq(i_layernorm_core(x1), tbl["ln_conv"], nbits)
+    yln = _ln_rq(x1, tbl["ln_conv"], nbits)
     y_int = mask_values(_glu_int(tbl, yln, nbits), lens)
     glu8 = clip8(dyadic_requant_static(y_int, *tbl["glu_prod"]), nbits)
     mid8 = _conv_tail_mid(tbl, glu8, padding, nbits)

@@ -26,6 +26,8 @@ from qasr_tpu_torch.models.conformer import ConformerConfig, _linear, init_confo
 from qasr_tpu_torch.models.ctc_model import _pcm_f32
 from qasr_tpu_torch.ops.features import MelFrontend, preprocessor_config_from_dict
 from qasr_tpu_torch.quantize.conformer_freeze import (
+    DEFAULT_PLAN,
+    ConformerPlan,
     conformer_encode,
     conformer_tables_to_device,
     conformer_x8,
@@ -132,33 +134,38 @@ class ConformerCTC:
         eq, _ = _act_quant(h["dec_in"], enc, None, self.enc_qcfg, update=False)
         return torch.log_softmax(_qlinear(h, eq), dim=-1)
 
-    def forward(self, audio, alens, device=None):
+    def forward(self, audio, alens, device=None, plan: ConformerPlan = DEFAULT_PLAN):
         """(log-probs (B, T', V+1), encoder lengths) of a padded PCM batch
-        on ``device`` (None: the CUDA device), through the kernels."""
-        return self._serving_fn(device, argmax=False)(audio, alens)
+        on ``device`` (None: the CUDA device), through the kernels that
+        ``plan`` names (default: every integer sublayer)."""
+        return self._serving_fn(device, argmax=False, plan=plan)(audio, alens)
 
-    def transcribe_greedy(self, audio, alens, device=None) -> List[str]:
+    def transcribe_greedy(self, audio, alens, device=None,
+                          plan: ConformerPlan = DEFAULT_PLAN) -> List[str]:
         """Greedy CTC transcripts of a padded int16 / float32 PCM batch."""
-        ids, enc_lens = self._serving_fn(device, argmax=True)(audio, alens)
+        ids, enc_lens = self._serving_fn(device, argmax=True, plan=plan)(audio, alens)
         return ctc_collapse(ids.cpu().numpy(), self.blank_id, self.vocabulary,
                             enc_lens.cpu().numpy())
 
-    def _serving_fn(self, device, argmax: bool):
+    def _serving_fn(self, device, argmax: bool, plan: ConformerPlan):
         dev = as_device(device)
-        key = (str(dev), argmax)
+        key = (str(dev), argmax, plan)
         if key not in self._fn_cache:
             tables = self._fn_cache.get(("tables", str(dev))) or self.freeze(dev)
-            self._fn_cache[key] = make_conformer_frozen_fn(self, tables, argmax=argmax)
+            self._fn_cache[key] = make_conformer_frozen_fn(self, tables, argmax=argmax,
+                                                           plan=plan)
         return self._fn_cache[key]
 
 
 def make_conformer_frozen_fn(model: ConformerCTC, tables, argmax: bool = False,
-                             kernels: bool = True):
+                             kernels: bool = True, plan: ConformerPlan = DEFAULT_PLAN):
     """fn(audio (B, L), lens (B,)) -> (log-probs (B, T', V+1) | ids, enc_lens)
     on the frozen integer path: frontend -> subsampler -> x8 -> integer
-    encoder (``kernels``: attention and conv block through Kernels 3 and
-    4) -> quantized CTC head -> log-softmax.  Inputs move to the tables'
-    device."""
+    encoder -> quantized CTC head -> log-softmax.  ``kernels``: the encoder
+    runs the kernels ``plan`` names (default ("1", True):
+    Kernel 3 attention, Kernel 4 conv block, Kernel 6 FFN halves, Kernel 5
+    every other linear); False: the plain compositions.  Inputs move to
+    the tables' device."""
     device = tables["encoder"]["device"]
 
     @torch.no_grad()
@@ -168,7 +175,7 @@ def make_conformer_frozen_fn(model: ConformerCTC, tables, argmax: bool = False,
         feats, feat_lens = model.frontend(_pcm_f32(audio), lens, dither=0.0)
         x8, sub_lens = conformer_x8(tables["encoder"], model.ccfg, feats, feat_lens)
         enc, enc_lens = conformer_encode(tables["encoder"], model.ccfg, x8, sub_lens,
-                                         kernels=kernels)
+                                         kernels=kernels, plan=plan)
         lp = model.head(tables, enc)
         return (lp.argmax(dim=-1) if argmax else lp), enc_lens
 

@@ -12,21 +12,28 @@ Apply, split at the one float -> int boundary:
     -> the single quantization onto the pre_out site -> (x8, lens);
   * ``conformer_encode``: x8 -> integer layer stack -> float encodings
     (the last i-LayerNorm's gamma/beta affine is the one float op).
-``kernels=True`` sends every layer's attention core to Kernel 3
-(``int_attention``) and its att_out join + conv module to Kernel 4
-(``conv_block``) -- the TPU's default serving configuration; False runs
-their plain versions.  The FFN halves, i-LayerNorms, projections and the
-pos projection are plain torch either way.
+``kernels=True`` runs the stack through the kernels that a
+``ConformerPlan`` names (the JAX package's QASR_CONF_MOD / QASR_CONF_FUSED
+flags, passed explicitly): every layer's attention core in Kernel 3
+(``int_attention``) and its att_out join + conv module in Kernel 4
+(``conv_block``); under ``mod="1"`` both FFN halves with their tail
+i-LayerNorms in Kernel 6 (``ffn_ln``); under ``fused=True`` every other
+linear in Kernel 5 (``lin_epilogue``).  The default plan ("1", True) leaves
+no integer op outside a kernel but the last i-LayerNorm.  ``kernels=False``
+runs the plain compositions throughout.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from qasr_tpu_torch.kernels.conv_block import conv_block, conv_block_plain
+from qasr_tpu_torch.kernels.ffn_ln import ffn_ln, ffn_ln_plain
 from qasr_tpu_torch.kernels.int_attention import int_attention, int_attention_plain
+from qasr_tpu_torch.kernels.lin_epilogue import lin_epilogue, lin_epilogue_plain
 from qasr_tpu_torch.models.conformer import (
     ConformerConfig,
     rel_positional_encoding,
@@ -37,18 +44,8 @@ from qasr_tpu_torch.ops.integer_layernorm import _K as _K_LN
 from qasr_tpu_torch.ops.integer_layernorm import i_layernorm_core
 from qasr_tpu_torch.ops.integer_sigmoid import K_SIG
 from qasr_tpu_torch.ops.integer_softmax import S_IN
-from qasr_tpu_torch.ops.quant_prims import (
-    dyadic_from_scale_host_static_e,
-    dyadic_requant_static,
-)
-from qasr_tpu_torch.quantize.conformer_int import (
-    _apply_affine_rq,
-    _dot8,
-    _ffn_mid,
-    _join_lin,
-    _lin_rq,
-    clip8,
-)
+from qasr_tpu_torch.ops.quant_prims import dyadic_from_scale_host_static_e
+from qasr_tpu_torch.quantize.conformer_int import _ln_rq, clip8
 from qasr_tpu_torch.quantize.conformer_ptq import ConformerQuantConfig
 from qasr_tpu_torch.quantize.freeze import tables_digest
 
@@ -265,10 +262,10 @@ def conformer_tables_to_device(host, device) -> Dict[str, Any]:
 
 
 def _pos_tables(tables, t: int):
-    """(pos8 (2T-1, d) int8 on the device, [(m, e) per layer]) for length
-    T: the relative-position table at a fixed scale and each layer's
-    requant of its projection onto the att_pos site (host Decimal math,
-    cached per length)."""
+    """(pos8 (2T-1, d) int8 on the device, [linear site per layer]) for
+    length T: the relative-position table at a fixed scale and each
+    layer's bias-free pos projection with its requant onto the att_pos site
+    (host Decimal math, cached per length)."""
     if t not in tables["_pos"]:
         ab = tables["act_bit"]
         n = 2 ** (ab - 1) - 1
@@ -277,11 +274,12 @@ def _pos_tables(tables, t: int):
         pos_np = rel_positional_encoding(t, d)
         pos_scale = float(max(abs(pos_np.min()), abs(pos_np.max()), 1e-8)) / n
         pos8 = np.clip(np.round(pos_np / pos_scale), -n, n - 1).astype(np.int8)
-        rq = []
-        for tbl in host:
+        sites = []
+        for tbl, dev_tbl in zip(host, tables["layers"]):
             m, e = _rq_table(pos_scale * tbl["att_pos_w"][1], tbl["S_att_pos"])
-            rq.append((torch.from_numpy(m).to(tables["device"]), e))
-        tables["_pos"][t] = (torch.from_numpy(pos8).to(tables["device"]), rq)
+            sites.append({"wt": dev_tbl["att_pos"]["wt"],
+                          "m": torch.from_numpy(m).to(tables["device"]), "e": e})
+        tables["_pos"][t] = (torch.from_numpy(pos8).to(tables["device"]), sites)
     return tables["_pos"][t]
 
 
@@ -294,6 +292,32 @@ def conformer_tables_digest(tables) -> str:
 # ---------------------------------------------------------------------------
 # apply
 # ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ConformerPlan:
+    """Which integer sublayers of the frozen encoder run in kernels (the
+    JAX package's QASR_CONF_MOD and QASR_CONF_FUSED, passed explicitly).
+
+    mod:   "conv" -- the att_out join + conv module in Kernel 4 (always);
+           "1"    -- also both FFN halves, with their tail i-LayerNorms, in
+                     Kernel 6 ``ffn_ln``.
+    fused: every remaining linear (pre; q_u, q_v, k, v, pos; the FFN l1 /
+           l2 under "conv") in Kernel 5 ``lin_epilogue``; else plain torch.
+    Any other value raises (the JAX flags select the default on a typo)."""
+
+    mod: str = "1"
+    fused: bool = True
+
+    def __post_init__(self):
+        if self.mod not in ("conv", "1"):
+            raise ValueError(f"ConformerPlan.mod must be 'conv' or '1', got {self.mod!r}")
+        if not isinstance(self.fused, bool):
+            raise ValueError(f"ConformerPlan.fused must be a bool, got {self.fused!r}")
+
+
+# the kernel path's default: the whole integer stack in kernels
+DEFAULT_PLAN = ConformerPlan("1", True)
 
 
 def _f32_div(y: torch.Tensor, s: float) -> torch.Tensor:
@@ -314,52 +338,73 @@ def conformer_x8(tables, cfg: ConformerConfig, feats: torch.Tensor,
 
 
 def conformer_encode(tables, cfg: ConformerConfig, x8: torch.Tensor,
-                     lens: torch.Tensor, kernels: bool = True):
+                     lens: torch.Tensor, kernels: bool = True,
+                     plan: ConformerPlan = DEFAULT_PLAN):
     """x8 -> (float encodings (B, T, d), lens) through the integer layer
-    stack.  ``kernels``: attention core and conv block through Kernels 3
-    and 4 (their plain versions for CPU tensors); else the plain versions."""
+    stack, following the JAX layer loop (qasr_tpu/quantize/
+    conformer_freeze.py:585-683) branch for branch.  ``kernels``: the
+    kernels ``plan`` names (default ("1", True)) --
+    Kernels 3 and 4 always, Kernel 6 ``ffn_ln`` for the FFN halves under
+    mod "1", Kernel 5 ``lin_epilogue`` for the remaining linears under
+    fused -- on their plain versions for CPU tensors.  ``kernels=False``:
+    the plain compositions throughout, whatever the plan."""
+    if not kernels:
+        plan = ConformerPlan("conv", False)
     ab = tables["act_bit"]
     d, h = cfg.d_model, cfg.n_heads
     d_k = d // h
     left, right = cfg.att_context
     attend = int_attention if kernels else int_attention_plain
     conv = conv_block if kernels else conv_block_plain
+    ffn = ffn_ln if kernels else ffn_ln_plain
+    lin = lin_epilogue if plan.fused else lin_epilogue_plain
     lens = lens.to(device=x8.device, dtype=torch.int32)
-    x = _lin_rq(x8, tables["pre"], ab)
+    x = lin(x8, tables["pre"], nbits=ab)
     b, t = x.shape[:2]
-    pos8, pos_rq = _pos_tables(tables, t)
+    pos8, pos_sites = _pos_tables(tables, t)
+
+    def ffn_half(tbl, x, half: str, stream_rq, tail):
+        """(joined stream, tail i-LN or None) of one FFN half-step."""
+        l1, l2 = tbl[f"{half}_l1"], tbl[f"{half}_l2"]
+        grid, prod = tbl[f"{half}_grid"], tbl[f"{half}_prod"]
+        if plan.mod == "1":
+            return ffn(x, tbl[f"ln_{half}"], l1, grid, prod, l2, stream_rq, tail, nbits=ab)
+        m8 = lin(_ln_rq(x, tbl[f"ln_{half}"], ab), l1, swish=(grid, prod), nbits=ab)
+        x = lin(m8, l2, stream8=x, stream_rq=stream_rq, nbits=ab)
+        return x, (None if tail is None else _ln_rq(x, tail, ab))
+
     for li, tbl in enumerate(tables["layers"]):
-        # FFN1 half-step
-        yln = _apply_affine_rq(i_layernorm_core(x), tbl["ln_ff1"], ab)
-        m8 = _ffn_mid(yln, tbl["ff1_l1"], tbl["ff1_grid"], tbl["ff1_prod"], ab)
-        x = _join_lin(m8, tbl["ff1_l2"], x, tbl["j1_stream"], ab)
+        last = "m" not in tbl["ln_out"]
+        # FFN1 half-step with ln_att as its tail
+        x, yln = ffn_half(tbl, x, "ff1", tbl["j1_stream"], tbl["ln_att"])
         # attention
-        yln = _apply_affine_rq(i_layernorm_core(x), tbl["ln_att"], ab)
-        qu8 = _lin_rq(yln, tbl["att_q_u"], ab).reshape(b, t, h, d_k)
-        qv8 = _lin_rq(yln, tbl["att_q_v"], ab).reshape(b, t, h, d_k)
-        k8 = _lin_rq(yln, tbl["att_k"], ab).reshape(b, t, h, d_k)
-        v8 = _lin_rq(yln, tbl["att_v"], ab).reshape(b, t, h, d_k)
-        m_pos, e_pos = pos_rq[li]
-        p8 = clip8(dyadic_requant_static(_dot8(pos8, tbl["att_pos"]), m_pos, e_pos),
-                   ab).reshape(2 * t - 1, h, d_k)
+        qu8, qv8, k8, v8 = (lin(yln, tbl[f"att_{s}"], nbits=ab).reshape(b, t, h, d_k)
+                            for s in ("q_u", "q_v", "k", "v"))
+        p8 = lin(pos8, pos_sites[li], nbits=ab).reshape(2 * t - 1, h, d_k)
         c8 = attend(qu8, qv8, k8, v8, p8, lens, ac=tbl["ac_grid"], bd=tbl["bd_grid"],
                     ctx_rq=tbl["ctx_rq"], left=left, right=right, nbits=ab)
         # att_out join + conv module
         x = conv(c8, x, lens, tbl, cfg.dw_padding, nbits=ab)
-        # FFN2 half-step
-        yln = _apply_affine_rq(i_layernorm_core(x), tbl["ln_ff2"], ab)
-        m8 = _ffn_mid(yln, tbl["ff2_l1"], tbl["ff2_grid"], tbl["ff2_prod"], ab)
-        x = _join_lin(m8, tbl["ff2_l2"], x, tbl["j4_stream"], ab)
-        ln_out = tbl["ln_out"]
-        if "m" in ln_out:      # requant into the next layer's stream
-            x = _apply_affine_rq(i_layernorm_core(x), ln_out, ab)
-        else:                  # the last layer: the float gamma/beta boundary
-            y = i_layernorm_core(x).to(torch.float32) / (1 << _K_LN)
-            return y * ln_out["gamma"] + ln_out["beta"], lens
+        # FFN2 half-step with ln_out as its tail: the next layer's stream
+        x, x_next = ffn_half(tbl, x, "ff2", tbl["j4_stream"], None if last else tbl["ln_out"])
+        if not last:
+            x = x_next
+            continue
+        # the last layer: the float gamma/beta boundary
+        y = i_layernorm_core(x).to(torch.float32) / (1 << _K_LN)
+        return y * tbl["ln_out"]["gamma"] + tbl["ln_out"]["beta"], lens
     raise AssertionError("unreachable: the last layer returns")
 
 
-def kernel_launches(cfg: ConformerConfig) -> Dict[str, int]:
-    """Kernel launches of one ``conformer_encode(kernels=True)``: one
-    attention core and one conv block per layer."""
-    return {"int_attention": cfg.n_layers, "conv_block": cfg.n_layers}
+def kernel_launches(cfg: ConformerConfig, plan: ConformerPlan = DEFAULT_PLAN
+                    ) -> Dict[str, int]:
+    """Kernel launches of one ``conformer_encode(kernels=True, plan=plan)``
+    (default ("1", True)): one attention core and one conv block per
+    layer; under mod "1" two ``ffn_ln`` per layer; under fused one
+    ``lin_epilogue`` for the pre projection and five per layer (q_u, q_v,
+    k, v, pos), plus the FFN halves' l1 and l2 (four per layer) when they
+    are not in ``ffn_ln``."""
+    n = cfg.n_layers
+    lin = 1 + 5 * n + (0 if plan.mod == "1" else 4 * n) if plan.fused else 0
+    return {"int_attention": n, "conv_block": n,
+            "ffn_ln": 2 * n if plan.mod == "1" else 0, "lin_epilogue": lin}

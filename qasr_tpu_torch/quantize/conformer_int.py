@@ -1,7 +1,8 @@
 """Integer sublayer blocks of the frozen Conformer, in plain torch: the
 ``_apply_rq`` / ``_join_lin`` / ``_ffn_mid`` / ``_glu_int`` /
 ``_conv_tail_mid`` compositions of qasr_tpu/quantize/conformer_freeze.py,
-op for op.  The executors and the kernels' plain versions share them.
+op for op, and ``_ln_rq`` (i-LayerNorm + affine requant).  The executors
+and the kernels' plain versions share them.
 
 Tables are the device form of ``conformer_freeze.conformer_tables_to_device``:
 a linear site is {"wt" (dout, din) int8, "b" int32, "m" int32, "e" int},
@@ -17,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from qasr_tpu_torch.kernels.pw_gemm import int_matmul
+from qasr_tpu_torch.ops.integer_layernorm import i_layernorm_core
 from qasr_tpu_torch.ops.integer_sigmoid import i_sigmoid_grid
 from qasr_tpu_torch.ops.quant_prims import dyadic_requant_static
 
@@ -43,13 +45,20 @@ def _apply_affine_rq(y: torch.Tensor, t, bits: int) -> torch.Tensor:
     return clip8(dyadic_requant_static(t["sgn"] * y + t["b"], t["m"], t["e"]), bits)
 
 
+def _ln_rq(x8: torch.Tensor, t, bits: int) -> torch.Tensor:
+    """i-LayerNorm of the int8 stream -> the site's gamma/beta affine
+    requant -> int8."""
+    return _apply_affine_rq(i_layernorm_core(x8), t, bits)
+
+
 def _lin_rq(x8: torch.Tensor, t, bits: int) -> torch.Tensor:
     """linear -> acc bias -> dyadic requant -> clamp -> int8."""
     return _apply_rq(_dot8(x8, t), t, bits)
 
 
 def _join_int(acc, tbl_branch, stream8, stream_rq: Tuple[int, int], bits: int):
-    yb = dyadic_requant_static(acc + tbl_branch["b"], tbl_branch["m"], tbl_branch["e"])
+    z = acc + tbl_branch["b"] if "b" in tbl_branch else acc
+    yb = dyadic_requant_static(z, tbl_branch["m"], tbl_branch["e"])
     ys = dyadic_requant_static(stream8.to(torch.int32), stream_rq[0], stream_rq[1])
     return clip8(yb + ys, bits)
 

@@ -12,7 +12,8 @@
     against ``ConformerCTC.forward`` / ``transcribe_greedy``: equal encoder
     lengths, ids equal wherever the frontend flips no first-site code.
 (d) The full-width flagship (16 x 256) built without jax from the
-    committed ranges matches the committed golden record on the CPU.
+    committed ranges matches the committed golden record on the CPU, on
+    the plain executor and under every plan.
 Log-probs are float: within 1e-5 (same arithmetic, two libraries).
 """
 import dataclasses
@@ -36,7 +37,9 @@ from qasr_tpu.quantize.conformer_freeze import frozen_conformer_apply
 from qasr_tpu_torch import golden
 from qasr_tpu_torch.compat.from_jax import conformer_tables_from_jax, state_from_jax
 from qasr_tpu_torch.kernels import conv_block as port_conv_block
+from qasr_tpu_torch.kernels import ffn_ln as port_ffn_ln
 from qasr_tpu_torch.kernels import int_attention as port_int_attention
+from qasr_tpu_torch.kernels import lin_epilogue as port_lin_epilogue
 from qasr_tpu_torch.models.config import DecoderConfig, EncoderConfig, ModelConfig
 from qasr_tpu_torch.models.conformer import ConformerConfig
 from qasr_tpu_torch.models.conformer_ctc import ConformerCTC, make_conformer_frozen_fn
@@ -233,30 +236,54 @@ def test_serving_from_pcm_matches_jax(request, which):
             jm.transcribe_greedy(pcm_f, lens)
 
 
-def test_flagship_golden_cpu(monkeypatch):
-    """Full-width 16 x 256 Conformer-CTC built without jax (seed-0 init,
-    the committed ranges, freeze) against the committed JAX record, on
-    both executors; the kernel executor calls each kernel wrapper once
-    per layer (16 + 16)."""
-    model = golden.conformer16x256_w8a8()
-    tables = model.freeze(device="cpu")
-    res = golden.check_conformer_golden(model, tables, kernels=False)
-    assert res["bad"] == [], res
-    calls = {"int_attention": 0, "conv_block": 0}
+def _count_kernel_calls(monkeypatch):
+    """Count the encoder's calls of the four kernel wrappers (on CPU
+    tensors each runs its plain version)."""
+    calls = {"int_attention": 0, "conv_block": 0, "ffn_ln": 0, "lin_epilogue": 0}
 
     def counting(name, fn):
         def wrapper(*a, **kw):
             calls[name] += 1
             return fn(*a, **kw)
         return wrapper
-    monkeypatch.setattr(port_cf, "int_attention",
-                        counting("int_attention", port_int_attention.int_attention))
-    monkeypatch.setattr(port_cf, "conv_block",
-                        counting("conv_block", port_conv_block.conv_block))
+    for name, mod in (("int_attention", port_int_attention), ("conv_block", port_conv_block),
+                      ("ffn_ln", port_ffn_ln), ("lin_epilogue", port_lin_epilogue)):
+        monkeypatch.setattr(port_cf, name, counting(name, getattr(mod, name)))
+    return calls
+
+
+@pytest.fixture(scope="module")
+def flagship():
+    model = golden.conformer16x256_w8a8()
+    return model, model.freeze(device="cpu")
+
+
+def test_flagship_golden_cpu(flagship, monkeypatch):
+    """Full-width 16 x 256 Conformer-CTC built without jax (seed-0 init,
+    the committed ranges, freeze) against the committed JAX record, on
+    the plain executor and on the kernel executor under the default plan
+    ("1", True), which calls each kernel wrapper as ``kernel_launches``
+    says: 16 int_attention + 16 conv_block + 32 ffn_ln + 81 lin_epilogue."""
+    model, tables = flagship
+    res = golden.check_conformer_golden(model, tables, kernels=False)
+    assert res["bad"] == [], res
+    calls = _count_kernel_calls(monkeypatch)
     res = golden.check_conformer_golden(model, tables, kernels=True)
     assert res["bad"] == [], res
-    assert calls == port_cf.kernel_launches(model.ccfg) == {"int_attention": 16,
-                                                            "conv_block": 16}
+    assert calls == port_cf.kernel_launches(model.ccfg) == {
+        "int_attention": 16, "conv_block": 16, "ffn_ln": 32, "lin_epilogue": 81}
+
+
+@pytest.mark.parametrize("plan", [("conv", True), ("conv", False), ("1", False)])
+def test_flagship_golden_cpu_other_plans(flagship, monkeypatch, plan):
+    """The committed record holds under every plan (each is bit-identical
+    to the XLA composition), with the launches its plan predicts."""
+    model, tables = flagship
+    calls = _count_kernel_calls(monkeypatch)
+    res = golden.check_conformer_golden(model, tables, kernels=True,
+                                        plan=port_cf.ConformerPlan(*plan))
+    assert res["bad"] == [], res
+    assert calls == port_cf.kernel_launches(model.ccfg, port_cf.ConformerPlan(*plan))
 
 
 @pytest.mark.slow
