@@ -3,47 +3,65 @@
 
     python3 chip_smoke.py [--report PATH]
 
-Drives the port's two serving paths on the card, the frozen W6A6
-QuartzNet15x5 and the frozen W8A8 Conformer-CTC (16 x 256), with nothing
-that falls back: no CUDA, a failed kernel build or any failed phase exits
-non-zero before the result line.  Phases:
+Drives the port's serving paths on the card, the frozen W6A6 QuartzNet15x5
+in its dyadic modes (static_e and static_e16 on FrozenExecFused,
+every requant in a prologue or epilogue of Kernels 1-2; per_channel on
+FrozenExecKernels, convs in Kernels 1-2 and every requant in Kernel 7) and
+the frozen W8A8 Conformer-CTC (16 x 256), with nothing that falls back: no
+CUDA, a failed kernel build or any failed phase exits non-zero before the
+result line.  Phases:
 
 1. the card's name and power limit (nvidia-smi);
 2. build every kernel from qasr_tpu_torch/kernels/csrc (one nvcc per
    source, in parallel; timed);
 3. each kernel against its plain torch version on the card, bit for bit
    (torch.equal): dw_conv and pw_gemm at every QuartzNet shape and
-   epilogue mode, the requant device function over its boundary grid; the
-   Conformer's integer device functions over their whole domains (i_exp,
-   i_sigmoid_grid, the LN square root, floor_div, the i-LN row core);
-   int_attention at T in {1, 37, 128, 129, 375, 500} with ragged lengths
-   and contexts -1, (8, 0), (4, 2), and at d_k in {16, 96, 128} besides
-   the flagship's 64; conv_block at d in {64, 256, 512}, T in {1, 31, 375}
-   with ragged lengths; lin_epilogue in its three modes at every (K, D)
-   of the Conformer path, with and without bias, at N in {1, 37, 12000},
-   on the flagship's sites and on seeded sites with exponents above 31;
-   ffn_ln at d in {64, 256, 512} x T in {1, 31, 375}, tail on and off;
-4. the golden checks: full-width QuartzNet15x5 reproduces the JAX record
-   exactly on the kernel and plain paths; the flagship Conformer-CTC's x8
-   is within 0.1% of codes at +-1 of the JAX record and its integer stack
-   from the golden x8 reproduces the encodings' hash, ids and lengths
-   exactly under the plans ("1", True) (the default), ("conv", True),
-   ("conv", False) and on the plain path;
+   epilogue mode, and with the input-requant prologue (int8 and int32
+   inputs, producer bias and ReLU on and off, 31- and 16-bit mantissas,
+   per-channel or scalar, bits1 6/7/8, ragged input lengths, with every
+   epilogue mode); the
+   requant kernel at C in {64, 256, 512, 1024, 29} with int8 and int32
+   inputs, scalar and per-channel mantissas and exponents (1, 31, 62, 63,
+   70), identity and mask on and off; the requant device function over its
+   boundary grid; the Conformer's integer device functions over their whole
+   domains (i_exp, i_sigmoid_grid, the LN square root, floor_div, the i-LN
+   row core); int_attention at T in {1, 37, 128, 129, 375, 500} with ragged
+   lengths and contexts -1, (8, 0), (4, 2), at d_k in {16, 96, 128}
+   besides the flagship's 64, and at T in {1300, 1500, 2600} on its
+   streaming form; conv_block at d in {64, 256, 512}, T in {1, 31, 375}
+   with ragged lengths; lin_epilogue in its three modes at every (K, D) of
+   the Conformer path, with and without bias, at N in {1, 37, 12000}, on
+   the flagship's sites and on seeded sites with exponents above 31; ffn_ln
+   at d in {64, 256, 512} x T in {1, 31, 375}, tail on and off;
+4. the golden checks: full-width QuartzNet15x5 reproduces the JAX static_e
+   record exactly on FrozenExecFused, FrozenExecKernels and the plain path,
+   and the JAX per_channel record on FrozenExecKernels and the plain path;
+   the flagship Conformer-CTC's x8 is within 0.1% of codes at +-1 of the
+   JAX record (float32 subsampler) and its integer stack from the golden x8
+   reproduces the encodings' hash, ids and lengths exactly under the plans
+   ("1", True) (the default), ("conv", True), ("conv", False) and on the
+   plain path;
 5. serve 4 seeded int16 PCM requests (4.0, 7.3, 11.6, 15.0 s) through
-   ASRModel.transcribe and through ConformerCTC.transcribe_greedy (the
-   default plan), and the same batch once more under ("conv", True), with
-   every launch count set to 0 just before each and read just after: each
-   path launches its own kernels as its plan predicts (QuartzNet 77
-   dw_conv + 94 pw_gemm; the Conformer 16 int_attention + 16 conv_block +
-   32 ffn_ln + 81 lin_epilogue, and 16 + 16 + 145 lin_epilogue under
-   ("conv", True)) and gives the ids of its plain executor;
-6. time the QuartzNet B=64 x 15 s step (kernel path and plain path) and
-   the Conformer B=32 x 15 s step (default plan; ("conv", False), the
-   attention and conv-module kernels with plain glue; plain), median of 10
-   after 3 warm-ups, CUDA events, in turns; and each kernel against its
-   plain version at its path's shapes, with its bound (bytes over 3.35
-   TB/s or int8 operations over 1,979 TOP/s, from this run's inputs) and,
-   where one PyTorch call computes the same function, that call's time.
+   ASRModel.transcribe in the static_e and per_channel modes (the
+   flagship's static_e16 freeze raises, as the JAX package's does) and
+   through
+   ConformerCTC.transcribe_greedy (the default plan), and the same batch
+   once more under ("conv", True), with every launch count set to 0 just
+   before each and read just after: each path launches its own kernels as
+   kernel_launches predicts for its tables or plan (QuartzNet 77 dw_conv +
+   94 pw_gemm, and under per_channel one requant per requant site; the
+   Conformer 16 int_attention + 16 conv_block + 32 ffn_ln + 81
+   lin_epilogue, and 16 + 16 + 145 lin_epilogue under ("conv", True)) and
+   gives the ids of its plain executor;
+6. time the QuartzNet B=64 x 15 s step (static_e and per_channel kernel
+   paths, and both plain) and the Conformer B=32 x 15 s step (default
+   plan; ("conv", False), the attention and conv-module kernels with plain
+   glue; plain), median of 10 after 3 warm-ups, CUDA events, in turns; and
+   each kernel against its plain version at its path's shapes (the
+   prologue and requant sites included, and int_attention's streaming form
+   at T=1500), with its bound (bytes over 3.35 TB/s or int8 operations over
+   1,979 TOP/s, from this run's inputs) and, where one PyTorch call
+   computes the same function, that call's time.
 
 Prints the card line, a {"kernels": [...]} line, then as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -70,12 +88,19 @@ PW_COUT = (256, 512, 1024, 29)
 ATT_T = (1, 37, 128, 129, 375, 500)
 ATT_CTX = ((-1, -1), (8, 0), (4, 2))
 ATT_DK = (16, 96, 128)             # the other head widths the kernel takes (d_k 64 above)
+ATT_T_LONG = (1300, 1500, 2600)    # above the resident form's shared memory: streaming
+# the requant kernel's channel counts: QuartzNet's widths and the decoder's 29
+RQ_C = (64, 256, 512, 1024, 29)
+# the flagship's dyadic modes; its ranges give static_e16 an exponent above
+# 31, so its freeze raises, in the JAX package as here
+QUARTZNET_MODES = ("static_e", "per_channel")
 CONV_D, CONV_T = (64, 256, 512), (1, 31, 375)
 FFN_D, FFN_T = (64, 256, 512), (1, 31, 375)
 LIN_N = (1, 37, 12000)
 # the H100 SXM's published peaks (NVIDIA data sheet, dense, 700 W)
 HBM_BYTES_PER_S, INT8_OPS_PER_S = 3.35e12, 1979e12
-KERNELS = ("dw_conv", "pw_gemm", "int_attention", "conv_block", "lin_epilogue", "ffn_ln")
+KERNELS = ("dw_conv", "pw_gemm", "requant", "int_attention", "conv_block", "lin_epilogue",
+           "ffn_ln")
 
 
 def log(msg: str) -> None:
@@ -112,7 +137,7 @@ class Checker:
 
     def __init__(self):
         self.n = 0
-        self.max_err = {k: 0 for k in KERNELS + ("requant", "conformer_int")}
+        self.max_err = {k: 0 for k in KERNELS + ("requant_fn", "conformer_int")}
 
     def equal(self, kind: str, what: str, got, want) -> None:
         import torch
@@ -142,9 +167,11 @@ def wrappers():
     from qasr_tpu_torch.kernels.int_attention import int_attention
     from qasr_tpu_torch.kernels.lin_epilogue import lin_epilogue
     from qasr_tpu_torch.kernels.pw_gemm import pw_gemm
+    from qasr_tpu_torch.kernels.requant import requant
 
-    return {"dw_conv": dw_conv, "pw_gemm": pw_gemm, "int_attention": int_attention,
-            "conv_block": conv_block, "lin_epilogue": lin_epilogue, "ffn_ln": ffn_ln}
+    return {"dw_conv": dw_conv, "pw_gemm": pw_gemm, "requant": requant,
+            "int_attention": int_attention, "conv_block": conv_block,
+            "lin_epilogue": lin_epilogue, "ffn_ln": ffn_ln}
 
 
 def planned(counts):
@@ -182,7 +209,7 @@ def phase_requant(chk, dev):
     m = np.concatenate([m, rng.integers(1, 2**31, n)]).astype(np.int32)
     e = np.concatenate([e, rng.integers(1, 71, n)]).astype(np.int32)
     zt, mt, et = (torch.from_numpy(a).to(dev) for a in (z, m, e))
-    chk.equal("requant", "requant device function (boundary grid + fuzz)",
+    chk.equal("requant_fn", "requant device function (boundary grid + fuzz)",
               requant_device(zt, mt, et), dyadic_requant(zt, Dyadic(mt, et)))
     log(f"[3] requant device function == plain on {z.size} (z, m, e) triples")
 
@@ -223,7 +250,37 @@ def phase_dw(chk, dev):
         for name, kw in modes.items():
             chk.equal("dw_conv", f"dw_conv C={c} K={k} s={s} d={d} {name}",
                       dw_conv(x, w, **conv, **kw), dw_conv_plain(x, w, **conv, **kw))
-    log(f"[3] dw_conv == plain at {len(DW_SITES)} sites x 6 epilogue modes")
+        # the input-requant prologue: int8 / int32 inputs, producer bias and
+        # ReLU on and off, 31- and 16-bit mantissas, bits1 6/7/8, ragged
+        # input lengths, with the epilogue on and off
+        in_len = torch.from_numpy(rng.integers(1, t_in + 1, b).astype(np.int32)).to(dev)
+        n_pro = 0
+        for x32 in (False, True):
+            xi = (torch.from_numpy(rng.integers(-2**20, 2**20, (b, t_in, c)).astype(np.int32))
+                  .to(dev) if x32 else x)
+            for bias_relu in (False, True):
+                for m16 in (False, True):
+                    bits1 = (6, 7, 8)[n_pro % 3]
+                    m1, e1 = _tables(rng, c, m16, dev)
+                    if n_pro % 4 == 3:  # one mantissa for all channels, as after a join
+                        m1 = np.asarray(m1[0].item(), np.int32)
+                    # exponents that spread the requant over the clamp range
+                    pro = dict(in_len=in_len, m1=m1, e1=e1 + (6 if x32 else -8), bits1=bits1)
+                    if bias_relu:
+                        hb = 2**18 if x32 else 64
+                        pro.update(in_bias=torch.from_numpy(
+                            rng.integers(-hb, hb, c).astype(np.int32)).to(dev), in_relu=True)
+                    epi = modes["int8 m31+bias+relu"] if n_pro % 2 else modes["int32"]
+                    name = (f"prologue {'int32' if x32 else 'int8'} bias+relu={bias_relu} "
+                            f"m{16 if m16 else 31}{' scalar' if m1.ndim == 0 else ''} "
+                            f"bits1={bits1} epilogue={bool(n_pro % 2)}")
+                    chk.equal("dw_conv", f"dw_conv C={c} K={k} s={s} d={d} {name}",
+                              dw_conv(xi, w, **conv, **pro, **epi),
+                              dw_conv_plain(xi, w, **conv, **pro, **epi))
+                    n_pro += 1
+    log(f"[3] dw_conv == plain at {len(DW_SITES)} sites x (6 epilogue modes + 8 prologue "
+        f"modes: int8/int32 input, bias+relu on/off, m31/m16, per-channel or one m1, "
+        f"bits1 6/7/8, ragged in_len)")
 
 
 def phase_pw(chk, dev):
@@ -255,62 +312,161 @@ def phase_pw(chk, dev):
             for name, kw in modes.items():
                 chk.equal("pw_gemm", f"pw_gemm {cin}->{cout} {name}",
                           pw_gemm(x, wt, **kw), pw_gemm_plain(x, wt, **kw))
+            # the prologue with every epilogue mode: int8 / int32 inputs,
+            # bias and ReLU on and off, 31- and 16-bit mantissas, bits1
+            # 6/7/8, ragged in_len or no mask (the decoder's input)
+            n_pro = 0
+            for x32 in (False, True):
+                xi = (torch.from_numpy(rng.integers(-2**20, 2**20, (b, t, cin)).astype(np.int32))
+                      .to(dev) if x32 else x)
+                for mode in ("none", "requant m31", "join m16"):
+                    m16 = n_pro % 2 == 1
+                    bits1 = (6, 7, 8)[n_pro % 3]
+                    m1, e1 = _tables(rng, cin, m16, dev)
+                    if n_pro % 4 == 3:  # one mantissa for all channels, as after a join
+                        m1 = np.asarray(m1[0].item(), np.int32)
+                    pro = dict(m1=m1, e1=e1 + (6 if x32 else -8), bits1=bits1,
+                               in_len=None if mode == "none" else lens)
+                    if n_pro % 3 != 2:
+                        hb = 2**18 if x32 else 64
+                        pro.update(in_bias=torch.from_numpy(
+                            rng.integers(-hb, hb, cin).astype(np.int32)).to(dev), in_relu=True)
+                    name = (f"prologue {'int32' if x32 else 'int8'} {mode} m{16 if m16 else 31}"
+                            f"{' scalar' if m1.ndim == 0 else ''} bits1={bits1} "
+                            f"bias+relu={'in_bias' in pro} "
+                            f"mask={pro['in_len'] is not None}")
+                    chk.equal("pw_gemm", f"pw_gemm {cin}->{cout} {name}",
+                              pw_gemm(xi, wt, **pro, **modes[mode]),
+                              pw_gemm_plain(xi, wt, **pro, **modes[mode]))
+                    n_pro += 1
     log(f"[3] pw_gemm == plain at {len(PW_CIN) * len(PW_COUT)} (Cin, Cout) pairs "
-        f"x 8 epilogue modes")
+        f"x (8 epilogue modes + 6 prologue modes: int8/int32 input x none/requant/join, "
+        f"bias+relu on/off, m31/m16, per-channel or one m1, bits1 6/7/8, ragged in_len "
+        f"or none)")
+
+
+def phase_requant_kernel(chk, dev):
+    import numpy as np
+    import torch
+
+    from qasr_tpu_torch.kernels.requant import requant, requant_plain
+
+    rng = np.random.default_rng(12)
+    b, t = 3, 203
+    lens = torch.from_numpy(rng.integers(1, t + 1, b).astype(np.int32)).to(dev)
+    n = 0
+    for c in RQ_C:
+        def vec(lo, hi):
+            return torch.from_numpy(rng.integers(lo, hi, c).astype(np.int32)).to(dev)
+
+        # per-channel exponents over the boundary values 1, 31, 62, 63 and beyond
+        e_vec = torch.from_numpy(np.resize(np.asarray([1, 31, 62, 63, 70, 36, 44], np.int32),
+                                           c)[rng.permutation(c)]).to(dev)
+        for x32 in (False, True):
+            z = torch.from_numpy((rng.integers(-2**28, 2**28, (b, t, c)) if x32 else
+                                  rng.integers(-128, 128, (b, t, c)))
+                                 .astype(np.int32 if x32 else np.int8)).to(dev)
+            for vector in (False, True):
+                if vector:
+                    m, e = vec(1, 2**31), e_vec
+                else:
+                    # a 0-d mantissa as the per_channel tables hold one; an
+                    # exponent that spreads the result over the clamp range
+                    m, e = np.asarray(int(rng.integers(2**29, 2**31)), np.int32), 51 if x32 else 30
+                for identity in (False, True):
+                    for mask in (False, True):
+                        kw = dict(lens=lens if mask else None, relu=bool(n % 2))
+                        if identity:
+                            kw.update(identity=torch.from_numpy(
+                                rng.integers(-2**24, 2**24, (b, t, c)).astype(np.int32)).to(dev),
+                                m_r=vec(2**29, 2**31) if vector else 2**30 + 3,
+                                e_r=e_vec.flip(0).contiguous() if vector else 63)
+                        bits = (6, 7, 8, 9)[n % 4]
+                        name = (f"requant C={c} {'int32' if x32 else 'int8'} "
+                                f"{'vector' if vector else 'scalar'} m/e identity={identity} "
+                                f"mask={mask} relu={kw['relu']} bits={bits}")
+                        chk.equal("requant", name, requant(z, m, e, bits, **kw),
+                                  requant_plain(z, m, e, bits, **kw))
+                        n += 1
+    log(f"[3] requant == plain at {n} cases: C in {RQ_C}, int8/int32 input, scalar and "
+        f"per-channel m/e (exponents 1, 31, 62, 63, 70), identity and mask on/off, "
+        f"bits 6-9")
 
 
 def phase_golden(dev):
+    """Full-width QuartzNet15x5 against both JAX golden records: static_e
+    on FrozenExecFused, FrozenExecKernels and the plain executor;
+    per_channel on FrozenExecKernels and the plain executor."""
     from qasr_tpu_torch import golden
-    from qasr_tpu_torch.quantize.freeze import tables_digest, tables_to_device
+    from qasr_tpu_torch.quantize.freeze import (
+        FrozenExec, FrozenExecFused, FrozenExecKernels, tables_digest, tables_to_device,
+    )
 
     model = golden.quartznet15x5_w6a6()
-    host = model.freeze_host("static_e")
-    want = golden.load_golden()
-    digest = tables_digest(host)
-    if digest != want["tables_sha256"]:
-        raise AssertionError(f"table digest {digest} != golden {want['tables_sha256']}")
-    tables = tables_to_device(host, dev)
     feats, lens = golden.golden_features(model.plan.feat_in)
-    for fused in (True, False):
-        bad = golden.compare_golden(
-            golden.port_record(model, tables, feats, lens, fused=fused), want)
-        if bad:
-            raise AssertionError(f"golden mismatch ({'kernel' if fused else 'plain'} "
-                                 f"path) in {bad}")
-    log(f"[4] golden: tables {digest[:16]}, ids/enc_lens/decoder-input/logits "
-        f"hashes equal the JAX record on the kernel and plain paths "
-        f"(enc_lens {want['enc_lens']})")
+    tables = {}
+    for mode, executors in (("static_e", (FrozenExecFused, FrozenExecKernels, FrozenExec)),
+                            ("per_channel", (FrozenExecKernels, FrozenExec))):
+        host = model.freeze_host(mode)
+        want = golden.load_golden(mode)
+        digest = tables_digest(host)
+        if digest != want["tables_sha256"]:
+            raise AssertionError(f"{mode} table digest {digest} != golden "
+                                 f"{want['tables_sha256']}")
+        tables[mode] = tables_to_device(host, dev)
+        for ex in executors:
+            bad = golden.compare_golden(
+                golden.port_record(model, tables[mode], feats, lens, executor=ex), want)
+            if bad:
+                raise AssertionError(f"{mode} golden mismatch on {ex.__name__} in {bad}")
+        log(f"[4] golden {mode}: tables {digest[:16]}, ids/enc_lens/decoder-input/logits "
+            f"hashes equal the JAX record on {[ex.__name__ for ex in executors]} "
+            f"(enc_lens {want['enc_lens']})")
     return model, tables
 
 
-def phase_serve(model, tables, dev):
-    import numpy as np
+def phase_serve(model, dev):
+    """4 requests through transcribe in each dyadic mode, with the launch
+    counts read around each; returns {mode: counts}."""
     import torch
 
     from qasr_tpu_torch.models.ctc_model import make_frozen_fn
     from qasr_tpu_torch.quantize.freeze import kernel_launches
 
     utts, secs = seeded_requests(7)
-    model.transcribe(utts[:1], device=dev)  # builds and caches the serving fn
-    reset_counts()
-    texts = model.transcribe(utts, batch_size=4, device=dev)
-    counts = read_counts()
-    expect = planned(kernel_launches(model.plan))
-    if counts != expect:
-        raise AssertionError(f"QuartzNet launch counts {counts} != plan {expect}")
     batch, lens = pad_batch(utts)
-    ids_k, el_k = make_frozen_fn(model, tables, argmax=True)(batch, lens)
-    ids_p, el_p = make_frozen_fn(model, tables, argmax=True, fused=False)(batch, lens)
-    if not (torch.equal(ids_k, ids_p) and torch.equal(el_k, el_p)):
-        raise AssertionError("kernel path ids differ from the plain executor's")
-    if texts != model.ids_to_text(ids_p, el_p):
-        raise AssertionError("transcribe() differs from the plain executor's transcripts")
-    if len(torch.unique(ids_k)) < 2:
-        raise AssertionError("degenerate ids")
-    for s_, txt in zip(secs, texts):
-        log(f"[5] QuartzNet {s_:5.1f} s -> {txt[:100]!r}")
-    log(f"[5] QuartzNet served 4 requests; launches {counts} == plan; ids == plain executor")
-    return counts
+    try:
+        model.freeze("static_e16", dev)
+        raise AssertionError("the flagship's static_e16 freeze was expected to raise")
+    except ValueError as err:
+        if "static_e16 exponent out of range" not in str(err):
+            raise
+        log(f"[5] QuartzNet static_e16: freeze raises as in the JAX package ({err})")
+    all_counts = {}
+    for mode in QUARTZNET_MODES:
+        tables = model.freeze(mode, dev)
+        model.transcribe(utts[:1], device=dev, dyadic_mode=mode)  # builds and caches
+        reset_counts()
+        texts = model.transcribe(utts, batch_size=4, device=dev, dyadic_mode=mode)
+        counts = read_counts()
+        expect = planned(kernel_launches(model.plan, tables))
+        if counts != expect:
+            raise AssertionError(f"QuartzNet {mode} launch counts {counts} != plan {expect}")
+        ids_k, el_k = make_frozen_fn(model, tables, argmax=True)(batch, lens)
+        ids_p, el_p = make_frozen_fn(model, tables, argmax=True, fused=False)(batch, lens)
+        if not (torch.equal(ids_k, ids_p) and torch.equal(el_k, el_p)):
+            raise AssertionError(f"{mode}: kernel path ids differ from the plain executor's")
+        if texts != model.ids_to_text(ids_p, el_p):
+            raise AssertionError(f"{mode}: transcribe() differs from the plain executor's "
+                                 f"transcripts")
+        if len(torch.unique(ids_k)) < 2:
+            raise AssertionError("degenerate ids")
+        for s_, txt in zip(secs, texts):
+            log(f"[5] QuartzNet {mode} {s_:5.1f} s -> {txt[:80]!r}")
+        log(f"[5] QuartzNet {mode} (dyadic16={bool(tables.get('dyadic16'))}) served 4 "
+            f"requests; launches {counts} == plan; ids == plain executor")
+        all_counts[mode] = counts
+    return all_counts
 
 
 def seeded_requests(seed):
@@ -364,6 +520,7 @@ def phase_time(chk, model, tables, dev, card, report):
 
     from qasr_tpu_torch.kernels.dw_conv import dw_conv, dw_conv_plain
     from qasr_tpu_torch.kernels.pw_gemm import pw_gemm, pw_gemm_plain
+    from qasr_tpu_torch.kernels.requant import requant, requant_plain
     from qasr_tpu_torch.models.ctc_model import make_frozen_fn
     from qasr_tpu_torch.models.jasper import get_same_padding
 
@@ -372,8 +529,11 @@ def phase_time(chk, model, tables, dev, card, report):
     rng = np.random.default_rng(0)
     audio = torch.from_numpy(rng.normal(size=(batch, n)).astype(np.float32) * 0.1).to(dev)
     lens = torch.full((batch,), n, dtype=torch.int32, device=dev)
-    fns = {"kernel": make_frozen_fn(model, tables, argmax=True),
-           "plain": make_frozen_fn(model, tables, argmax=True, fused=False)}
+    st, pc = tables["static_e"], tables["per_channel"]
+    fns = {"kernel": make_frozen_fn(model, st, argmax=True),
+           "kernel_per_channel": make_frozen_fn(model, pc, argmax=True),
+           "plain": make_frozen_fn(model, st, argmax=True, fused=False),
+           "plain_per_channel": make_frozen_fn(model, pc, argmax=True, fused=False)}
     step = step_times(fns, (audio, lens), card, "QuartzNet", batch, seconds, report)
 
     # each kernel against its plain version at the main path's shapes
@@ -421,6 +581,64 @@ def phase_time(chk, model, tables, dev, card, report):
             + (4 * batch if mode == "requant" else 0)
         r["bound"] = bound(x.numel() + wt.numel() + vec_bytes + out_bytes + res_bytes,
                            2 * batch * t_enc * cin * cout)
+
+    def t32(*shape):
+        return torch.from_numpy(rng.integers(-2**20, 2**20, shape).astype(np.int32)).to(dev)
+
+    # the prologue sites of the static path: a block's first depthwise conv
+    # on a block end's raw int32 accumulator (C1 -> B1.1, the #8 form) and
+    # on a join's int8 output (the #9 form), each with its consumer epilogue
+    for c, k, x32 in [(256, 33, True), (512, 63, False)]:
+        x = t32(batch, t_enc, c) if x32 else t8(batch, t_enc, c)
+        w = t8(k, c)
+        kw = dict(padding=get_same_padding(k, 1, 1), in_len=full, m1=vec(c, 2**29, 2**31 - 1),
+                  e1=43 if x32 else 29, bits1=7, in_relu=True, out_len=full,
+                  m=vec(c, 2**29, 2**31 - 1), e=37, bits=6)
+        if x32:
+            kw["in_bias"] = vec(c, -2**18, 2**18)
+        r = timed_pair(chk, "dw_conv", f"dw_conv prologue B=64 T={t_enc} C={c} K={k} "
+                       f"{'int32+bias' if x32 else 'int8'}+relu in, int8 out",
+                       lambda x=x, w=w, kw=kw: dw_conv(x, w, **kw),
+                       lambda x=x, w=w, kw=kw: dw_conv_plain(x, w, **kw), card, rows)
+        r["bound"] = bound(x.numel() * x.element_size() + w.numel() + 4 * (3 * c + 2 * batch)
+                           + batch * t_enc * c, 2 * k * batch * t_enc * c)
+    # the prologue sites of Kernel 2: a residual pointwise conv on a join's
+    # int8 output, C3 and the decoder on a raw int32 accumulator (the
+    # decoder's input is not masked)
+    for cin, cout, x32, mask in [(256, 256, False, True), (512, 1024, True, True),
+                                 (1024, 29, True, False)]:
+        x = t32(batch, t_enc, cin) if x32 else t8(batch, t_enc, cin)
+        wt = t8(cout, cin)
+        kw = dict(bias=vec(cout, -3000, 3000), m1=vec(cin, 2**29, 2**31 - 1),
+                  e1=43 if x32 else 29, bits1=7 if mask else 6, in_relu=True,
+                  in_len=full if mask else None)
+        if x32:
+            kw["in_bias"] = vec(cin, -2**18, 2**18)
+        x8 = t8(batch * t_enc, cin)
+        wt_t = wt.t()
+        lib = (lambda x8=x8, wt_t=wt_t: torch._int_mm(x8, wt_t)) if cout % 8 == 0 else None
+        r = timed_pair(chk, "pw_gemm", f"pw_gemm prologue N={batch * t_enc} {cin}->{cout} "
+                       f"{'int32+bias' if x32 else 'int8'}+relu in, none",
+                       lambda x=x, wt=wt, kw=kw: pw_gemm(x, wt, **kw),
+                       lambda x=x, wt=wt, kw=kw: pw_gemm_plain(x, wt, **kw), card, rows, lib)
+        r["bound"] = bound(x.numel() * x.element_size() + wt.numel() + 4 * (3 * cin + cout)
+                           + (4 * batch if mask else 0) + 4 * batch * t_enc * cout,
+                           2 * batch * t_enc * cin * cout)
+    # the requant kernel at the per_channel path's sites: an input requant
+    # (per-channel m and e, mask), a residual join, the decoder's input
+    e_pc = torch.from_numpy(rng.integers(36, 44, 1024).astype(np.int32)).to(dev)
+    for c, what in [(512, "input"), (512, "join"), (1024, "decoder")]:
+        z = t32(batch, t_enc, c)
+        kw = dict(lens=full if what == "input" else None, relu=what == "decoder")
+        if what == "join":
+            kw.update(identity=t32(batch, t_enc, c), m_r=vec(c, 2**29, 2**31 - 1),
+                      e_r=e_pc[:c].flip(0).contiguous())
+        args = (z, vec(c, 2**29, 2**31 - 1), e_pc[:c].contiguous(), 6)
+        r = timed_pair(chk, "requant", f"requant N={batch * t_enc} C={c} int32 per-channel "
+                       f"{what}", lambda a=args, kw=kw: requant(*a, **kw),
+                       lambda a=args, kw=kw: requant_plain(*a, **kw), card, rows)
+        r["bound"] = bound(z.numel() * (4 + 1 + 4 * (what == "join")) + 4 * c * (2 + 2 * (
+            what == "join")) + (4 * batch if what == "input" else 0), 0)
     report["quartznet_per_kernel"] = rows
     return step, rows
 
@@ -526,7 +744,27 @@ def phase_int_attention(chk, dev, tables):
                       int_attention(qu, qv, k, v, p, lens, **kw),
                       int_attention_plain(qu, qv, k, v, p, lens, **kw))
             n += 1
-    log(f"[3] int_attention == plain at {n} (T, d_k, context) cases, ragged lengths")
+    # the streaming form (no score rows in shared memory): long inputs
+    from qasr_tpu_torch.kernels.int_attention import resident
+
+    for t in ATT_T_LONG:
+        b = 2
+        if resident(t, d_k):
+            raise AssertionError(f"T={t} was meant to take the streaming form")
+        qu, qv, k, v = (torch.from_numpy(rng.integers(-127, 127, (b, t, h, d_k)).astype(np.int8))
+                        .to(dev) for _ in range(4))
+        p = torch.from_numpy(rng.integers(-127, 127, (2 * t - 1, h, d_k)).astype(np.int8)).to(dev)
+        lens = torch.tensor([t, int(rng.integers(1, t))], dtype=torch.int32, device=dev)
+        for left, right in ATT_CTX[::2]:
+            kw = dict(ac=tbl["ac_grid"], bd=tbl["bd_grid"], ctx_rq=tbl["ctx_rq"], left=left,
+                      right=right, nbits=8)
+            chk.equal("int_attention", f"int_attention streaming B={b} T={t} "
+                      f"ctx=({left}, {right})",
+                      int_attention(qu, qv, k, v, p, lens, **kw),
+                      int_attention_plain(qu, qv, k, v, p, lens, **kw))
+            n += 1
+    log(f"[3] int_attention == plain at {n} (T, d_k, context) cases, ragged lengths, "
+        f"T in {ATT_T_LONG} on the streaming form")
 
 
 def phase_conv_block(chk, dev, tables):
@@ -742,6 +980,16 @@ def phase_conformer_time(chk, model, tables, dev, card, report):
     # q/k/v/pos in, context out; ac, the bd diagonal and a8.v as int8 products
     r["bound"] = bound(4 * qu.numel() + p.numel() + 4 * batch + batch * t * d,
                        3 * 2 * batch * h * t * t * d_k)
+    # the streaming form at a 60 s input (T = 1500 after subsampling), B=4
+    tl, bl = 1500, 4
+    qul, qvl, kl, vl = (t8(bl, tl, h, d_k) for _ in range(4))
+    pl_ = t8(2 * tl - 1, h, d_k)
+    fl = torch.full((bl,), tl, dtype=torch.int32, device=dev)
+    r = timed_pair(chk, "int_attention", f"int_attention streaming B={bl} T={tl} h={h} d_k={d_k}",
+                   lambda: int_attention(qul, qvl, kl, vl, pl_, fl, **kw),
+                   lambda: int_attention_plain(qul, qvl, kl, vl, pl_, fl, **kw), card, rows)
+    r["bound"] = bound(4 * qul.numel() + pl_.numel() + 4 * bl + bl * tl * d,
+                       3 * 2 * bl * h * tl * tl * d_k)
     c8, x8 = t8(batch, t, d), t8(batch, t, d)
     k_size = tbl["dw_w"].shape[0]
     pad = model.ccfg.dw_padding
@@ -820,6 +1068,7 @@ def main() -> int:
     phase_requant(chk, dev)
     phase_dw(chk, dev)
     phase_pw(chk, dev)
+    phase_requant_kernel(chk, dev)
     phase_int_fns(chk, dev)
     conf_model, conf_tables, conf_golden = phase_conformer_golden(dev)
     phase_int_attention(chk, dev, conf_tables)
@@ -831,10 +1080,17 @@ def main() -> int:
     report["conformer_golden"] = conf_golden
 
     model, tables = phase_golden(dev)
-    counts = phase_serve(model, tables, dev)
+    q_counts = phase_serve(model, dev)
     conf_counts = phase_conformer_serve(conf_model, conf_tables, dev)
+    # launches on each kernel's own main path: Kernels 1-2 on the static
+    # QuartzNet path, Kernel 7 on the per_channel one, the rest on the
+    # Conformer's default plan
+    counts = {"dw_conv": q_counts["static_e"]["dw_conv"],
+              "pw_gemm": q_counts["static_e"]["pw_gemm"],
+              "requant": q_counts["per_channel"]["requant"]}
     counts.update({k: conf_counts[k] for k in
                    ("int_attention", "conv_block", "lin_epilogue", "ffn_ln")})
+    report["launches"] = {"quartznet": q_counts, "conformer": conf_counts}
     phase_time(chk, model, tables, dev, card, report)
     phase_conformer_time(chk, conf_model, conf_tables, dev, card, report)
     log(f"[6] {chk.n} kernel-vs-plain comparisons in all, the main paths' shapes included, "
@@ -843,8 +1099,13 @@ def main() -> int:
     rows = report["quartznet_per_kernel"] + report["conformer_per_kernel"]
     kernels = []
     for kind, replaces, label in [
-            ("dw_conv", "qasr_tpu/kernels/cm_fused.py:248", "C=512 K=75"),
-            ("pw_gemm", "qasr_tpu/kernels/cm_fused.py:131", "512->512 requant"),
+            ("dw_conv", "qasr_tpu/kernels/cm_fused.py:248 (#1); qasr_tpu/kernels/depthwise.py:104 "
+             "(#2); qasr_tpu/kernels/depthwise.py:409 (#3); qasr_tpu/kernels/cm_fused.py:575 "
+             "(#6); qasr_tpu/kernels/cm_fused.py:486 (#7); qasr_tpu/kernels/cm_fused.py:374 "
+             "(#8); qasr_tpu/kernels/depthwise.py:284 (#9)", "C=512 K=75"),
+            ("pw_gemm", "qasr_tpu/kernels/cm_fused.py:131 (#4); qasr_tpu/kernels/cm_fused.py:704 "
+             "(#5); qasr_tpu/kernels/pw_matmul.py:51 (#11)", "512->512 requant"),
+            ("requant", "qasr_tpu/kernels/requant.py:65,74 (#10)", "C=512 int32 per-channel input"),
             ("int_attention", "qasr_tpu/kernels/int_attention.py:170", "int_attention B="),
             ("conv_block", "qasr_tpu/kernels/conf_module.py:341", "conv_block B="),
             ("lin_epilogue", "qasr_tpu/kernels/gemm_fused.py:159", "q_u 256->256"),

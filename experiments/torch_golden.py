@@ -1,15 +1,18 @@
-"""Write the golden record that holds the PyTorch port's frozen QuartzNet
+"""Write the golden records that hold the PyTorch port's frozen QuartzNet
 path to the JAX package, bit for bit.
 
 Builds full-width QuartzNet15x5 W6A6 exactly as bench.py and entry() do
-(random weights from seed 0, the committed noise-calibrated ranges,
-static_e tables), runs the JAX FrozenExec on the CPU over the seeded float
-features of ``qasr_tpu_torch.golden``, and records the table digest, ids,
-encoder lengths and SHA-256s of the decoder's int8 input and int32
-logits.  jax is imported here only; the port reads the record without it.
+(random weights from seed 0, the committed noise-calibrated ranges),
+freezes it in one dyadic mode (static_e: one exponent per site;
+per_channel: per-channel exponents, the reference's fixedpoint_mul), runs
+the plain JAX FrozenExec on the CPU over the seeded float features of
+``qasr_tpu_torch.golden``, and records the table digest, ids, encoder
+lengths and SHA-256s of the decoder's int8 input and int32 logits.  jax is
+imported here only; the port reads the records without it.
 
-    JAX_PLATFORMS=cpu python experiments/torch_golden.py          # write
-    JAX_PLATFORMS=cpu python experiments/torch_golden.py --check  # compare
+    JAX_PLATFORMS=cpu python experiments/torch_golden.py                        # write static_e
+    JAX_PLATFORMS=cpu python experiments/torch_golden.py --dyadic per_channel   # write per_channel
+    JAX_PLATFORMS=cpu python experiments/torch_golden.py --check                # compare both
 """
 from __future__ import annotations
 
@@ -23,8 +26,9 @@ if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
 
-def jax_golden():
-    """The golden record as the JAX package computes it (CPU)."""
+def jax_golden(dyadic_mode: str = "static_e"):
+    """The golden record of this dyadic mode as the JAX package computes it
+    (CPU)."""
     import jax
     import jax.numpy as jnp
 
@@ -39,7 +43,7 @@ def jax_golden():
     from qasr_tpu_torch.quantize.freeze import tables_digest
 
     model = _calibrated_frozen_quartznet(weight_bit=6, act_bit=6, seed=0)
-    tables = model.freeze(dyadic_mode="static_e")
+    tables = model.freeze(dyadic_mode=dyadic_mode)
     feats, lens = golden_features(model.plan.feat_in)
 
     @jax.jit
@@ -61,30 +65,37 @@ def jax_golden():
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--dyadic", choices=("static_e", "per_channel"), default="static_e",
+                    help="the dyadic mode of the record to write")
     ap.add_argument("--check", action="store_true",
-                    help="compare with the committed record instead of writing it")
+                    help="compare both committed records instead of writing one")
     args = ap.parse_args()
     from qasr_tpu_torch.golden import (
-        GOLDEN_PATH, compare_golden, load_golden, quartznet15x5_w6a6,
+        GOLDEN_PATHS, compare_golden, load_golden, quartznet15x5_w6a6,
     )
     from qasr_tpu_torch.quantize.freeze import tables_digest
 
-    rec = jax_golden()
-    port_digest = tables_digest(quartznet15x5_w6a6().freeze_host("static_e"))
-    if port_digest != rec["tables_sha256"]:
-        raise SystemExit(f"port tables differ from JAX tables: {port_digest} "
-                         f"vs {rec['tables_sha256']}")
-    if len(set(x for row in rec["ids"] for x in row)) < 2:
-        raise SystemExit("golden ids are degenerate")
-    if args.check:
-        bad = compare_golden(rec, load_golden())
-        print("golden matches" if not bad else f"golden differs in {bad}")
-        raise SystemExit(1 if bad else 0)
-    with open(GOLDEN_PATH, "w") as f:
-        json.dump(rec, f)
-        f.write("\n")
-    print(f"wrote {GOLDEN_PATH}: enc_lens={rec['enc_lens']} "
-          f"tables={rec['tables_sha256'][:16]}")
+    bad = {}
+    for mode in (sorted(GOLDEN_PATHS) if args.check else [args.dyadic]):
+        rec = jax_golden(mode)
+        port_digest = tables_digest(quartznet15x5_w6a6().freeze_host(mode))
+        if port_digest != rec["tables_sha256"]:
+            raise SystemExit(f"{mode}: port tables differ from JAX tables: {port_digest} "
+                             f"vs {rec['tables_sha256']}")
+        if len(set(x for row in rec["ids"] for x in row)) < 2:
+            raise SystemExit(f"{mode}: golden ids are degenerate")
+        if args.check:
+            bad[mode] = compare_golden(rec, load_golden(mode))
+            print(f"{mode}: " + ("golden matches" if not bad[mode]
+                                 else f"golden differs in {bad[mode]}"))
+            continue
+        with open(GOLDEN_PATHS[mode], "w") as f:
+            json.dump(rec, f)
+            f.write("\n")
+        print(f"wrote {GOLDEN_PATHS[mode]}: enc_lens={rec['enc_lens']} "
+              f"tables={rec['tables_sha256'][:16]}")
+    if any(bad.values()):
+        raise SystemExit(1)
 
 
 if __name__ == "__main__":

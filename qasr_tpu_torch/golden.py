@@ -1,13 +1,16 @@
 """The flagship models and the golden checks of the port's frozen paths.
 
-QuartzNet.  The golden record (``assets/quartznet15x5_w6a6_s0_golden.json``) holds what
-the JAX package's FrozenExec computes for full-width QuartzNet15x5 at W6A6
-(random weights from seed 0, the committed noise-calibrated ranges,
-``static_e`` tables) on seeded float features: a digest of the tables, the
-ids and encoder lengths, and SHA-256s of the decoder's int8 input and
-int32 logits.  ``experiments/torch_golden.py`` writes it with the JAX
-package; the port is held to it without importing jax.  Starting from
-features keeps float frontend differences out of an exact check.
+QuartzNet.  The golden records hold what the JAX package's FrozenExec
+computes for full-width QuartzNet15x5 at W6A6 (random weights from seed
+0, the committed noise-calibrated ranges) on seeded float features: a
+digest of the tables, the ids and encoder lengths, and SHA-256s of the
+decoder's int8 input and int32 logits; one record per dyadic mode,
+``assets/quartznet15x5_w6a6_s0_golden.json`` for ``static_e`` and
+``assets/quartznet15x5_w6a6_per_channel_s0_golden.json`` for
+``per_channel`` (vector exponents).  ``experiments/torch_golden.py``
+writes them with the JAX package; the port is held to them without
+importing jax.  Starting from features keeps float frontend differences
+out of an exact check.
 
 Conformer-CTC.  ``assets/conformer16x256_noise_qstate_w8a8_s0.json`` holds
 the quantization config and ranges of the flagship (16 x 256, 4 heads,
@@ -45,10 +48,19 @@ from qasr_tpu_torch.quantize.conformer_freeze import (
     conformer_tables_digest,
     conformer_x8,
 )
-from qasr_tpu_torch.quantize.freeze import log_probs, tables_digest, tables_to_numpy
+from qasr_tpu_torch.quantize.freeze import (
+    FrozenExec,
+    FrozenExecFused,
+    log_probs,
+    tables_digest,
+    tables_to_numpy,
+)
 
 ASSETS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets")
-GOLDEN_PATH = os.path.join(ASSETS, "quartznet15x5_w6a6_s0_golden.json")
+GOLDEN_PATHS = {
+    "static_e": os.path.join(ASSETS, "quartznet15x5_w6a6_s0_golden.json"),
+    "per_channel": os.path.join(ASSETS, "quartznet15x5_w6a6_per_channel_s0_golden.json"),
+}
 # a byte-for-byte copy of the JAX package's committed noise-calibrated ranges
 QSTATE_PATH = os.path.join(ASSETS, "quartznet15x5_noise_qstate_w6a6_s0.json")
 # seeded float features: B=2, T a multiple of 64, unequal lengths
@@ -95,26 +107,33 @@ def golden_record(tables_sha256: str, dec_in: np.ndarray, logits: np.ndarray,
 
 @torch.no_grad()
 def frozen_from_features(model: ASRModel, tables, feats: np.ndarray,
-                         lens: np.ndarray, fused: bool = True):
+                         lens: np.ndarray, fused: bool = True, executor=None):
     """Run float features through the frozen encoder and decoder on the
-    tables' device: (decoder int8 input, int32 logits, ids, enc_lens)."""
+    tables' device: (decoder int8 input, int32 logits, ids, enc_lens).
+    ``executor`` is the executor class; None means FrozenExecFused when
+    ``fused`` (it refuses vector exponents), else the plain FrozenExec."""
     dev = tables["decoder"]["w"].device
     dec_in, logits, enc_lens = frozen_forward(
         model, tables, torch.from_numpy(feats).to(dev), torch.from_numpy(lens).to(dev),
-        fused)
+        executor=executor or (FrozenExecFused if fused else FrozenExec))
     ids = log_probs(logits, tables["decoder"]["out_scale"]).argmax(dim=-1)
     return dec_in, logits, ids, enc_lens
 
 
-def port_record(model: ASRModel, tables, feats, lens, fused: bool = True):
+def port_record(model: ASRModel, tables, feats, lens, fused: bool = True,
+                executor=None):
     """The golden record of the port's run (tables from ``tables``)."""
     outs = [t.cpu().numpy() for t in frozen_from_features(model, tables, feats,
-                                                           lens, fused)]
+                                                           lens, fused, executor)]
     return golden_record(tables_digest(tables_to_numpy(tables)), *outs)
 
 
-def load_golden() -> Dict[str, Any]:
-    with open(GOLDEN_PATH) as f:
+def load_golden(dyadic_mode: str = "static_e") -> Dict[str, Any]:
+    """The committed QuartzNet golden record of this dyadic mode."""
+    if dyadic_mode not in GOLDEN_PATHS:
+        raise ValueError(f"no QuartzNet golden record for dyadic_mode {dyadic_mode!r} "
+                         f"(have {sorted(GOLDEN_PATHS)})")
+    with open(GOLDEN_PATHS[dyadic_mode]) as f:
         return json.load(f)
 
 

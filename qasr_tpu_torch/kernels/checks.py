@@ -48,3 +48,30 @@ def static_pair(name: str, arg: str, pair) -> Tuple[int, int]:
         raise ValueError(f"{name}: {arg} must be a static (m, e) with 0 < m < 2^31, "
                          f"e >= 1; got {tuple(pair)!r}")
     return m, e
+
+
+def check_act(name: str, x: torch.Tensor, ndim: int) -> None:
+    """An activation a prologue or the requant kernel reads: contiguous,
+    int8 or int32."""
+    if x.dtype not in (torch.int8, torch.int32) or x.dim() != ndim or not x.is_contiguous():
+        raise ValueError(f"{name}: x must be a contiguous {ndim}-D int8 or int32 tensor, "
+                         f"got {x.dtype} {tuple(x.shape)} contiguous={x.is_contiguous()}")
+
+
+def requant_operand(name: str, arg: str, v, c: int, device, exponent: bool):
+    """A requant mantissa or exponent the kernels take per channel or by
+    value: returns (a (C,) int32 device tensor, 0) or (None, the scalar).
+    A scalar mantissa lies in [0, 2^31); a scalar exponent is >= 1 (above
+    62 the requant gives 0).  Vector exponents are not read back here (that
+    would wait for the stream): the kernels count one below 1 as 1, as the
+    plain requant does."""
+    if isinstance(v, torch.Tensor) and v.dim() > 0:
+        check_vec(name, arg, v, torch.int32, (c,), device)
+        return v, 0
+    s = int(v)
+    if exponent and not s >= 1:
+        raise ValueError(f"{name}: scalar exponent {arg} must be >= 1, got {s}")
+    if not exponent and not 0 <= s < 2 ** 31:
+        raise ValueError(f"{name}: scalar mantissa {arg} must lie in [0, 2^31), got {s}")
+    return None, s
+

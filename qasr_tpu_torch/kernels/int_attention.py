@@ -1,12 +1,15 @@
 """Kernel 3: integer relative-position attention of the frozen Conformer
 (kernels/csrc/int_attention.cu).
 
-Replaces qasr_tpu/kernels/int_attention.py::fused_int_attention.  Per
-(batch, head, query tile) the kernel builds the tile's full score rows in
-shared memory (content scores q_u.k plus the Toeplitz diagonal of
-q_v.pos), requants both onto the i-softmax grid, masks, runs the integer
-softmax, multiplies by v and writes the requantized int8 context: the
-(T, T) int32 world never reaches device memory.
+Replaces qasr_tpu/kernels/int_attention.py::fused_int_attention, and
+above its 2,048 frames the XLA composition the JAX package switches to.
+Per (batch, head, query tile) the kernel forms the scores (content scores
+q_u.k plus the Toeplitz diagonal of q_v.pos) 64 keys at a time, requants
+both onto the i-softmax grid, masks, runs the integer softmax, multiplies
+by v and writes the requantized int8 context: the (T, T) int32 world never
+reaches device memory.  While the tile's full score rows fit in shared
+memory (``smem_bytes``) they stay there (the resident form); above that
+the kernel streams the keys three times, recomputing the scores (any T).
 
 ``int_attention`` launches the CUDA kernel for CUDA tensors and runs
 ``int_attention_plain`` (the XLA composition of
@@ -31,7 +34,8 @@ SMEM_LIMIT = 232448
 
 
 def smem_bytes(t: int, d_k: int) -> int:
-    """Dynamic shared memory of one block (csrc/int_attention.cu's layout)."""
+    """Dynamic shared memory of one block of the resident form
+    (csrc/int_attention.cu's layout); the streaming form takes any T."""
     tp = -(-t // KC) * KC
     dkw = -(-d_k // 32) * 8 + 4                     # padded row, in words
     return 4 * ((2 * TQ + KC + TQ + KC) * dkw       # Qu, Qv, K chunk, pos window
@@ -39,6 +43,11 @@ def smem_bytes(t: int, d_k: int) -> int:
                 + TQ * (TQ + KC + 1)                # bd of the chunk
                 + TQ * (tp + 8)                     # score rows
                 + TQ * (tp // 4 + 4))               # int8 probabilities
+
+
+def resident(t: int, d_k: int) -> bool:
+    """True when the kernel keeps the score rows in shared memory."""
+    return smem_bytes(t, d_k) <= SMEM_LIMIT
 
 
 def bmm_exact(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -91,9 +100,6 @@ def int_attention(qu8, qv8, k8, v8, p8, lens, *, ac, bd, ctx_rq,
     if b * t == 0 or d_k % 4 or not 0 < d_k <= 128 or p8.data_ptr() % 16:
         raise ValueError(f"int_attention: needs B*T > 0, d_k a multiple of 4 in "
                          f"[4, 128] and an aligned p8 (got B={b} T={t} d_k={d_k})")
-    if smem_bytes(t, d_k) > SMEM_LIMIT:
-        raise ValueError(f"int_attention: T={t} needs {smem_bytes(t, d_k)} bytes of "
-                         f"shared memory per block (limit {SMEM_LIMIT})")
     for name, (m, e) in (("ac", ac), ("bd", bd), ("ctx_rq", ctx_rq)):
         if not (isinstance(e, int) and e >= 1 and 0 < int(m) < 2 ** 31):
             raise ValueError(f"int_attention: {name} must be a static (m, e) "
@@ -103,7 +109,8 @@ def int_attention(qu8, qv8, k8, v8, p8, lens, *, ac, bd, ctx_rq,
         _build.ptr(qu8), _build.ptr(qv8), _build.ptr(k8), _build.ptr(v8),
         _build.ptr(p8), _build.ptr(lens), _build.ptr(out), b, t, h, d_k,
         int(ac[0]), ac[1], int(bd[0]), bd[1], int(ctx_rq[0]), ctx_rq[1],
-        int(left), int(right), 2 ** (nbits - 1) - 1, _build.stream_of(qu8))
+        int(left), int(right), 2 ** (nbits - 1) - 1,
+        int(not resident(t, d_k)), _build.stream_of(qu8))
     _build.check(rc, "int_attention")
     int_attention.launches += 1
     return out

@@ -1,7 +1,8 @@
-"""Kernel 2: pointwise int8 GEMM with a requant, join or no epilogue
-(kernels/csrc/pw_gemm.cu).
+"""Kernel 2: pointwise int8 GEMM with an input-requant prologue and a
+requant, join or no epilogue (kernels/csrc/pw_gemm.cu).
 
-Replaces qasr_tpu/kernels/cm_fused.py::fused_pw_cm and fused_pw_join_cm.
+Replaces qasr_tpu/kernels/cm_fused.py::fused_pw_cm and fused_pw_join_cm,
+and qasr_tpu/kernels/pw_matmul.py::requant_pointwise_matmul.
 ``pw_gemm`` launches the CUDA kernel for CUDA tensors and runs
 ``pw_gemm_plain`` for CPU tensors; it never falls back from one to the
 other.
@@ -13,7 +14,8 @@ from typing import Optional
 import torch
 
 from qasr_tpu_torch.kernels import _build
-from qasr_tpu_torch.kernels.checks import check_vec, check_x, epilogue_bounds
+from qasr_tpu_torch.kernels.checks import check_vec, epilogue_bounds
+from qasr_tpu_torch.kernels.dw_conv import check_prologue, prologue_args, prologue_plain
 from qasr_tpu_torch.ops.quant_prims import (
     dyadic_requant_static,
     requant_clamp,
@@ -48,9 +50,15 @@ def pw_gemm_plain(x: torch.Tensor, wt: torch.Tensor, *,
                   lens: Optional[torch.Tensor] = None, m=None,
                   e: Optional[int] = None, bits: Optional[int] = None,
                   res: Optional[torch.Tensor] = None, m_r=None,
-                  e_r: Optional[int] = None) -> torch.Tensor:
-    """Plain torch version: integer matmul, then the epilogue.  Same
-    arguments and result as ``pw_gemm``."""
+                  e_r: Optional[int] = None, in_bias: Optional[torch.Tensor] = None,
+                  in_relu: bool = False, in_len: Optional[torch.Tensor] = None,
+                  m1=None, e1: Optional[int] = None,
+                  bits1: Optional[int] = None) -> torch.Tensor:
+    """Plain torch version: the prologue on the whole input, integer
+    matmul, then the epilogue.  Same arguments and result as ``pw_gemm``."""
+    if m1 is not None:
+        x = prologue_plain(x, in_bias=in_bias, in_relu=in_relu, in_len=in_len, m1=m1,
+                           e1=e1, bits1=bits1)
     b, t, cin = x.shape
     acc = int_matmul(x.reshape(b * t, cin), wt).reshape(b, t, wt.shape[0])
     mode = _mode(m, res)
@@ -72,8 +80,16 @@ def pw_gemm(x: torch.Tensor, wt: torch.Tensor, *,
             lens: Optional[torch.Tensor] = None, m=None,
             e: Optional[int] = None, bits: Optional[int] = None,
             res: Optional[torch.Tensor] = None, m_r=None,
-            e_r: Optional[int] = None) -> torch.Tensor:
-    """Pointwise conv of x (B, T, Cin) int8 with wt (Cout, Cin) int8.
+            e_r: Optional[int] = None, in_bias: Optional[torch.Tensor] = None,
+            in_relu: bool = False, in_len: Optional[torch.Tensor] = None,
+            m1=None, e1: Optional[int] = None,
+            bits1: Optional[int] = None) -> torch.Tensor:
+    """Pointwise conv of x (B, T, Cin) with wt (Cout, Cin) int8.
+
+    Prologue off (``m1`` None): x is int8.  Prologue on: x is int8 or int32
+    and its rows are first ``clamp(requant(mask(relu?(x + in_bias)), m1,
+    e1), bits1)``, m1 a (Cin,) int32 vector or a scalar, the mask zeroing frames
+    t >= in_len[b] (in_len None: no mask), before they reach the GEMM.
 
     none    (m None, res None): (B, T, Cout) int32 ``relu?(x @ wt.T + bias)``;
     requant (m given):          int8 ``clamp(requant(mask(relu?(acc + bias)),
@@ -85,13 +101,18 @@ def pw_gemm(x: torch.Tensor, wt: torch.Tensor, *,
     mode = _mode(m, res)
     if mode == MODE_JOIN and (relu or m is None):
         raise ValueError("pw_gemm: join takes m and no relu")
+    prologue_args("pw_gemm", in_bias, in_relu, in_len, m1)
     if x.device.type == "cpu":
         return pw_gemm_plain(x, wt, bias=bias, relu=relu, lens=lens, m=m, e=e,
-                             bits=bits, res=res, m_r=m_r, e_r=e_r)
+                             bits=bits, res=res, m_r=m_r, e_r=e_r, in_bias=in_bias,
+                             in_relu=in_relu, in_len=in_len, m1=m1, e1=e1, bits1=bits1)
     if x.device.type != "cuda":
         raise ValueError(f"pw_gemm: unsupported device {x.device}")
-    check_x("pw_gemm", x, 3)
+    if x.dim() != 3:
+        raise ValueError(f"pw_gemm: x must be (B, T, Cin), got {tuple(x.shape)}")
     b, t, cin = x.shape
+    pro, m1v, m1s, lo1, hi1, ee1 = check_prologue("pw_gemm", x, in_bias, in_len, m1, e1,
+                                                  bits1, cin, b)
     cout = wt.shape[0]
     if cin % 4 or x.data_ptr() % 16 or wt.data_ptr() % 16:
         raise ValueError("pw_gemm: Cin must be a multiple of 4 and x/wt 16-byte aligned")
@@ -119,8 +140,9 @@ def pw_gemm(x: torch.Tensor, wt: torch.Tensor, *,
     rc = lib.qasr_pw_gemm(
         _build.ptr(x), _build.ptr(wt), _build.ptr(bias), _build.ptr(m),
         _build.ptr(lens), _build.ptr(res), _build.ptr(m_r), _build.ptr(out),
-        b * t, cin, cout, t, mode, int(relu), ee, ee_r, lo, hi,
-        _build.stream_of(x))
+        b * t, cin, cout, t, mode, int(relu), ee, ee_r, lo, hi, pro,
+        int(x.dtype == torch.int32), _build.ptr(in_bias), int(in_relu), _build.ptr(in_len),
+        _build.ptr(m1v), m1s, ee1, lo1, hi1, _build.stream_of(x))
     _build.check(rc, "pw_gemm")
     pw_gemm.launches += 1
     return out

@@ -1,7 +1,12 @@
-"""Elementwise and row-wise launches of the kernels' shared device functions
+"""Kernel 7, the requant kernel (``requant``, kernels/csrc/requant.cu), and
+elementwise and row-wise launches of the kernels' shared device functions
 (kernels/csrc/requant.cuh via requant_check.cu, conformer_int.cuh via
 conformer_int_check.cu), used to hold each against its plain torch
-version on the card.  Not on the serving path."""
+version on the card; those check launches are not on the serving path.
+
+``requant`` launches its CUDA kernel for CUDA tensors and runs
+``requant_plain`` for CPU tensors; it never falls back from one to the
+other."""
 from __future__ import annotations
 
 from typing import Optional
@@ -9,7 +14,14 @@ from typing import Optional
 import torch
 
 from qasr_tpu_torch.kernels import _build
-from qasr_tpu_torch.kernels.checks import check_vec
+from qasr_tpu_torch.kernels.checks import check_act, check_vec, requant_operand
+from qasr_tpu_torch.models.jasper import mask_values
+from qasr_tpu_torch.ops.quant_prims import (
+    Dyadic,
+    dyadic_requant,
+    dyadic_requant_static,
+    requant_clamp,
+)
 
 INT_FNS = {"i_exp": 0, "i_sigmoid_grid": 1, "isqrt": 2, "floor_div": 3}
 
@@ -62,3 +74,89 @@ def ln_core_device(x: torch.Tensor) -> torch.Tensor:
                                         _build.stream_of(x))
     _build.check(rc, "ln_core_device")
     return out
+
+
+# ---------------------------------------------------------------------------
+# Kernel 7: the requant kernel (kernels/csrc/requant.cu)
+# ---------------------------------------------------------------------------
+
+
+def _rq(z: torch.Tensor, m, e) -> torch.Tensor:
+    """requant(z, m, e): a static Python-int exponent, or per-channel /
+    0-d exponents (clamped to [1, 62], 0 above 62, as the JAX package)."""
+    if isinstance(e, int):
+        return dyadic_requant_static(z, m, e)
+    return dyadic_requant(z, Dyadic(m, e))
+
+
+def requant_plain(z: torch.Tensor, m, e, bits: int, *, relu: bool = False,
+                  lens: Optional[torch.Tensor] = None,
+                  identity: Optional[torch.Tensor] = None, m_r=None,
+                  e_r=None) -> torch.Tensor:
+    """Plain torch version: the JAX FrozenExec's input requant (mask, then
+    requant + clamp) and residual join.  Same arguments and result as
+    ``requant``."""
+    v = z.clamp_min(0) if relu else z
+    if lens is not None:
+        v = mask_values(v, lens)
+    q = _rq(v, m, e)
+    if identity is not None:
+        i = identity if lens is None else mask_values(identity, lens)
+        q = q + _rq(i, m_r, e_r)
+    q = requant_clamp(q, bits)
+    return q.to(torch.int8) if bits <= 8 else q.to(torch.int32)
+
+
+def requant(z: torch.Tensor, m, e, bits: int, *, relu: bool = False,
+            lens: Optional[torch.Tensor] = None,
+            identity: Optional[torch.Tensor] = None, m_r=None,
+            e_r=None) -> torch.Tensor:
+    """Dyadic requant of z (B, T, C) int8/int32 onto ``bits`` bits:
+
+        clamp(requant(mask(relu?(z)), m, e) [+ requant(mask(identity), m_r, e_r)],
+              -2^(bits-1), 2^(bits-1)-1)
+
+    m, e, m_r, e_r are (C,) int32 tensors (per-channel mantissas and
+    exponents) or scalars (a Python int or a 0-d array, taken by value);
+    the mask zeroes frames t >= lens[b].  Returns int8 when bits <= 8, else
+    int32.  Replaces qasr_tpu/kernels/requant.py::requant_pallas."""
+    if identity is not None and (m_r is None or e_r is None):
+        raise ValueError("requant: identity needs m_r and e_r")
+    if z.device.type == "cpu":
+        return requant_plain(z, m, e, bits, relu=relu, lens=lens, identity=identity,
+                             m_r=m_r, e_r=e_r)
+    if z.device.type != "cuda":
+        raise ValueError(f"requant: unsupported device {z.device}")
+    check_act("requant", z, 3)
+    b, t, c = z.shape
+    dev = z.device
+    if b * t * c >= 2 ** 31:
+        raise ValueError("requant: B * T * C must stay below 2^31")
+    if not isinstance(bits, int) or not 2 <= bits <= 32:
+        raise ValueError(f"requant: bits must be an int in [2, 32], got {bits!r}")
+    n = 2 ** (bits - 1) - 1
+    mv, ms = requant_operand("requant", "m", m, c, dev, exponent=False)
+    ev, es = requant_operand("requant", "e", e, c, dev, exponent=True)
+    mrv = erv = None
+    ms_r = es_r = 0
+    if identity is not None:
+        check_act("requant identity", identity, 3)
+        if tuple(identity.shape) != (b, t, c) or identity.device != dev:
+            raise ValueError(f"requant: identity must be {(b, t, c)} on {dev}")
+        mrv, ms_r = requant_operand("requant", "m_r", m_r, c, dev, exponent=False)
+        erv, es_r = requant_operand("requant", "e_r", e_r, c, dev, exponent=True)
+    check_vec("requant", "lens", lens, torch.int32, (b,), dev)
+    out = torch.empty((b, t, c), dtype=torch.int8 if bits <= 8 else torch.int32,
+                      device=dev)
+    rc = _build.library().qasr_requant_rows(
+        _build.ptr(z), int(z.dtype == torch.int32), _build.ptr(mv), _build.ptr(ev), ms, es,
+        _build.ptr(identity),
+        int(identity is not None and identity.dtype == torch.int32),
+        _build.ptr(mrv), _build.ptr(erv), ms_r, es_r, _build.ptr(lens), _build.ptr(out),
+        int(bits > 8), b * t, c, t, int(relu), -n - 1, n, _build.stream_of(z))
+    _build.check(rc, "requant")
+    requant.launches += 1
+    return out
+
+
+requant.launches = 0

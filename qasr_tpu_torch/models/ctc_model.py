@@ -34,8 +34,10 @@ from qasr_tpu_torch.ops.features import MelFrontend, preprocessor_config_from_di
 from qasr_tpu_torch.quantize.freeze import (
     FrozenExec,
     FrozenExecFused,
+    FrozenExecKernels,
     freeze_model,
     log_probs,
+    tables_all_static_e,
     tables_to_device,
 )
 
@@ -48,38 +50,57 @@ def _pcm_f32(audio: torch.Tensor) -> torch.Tensor:
     return audio.to(torch.float32)
 
 
+def frozen_executor(tables, fused: bool = True):
+    """The executor class for these tables: the plain FrozenExec when not
+    ``fused``; else FrozenExecFused (every requant in a kernel's prologue
+    or epilogue) for static-exponent tables, FrozenExecKernels (every
+    requant in the requant kernel) for vector exponents ('per_channel')."""
+    if not fused:
+        return FrozenExec
+    return FrozenExecFused if tables_all_static_e(tables) else FrozenExecKernels
+
+
 def make_frozen_fn(model: "ASRModel", tables, argmax: bool = False,
                    fused: bool = True):
     """fn(audio (B, L), lens (B,)) -> (ids (B, T) | log-probs (B, T, V+1),
     enc_lens) on the frozen integer path, in the JAX package's (B, T, C)
     form: features padded to a multiple of 64 frames, so shapes equal the
-    JAX make_frozen_fn's on the CPU.  ``fused`` runs FrozenExecFused (every
-    conv in Kernel 1/2; their plain versions for CPU tensors), else the
-    plain FrozenExec.  Inputs move to the tables' device."""
+    JAX make_frozen_fn's on the CPU.  ``fused`` runs the kernel executor
+    that ``frozen_executor`` picks from the tables (their plain versions
+    for CPU tensors), else the plain FrozenExec.  Inputs move to the
+    tables' device."""
     device = tables["decoder"]["w"].device
+    exec_cls = frozen_executor(tables, fused)
 
     @torch.no_grad()
     def fn(audio, lens):
         audio = torch.as_tensor(audio).to(device)
         lens = torch.as_tensor(lens).to(device=device, dtype=torch.int32)
         feats, feat_lens = model.frontend(_pcm_f32(audio), lens, dither=0.0)
-        _, logits, enc_lens = frozen_forward(model, tables, feats, feat_lens, fused)
-        lp = log_probs(logits, tables["decoder"]["out_scale"])
+        fx, enc, enc_lens = _encode(model, tables, feats, feat_lens, exec_cls)
+        lp = log_probs(fx.decoder_logits(enc), tables["decoder"]["out_scale"])
         return (lp.argmax(dim=-1) if argmax else lp), enc_lens
 
     return fn
 
 
-def frozen_forward(model: "ASRModel", tables, feats: torch.Tensor,
-                   feat_lens: torch.Tensor, fused: bool = True):
-    """Float features (B, T, C) -> (decoder int8 input, int32 logits,
-    enc_lens) through the frozen encoder and decoder; T is padded to a
-    multiple of 64 first."""
-    exec_cls = FrozenExecFused if fused else FrozenExec
+def _encode(model: "ASRModel", tables, feats, feat_lens, exec_cls):
     fx = exec_cls(tables, model.qcfg, activation=model.plan.activation)
     enc, enc_lens = encoder_forward(fx, model.plan, pad_frames_aligned(feats), feat_lens)
-    dec_in, logits = fx.decoder_parts(enc)
-    return dec_in, logits, enc_lens
+    return fx, enc, enc_lens
+
+
+def frozen_forward(model: "ASRModel", tables, feats: torch.Tensor,
+                   feat_lens: torch.Tensor, fused: bool = True, executor=None):
+    """Float features (B, T, C) -> (decoder int8 input, int32 logits,
+    enc_lens) through the frozen encoder and decoder; T is padded to a
+    multiple of 64 first.  ``executor`` (a class) overrides the choice of
+    ``frozen_executor(tables, fused)``.  The decoder's int8 input is
+    computed for the record: on FrozenExecFused's serving path it exists
+    only inside a kernel."""
+    fx, enc, enc_lens = _encode(model, tables, feats, feat_lens,
+                                executor or frozen_executor(tables, fused))
+    return fx.decoder_input(enc), fx.decoder_logits(enc), enc_lens
 
 
 @dataclass
@@ -179,8 +200,10 @@ class ASRModel:
     def transcribe(self, audio: List[Any], batch_size: int = 4, device=None,
                    dyadic_mode: str = "static_e") -> List[str]:
         """Greedy transcripts of wav paths or 1-D int16/float32 PCM arrays,
-        padded into batches of ``batch_size``, on the fused frozen path, on
-        ``device`` (None: the CUDA device)."""
+        padded into batches of ``batch_size``, on the kernel path that the
+        tables of ``dyadic_mode`` select (``frozen_executor``: static_e and
+        static_e16 on FrozenExecFused, per_channel on FrozenExecKernels),
+        on ``device`` (None: the CUDA device)."""
         dev = as_device(device)
         key = (dyadic_mode, str(dev), self.qcfg)
         if key not in self._fn_cache:

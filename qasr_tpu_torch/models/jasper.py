@@ -250,7 +250,11 @@ def out_frames(t_in, k_size: int, stride: int, padding: int, dilation: int):
 
 
 def conv_out_len(lens, spec: ConvSpec):
-    """MaskedConv1d's output lengths (numpy or torch integer lengths)."""
+    """MaskedConv1d's output lengths (numpy or torch integer lengths).  A
+    stride-1 conv with 'same' padding keeps every length: ``lens`` itself
+    comes back, with no arithmetic launched on the device for it."""
+    if spec.stride == 1 and 2 * spec.padding == spec.dilation * (spec.kernel - 1):
+        return lens
     return out_frames(lens, spec.kernel, spec.stride, spec.padding, spec.dilation)
 
 

@@ -8,12 +8,18 @@ in ``per_channel``.  ``tables_to_device`` moves them onto a torch device and
 adds each conv's kernel weight layout.
 
 Executors, over (B, T, C):
-  * ``FrozenExec``      plain torch, the JAX FrozenExec's op order; the
-                        port's oracle.
-  * ``FrozenExecFused`` the pending-conv design of the JAX FrozenExecCMF:
-                        every conv of the walk runs through Kernel 1
-                        (dw_conv) or Kernel 2 (pw_gemm), each conv's
-                        epilogue carrying the consumer's requant.
+  * ``FrozenExec``        plain torch, the JAX FrozenExec's op order; the
+                          port's oracle.
+  * ``FrozenExecFused``   static exponents: the pending-conv design of the
+                          JAX FrozenExecCMF; every conv of the walk runs
+                          through Kernel 1 (dw_conv) or Kernel 2 (pw_gemm),
+                          each conv's epilogue carrying the consumer's
+                          requant and its prologue the requant of a
+                          materialized input.
+  * ``FrozenExecKernels`` any tables, vector exponents included: convs in
+                          Kernels 1/2 with the epilogue off, every requant
+                          in Kernel 7 (requant), as the JAX FrozenExec with
+                          use_pallas=True.
 """
 from __future__ import annotations
 
@@ -24,8 +30,9 @@ from typing import Any, Dict, Optional, Union
 import numpy as np
 import torch
 
-from qasr_tpu_torch.kernels.dw_conv import dw_conv, dw_conv_plain
+from qasr_tpu_torch.kernels.dw_conv import dw_conv, dw_conv_plain, prologue_plain
 from qasr_tpu_torch.kernels.pw_gemm import pw_gemm, pw_gemm_plain
+from qasr_tpu_torch.kernels.requant import requant
 from qasr_tpu_torch.models.config import DecoderConfig, QuantConfig
 from qasr_tpu_torch.models.jasper import (
     ConvSpec,
@@ -203,8 +210,9 @@ class ScaleFreezeExec:
 
 def _mark_separable_fusion(plan: EncoderPlan, tables) -> None:
     """Flag dw->pw pairs the JAX package's fused depthwise-requant kernel
-    (kernels/depthwise.py::depthwise_fused_requant) can absorb.  The port
-    has not ported that kernel; the flag keeps the tables identical."""
+    (kernels/depthwise.py::depthwise_fused_requant) can absorb.  The port's
+    Kernel 1 takes both requants wherever they occur (its prologue and
+    epilogue) and reads no flag; the flag keeps the tables identical."""
     for bp, tb in zip(plan.blocks, tables["blocks"]):
         convs = bp.convs
         for i in range(len(convs) - 1):
@@ -447,17 +455,17 @@ class FrozenExec:
 
     # -- decoder -----------------------------------------------------------
 
-    def _decoder_input(self, x: QTensor) -> torch.Tensor:
+    def decoder_input(self, x: QTensor) -> torch.Tensor:
         """The decoder's act requant (unmasked, as in the JAX package)."""
         t = self.t["decoder"]
         bits = self.qcfg.act_bit
         return _narrow(requant_clamp(self._requant(x.values, t["act_m"],
                                                    t["act_e"]), bits), bits)
 
-    def decoder_parts(self, x: QTensor):
-        """(int8 decoder input, int32 logits) of the 1x1 decoder conv."""
-        q = self._decoder_input(x)
-        return q, pw_gemm_plain(q, self.t["decoder"]["wk"], bias=self.t["decoder"]["b"])
+    def decoder_logits(self, x: QTensor) -> torch.Tensor:
+        """int32 logits of the 1x1 decoder conv."""
+        return pw_gemm_plain(self.decoder_input(x), self.t["decoder"]["wk"],
+                             bias=self.t["decoder"]["b"])
 
 
 def log_probs(logits_int: torch.Tensor, out_scale: torch.Tensor) -> torch.Tensor:
@@ -466,78 +474,128 @@ def log_probs(logits_int: torch.Tensor, out_scale: torch.Tensor) -> torch.Tensor
 
 
 class _PendingConv:
-    """A conv whose kernel has not run yet: its int8, already-requantized
-    input, its table entry and spec, and a staged ReLU.  The next site
-    flushes it through a kernel whose epilogue applies that site's
-    requant."""
+    """A conv whose kernel has not run yet: its input (int8 and already
+    requantized, or a materialized producer output with ``pro``, the
+    prologue that requantizes it inside the kernel), its table entry and
+    spec, and a staged ReLU.  The next site flushes it through a kernel
+    whose epilogue applies that site's requant (or with the epilogue off)."""
 
-    __slots__ = ("xq", "entry", "spec", "relu")
+    __slots__ = ("xq", "entry", "spec", "relu", "pro")
 
-    def __init__(self, xq, entry, spec):
+    def __init__(self, xq, entry, spec, pro=None):
         self.xq = xq
         self.entry = entry
         self.spec = spec
         self.relu = False
+        self.pro = pro or {}
 
     @property
     def depthwise(self) -> bool:
         return is_depthwise(self.spec)
 
 
-def kernel_launches(plan: EncoderPlan) -> Dict[str, int]:
-    """Kernel launches of one FrozenExecFused forward: every conv of the
-    walk runs exactly once, depthwise in dw_conv, pointwise (in-block,
-    residual, and the decoder) in pw_gemm."""
+class _Held:
+    """A materialized tensor that more than one consumer reads (a block
+    output: the next block and its residual branches, or the decoder): its
+    values (int8 or int32), scale, and the producer's bias and ReLU that
+    each consumer still applies, so its value is relu?(values + bias)."""
+
+    __slots__ = ("values", "scale", "bias", "relu")
+
+    def __init__(self, values, scale, bias=None, relu=False):
+        self.values = values
+        self.scale = scale
+        self.bias = bias
+        self.relu = relu
+
+    def with_relu(self) -> "_Held":
+        return _Held(self.values, self.scale, self.bias, True)
+
+
+def _requant_sites(tables) -> int:
+    """Requants of one FrozenExecKernels forward: every conv input that is
+    requantized (the entries with an ``act_m``; the float input is
+    quantized instead), every residual join, and the decoder's input."""
+    convs = [e for tb in tables["blocks"] for e in list(tb["convs"]) + list(tb["res"])]
+    return (sum(e is not None and "act_m" in e for e in convs)
+            + sum(len(tb["res_act"]) for tb in tables["blocks"]) + 1)
+
+
+def kernel_launches(plan: EncoderPlan, tables=None) -> Dict[str, int]:
+    """Kernel launches of one forward on the kernel path that
+    ``make_frozen_fn`` picks for ``tables`` (None: static-exponent tables).
+    Every conv of the walk runs exactly once, depthwise in dw_conv,
+    pointwise (in-block, residual, and the decoder) in pw_gemm.  With
+    static exponents (FrozenExecFused) the requants ride in those kernels'
+    prologues and epilogues, except a residual join that no pending
+    pointwise conv can take (a depthwise block tail, a dense block's later
+    panes), which runs in the requant kernel; with vector exponents
+    (FrozenExecKernels) every requant runs in the requant kernel."""
     specs = [s for bp in plan.blocks for s in bp.convs + bp.res]
-    return {"dw_conv": sum(map(is_depthwise, specs)),
-            "pw_gemm": sum(map(is_pointwise, specs)) + 1}
+    counts = {"dw_conv": sum(map(is_depthwise, specs)),
+              "pw_gemm": sum(map(is_pointwise, specs)) + 1}
+    if tables is not None and not tables_all_static_e(tables):
+        counts["requant"] = _requant_sites(tables)
+        return counts
+    joins = sum(pi > 0 or not is_pointwise(bp.convs[-1])
+                for bp in plan.blocks if bp.residual for pi in range(len(bp.res)))
+    if joins:
+        counts["requant"] = joins
+    return counts
+
+
+def _check_int8_acts(name: str, qcfg: QuantConfig) -> None:
+    if qcfg.act_bit + 1 > 8:
+        raise ValueError(f"{name} needs int8 activations (act_bit <= 7)")
 
 
 class FrozenExecFused(FrozenExec):
-    """FrozenExec with every conv in a kernel (pending-conv design of the
-    JAX FrozenExecCMF, in (B, T, C), with pointwise and join fusion always
-    on).  ``masked_conv`` returns a _PendingConv; the next site flushes it:
+    """Static-exponent tables with every requant inside a kernel (the
+    pending-conv design of the JAX FrozenExecCMF, in (B, T, C), with
+    pointwise and join fusion always on).  ``masked_conv`` returns a
+    _PendingConv; the next site flushes it:
 
       * into a conv site: Kernel 1/2 with the epilogue bias -> ReLU -> mask
         -> the consumer's requant -> clamp -> int8;
       * into a residual join: a pending block-tail pointwise conv goes
         through Kernel 2's join epilogue, the residual branch's conv is
         flushed to int32 first;
-      * at a block end or into the decoder: int32 through the same kernels
-        with the epilogue off.
+      * at a block end: the raw int32 accumulator (no bias, no ReLU) is
+        materialized as a _Held, since a block output feeds several
+        consumers, each with its own input requant.
 
-    The input requant of a materialized tensor (block outputs, which feed
-    two consumers, and the decoder input) and the first-site quantization
-    stay plain torch, as XLA ran them outside Pallas on the TPU.  Needs
-    static exponents (freeze dyadic_mode 'static_e' or 'static_e16') and
-    int8 activations."""
+    A materialized tensor (a block end's raw accumulator, a residual join's
+    int8 output) reaches each consumer through that consumer's kernel
+    prologue: bias -> ReLU -> mask -> requant -> clamp, in shared memory
+    (Kernel 1 at a block's first depthwise conv, Kernel 2 at a residual
+    pointwise conv, a non-separable block's conv and the decoder, whose
+    input is not masked, as in the JAX package).  Outside a kernel remain
+    only the first site's quantization of the float features and the
+    decoder's float log-softmax.  Needs static exponents (freeze
+    dyadic_mode 'static_e' or 'static_e16') and int8 activations."""
 
     def __init__(self, tables, qcfg: QuantConfig, *, activation: str):
         super().__init__(tables, qcfg, activation=activation)
         if not tables_all_static_e(tables):
             raise ValueError("FrozenExecFused needs static-exponent tables "
                              "(dyadic_mode 'static_e' or 'static_e16')")
-        if qcfg.act_bit + 1 > 8:
-            raise ValueError("FrozenExecFused needs int8 activations (act_bit <= 7)")
+        _check_int8_acts("FrozenExecFused", qcfg)
 
-    def _flush_int8(self, p: _PendingConv, lens, entry, bits: int) -> torch.Tensor:
-        kw = dict(bias=p.entry.get("b"), relu=p.relu, m=entry["act_m"],
-                  e=entry["act_e"], bits=bits)
+    def _conv(self, p: _PendingConv, lens=None, **kw) -> torch.Tensor:
+        """Run a pending conv in its kernel with these epilogue arguments
+        (``lens``: the epilogue's output mask)."""
         if p.depthwise:
             s = p.spec
             return dw_conv(p.xq, p.entry["wk"], stride=s.stride, padding=s.padding,
-                           dilation=s.dilation, out_len=lens, **kw)
-        return pw_gemm(p.xq, p.entry["wk"], lens=lens, **kw)
+                           dilation=s.dilation, out_len=lens, **p.pro, **kw)
+        return pw_gemm(p.xq, p.entry["wk"], lens=lens, **p.pro, **kw)
 
-    def _flush_int32(self, p: _PendingConv) -> QTensor:
-        kw = dict(bias=p.entry.get("b"), relu=p.relu)
-        if p.depthwise:
-            s = p.spec
-            y = dw_conv(p.xq, p.entry["wk"], stride=s.stride, padding=s.padding,
-                        dilation=s.dilation, **kw)
-        else:
-            y = pw_gemm(p.xq, p.entry["wk"], **kw)
-        return QTensor(y, p.entry["out_scale"])
+    def _flush_int8(self, p: _PendingConv, lens, entry, bits: int) -> torch.Tensor:
+        return self._conv(p, lens, bias=p.entry.get("b"), relu=p.relu, m=entry["act_m"],
+                          e=entry["act_e"], bits=bits)
+
+    def _flush_int32(self, p: _PendingConv) -> torch.Tensor:
+        return self._conv(p, bias=p.entry.get("b"), relu=p.relu)
 
     def masked_conv(self, site, spec: ConvSpec, x, lens):
         bi, kind, i = site
@@ -546,7 +604,99 @@ class FrozenExecFused(FrozenExec):
             raise NotImplementedError(f"conv {spec} is neither depthwise nor pointwise")
         bits = self._act_bits(spec)
         if isinstance(x, _PendingConv):
-            xq = self._flush_int8(x, lens, entry, bits)
+            p = _PendingConv(self._flush_int8(x, lens, entry, bits), entry, spec)
+        elif isinstance(x, _Held):
+            p = _PendingConv(x.values, entry, spec, pro=dict(
+                in_bias=x.bias, in_relu=x.relu, in_len=lens, m1=entry["act_m"],
+                e1=entry["act_e"], bits1=bits))
+        else:
+            p = _PendingConv(self._requant_in(entry, x, lens, bits), entry, spec)
+        return p, conv_out_len(lens, spec)
+
+    def activation(self, x, dropout: float):
+        if isinstance(x, _PendingConv):
+            x.relu = True
+            return x
+        if isinstance(x, _Held):
+            return x.with_relu()
+        return super().activation(x, dropout)
+
+    def residual_add(self, block_idx: int, pane: int, out, res_out, mode: str):
+        if mode not in ("add", "stride_add"):
+            raise NotImplementedError(f"residual mode {mode!r}")
+        e = self.t["blocks"][block_idx]["res_act"][pane]
+        res = self._flush_int32(res_out)
+        bits = self.qcfg.act_bit
+        if isinstance(out, _PendingConv) and not out.depthwise and not out.relu:
+            q8 = self._conv(out, bias=out.entry.get("b"), m=e["m"], e=e["e"], res=res,
+                            m_r=e["m_r"], e_r=e["e_r"], bits=bits)
+            return _Held(q8, e["scale"])
+        if isinstance(out, _PendingConv):
+            out = _Held(self._flush_int32(out), out.entry["out_scale"])
+        if out.bias is not None:
+            raise ValueError("residual join of a tensor with a pending bias")
+        q8 = requant(out.values, e["m"], e["e"], bits, relu=out.relu, identity=res,
+                     m_r=e["m_r"], e_r=e["e_r"])
+        return _Held(q8, e["scale"])
+
+    def block_end(self, x):
+        if isinstance(x, _PendingConv):
+            return _Held(self._conv(x), x.entry["out_scale"], x.entry.get("b"), x.relu)
+        return x
+
+    def _decoder_prologue(self, x: _Held):
+        t = self.t["decoder"]
+        return dict(in_bias=x.bias, in_relu=x.relu, m1=t["act_m"], e1=t["act_e"],
+                    bits1=self.qcfg.act_bit)
+
+    def decoder_input(self, x: _Held) -> torch.Tensor:
+        """The decoder's int8 input, for records: on the serving path it
+        exists only inside the decoder's Kernel 2 prologue."""
+        return prologue_plain(x.values, **self._decoder_prologue(x))
+
+    def decoder_logits(self, x: _Held) -> torch.Tensor:
+        t = self.t["decoder"]
+        return pw_gemm(x.values, t["wk"], bias=t["b"], **self._decoder_prologue(x))
+
+
+class FrozenExecKernels(FrozenExec):
+    """Any tables, vector exponents included (freeze dyadic_mode
+    'per_channel'): the port's counterpart of the JAX FrozenExec with
+    use_pallas=True.  Every conv runs in Kernel 1 or 2 with the epilogue
+    off (int32 out with its bias and a staged ReLU, as _PendingConv); every
+    input requant (with its length mask), every residual join and the
+    decoder's input requant (unmasked) run in the requant kernel, which
+    takes per-channel mantissas and exponents.  Outside a kernel remain
+    only the first site's quantization of the float features and the
+    decoder's float log-softmax.  Needs int8 activations."""
+
+    def __init__(self, tables, qcfg: QuantConfig, *, activation: str):
+        super().__init__(tables, qcfg, activation=activation)
+        _check_int8_acts("FrozenExecKernels", qcfg)
+
+    def _flush(self, x):
+        """A pending conv through its kernel, epilogue off -> _Held int32."""
+        if not isinstance(x, _PendingConv):
+            return x
+        kw = dict(bias=x.entry.get("b"), relu=x.relu)
+        if x.depthwise:
+            s = x.spec
+            y = dw_conv(x.xq, x.entry["wk"], stride=s.stride, padding=s.padding,
+                        dilation=s.dilation, **kw)
+        else:
+            y = pw_gemm(x.xq, x.entry["wk"], **kw)
+        return _Held(y, x.entry["out_scale"])
+
+    def masked_conv(self, site, spec: ConvSpec, x, lens):
+        bi, kind, i = site
+        entry = self.t["blocks"][bi][kind][i]
+        if not (is_depthwise(spec) or is_pointwise(spec)):
+            raise NotImplementedError(f"conv {spec} is neither depthwise nor pointwise")
+        bits = self._act_bits(spec)
+        x = self._flush(x)
+        if isinstance(x, _Held):
+            xq = requant(x.values, entry["act_m"], entry["act_e"], bits, relu=x.relu,
+                         lens=lens)
         else:
             xq = self._requant_in(entry, x, lens, bits)
         return _PendingConv(xq, entry, spec), conv_out_len(lens, spec)
@@ -555,27 +705,26 @@ class FrozenExecFused(FrozenExec):
         if isinstance(x, _PendingConv):
             x.relu = True
             return x
+        if isinstance(x, _Held):
+            return x.with_relu()
         return super().activation(x, dropout)
 
     def residual_add(self, block_idx: int, pane: int, out, res_out, mode: str):
         if mode not in ("add", "stride_add"):
             raise NotImplementedError(f"residual mode {mode!r}")
-        if isinstance(res_out, _PendingConv):
-            res_out = self._flush_int32(res_out)
-        if isinstance(out, _PendingConv) and not out.depthwise and not out.relu:
-            e = self.t["blocks"][block_idx]["res_act"][pane]
-            q8 = pw_gemm(out.xq, out.entry["wk"], bias=out.entry.get("b"),
-                         m=e["m"], e=e["e"], res=res_out.values, m_r=e["m_r"],
-                         e_r=e["e_r"], bits=self.qcfg.act_bit)
-            return QTensor(q8, e["scale"])
-        if isinstance(out, _PendingConv):
-            out = self._flush_int32(out)
-        return super().residual_add(block_idx, pane, out, res_out, mode)
+        e = self.t["blocks"][block_idx]["res_act"][pane]
+        out, res = self._flush(out), self._flush(res_out)
+        q8 = requant(out.values, e["m"], e["e"], self.qcfg.act_bit, relu=out.relu,
+                     identity=res.values, m_r=e["m_r"], e_r=e["e_r"])
+        return _Held(q8, e["scale"])
 
     def block_end(self, x):
-        return self._flush_int32(x) if isinstance(x, _PendingConv) else x
+        return self._flush(x)
 
-    def decoder_parts(self, x: QTensor):
-        q = self._decoder_input(x)  # block_end materialized the encoder output
+    def decoder_input(self, x: _Held) -> torch.Tensor:
         t = self.t["decoder"]
-        return q, pw_gemm(q, t["wk"], bias=t["b"])
+        return requant(x.values, t["act_m"], t["act_e"], self.qcfg.act_bit, relu=x.relu)
+
+    def decoder_logits(self, x: _Held) -> torch.Tensor:
+        t = self.t["decoder"]
+        return pw_gemm(self.decoder_input(x), t["wk"], bias=t["b"])
