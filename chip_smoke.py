@@ -19,7 +19,10 @@ result line.  Phases:
    epilogue mode, and with the input-requant prologue (int8 and int32
    inputs, producer bias and ReLU on and off, 31- and 16-bit mantissas,
    per-channel or scalar, bits1 6/7/8, ragged input lengths, with every
-   epilogue mode); the
+   epilogue mode), pw_gemm at N in {1, 37, 609} (a ragged last row tile),
+   Cin 64 (a single K chunk) to 1024, Cout 29 (one 32-column tile, rows of
+   29 or 116 bytes) to 1024 (the prologue's resident A tile reused over 8
+   column tiles); the
    requant kernel at C in {64, 256, 512, 1024, 29} with int8 and int32
    inputs, scalar and per-channel mantissas and exponents (1, 31, 62, 63,
    70), identity and mask on and off; the requant device function over its
@@ -30,8 +33,9 @@ result line.  Phases:
    besides the flagship's 64, and at T in {1300, 1500, 2600} on its
    streaming form; conv_block at d in {64, 256, 512}, T in {1, 31, 375}
    with ragged lengths; lin_epilogue in its three modes at every (K, D) of
-   the Conformer path, with and without bias, at N in {1, 37, 12000}, on
-   the flagship's sites and on seeded sites with exponents above 31; ffn_ln
+   the Conformer path (K = 4864 is 38 chunks of K), with and without bias,
+   at N in {1, 37, 609, 12000}, on the flagship's sites and on seeded sites
+   with exponents above 31; ffn_ln
    at d in {64, 256, 512} x T in {1, 31, 375}, tail on and off;
 4. the golden checks: full-width QuartzNet15x5 reproduces the JAX static_e
    record exactly on FrozenExecFused, FrozenExecKernels and the plain path,
@@ -61,9 +65,14 @@ result line.  Phases:
    prologue and requant sites included, and int_attention's streaming form
    at T=1500), with its bound (bytes over 3.35 TB/s or int8 operations over
    1,979 TOP/s, from this run's inputs) and, where one PyTorch call
-   computes the same function, that call's time.
+   computes the same function, that call's time: each as CUDA events
+   around one call (call_ms, the wrapper's host time included) and as
+   device time (device_ms: torch.profiler over 10 calls, the named
+   kernels' device time per call).
 
-Prints the card line, a {"kernels": [...]} line, then as the last line
+Prints the card line, a {"kernels": [...]} line (each kernel's "ms" and
+"library_ms" are device times, "call_ms" and "library_call_ms" the
+per-call event times), then as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
@@ -96,11 +105,18 @@ RQ_C = (64, 256, 512, 1024, 29)
 QUARTZNET_MODES = ("static_e", "per_channel")
 CONV_D, CONV_T = (64, 256, 512), (1, 31, 375)
 FFN_D, FFN_T = (64, 256, 512), (1, 31, 375)
-LIN_N = (1, 37, 12000)
+LIN_N = (1, 37, 609, 12000)
+# pw_gemm's (B, T) in phase 3: N = 609, 1 and 37 rows (ragged last row tiles)
+PW_BT = ((3, 203), (1, 1), (1, 37))
 # the H100 SXM's published peaks (NVIDIA data sheet, dense, 700 W)
 HBM_BYTES_PER_S, INT8_OPS_PER_S = 3.35e12, 1979e12
 KERNELS = ("dw_conv", "pw_gemm", "requant", "int_attention", "conv_block", "lin_epilogue",
            "ffn_ln")
+# the device kernels each wrapper launches (a substring of their names)
+KERNEL_SYMBOLS = {"dw_conv": "dw_conv_kernel", "pw_gemm": "pw_gemm_kernel",
+                  "requant": "requant_kernel", "int_attention": "int_attention",
+                  "conv_block": "conv_block_stage", "lin_epilogue": "lin_epilogue_kernel",
+                  "ffn_ln": "ffn_ln_kernel"}
 
 
 def log(msg: str) -> None:
@@ -130,6 +146,37 @@ def cuda_ms(fn, reps: int, warmup: int = 3):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return times
+
+
+def device_ms(fn, symbol=None, calls: int = 10):
+    """(device time in ms per call of fn(), how it was read): torch.profiler
+    (CPU and CUDA activities) over ``calls`` calls, the sum of the CUDA
+    kernels' device time (of the kernels whose names hold ``symbol``, or of
+    all) divided by the calls.  A trace that holds none of them (the
+    profiler drops a run's kernel records now and then) is taken again, up
+    to three times; after that CUDA events around the ``calls`` calls in a
+    row stand in, and the second value says "events"."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        total_us = 0.0
+        for ev in prof.key_averages():
+            if ev.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            if symbol is not None and symbol not in ev.key:
+                continue
+            us = getattr(ev, "self_device_time_total", None)
+            total_us += ev.self_cuda_time_total if us is None else us
+        if total_us > 0:
+            return total_us / 1e3 / calls, "profiler"
+    return sum(cuda_ms(lambda: [fn() for _ in range(calls)], reps=1, warmup=0)) / calls, "events"
 
 
 class Checker:
@@ -290,59 +337,57 @@ def phase_pw(chk, dev):
     from qasr_tpu_torch.kernels.pw_gemm import pw_gemm, pw_gemm_plain
 
     rng = np.random.default_rng(2)
-    b, t = 3, 203
-    for cin in PW_CIN:
+    for (b, t), cin, cout in ((bt, ci, co) for bt in PW_BT for ci in PW_CIN for co in PW_COUT):
         x = torch.from_numpy(rng.integers(-64, 64, (b, t, cin)).astype(np.int8)).to(dev)
-        for cout in PW_COUT:
-            wt = torch.from_numpy(rng.integers(-31, 32, (cout, cin)).astype(np.int8)).to(dev)
-            bias = torch.from_numpy(rng.integers(-3000, 3000, cout).astype(np.int32)).to(dev)
-            lens = torch.from_numpy(rng.integers(1, t + 1, b).astype(np.int32)).to(dev)
-            res = torch.from_numpy(
-                rng.integers(-2**20, 2**20, (b, t, cout)).astype(np.int32)).to(dev)
-            modes = {"none": dict(bias=bias), "none+relu": dict(bias=bias, relu=True)}
-            for m16 in (False, True):
-                m, e = _tables(rng, cout, m16, dev)
-                m_r, e_r = _tables(rng, cout, m16, dev)
-                tag = f"m{16 if m16 else 31}"
-                modes[f"requant {tag}"] = dict(bias=bias, lens=lens, m=m, e=e, bits=7)
-                modes[f"requant+relu {tag}"] = dict(bias=bias, relu=True, lens=lens,
-                                                     m=m, e=e, bits=7)
-                modes[f"join {tag}"] = dict(bias=bias, m=m, e=e, bits=6, res=res,
-                                            m_r=m_r, e_r=e_r + 3)
-            for name, kw in modes.items():
-                chk.equal("pw_gemm", f"pw_gemm {cin}->{cout} {name}",
-                          pw_gemm(x, wt, **kw), pw_gemm_plain(x, wt, **kw))
-            # the prologue with every epilogue mode: int8 / int32 inputs,
-            # bias and ReLU on and off, 31- and 16-bit mantissas, bits1
-            # 6/7/8, ragged in_len or no mask (the decoder's input)
-            n_pro = 0
-            for x32 in (False, True):
-                xi = (torch.from_numpy(rng.integers(-2**20, 2**20, (b, t, cin)).astype(np.int32))
-                      .to(dev) if x32 else x)
-                for mode in ("none", "requant m31", "join m16"):
-                    m16 = n_pro % 2 == 1
-                    bits1 = (6, 7, 8)[n_pro % 3]
-                    m1, e1 = _tables(rng, cin, m16, dev)
-                    if n_pro % 4 == 3:  # one mantissa for all channels, as after a join
-                        m1 = np.asarray(m1[0].item(), np.int32)
-                    pro = dict(m1=m1, e1=e1 + (6 if x32 else -8), bits1=bits1,
-                               in_len=None if mode == "none" else lens)
-                    if n_pro % 3 != 2:
-                        hb = 2**18 if x32 else 64
-                        pro.update(in_bias=torch.from_numpy(
-                            rng.integers(-hb, hb, cin).astype(np.int32)).to(dev), in_relu=True)
-                    name = (f"prologue {'int32' if x32 else 'int8'} {mode} m{16 if m16 else 31}"
-                            f"{' scalar' if m1.ndim == 0 else ''} bits1={bits1} "
-                            f"bias+relu={'in_bias' in pro} "
-                            f"mask={pro['in_len'] is not None}")
-                    chk.equal("pw_gemm", f"pw_gemm {cin}->{cout} {name}",
-                              pw_gemm(xi, wt, **pro, **modes[mode]),
-                              pw_gemm_plain(xi, wt, **pro, **modes[mode]))
-                    n_pro += 1
+        wt = torch.from_numpy(rng.integers(-31, 32, (cout, cin)).astype(np.int8)).to(dev)
+        bias = torch.from_numpy(rng.integers(-3000, 3000, cout).astype(np.int32)).to(dev)
+        lens = torch.from_numpy(rng.integers(1, t + 1, b).astype(np.int32)).to(dev)
+        res = torch.from_numpy(
+            rng.integers(-2**20, 2**20, (b, t, cout)).astype(np.int32)).to(dev)
+        modes = {"none": dict(bias=bias), "none+relu": dict(bias=bias, relu=True)}
+        for m16 in (False, True):
+            m, e = _tables(rng, cout, m16, dev)
+            m_r, e_r = _tables(rng, cout, m16, dev)
+            tag = f"m{16 if m16 else 31}"
+            modes[f"requant {tag}"] = dict(bias=bias, lens=lens, m=m, e=e, bits=7)
+            modes[f"requant+relu {tag}"] = dict(bias=bias, relu=True, lens=lens,
+                                                 m=m, e=e, bits=7)
+            modes[f"join {tag}"] = dict(bias=bias, m=m, e=e, bits=6, res=res,
+                                        m_r=m_r, e_r=e_r + 3)
+        for name, kw in modes.items():
+            chk.equal("pw_gemm", f"pw_gemm N={b * t} {cin}->{cout} {name}",
+                      pw_gemm(x, wt, **kw), pw_gemm_plain(x, wt, **kw))
+        # the prologue with every epilogue mode: int8 / int32 inputs,
+        # bias and ReLU on and off, 31- and 16-bit mantissas, bits1
+        # 6/7/8, ragged in_len or no mask (the decoder's input)
+        n_pro = 0
+        for x32 in (False, True):
+            xi = (torch.from_numpy(rng.integers(-2**20, 2**20, (b, t, cin)).astype(np.int32))
+                  .to(dev) if x32 else x)
+            for mode in ("none", "requant m31", "join m16"):
+                m16 = n_pro % 2 == 1
+                bits1 = (6, 7, 8)[n_pro % 3]
+                m1, e1 = _tables(rng, cin, m16, dev)
+                if n_pro % 4 == 3:  # one mantissa for all channels, as after a join
+                    m1 = np.asarray(m1[0].item(), np.int32)
+                pro = dict(m1=m1, e1=e1 + (6 if x32 else -8), bits1=bits1,
+                           in_len=None if mode == "none" else lens)
+                if n_pro % 3 != 2:
+                    hb = 2**18 if x32 else 64
+                    pro.update(in_bias=torch.from_numpy(
+                        rng.integers(-hb, hb, cin).astype(np.int32)).to(dev), in_relu=True)
+                name = (f"prologue {'int32' if x32 else 'int8'} {mode} m{16 if m16 else 31}"
+                        f"{' scalar' if m1.ndim == 0 else ''} bits1={bits1} "
+                        f"bias+relu={'in_bias' in pro} "
+                        f"mask={pro['in_len'] is not None}")
+                chk.equal("pw_gemm", f"pw_gemm N={b * t} {cin}->{cout} {name}",
+                          pw_gemm(xi, wt, **pro, **modes[mode]),
+                          pw_gemm_plain(xi, wt, **pro, **modes[mode]))
+                n_pro += 1
     log(f"[3] pw_gemm == plain at {len(PW_CIN) * len(PW_COUT)} (Cin, Cout) pairs "
-        f"x (8 epilogue modes + 6 prologue modes: int8/int32 input x none/requant/join, "
-        f"bias+relu on/off, m31/m16, per-channel or one m1, bits1 6/7/8, ragged in_len "
-        f"or none)")
+        f"x N in {[b * t for b, t in PW_BT]} x (8 epilogue modes + 6 prologue modes: "
+        f"int8/int32 input x none/requant/join, bias+relu on/off, m31/m16, per-channel or "
+        f"one m1, bits1 6/7/8, ragged in_len or none)")
 
 
 def phase_requant_kernel(chk, dev):
@@ -490,14 +535,25 @@ def pad_batch(utts):
 
 def timed_pair(chk, kind, label, kern, plain, card, rows, library=None):
     """Hold kern() against plain() (exact), then time both (and the
-    library call, if any) with CUDA events."""
+    library call, if any) with CUDA events around each call (median of
+    10), and the kernel and the library call in device time (torch.profiler
+    over 10 calls)."""
     chk.equal(kind, label, kern(), plain())
     pk = statistics.median(cuda_ms(plain, reps=5) + cuda_ms(plain, reps=5))
     kk = statistics.median(cuda_ms(kern, reps=10))
-    lib = statistics.median(cuda_ms(library, reps=10)) if library is not None else None
-    rows.append({"shape": label, "kernel": kind, "ms": kk, "plain_ms": pk, "library_ms": lib})
-    log(f"[6] {label}: kernel {kk:.4f} ms, plain {pk:.4f} ms"
-        + (f", library {lib:.4f} ms" if lib is not None else "") + f", equal [{card}]")
+    kd, kd_by = device_ms(kern, KERNEL_SYMBOLS[kind])
+    lib = lib_d = lib_by = None
+    if library is not None:
+        lib = statistics.median(cuda_ms(library, reps=10))
+        lib_d, lib_by = device_ms(library)
+    rows.append({"shape": label, "kernel": kind, "call_ms": kk, "device_ms": kd,
+                 "device_ms_by": kd_by, "plain_ms": pk, "library_call_ms": lib,
+                 "library_device_ms": lib_d, "library_device_ms_by": lib_by})
+    log(f"[6] {label}: kernel {kd:.4f} ms device ({kd_by}; {kk:.4f} ms call), plain "
+        f"{pk:.4f} ms"
+        + (f", library {lib_d:.4f} ms device ({lib_by}; {lib:.4f} ms call)"
+           if lib is not None else "")
+        + f", equal [{card}]")
     return rows[-1]
 
 
@@ -557,7 +613,7 @@ def phase_time(chk, model, tables, dev, card, report):
                        lambda x=x, w=w, kw=kw: dw_conv_plain(x, w, **kw), card, rows)
         r["bound"] = bound(x.numel() + w.numel() + 4 * (c + batch) + batch * t_enc * c,
                            2 * k * batch * t_enc * c)
-    for cin, cout, mode in [(256, 256, "requant"), (512, 512, "requant"),
+    for cin, cout, mode in [(64, 256, "requant"), (256, 256, "requant"), (512, 512, "requant"),
                             (512, 512, "join"), (512, 1024, "none"), (1024, 29, "none")]:
         x = t8(batch, t_enc, cin)
         wt = t8(cout, cin)
@@ -1114,9 +1170,11 @@ def main() -> int:
         kernels.append({"name": kind, "route": "cuda",
                         "source": f"qasr_tpu_torch/kernels/csrc/{kind}.cu",
                         "replaces": replaces, "launches": counts[kind],
-                        "max_abs_err": chk.max_err[kind], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
-                        "bound_by": r["bound"][1], "library_ms": r["library_ms"]})
+                        "max_abs_err": chk.max_err[kind], "ms": r["device_ms"],
+                        "call_ms": r["call_ms"], "plain_ms": r["plain_ms"],
+                        "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+                        "library_ms": r["library_device_ms"],
+                        "library_call_ms": r["library_call_ms"]})
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     log(f"[6] whole smoke run {report['seconds']:.1f} s")

@@ -16,137 +16,163 @@
 // What bounds it on an H100, at the path's sites (N = B*T = 12,000 rows):
 // the (256 -> 256) projections move 6.1 MB (x, out, weights) for 0.79 G
 // multiply-adds, so bytes bound them (~1.8 us at 3.35 TB/s); the pre
-// projection (5120 -> 256) moves 64 MB against 15.7 G multiply-adds.  The
-// int32 accumulator never reaches device memory: the epilogue runs on it in
-// registers.
+// projection (4864 -> 256) moves 61 MB against 15 G multiply-adds.  The
+// int32 accumulator never reaches device memory.
 //
-// Design (simple first, as pw_gemm.cu): 64x64 output tiles per 128-thread
-// block, four warps of 32x32; K staged through shared memory 128 bytes at a
-// time with 16-byte loads (rows padded to 36 words so fragment loads hit
-// distinct banks); products by mma.sync m16n8k32 s8 x s8 -> s32, exact.
-// K must be a multiple of 16; rows past N and columns past D are masked.
-// The swish mode's chain after the clamp depends on the int8 a8 alone, so
-// each block tabulates it over a8's 2 n8 values (the same device
-// functions) and looks it up.  No cp.async pipelining, TMA or wgmma yet.
+// Design (gemm_s8.cuh's mainloop): 64 x 128 output tiles, one consumer
+// warpgroup and one producer warp per block (376 blocks at N = 12,000 and
+// D = 256, three or four resident on each of the 132 SMs); x and the
+// weights both stream by TMA through a ring of up to 3 stages of 128 bytes
+// of K (38 chunks at K = 4,864), rows past N and columns past D zero-filled
+// on load and masked on store; products by wgmma m64n128k32 s8 x s8 -> s32,
+// exact.  K must be a multiple of 16 (the TMA row pitch).  The swish mode's
+// chain after the clamp depends on the int8 a8 alone, so each block
+// tabulates it over a8's 2 n8 values (the same device functions) and looks
+// it up.  The int32 accumulators are staged in shared memory (the drained
+// ring) and the epilogue reads them back 8 columns a thread in a rolled
+// loop, with 8-byte reads of stream8 and 8-byte stores of the output.  The
+// epilogue's dyadic requants (a 64-bit product each) are most of the
+// instructions; several resident blocks keep them in flight.  The wrapper's
+// kernels/lin_epilogue.py::plan computes the same tiles and shared memory.
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
 #include "conformer_int.cuh"
+#include "gemm_s8.cuh"
 #include "requant.cuh"
 
 namespace {
 
-constexpr int kBM = 64;          // rows (n) per block
-constexpr int kBN = 64;          // columns (o) per block
-constexpr int kKC = 32;          // 32-bit words of K per stage (128 int8)
-constexpr int kLd = kKC + 4;     // padded shared-memory row, in words
-constexpr int kThreads = 128;    // 4 warps, 2 x 2, each 32 x 32
+using gemm_s8::kChunk;
+
+constexpr int kBM = 64;            // rows (n) per block: one consumer warpgroup
+constexpr int kBN = 128;           // columns (o) per block
+constexpr int kMaxStages = 3;
+constexpr int kThreads = 128 + 32;  // the consumer warpgroup and the producer warp
 constexpr int kRq = 0, kJoin = 1, kSwish = 2;
 
-__device__ __forceinline__ void mma_s8(int (&c)[4], const int (&a)[4], int b0, int b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+struct LinParams {
+  const int32_t* bias;
+  const int32_t* m;
+  const int8_t* stream8;
+  int8_t* out;
+  int n_rows, k, d, mode, e, m2, e2, m3, e3, n8;
+  int nk, stages;
+};
 
-__global__ void __launch_bounds__(kThreads)
-lin_epilogue_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wt,
-                    const int32_t* __restrict__ bias, const int32_t* __restrict__ m,
-                    const int8_t* __restrict__ stream8, int8_t* __restrict__ out, int n_rows,
-                    int k, int d, int mode, int e, int m2, int e2, int m3, int e3, int n8) {
-  __shared__ int4 as4[kBM * kLd / 4];
-  __shared__ int4 bs4[kBN * kLd / 4];
-  __shared__ int8_t swish[256];                    // swish mode: by a8 + 128
-  int* as = reinterpret_cast<int*>(as4);
-  int* bs = reinterpret_cast<int*>(bs4);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t4 = lane & 3;          // mma fragment coordinates
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
+// A block's shared memory from the 1024-aligned base: the ring (each stage
+// a 64-row x chunk, then a 128-row weight chunk), which the int32 staging
+// tile reuses once the products are done, the swish table, the mbarriers
+// (full[S], empty[S]).
+struct LinLayout {
+  int ring, stage_bytes, ld, swish, bars, bytes;
+  __host__ __device__ explicit LinLayout(int stages) {
+    stage_bytes = (kBM + kBN) * kChunk;
+    ring = 0;
+    ld = gemm_s8::stage_ld(kBN);
+    const int ring_bytes = stages * stage_bytes, staging = kBM * ld;
+    swish = ring + (ring_bytes > staging ? ring_bytes : staging);
+    bars = swish + 256;
+    bytes = bars + 8 * 2 * stages + gemm_s8::kAlign;  // + the base's alignment slack
+  }
+};
+
+__global__ void __launch_bounds__(kThreads, 3)
+lin_epilogue_kernel(const __grid_constant__ CUtensorMap map_x,
+                    const __grid_constant__ CUtensorMap map_w, const LinParams p) {
+  using namespace gemm_s8;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  const LinLayout L(p.stages);
+  uint8_t* ring = smem + L.ring;
+  uint8_t* stage = ring;  // after the mainloop
+  int8_t* swish = reinterpret_cast<int8_t*>(smem + L.swish);  // swish mode: by a8 + 128
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bars);
+  uint64_t* empty = full + p.stages;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int n0 = blockIdx.x * kBM, o0 = blockIdx.y * kBN;
-  const int k4 = k / 4;                            // words per row
-  if (mode == kSwish) {                            // visible after the first stage's sync
-    for (int v = tid; v < 256; v += kThreads) {
-      const int a8 = qasr_clamp(v - 128, -n8, n8 - 1);
-      const int y = a8 * qasr_i_sigmoid_grid(qasr_requant(a8, m2, e2));
-      swish[v] = static_cast<int8_t>(qasr_clamp(qasr_requant(y, m3, e3), -n8, n8 - 1));
+  if (tid == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 4);
     }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == 4) {  // the producer warp
+    if (lane == 0) {
+      for (int kc = 0; kc < p.nk; ++kc) {
+        const int s = kc % p.stages;
+        uint8_t* st = ring + s * L.stage_bytes;
+        mbar_wait(empty + s, ((kc / p.stages) & 1) ^ 1);
+        mbar_expect_tx(full + s, L.stage_bytes);
+        tma_load_2d(st, &map_x, full + s, kc * kChunk, n0);
+        tma_load_2d(st + kBM * kChunk, &map_w, full + s, kc * kChunk, o0);
+      }
+    }
+    return;
   }
 
-  int acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0;
-
-  for (int kk = 0; kk < k4; kk += kKC) {
-    for (int idx = tid; idx < kBM * (kKC / 4); idx += kThreads) {
-      const int r = idx / (kKC / 4), q = idx % (kKC / 4);
-      const int kw = kk + 4 * q;
-      const int n = n0 + r, o = o0 + r;
-      int4 va = make_int4(0, 0, 0, 0), vb = make_int4(0, 0, 0, 0);
-      if (kw < k4) {
-        if (n < n_rows)
-          va = *reinterpret_cast<const int4*>(x + static_cast<size_t>(n) * k + 4 * kw);
-        if (o < d)
-          vb = *reinterpret_cast<const int4*>(wt + static_cast<size_t>(o) * k + 4 * kw);
-      }
-      as4[(r * kLd) / 4 + q] = va;
-      bs4[(r * kLd) / 4 + q] = vb;
+  // the consumer warpgroup
+  if (p.mode == kSwish) {
+    for (int v = tid; v < 256; v += 128) {
+      const int a8 = qasr_clamp(v - 128, -p.n8, p.n8 - 1);
+      const int y = a8 * qasr_i_sigmoid_grid(qasr_requant(a8, p.m2, p.e2));
+      swish[v] = static_cast<int8_t>(qasr_clamp(qasr_requant(y, p.m3, p.e3), -p.n8, p.n8 - 1));
     }
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < kKC; ks += 8) {
-      if (kk + ks < k4) {                          // uniform across the block
-        int a[2][4];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int r = wm + 16 * i + g;
-          a[i][0] = as[r * kLd + ks + t4];
-          a[i][1] = as[(r + 8) * kLd + ks + t4];
-          a[i][2] = as[r * kLd + ks + t4 + 4];
-          a[i][3] = as[(r + 8) * kLd + ks + t4 + 4];
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int c = wn + 8 * j + g;
-          const int b0 = bs[c * kLd + ks + t4], b1 = bs[c * kLd + ks + t4 + 4];
-#pragma unroll
-          for (int i = 0; i < 2; ++i) mma_s8(acc[i][j], a[i], b0, b1);
-        }
-      }
-    }
-    __syncthreads();
   }
+  int acc[kBN / 2];
+#pragma unroll
+  for (int i = 0; i < kBN / 2; ++i) acc[i] = 0;
+  for (int kc = 0; kc < p.nk; ++kc) {
+    const int s = kc % p.stages;
+    const uint8_t* st = ring + s * L.stage_bytes;
+    mbar_wait(full + s, (kc / p.stages) & 1);
+    mma_chunk<kBN>(acc, st, st + kBM * kChunk);
+    if (lane == 0) mbar_arrive(empty + s);
+  }
+  bar_sync(1, 128);  // every warp's products are done: the ring is free for staging
+  stage_acc<kBN>(acc, stage, warp, lane);
+  bar_sync(1, 128);  // the staging tile and the swish table are complete
 
-  // accumulator (i, j, r) holds row wm + 16i + g + 8*(r >= 2),
-  // column wn + 8j + 2t + (r & 1)
+  // rows r of the tile, 8 columns (group g) a thread, per-column operands once
+  constexpr int kG = kBN / 8, kStep = 128 / kG;
+  const int g = tid % kG, o = o0 + 8 * g, nv = min(8, p.d - o);
+  const int rows = min(kBM, p.n_rows - n0);
+  if (nv <= 0) return;
+  int bq[8], mq[8];
+  gload8(p.bias ? p.bias + o : nullptr, p.bias ? nv : 0, bq);
+  gload8(p.m + o, nv, mq);
+  int a[8], y[8];
+#pragma unroll 1
+  for (int r = tid / kG; r < rows; r += kStep) {
+    const size_t idx = static_cast<size_t>(n0 + r) * p.d + o;
+    int sv[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+    if (p.mode == kJoin) {
+      const int8_t* sp = p.stream8 + idx;
+      if (nv == 8 && (reinterpret_cast<uintptr_t>(sp) & 7) == 0) {
+        const uint2 u = *reinterpret_cast<const uint2*>(sp);
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int n = n0 + wm + 16 * i + g + 8 * h;
-      if (n >= n_rows) continue;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          const int o = o0 + wn + 8 * j + 2 * t4 + q;
-          if (o >= d) continue;
-          const size_t idx = static_cast<size_t>(n) * d + o;
-          const int z = acc[i][j][2 * h + q] + (bias != nullptr ? bias[o] : 0);
-          int y = qasr_clamp(qasr_requant(z, m[o], e) +
-                                 (mode == kJoin ? qasr_requant(stream8[idx], m2, e2) : 0),
-                             -n8, n8 - 1);
-          if (mode == kSwish) y = swish[y + 128];
-          out[idx] = static_cast<int8_t>(y);
+        for (int q = 0; q < 4; ++q) {
+          sv[q] = static_cast<int8_t>(u.x >> (8 * q));
+          sv[q + 4] = static_cast<int8_t>(u.y >> (8 * q));
         }
+      } else {
+#pragma unroll
+        for (int q = 0; q < 8; ++q) sv[q] = q < nv ? sp[q] : 0;
       }
     }
+    load8(stage, L.ld, r, g, a);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      y[q] = qasr_clamp(qasr_requant(a[q] + bq[q], mq[q], p.e) +
+                            (p.mode == kJoin ? qasr_requant(sv[q], p.m2, p.e2) : 0),
+                        -p.n8, p.n8 - 1);
+      if (p.mode == kSwish) y[q] = swish[y[q] + 128];
+    }
+    store8_s8(p.out + idx, nv, y);
   }
 }
 
@@ -156,10 +182,21 @@ extern "C" int qasr_lin_epilogue(const int8_t* x, const int8_t* wt, const int32_
                                  const int32_t* m, const int8_t* stream8, int8_t* out,
                                  int n_rows, int k, int d, int mode, int e, int m2, int e2,
                                  int m3, int e3, int n8, void* stream) {
-  if (k % 16 != 0 || mode < kRq || mode > kSwish || (mode == kJoin && stream8 == nullptr))
+  // the tile plan (kernels/lin_epilogue.py::plan computes the same)
+  const int nk = (k + kChunk - 1) / kChunk;
+  const int stages = nk < kMaxStages ? nk : kMaxStages;
+  const int smem = LinLayout(stages).bytes;
+  if (n_rows < 1 || d < 1 || k < 16 || k % 16 != 0 || mode < kRq || mode > kSwish ||
+      (mode == kJoin && stream8 == nullptr) || smem > gemm_s8::kSmemLimit)
     return static_cast<int>(cudaErrorInvalidValue);
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      lin_epilogue_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, gemm_s8::kSmemLimit);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  CUtensorMap mx{}, mw{};
+  if (!gemm_s8::make_map(&mx, x, n_rows, k, kBM) || !gemm_s8::make_map(&mw, wt, d, k, kBN))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const LinParams p{bias, m, stream8, out, n_rows, k, d, mode, e, m2, e2, m3, e3, n8, nk, stages};
   const dim3 grid((n_rows + kBM - 1) / kBM, (d + kBN - 1) / kBN);
-  lin_epilogue_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, wt, bias, m, stream8, out, n_rows, k, d, mode, e, m2, e2, m3, e3, n8);
+  lin_epilogue_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(mx, mw, p);
   return static_cast<int>(cudaGetLastError());
 }

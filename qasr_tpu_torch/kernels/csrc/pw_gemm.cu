@@ -19,169 +19,305 @@
 //   clamp is [-2^(bits-1), 2^(bits-1)-1].
 //
 // What bounds it on an H100, at the slice's largest sites (N = 64*768 =
-// 49152 rows, Cin = Cout = 512): 12.9 G multiply-adds against 25 MB in and
-// 25 MB out (100 MB more for the int32 residual of a join).  At about 500
-// operations per byte it is bound by arithmetic, so the products go to the
-// tensor cores.
+// 49152 rows): at 512 -> 512, 12.9 G multiply-adds (13 us at 1,979 TOP/s)
+// against 25 MB in and 25 MB out (15 us at 3.35 TB/s), plus 100 MB of int32
+// residual for a join; at C3 (512 -> 1024, int32 input) 100 MB in and 201 MB
+// out; the decoder (1024 -> 29) reads 201 MB of int32.  Bytes bound every
+// site, and the dyadic requant (a 64-bit product per element) of the
+// prologue and epilogue is the largest share of the instructions.
 //
-// Design (simple first): 64x64 output tiles per 128-thread block, four
-// warps of 32x32; K staged through shared memory 32 bytes at a time (rows
-// padded to 12 words so fragment loads hit distinct banks); products by
-// mma.sync m16n8k32 s8 x s8 -> s32, exact.  The prologue requantizes each
-// A tile to int8 while it is staged (an int32 input is read 16 bytes at a
-// time), so only int8 reaches the fragments; every column block of a row
-// repeats that work (Cout / 64 times).  The epilogue runs on the
-// accumulators in registers, so the int32 sum never reaches device memory
-// in the requant and join modes.  No cp.async pipelining, TMA or wgmma yet.
+// Design (gemm_s8.cuh's mainloop): a block owns 64 rows (one consumer
+// warpgroup and a producer warp) and keeps their whole A tile (64 x Cin
+// int8, 128B-swizzled chunks of 128 bytes of K) resident in shared memory
+// while it walks every BN-column tile of Cout; only the weights stream, by
+// TMA, through a ring of 2 stages, so A is read from device memory once.
+// Prologue off, A arrives by TMA too.  Prologue on, the consumer threads
+// read the rows with 16-byte loads (int8 or int32), apply in-bias, ReLU,
+// the length mask and the requant once per element, and write int8 into the
+// swizzled tile (then fence.proxy.async for wgmma).  Each row's length
+// masks are computed once per block.  After each column tile the int32
+// accumulators go to a staging tile in shared memory and the epilogue reads
+// them back 8 columns a thread in a rolled loop, with the per-column
+// vectors loaded once, the join's int32 residual read and the output
+// written 32 (int32) or 8 (int8) bytes a thread.  The requants of the
+// prologue and epilogue (a 64-bit product each, ~35 instructions) are most
+// of the instructions; a block's 69 KB of shared memory at Cin = 512 lets
+// three blocks share an SM, so one block's requants overlap another's
+// products and loads.  (Issuing the next tile's products before this
+// tile's epilogue instead made ptxas serialize every wgmma, C7520: the
+// accumulators in flight across the epilogue's per-thread loop.)  BN = 32
+// for Cout <= 32 (the decoder's 29), else 64 (the wrapper's
+// kernels/pw_gemm.py::plan computes the same).
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
+#include "gemm_s8.cuh"
 #include "requant.cuh"
 
 namespace {
 
-constexpr int kBM = 64;          // rows (n) per block
-constexpr int kBN = 64;          // columns (o) per block
-constexpr int kK4 = 8;           // 32-bit words of K per stage (32 int8)
-constexpr int kLd = kK4 + 4;     // padded shared-memory row, in words
-constexpr int kThreads = 128;    // 4 warps, 2 x 2, each 32 x 32
+using gemm_s8::kChunk;
 
-__device__ __forceinline__ void mma_s8(int (&c)[4], const int (&a)[4], int b0, int b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+constexpr int kStages = 2;           // the weight ring
+constexpr int kBM = 64;              // rows per block: one consumer warpgroup
+constexpr int kThreads = 128 + 32;   // the consumer warpgroup and the producer warp
 
-// The prologue on one 4-channel word of row n: four int8 values packed.
-__device__ __forceinline__ int prologue_word(const void* x, int x32, size_t n, int cin,
-                                             int kq, const int32_t* in_bias, int in_relu,
-                                             const int32_t* m1, int m1s, int e1, int lo1,
-                                             int hi1) {
-  int v[4];
-  if (x32) {
-    const int4 q = reinterpret_cast<const int4*>(static_cast<const int32_t*>(x) +
-                                                 n * cin)[kq];
-    v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+struct PwParams {
+  const void* x;
+  const int32_t* bias;
+  const int32_t* m;
+  const int32_t* lens;
+  const int32_t* res;
+  const int32_t* m_r;
+  void* out;
+  int n_rows, cin, cout, rows_per_batch, mode, relu, e, e_r, lo, hi;
+  int pro, x32;
+  const int32_t* in_bias;
+  int in_relu;
+  const int32_t* in_len;
+  const int32_t* m1;
+  int m1s, e1, lo1, hi1;
+  int nk;  // K chunks (Cin rounded up to kChunk)
+};
+
+// A block's shared memory (byte offsets from the 1024-aligned base): the
+// resident A tile, the weight ring, the int32 staging tile, the mbarriers
+// (full[S], empty[S], a_full) and the row masks (prologue, epilogue).
+struct PwLayout {
+  int a, ring, stage, ld, bars, mask, bytes;
+  __host__ __device__ PwLayout(int bn, int nk) {
+    a = 0;
+    ring = a + kBM * kChunk * nk;
+    stage = ring + kStages * bn * kChunk;
+    ld = gemm_s8::stage_ld(bn);
+    bars = stage + kBM * ld;
+    mask = bars + 8 * (2 * kStages + 1);
+    bytes = mask + 2 * kBM + gemm_s8::kAlign;  // + the base's alignment slack
+  }
+};
+
+// The prologue on channels c0..c0+15 of one row (v): 16 int8 values packed.
+__device__ __forceinline__ int4 prologue16(const int (&v)[16], int c0, const PwParams& p) {
+  int b0[8], b1[8], m0[8], m1[8];
+  const int nb = p.in_bias ? 8 : 0;
+  gemm_s8::gload8(p.in_bias + c0, nb, b0);
+  gemm_s8::gload8(p.in_bias + c0 + 8, nb, b1);
+  if (p.m1) {
+    gemm_s8::gload8(p.m1 + c0, 8, m0);
+    gemm_s8::gload8(p.m1 + c0 + 8, 8, m1);
   } else {
-    const int w = reinterpret_cast<const int*>(static_cast<const int8_t*>(x) + n * cin)[kq];
 #pragma unroll
-    for (int q = 0; q < 4; ++q) v[q] = static_cast<int8_t>(w >> (8 * q));
+    for (int q = 0; q < 8; ++q) m0[q] = m1[q] = p.m1s;
   }
-  int word = 0;
+  unsigned w[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const int c = 4 * kq + q;
-    int z = v[q] + (in_bias ? in_bias[c] : 0);
-    if (in_relu) z = z > 0 ? z : 0;
-    const int r = qasr_clamp(qasr_requant(z, m1 ? m1[c] : m1s, e1), lo1, hi1);
-    word |= (r & 0xff) << (8 * q);
+  for (int q = 0; q < 16; ++q) {
+    int z = v[q] + (q < 8 ? b0[q] : b1[q - 8]);
+    if (p.in_relu) z = z > 0 ? z : 0;
+    const int r = qasr_clamp(qasr_requant(z, q < 8 ? m0[q] : m1[q - 8], p.e1), p.lo1, p.hi1);
+    w[q / 4] |= (static_cast<unsigned>(r) & 0xffu) << (8 * (q % 4));
   }
-  return word;
+  return make_int4(static_cast<int>(w[0]), static_cast<int>(w[1]), static_cast<int>(w[2]),
+                   static_cast<int>(w[3]));
 }
 
-__global__ void __launch_bounds__(kThreads)
-pw_gemm_kernel(const void* __restrict__ x, const int8_t* __restrict__ wt,
-               const int32_t* __restrict__ bias, const int32_t* __restrict__ m,
-               const int32_t* __restrict__ lens,
-               const int32_t* __restrict__ res, const int32_t* __restrict__ m_r,
-               void* __restrict__ out, int n_rows, int cin, int cout,
-               int rows_per_batch, int mode, int relu, int e, int e_r, int lo,
-               int hi, int pro, int x32, const int32_t* __restrict__ in_bias,
-               int in_relu, const int32_t* __restrict__ in_len,
-               const int32_t* __restrict__ m1, int m1s, int e1, int lo1, int hi1) {
-  __shared__ int as[kBM][kLd];
-  __shared__ int bs[kBN][kLd];
-  const int tid = threadIdx.x;
-  const int lane = tid % 32, warp = tid / 32;
-  const int g = lane / 4, t = lane % 4;          // mma fragment coordinates
-  const int wm = (warp / 2) * 32, wn = (warp % 2) * 32;
-  const int n0 = blockIdx.x * kBM, o0 = blockIdx.y * kBN;
-  const int cin4 = cin / 4;
-  const int* x4 = static_cast<const int*>(x);
-  const int* w4 = reinterpret_cast<const int*>(wt);
-
-  int acc[2][4][4];
+// The raw input of granule i (16 channels of one of the block's rows), or
+// false where it is past Cin or its row is masked.
+__device__ __forceinline__ bool prologue_load(const PwParams& p, int n0, const uint8_t* row_ok,
+                                              int g_row, int i, int4 (&raw)[4]) {
+  const int r = i / g_row, c0 = (i - r * g_row) * 16;
+  if (i >= kBM * g_row || c0 >= p.cin || !row_ok[r]) return false;
+  const size_t off = static_cast<size_t>(n0 + r) * p.cin + c0;
+  if (p.x32) {
+    const int4* s = reinterpret_cast<const int4*>(static_cast<const int32_t*>(p.x) + off);
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0;
-
-  for (int kk = 0; kk < cin4; kk += kK4) {
-#pragma unroll
-    for (int idx = tid; idx < kBM * kK4; idx += kThreads) {
-      const int r = idx / kK4, k = idx % kK4;
-      const int kq = kk + k;
-      const int n = n0 + r, o = o0 + r;
-      int aw = 0;
-      if (n < n_rows && kq < cin4) {
-        if (!pro)
-          aw = x4[static_cast<size_t>(n) * cin4 + kq];
-        else if (in_len == nullptr || (n % rows_per_batch) < in_len[n / rows_per_batch])
-          aw = prologue_word(x, x32, n, cin, kq, in_bias, in_relu, m1, m1s, e1, lo1, hi1);
-      }
-      as[r][k] = aw;
-      bs[r][k] = (o < cout && kq < cin4) ? w4[static_cast<size_t>(o) * cin4 + kq] : 0;
-    }
-    __syncthreads();
-    int a[2][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = wm + 16 * i + g;
-      a[i][0] = as[r][t];
-      a[i][1] = as[r + 8][t];
-      a[i][2] = as[r][t + 4];
-      a[i][3] = as[r + 8][t + 4];
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = wn + 8 * j + g;
-      const int b0 = bs[c][t], b1 = bs[c][t + 4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) mma_s8(acc[i][j], a[i], b0, b1);
-    }
-    __syncthreads();
+    for (int k = 0; k < 4; ++k) raw[k] = s[k];
+  } else {
+    raw[0] = *reinterpret_cast<const int4*>(static_cast<const int8_t*>(p.x) + off);
   }
+  return true;
+}
 
-  // accumulator (i, j, r) holds row wm + 16i + g + 8*(r >= 2),
-  // column wn + 8j + 2t + (r & 1)
+// The block's A tile through the prologue, by its 128 consumer threads
+// (t), each 16-byte granule of K once, the next granule's load in flight
+// while this one is requantized.
+__device__ __forceinline__ void prologue_fill(const PwParams& p, uint8_t* a_tile, int n0,
+                                              const uint8_t* row_ok, int t) {
+  constexpr int kN = 128;
+  const int g_row = p.nk * (kChunk / 16);  // granules per row, K padded to the chunk
+  int4 cur[4], nxt[4];
+  bool live = prologue_load(p, n0, row_ok, g_row, t, cur);
+#pragma unroll 1
+  for (int i = t; i < kBM * g_row; i += kN) {
+    const bool live_next = prologue_load(p, n0, row_ok, g_row, i + kN, nxt);
+    int4 word = make_int4(0, 0, 0, 0);
+    if (live) {
+      int v[16];
+      if (p.x32) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int n = n0 + wm + 16 * i + g + 8 * h;
-      if (n >= n_rows) continue;
-      const bool row_ok =
-          lens == nullptr || (n % rows_per_batch) < lens[n / rows_per_batch];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          const int o = o0 + wn + 8 * j + 2 * t + q;
-          if (o >= cout) continue;
-          const size_t idx = static_cast<size_t>(n) * cout + o;
-          int v = acc[i][j][2 * h + q] + (bias ? bias[o] : 0);
-          if (mode == 2) {
-            const int s = qasr_requant(v, m[o], e) + qasr_requant(res[idx], m_r[o], e_r);
-            static_cast<int8_t*>(out)[idx] = static_cast<int8_t>(qasr_clamp(s, lo, hi));
-            continue;
-          }
-          if (relu) v = v > 0 ? v : 0;
-          if (mode == 0) {
-            static_cast<int32_t*>(out)[idx] = v;
-          } else {
-            if (!row_ok) v = 0;
-            static_cast<int8_t*>(out)[idx] =
-                static_cast<int8_t>(qasr_clamp(qasr_requant(v, m[o], e), lo, hi));
-          }
+        for (int k = 0; k < 4; ++k) {
+          v[4 * k] = cur[k].x, v[4 * k + 1] = cur[k].y;
+          v[4 * k + 2] = cur[k].z, v[4 * k + 3] = cur[k].w;
         }
+      } else {
+        const int w4[4] = {cur[0].x, cur[0].y, cur[0].z, cur[0].w};
+#pragma unroll
+        for (int q = 0; q < 16; ++q) v[q] = static_cast<int8_t>(w4[q / 4] >> (8 * (q % 4)));
       }
+      word = prologue16(v, (i % g_row) * 16, p);
+    }
+    const int row = i / g_row, g = i % g_row;
+    const int chunk = g / (kChunk / 16), gg = g % (kChunk / 16);
+    *reinterpret_cast<int4*>(a_tile + chunk * kBM * kChunk + row * kChunk +
+                             ((gg ^ (row & 7)) << 4)) = word;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) cur[k] = nxt[k];
+    live = live_next;
+  }
+}
+
+// One column tile's epilogue on the warpgroup's staged accumulators: rows r
+// of the tile, 8 columns (group g) a thread, per-column operands loaded once.
+template <int kBN>
+__device__ __forceinline__ void epilogue(const PwParams& p, const uint8_t* stage,
+                                         const uint8_t* epi_ok, int n_base, int rows, int o0,
+                                         int t) {
+  using namespace gemm_s8;
+  constexpr int kG = kBN / 8, kStep = 128 / kG, kLd = stage_ld(kBN);
+  const int g = t % kG, o = o0 + 8 * g;
+  const int nv = min(8, p.cout - o);
+  if (nv <= 0) return;
+  int bq[8], mq[8], mrq[8];
+  gload8(p.bias ? p.bias + o : nullptr, p.bias ? nv : 0, bq);
+  gload8(p.mode != 0 ? p.m + o : nullptr, p.mode != 0 ? nv : 0, mq);
+  gload8(p.mode == 2 ? p.m_r + o : nullptr, p.mode == 2 ? nv : 0, mrq);
+  int a[8], y[8];
+#pragma unroll 1
+  for (int r = t / kG; r < rows; r += kStep) {
+    const size_t idx = static_cast<size_t>(n_base + r) * p.cout + o;
+    if (p.mode == 2) {
+      int rv[8];
+      gload8(p.res + idx, nv, rv);
+      load8(stage, kLd, r, g, a);
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        y[q] = qasr_clamp(qasr_requant(a[q] + bq[q], mq[q], p.e) +
+                              qasr_requant(rv[q], mrq[q], p.e_r),
+                          p.lo, p.hi);
+      store8_s8(static_cast<int8_t*>(p.out) + idx, nv, y);
+    } else if (p.mode == 1) {
+      load8(stage, kLd, r, g, a);
+      const bool ok = epi_ok[r];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        int v = a[q] + bq[q];
+        if (p.relu) v = v > 0 ? v : 0;
+        if (!ok) v = 0;
+        y[q] = qasr_clamp(qasr_requant(v, mq[q], p.e), p.lo, p.hi);
+      }
+      store8_s8(static_cast<int8_t*>(p.out) + idx, nv, y);
+    } else {
+      load8(stage, kLd, r, g, a);
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int v = a[q] + bq[q];
+        y[q] = p.relu && v < 0 ? 0 : v;
+      }
+      store8_s32(static_cast<int32_t*>(p.out) + idx, nv, y);
     }
   }
+}
+
+template <int kBN>
+__global__ void __launch_bounds__(kThreads, 2)
+pw_gemm_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_w,
+               const PwParams p) {
+  using namespace gemm_s8;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  const PwLayout L(kBN, p.nk);
+  uint8_t* a_tile = smem + L.a;
+  uint8_t* ring = smem + L.ring;
+  uint8_t* stage = smem + L.stage;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bars);
+  uint64_t* empty = full + kStages;
+  uint64_t* a_full = empty + kStages;
+  uint8_t* row_ok = smem + L.mask;         // the prologue's input mask, by block row
+  uint8_t* epi_ok = row_ok + kBM;          // the requant epilogue's output mask
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int n0 = blockIdx.x * kBM;
+  const int n_ct = (p.cout + kBN - 1) / kBN;
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 4);
+    }
+    mbar_init(a_full, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == 4) {  // the producer warp: A (prologue off), then the weights
+    if (lane == 0) {
+      if (!p.pro) {
+        mbar_expect_tx(a_full, kBM * kChunk * p.nk);
+        for (int kc = 0; kc < p.nk; ++kc)
+          tma_load_2d(a_tile + kc * kBM * kChunk, &map_x, a_full, kc * kChunk, n0);
+      }
+      for (int step = 0; step < n_ct * p.nk; ++step) {
+        const int s = step % kStages;
+        mbar_wait(empty + s, ((step / kStages) & 1) ^ 1);
+        mbar_expect_tx(full + s, kBN * kChunk);
+        tma_load_2d(ring + s * kBN * kChunk, &map_w, full + s, (step % p.nk) * kChunk,
+                    (step / p.nk) * kBN);
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroup
+  if (tid < kBM) {  // each row's masks, once per block
+    const int n = n0 + tid, b = n / p.rows_per_batch, f = n % p.rows_per_batch;
+    row_ok[tid] = n < p.n_rows && (p.in_len == nullptr || f < p.in_len[b]);
+    epi_ok[tid] = p.lens == nullptr || (n < p.n_rows && f < p.lens[b]);
+  }
+  bar_sync(1, 128);
+  if (p.pro) {
+    prologue_fill(p, a_tile, n0, row_ok, tid);
+    fence_proxy_async();
+    bar_sync(1, 128);
+  } else {
+    mbar_wait(a_full, 0);
+  }
+
+  const int rows = min(kBM, p.n_rows - n0);
+  int step = 0;
+  for (int ct = 0; ct < n_ct; ++ct) {
+    int acc[kBN / 2];
+#pragma unroll
+    for (int i = 0; i < kBN / 2; ++i) acc[i] = 0;
+    for (int kc = 0; kc < p.nk; ++kc, ++step) {
+      const int s = step % kStages;
+      mbar_wait(full + s, (step / kStages) & 1);
+      mma_chunk<kBN>(acc, a_tile + kc * kBM * kChunk, ring + s * kBN * kChunk);
+      if (lane == 0) mbar_arrive(empty + s);
+    }
+    stage_acc<kBN>(acc, stage, warp, lane);
+    bar_sync(1, 128);
+    epilogue<kBN>(p, stage, epi_ok, n0, rows, ct * kBN, tid);
+    bar_sync(1, 128);  // the staging tile is free for the next column tile
+  }
+}
+
+template <int kBN>
+cudaError_t launch(const CUtensorMap& mx, const CUtensorMap& mw, const PwParams& p, int smem,
+                   cudaStream_t stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      pw_gemm_kernel<kBN>, cudaFuncAttributeMaxDynamicSharedMemorySize, gemm_s8::kSmemLimit);
+  if (attr != cudaSuccess) return attr;
+  pw_gemm_kernel<kBN><<<(p.n_rows + kBM - 1) / kBM, kThreads, smem, stream>>>(mx, mw, p);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -195,10 +331,21 @@ extern "C" int qasr_pw_gemm(const void* x, const int8_t* wt,
                             const int32_t* in_bias, int in_relu,
                             const int32_t* in_len, const int32_t* m1, int m1s,
                             int e1, int lo1, int hi1, void* stream) {
-  const dim3 grid((n_rows + kBM - 1) / kBM, (cout + kBN - 1) / kBN);
-  pw_gemm_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, wt, bias, m, lens, res, m_r, out, n_rows, cin, cout, rows_per_batch,
-      mode, relu, e, e_r, lo, hi, pro, x32, in_bias, in_relu, in_len, m1, m1s, e1,
-      lo1, hi1);
-  return static_cast<int>(cudaGetLastError());
+  // the tile plan (kernels/pw_gemm.py::plan computes the same)
+  const int bn = cout <= 32 ? 32 : 64;
+  const int nk = (cin + kChunk - 1) / kChunk;
+  const int smem = PwLayout(bn, nk).bytes;
+  if (n_rows < 1 || cin < 16 || cin % 16 != 0 || cout < 1 || mode < 0 || mode > 2 ||
+      smem > gemm_s8::kSmemLimit || (!pro && x32))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap mx{}, mw{};
+  if ((!pro && !gemm_s8::make_map(&mx, x, n_rows, cin, kBM)) ||
+      !gemm_s8::make_map(&mw, wt, cout, cin, bn))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const PwParams p{x, bias, m, lens, res, m_r, out, n_rows, cin, cout, rows_per_batch, mode,
+                   relu, e, e_r, lo, hi, pro, x32, in_bias, in_relu, in_len, m1, m1s, e1, lo1,
+                   hi1, nk};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t rc = bn == 32 ? launch<32>(mx, mw, p, smem, st) : launch<64>(mx, mw, p, smem, st);
+  return static_cast<int>(rc);
 }

@@ -1,5 +1,6 @@
 """Kernel 5: an int8 linear of the frozen Conformer with a requant, residual
-join or i-swish epilogue (kernels/csrc/lin_epilogue.cu).
+join or i-swish epilogue (kernels/csrc/lin_epilogue.cu, on the int8
+wgmma / TMA mainloop of kernels/csrc/gemm_s8.cuh).
 
 Replaces qasr_tpu/kernels/gemm_fused.py::fused_lin_rq, fused_lin_join and
 fused_lin_swish.  Under the fused plans (``quantize.conformer_freeze.
@@ -25,6 +26,41 @@ from qasr_tpu_torch.kernels.checks import check_vec, check_x, static_pair
 from qasr_tpu_torch.quantize.conformer_int import _ffn_mid, _join_lin, _lin_rq
 
 MODE_RQ, MODE_JOIN, MODE_SWISH = 0, 1, 2
+
+SMEM_LIMIT = 232448  # dynamic shared memory one block may use on an H100
+CHUNK = 128          # bytes of K per TMA box (the 128B swizzle's row)
+BM, BN = 64, 128     # output tile: one consumer warpgroup x 128 columns
+MAX_STAGES = 3
+ALIGN = 1024         # slack to align the shared-memory base to the swizzle's repeat
+
+
+def plan(n_rows: int, k: int, d: int) -> dict:
+    """Kernel 5's tiles for one launch, as csrc/lin_epilogue.cu computes
+    them: 64 x 128 output tiles (``grid`` blocks), x and the weights
+    streaming through a ring of ``stages`` chunks of 128 bytes of K
+    (``nk`` chunks), and the dynamic shared memory ``smem``: the ring or,
+    after the products, the int32 staging tile in its place (rows of 4 *
+    128 + 32 bytes), the swish table, the mbarriers and the alignment
+    slack."""
+    nk = -(-k // CHUNK)
+    stages = min(nk, MAX_STAGES)
+    ring = max(stages * (BM + BN) * CHUNK, BM * (4 * BN + 32))
+    smem = ring + 256 + 8 * 2 * stages + ALIGN
+    return {"bm": BM, "bn": BN, "stages": stages, "nk": nk, "smem": smem,
+            "grid": (-(-n_rows // BM), -(-d // BN))}
+
+
+def check_launch(n_rows: int, k: int, d: int) -> dict:
+    """The launch's plan, or ValueError for a shape the kernel does not
+    take: K a positive multiple of 16 (the TMA row pitch), at least one row
+    and column, shared memory within a block's."""
+    if n_rows < 1 or d < 1 or k < 16 or k % 16:
+        raise ValueError(f"lin_epilogue: needs N >= 1, D >= 1 and K a positive multiple of 16 "
+                         f"(TMA row pitch), got N={n_rows} K={k} D={d}")
+    p = plan(n_rows, k, d)
+    if p["smem"] > SMEM_LIMIT:
+        raise ValueError(f"lin_epilogue: {p['smem']} bytes of shared memory, above {SMEM_LIMIT}")
+    return p
 
 Pair = Tuple[int, int]
 
@@ -68,11 +104,12 @@ def lin_epilogue(x8: torch.Tensor, lin, *, nbits: int,
     lead = tuple(x8.shape[:-1])
     n = math.prod(lead)
     dev = x8.device
-    if x8.shape[-1] != k or n == 0 or k % 16 or x8.data_ptr() % 16 \
-            or wt.data_ptr() % 16 or not 2 <= nbits <= 8:
-        raise ValueError(f"lin_epilogue: needs x8 (..., K) with K = wt's {k} a multiple "
-                         f"of 16, at least one row, 16-byte aligned x8 and wt, and nbits "
-                         f"in [2, 8] (got x8 {tuple(x8.shape)}, nbits {nbits})")
+    if x8.shape[-1] != k or x8.data_ptr() % 16 or wt.data_ptr() % 16 \
+            or not 2 <= nbits <= 8:
+        raise ValueError(f"lin_epilogue: needs x8 (..., K) with K = wt's {k}, 16-byte "
+                         f"aligned x8 and wt, and nbits in [2, 8] (got x8 "
+                         f"{tuple(x8.shape)}, nbits {nbits})")
+    check_launch(n, k, d)
     check_vec("lin_epilogue", "wt", wt, torch.int8, (d, k), dev)
     bias = lin.get("b")
     check_vec("lin_epilogue", "b", bias, torch.int32, (d,), dev)

@@ -1,5 +1,6 @@
 """Kernel 2: pointwise int8 GEMM with an input-requant prologue and a
-requant, join or no epilogue (kernels/csrc/pw_gemm.cu).
+requant, join or no epilogue (kernels/csrc/pw_gemm.cu, on the int8
+wgmma / TMA mainloop of kernels/csrc/gemm_s8.cuh).
 
 Replaces qasr_tpu/kernels/cm_fused.py::fused_pw_cm and fused_pw_join_cm,
 and qasr_tpu/kernels/pw_matmul.py::requant_pointwise_matmul.
@@ -23,6 +24,45 @@ from qasr_tpu_torch.ops.quant_prims import (
 )
 
 MODE_NONE, MODE_REQUANT, MODE_JOIN = 0, 1, 2
+
+SMEM_LIMIT = 232448  # dynamic shared memory one block may use on an H100
+CHUNK = 128          # bytes of K per TMA box (the 128B swizzle's row)
+STAGES = 2           # the weight ring's stages
+ALIGN = 1024         # slack to align the shared-memory base to the swizzle's repeat
+
+
+def plan(cin: int, cout: int) -> dict:
+    """Kernel 2's tiles for one launch, as csrc/pw_gemm.cu computes them.
+
+    A block (one consumer warpgroup and a producer warp) keeps its ``bm`` =
+    64 rows of A (``nk`` chunks of 128 bytes of K) resident and walks every
+    ``bn``-column tile of Cout, the weights streaming through a ring of
+    ``stages``.  ``smem`` is its dynamic shared memory: the A tile, the
+    ring, the int32 staging tile (rows of 4 * bn + 32 bytes), the
+    mbarriers, the two row masks and the alignment slack."""
+    bm, bn, nk = 64, (32 if cout <= 32 else 64), -(-cin // CHUNK)
+    smem = (bm * CHUNK * nk + STAGES * bn * CHUNK + bm * (4 * bn + 32)
+            + 8 * (2 * STAGES + 1) + 2 * bm + ALIGN)
+    return {"bm": bm, "bn": bn, "stages": STAGES, "nk": nk, "smem": smem}
+
+
+def check_launch(n_rows: int, cin: int, cout: int, pro: bool, x_dtype: torch.dtype) -> dict:
+    """The launch's plan, or ValueError for a shape the kernel does not take:
+    TMA needs a row pitch of Cin bytes that is a multiple of 16 (x int8
+    without the prologue, wt always), and the plan's shared memory must fit
+    a block."""
+    if n_rows < 1 or cout < 1:
+        raise ValueError(f"pw_gemm: empty input or output (N={n_rows}, Cout={cout})")
+    if cin < 16 or cin % 16:
+        raise ValueError(f"pw_gemm: Cin must be a positive multiple of 16 (TMA row pitch), "
+                         f"got {cin}")
+    if not pro and x_dtype != torch.int8:
+        raise ValueError(f"pw_gemm: without the prologue x must be int8, got {x_dtype}")
+    p = plan(cin, cout)
+    if p["smem"] > SMEM_LIMIT:
+        raise ValueError(f"pw_gemm: Cin={cin} Cout={cout} needs {p['smem']} bytes of shared "
+                         f"memory, above {SMEM_LIMIT}")
+    return p
 
 
 def int_matmul(x2: torch.Tensor, wt: torch.Tensor) -> torch.Tensor:
@@ -114,10 +154,9 @@ def pw_gemm(x: torch.Tensor, wt: torch.Tensor, *,
     pro, m1v, m1s, lo1, hi1, ee1 = check_prologue("pw_gemm", x, in_bias, in_len, m1, e1,
                                                   bits1, cin, b)
     cout = wt.shape[0]
-    if cin % 4 or x.data_ptr() % 16 or wt.data_ptr() % 16:
-        raise ValueError("pw_gemm: Cin must be a multiple of 4 and x/wt 16-byte aligned")
-    if b * t == 0:
-        raise ValueError("pw_gemm: empty input")
+    if x.data_ptr() % 16 or wt.data_ptr() % 16:
+        raise ValueError("pw_gemm: x and wt must be 16-byte aligned")
+    check_launch(b * t, cin, cout, bool(pro), x.dtype)
     dev = x.device
     check_vec("pw_gemm", "wt", wt, torch.int8, (cout, cin), dev)
     check_vec("pw_gemm", "bias", bias, torch.int32, (cout,), dev)
