@@ -6,7 +6,9 @@
 Drives the port's serving paths on the card, the frozen W6A6 QuartzNet15x5
 in its dyadic modes (static_e and static_e16 on FrozenExecFused,
 every requant in a prologue or epilogue of Kernels 1-2; per_channel on
-FrozenExecKernels, convs in Kernels 1-2 and every requant in Kernel 7) and
+FrozenExecKernels, convs in Kernels 1-2, the requants next to a depthwise
+conv in Kernel 1's prologue and epilogue with per-channel exponents, the
+rest in Kernel 7) and
 the frozen W8A8 Conformer-CTC (16 x 256), with nothing that falls back: no
 CUDA, a failed kernel build or any failed phase exits non-zero before the
 result line.  Phases:
@@ -19,14 +21,19 @@ result line.  Phases:
    epilogue mode, and with the input-requant prologue (int8 and int32
    inputs, producer bias and ReLU on and off, 31- and 16-bit mantissas,
    per-channel or scalar, bits1 6/7/8, ragged input lengths, with every
-   epilogue mode), pw_gemm at N in {1, 37, 609} (a ragged last row tile),
+   epilogue mode; dw_conv also with per-channel exponents e / e1 spread
+   over 1-31 plus 0, 62, 63 and 70 in six prologue / epilogue modes),
+   pw_gemm at N in {1, 37, 609} (a ragged last row tile),
    Cin 64 (a single K chunk) to 1024, Cout 29 (one 32-column tile, rows of
    29 or 116 bytes) to 1024 (the prologue's resident A tile reused over 8
    column tiles); the
-   requant kernel at C in {64, 256, 512, 1024, 29} with int8 and int32
+   requant kernel at C in {64, 256, 512, 1024, 29, 24} with int8 and int32
    inputs, scalar and per-channel mantissas and exponents (1, 31, 62, 63,
-   70), identity and mask on and off; the requant device function over its
-   boundary grid; the Conformer's integer device functions over their whole
+   70), identity and mask on and off, every row masked, and a view that
+   starts off a 16-byte boundary; the requant device functions
+   (qasr_requant, and qasr_rq with its constants hoisted, as Kernels 1 and
+   7 use it) over a boundary grid and 2 x 2^20 random triples, z over all
+   of int32 in one half; the Conformer's integer device functions over their whole
    domains (i_exp, i_sigmoid_grid, the LN square root, floor_div, the i-LN
    row core); int_attention at T in {1, 37, 128, 129, 375, 500} with ragged
    lengths and contexts -1, (8, 0), (4, 2), at d_k in {16, 96, 128}
@@ -53,7 +60,8 @@ result line.  Phases:
    once more under ("conv", True), with every launch count set to 0 just
    before each and read just after: each path launches its own kernels as
    kernel_launches predicts for its tables or plan (QuartzNet 77 dw_conv +
-   94 pw_gemm, and under per_channel one requant per requant site; the
+   94 pw_gemm, and under per_channel 32 requant: the residual branches'
+   and C3's inputs, the joins and the decoder's input; the
    Conformer 16 int_attention + 16 conv_block + 32 ffn_ln + 81
    lin_epilogue, and 16 + 16 + 145 lin_epilogue under ("conv", True)) and
    gives the ids of its plain executor;
@@ -61,9 +69,12 @@ result line.  Phases:
    paths, and both plain) and the Conformer B=32 x 15 s step (default
    plan; ("conv", False), the attention and conv-module kernels with plain
    glue; plain), median of 10 after 3 warm-ups, CUDA events, in turns; and
-   each kernel against its plain version at its path's shapes (the
-   prologue and requant sites included, and int_attention's streaming form
-   at T=1500), with its bound (bytes over 3.35 TB/s or int8 operations over
+   each kernel against its plain version at its path's shapes (Kernel 1 at
+   every depthwise site of the walk in its static_e and its per_channel
+   form, the static prologue sites, and the epilogue-off function at C=512
+   K=75 and C2 beside cuDNN's float32 depthwise conv; Kernel 7 at every
+   kind of site the per_channel path still runs in it; Kernel 2's sites;
+   int_attention's streaming form at T=1500), with its bound (bytes over 3.35 TB/s or int8 operations over
    1,979 TOP/s, from this run's inputs) and, where one PyTorch call
    computes the same function, that call's time: each as CUDA events
    around one call (call_ms, the wrapper's host time included) and as
@@ -71,8 +82,8 @@ result line.  Phases:
    kernels' device time per call).
 
 Prints the card line, a {"kernels": [...]} line (each kernel's "ms" and
-"library_ms" are device times, "call_ms" and "library_call_ms" the
-per-call event times), then as the last line
+"library_ms" are device times at the site "shape" names, "call_ms" and
+"library_call_ms" the per-call event times), then as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
@@ -98,8 +109,9 @@ ATT_T = (1, 37, 128, 129, 375, 500)
 ATT_CTX = ((-1, -1), (8, 0), (4, 2))
 ATT_DK = (16, 96, 128)             # the other head widths the kernel takes (d_k 64 above)
 ATT_T_LONG = (1300, 1500, 2600)    # above the resident form's shared memory: streaming
-# the requant kernel's channel counts: QuartzNet's widths and the decoder's 29
-RQ_C = (64, 256, 512, 1024, 29)
+# the requant kernel's channel counts: QuartzNet's widths, the decoder's 29
+# and 24 (int8 output on the element path, int32 on 8-channel vectors)
+RQ_C = (64, 256, 512, 1024, 29, 24)
 # the flagship's dyadic modes; its ranges give static_e16 an exponent above
 # 31, so its freeze raises, in the JAX package as here
 QUARTZNET_MODES = ("static_e", "per_channel")
@@ -152,10 +164,10 @@ def device_ms(fn, symbol=None, calls: int = 10):
     """(device time in ms per call of fn(), how it was read): torch.profiler
     (CPU and CUDA activities) over ``calls`` calls, the sum of the CUDA
     kernels' device time (of the kernels whose names hold ``symbol``, or of
-    all) divided by the calls.  A trace that holds none of them (the
-    profiler drops a run's kernel records now and then) is taken again, up
-    to three times; after that CUDA events around the ``calls`` calls in a
-    row stand in, and the second value says "events"."""
+    all) divided by the calls.  A trace that holds fewer than ``calls`` of
+    those kernels (the profiler drops kernel records now and then) is taken
+    again, up to three times; after that CUDA events around the ``calls``
+    calls in a row stand in, and the second value says "events"."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -166,7 +178,7 @@ def device_ms(fn, symbol=None, calls: int = 10):
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        total_us = 0.0
+        total_us, kernels = 0.0, 0
         for ev in prof.key_averages():
             if ev.device_type != torch.autograd.DeviceType.CUDA:
                 continue
@@ -174,7 +186,8 @@ def device_ms(fn, symbol=None, calls: int = 10):
                 continue
             us = getattr(ev, "self_device_time_total", None)
             total_us += ev.self_cuda_time_total if us is None else us
-        if total_us > 0:
+            kernels += ev.count
+        if total_us > 0 and kernels >= calls:
             return total_us / 1e3 / calls, "profiler"
     return sum(cuda_ms(lambda: [fn() for _ in range(calls)], reps=1, warmup=0)) / calls, "events"
 
@@ -245,20 +258,26 @@ def phase_requant(chk, dev):
     from qasr_tpu_torch.kernels.requant import requant_device
     from qasr_tpu_torch.ops.quant_prims import Dyadic, dyadic_requant
 
-    zs = [0, 1, -1, 2, -2, 3, 2**29 - 1, -(2**29 - 1), 12345678, -98765432, 777]
+    zs = [0, 1, -1, 2, -2, 3, 2**29 - 1, -(2**29 - 1), 12345678, -98765432, 777,
+          2**31 - 1, -2**31, 2**30 + 1, -(2**30 + 3)]
     ms = [1, 2, 3, 2**15, 2**16 - 1, 2**30, 2**31 - 1, 3 << 29]
     es = list(range(1, 71))
     z, m, e = (a.reshape(-1) for a in np.meshgrid(np.asarray(zs), np.asarray(ms),
                                                   np.asarray(es), indexing="ij"))
     rng = np.random.default_rng(0)
     n = 1 << 20
-    z = np.concatenate([z, rng.integers(-(2**29) + 1, 2**29, n)]).astype(np.int32)
-    m = np.concatenate([m, rng.integers(1, 2**31, n)]).astype(np.int32)
-    e = np.concatenate([e, rng.integers(1, 71, n)]).astype(np.int32)
+    z = np.concatenate([z, rng.integers(-(2**29) + 1, 2**29, n),
+                        rng.integers(-2**31, 2**31, n)]).astype(np.int32)
+    m = np.concatenate([m, rng.integers(1, 2**31, 2 * n)]).astype(np.int32)
+    e = np.concatenate([e, rng.integers(1, 71, 2 * n)]).astype(np.int32)
     zt, mt, et = (torch.from_numpy(a).to(dev) for a in (z, m, e))
+    want = dyadic_requant(zt, Dyadic(mt, et))
     chk.equal("requant_fn", "requant device function (boundary grid + fuzz)",
-              requant_device(zt, mt, et), dyadic_requant(zt, Dyadic(mt, et)))
-    log(f"[3] requant device function == plain on {z.size} (z, m, e) triples")
+              requant_device(zt, mt, et), want)
+    chk.equal("requant_fn", "hoisted requant qasr_rq (boundary grid + fuzz)",
+              requant_device(zt, mt, et, fast=True), want)
+    log(f"[3] requant device functions (qasr_requant, qasr_rq) == plain on {z.size} "
+        f"(z, m, e) triples")
 
 
 def _tables(rng, c, m16, dev):
@@ -269,6 +288,25 @@ def _tables(rng, c, m16, dev):
     else:
         m, e = rng.integers(2**29, 2**31 - 1, c), 37
     return torch.from_numpy(m.astype("int32")).to(dev), e
+
+
+def _vector_tables(rng, c, shift, dev):
+    """Per-channel (m, e): exponents 0, 62, 63, 70 and the rest in 1-31 (in
+    a random channel order), each mantissa ~2^(e - shift) so that inputs of
+    about 2^shift come out near 1 (saturating where e < shift)."""
+    import numpy as np
+    import torch
+
+    e = rng.permutation(np.concatenate([[0, 62, 63, 70], rng.integers(1, 32, c - 4)]))
+    m = np.where(e >= 62, rng.integers(2**29, 2**31, c),
+                 np.clip(np.round(2.0 ** (e - shift) * rng.uniform(0.5, 2.0, c)), 1, 2**31 - 1))
+    return (torch.from_numpy(m.astype(np.int32)).to(dev),
+            torch.from_numpy(e.astype(np.int32)).to(dev))
+
+
+def _vector_prologue(rng, c, shift, dev):
+    m1, e1 = _vector_tables(rng, c, shift, dev)
+    return dict(m1=m1, e1=e1)
 
 
 def phase_dw(chk, dev):
@@ -325,9 +363,56 @@ def phase_dw(chk, dev):
                               dw_conv(xi, w, **conv, **pro, **epi),
                               dw_conv_plain(xi, w, **conv, **pro, **epi))
                     n_pro += 1
+        # per-channel exponents (the per_channel path's prologue and
+        # epilogue): 1-31 with mantissas that keep most results inside
+        # the clamp, plus 0 (counts as 1), 62, 63 and 70 (give 0)
+        x32 = torch.from_numpy(rng.integers(-2**20, 2**20, (b, t_in, c)).astype(np.int32)).to(dev)
+        in_bias = torch.from_numpy(rng.integers(-2**18, 2**18, c).astype(np.int32)).to(dev)
+        m_v, e_v = _vector_tables(rng, c, 8, dev)
+        epi_v = dict(bias=bias, relu=True, out_len=lens, m=m_v, e=e_v, bits=6)
+        vector_modes = {
+            "epilogue e[c]": dict(out_len=lens, m=m_v, e=e_v, bits=7),
+            "epilogue e[c]+bias+relu": epi_v,
+            "prologue int32 e1[c]+bias+relu, epilogue off": dict(
+                _vector_prologue(rng, c, 16, dev), in_bias=in_bias, in_relu=True,
+                in_len=in_len, bits1=7),
+            "prologue int8 e1[c], epilogue e[c]": dict(
+                _vector_prologue(rng, c, 2, dev), in_len=in_len, bits1=6, **epi_v),
+            "prologue int32 e1[c]+relu, epilogue e[c] (the per_channel form)": dict(
+                _vector_prologue(rng, c, 16, dev), in_relu=True, in_len=in_len, bits1=7,
+                **epi_v),
+            "prologue int32 0-d m1 and e1, epilogue e[c]": dict(
+                m1=np.asarray(int(rng.integers(2**14, 2**15)), np.int32),
+                e1=np.asarray(31, np.int32), in_relu=True, in_len=in_len, bits1=7, **epi_v),
+        }
+        for name, kw in vector_modes.items():
+            xi = x if name.startswith("prologue int8") or name.startswith("epilogue") else x32
+            chk.equal("dw_conv", f"dw_conv C={c} K={k} s={s} d={d} {name}",
+                      dw_conv(xi, w, **conv, **kw), dw_conv_plain(xi, w, **conv, **kw))
+    # one channel a thread in the staging: C not a multiple of 4, and x
+    # off a 16-byte boundary (a contiguous view)
+    for c, x32, view in ((30, False, False), (30, True, False), (256, True, True)):
+        b, t_in, k = 2, 203, 33
+        n = b * t_in * c
+        flat = torch.from_numpy((rng.integers(-2**20, 2**20, n + 1) if x32 else
+                                 rng.integers(-64, 64, n + 1)).astype(
+                                     np.int32 if x32 else np.int8)).to(dev)
+        x = (flat[1:] if view else flat[:n]).view(b, t_in, c)
+        w = torch.from_numpy(rng.integers(-31, 32, (k, c)).astype(np.int8)).to(dev)
+        m, e = _vector_tables(rng, c, 8, dev)
+        kw = dict(padding=16, out_len=torch.tensor([t_in, 150], dtype=torch.int32, device=dev),
+                  m=m, e=e, bits=7)
+        if x32:
+            kw.update(_vector_prologue(rng, c, 16, dev), in_relu=True, bits1=7,
+                      in_len=torch.tensor([t_in, 101], dtype=torch.int32, device=dev))
+        chk.equal("dw_conv", f"dw_conv C={c} {'int32 prologue' if x32 else 'int8'} "
+                  f"{'misaligned view' if view else ''} (one channel a thread)",
+                  dw_conv(x, w, **kw), dw_conv_plain(x, w, **kw))
     log(f"[3] dw_conv == plain at {len(DW_SITES)} sites x (6 epilogue modes + 8 prologue "
         f"modes: int8/int32 input, bias+relu on/off, m31/m16, per-channel or one m1, "
-        f"bits1 6/7/8, ragged in_len)")
+        f"bits1 6/7/8, ragged in_len; 6 modes with per-channel exponents e / e1 in 1-31 "
+        f"and 0, 62, 63, 70, or a 0-d m1 and e1), and one channel a thread at C=30 and on a "
+        f"misaligned view")
 
 
 def phase_pw(chk, dev):
@@ -433,9 +518,27 @@ def phase_requant_kernel(chk, dev):
                         chk.equal("requant", name, requant(z, m, e, bits, **kw),
                                   requant_plain(z, m, e, bits, **kw))
                         n += 1
+            # every row masked: written 0 without being read
+            m = vec(1, 2**31)
+            kw = dict(lens=torch.zeros(b, dtype=torch.int32, device=dev), identity=z.to(
+                torch.int32), m_r=vec(1, 2**31), e_r=e_vec, relu=True)
+            for bits in (7, 9):
+                chk.equal("requant", f"requant C={c} {'int32' if x32 else 'int8'} all rows "
+                          f"masked bits={bits}", requant(z, m, e_vec, bits, **kw),
+                          requant_plain(z, m, e_vec, bits, **kw))
+                n += 1
+    # a contiguous view that starts off a 16-byte boundary (the element path)
+    c = 512
+    flat = torch.from_numpy(rng.integers(-2**28, 2**28, b * t * c + 1).astype(np.int32)).to(dev)
+    z = flat[1:].view(b, t, c)
+    m = torch.from_numpy(rng.integers(1, 2**31, c).astype(np.int32)).to(dev)
+    e = torch.from_numpy(rng.integers(36, 44, c).astype(np.int32)).to(dev)
+    chk.equal("requant", "requant C=512 int32 misaligned view", requant(z, m, e, 7, lens=lens),
+              requant_plain(z, m, e, 7, lens=lens))
+    n += 1
     log(f"[3] requant == plain at {n} cases: C in {RQ_C}, int8/int32 input, scalar and "
         f"per-channel m/e (exponents 1, 31, 62, 63, 70), identity and mask on/off, "
-        f"bits 6-9")
+        f"bits 6-9, every row masked, a misaligned view")
 
 
 def phase_golden(dev):
@@ -570,15 +673,155 @@ def step_times(fns, args, card, tag, batch, seconds, report):
     return step
 
 
+def dw_serving_sites(plan):
+    """(C, K, stride, dilation) of every depthwise conv of a QuartzNet plan,
+    once each, in walk order."""
+    from qasr_tpu_torch.models.jasper import is_depthwise
+
+    sites = []
+    for bp in plan.blocks:
+        for spec in bp.convs:
+            key = (spec.in_ch, spec.kernel, spec.stride, spec.dilation)
+            if is_depthwise(spec) and key not in sites:
+                sites.append(key)
+    return sites
+
+
+def time_dw_sites(chk, rows, rng, dev, card, sites, batch=64, t_enc=768):
+    """Kernel 1 at every depthwise site of the serving path, in the form
+    each dyadic mode runs it most: static_e on an int8 input with the
+    epilogue (static exponent); per_channel on a pointwise conv's int32
+    output through the prologue and the epilogue, per-channel exponents (at
+    the stride-2 C1 site the input is the quantized features: int8, the
+    epilogue only).  Then the static path's two prologue sites (#8, #9),
+    and the epilogue-off function at C=512 K=75 and at C2 beside cuDNN's
+    float32 depthwise conv (TF32 off; exact while |acc| < 2^24, which
+    torch.equal checks), its yardstick."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from qasr_tpu_torch.kernels.dw_conv import dw_conv, dw_conv_plain
+    from qasr_tpu_torch.models.jasper import get_same_padding
+
+    def t8(*shape):
+        return torch.from_numpy(rng.integers(-64, 64, shape).astype(np.int8)).to(dev)
+
+    def t32(*shape):
+        return torch.from_numpy(rng.integers(-2**20, 2**20, shape).astype(np.int32)).to(dev)
+
+    def vec(c, lo, hi):
+        return torch.from_numpy(rng.integers(lo, hi, c).astype(np.int32)).to(dev)
+
+    def pair(label, x, w, kw, vec_bytes, library=None):
+        r = timed_pair(chk, "dw_conv", label, lambda: dw_conv(x, w, **kw),
+                       lambda: dw_conv_plain(x, w, **kw), card, rows, library)
+        c, k = x.shape[2], w.shape[0]
+        out_bytes = (1 if "m" in kw else 4) * batch * t_enc * c
+        r["bound"] = bound(x.numel() * x.element_size() + w.numel() + vec_bytes + out_bytes,
+                           2 * k * batch * t_enc * c)
+        return r
+
+    full = torch.full((batch,), t_enc, dtype=torch.int32, device=dev)
+    for c, k, s_, d in sites:
+        conv = dict(stride=s_, padding=get_same_padding(k, s_, d), dilation=d)
+        shape = f"B={batch} T={t_enc * s_} C={c} K={k} s={s_} d={d}"
+        w = t8(k, c)
+        pair(f"dw_conv {shape} int8", t8(batch, t_enc * s_, c), w,
+             dict(conv, out_len=full, m=vec(c, 2**29, 2**31 - 1), e=37, bits=7),
+             4 * (c + batch))
+        m, e = _vector_tables(rng, c, 8, dev)
+        kw = dict(conv, out_len=full, m=m, e=e, bits=6)
+        if s_ == 1:
+            m1, e1 = _vector_tables(rng, c, 16, dev)
+            kw.update(in_relu=True, in_len=full, m1=m1, e1=e1, bits1=7)
+            pair(f"dw_conv per_channel {shape} int32 in e1[c], e[c] out", t32(batch, t_enc, c), w,
+                 kw, 4 * (4 * c + 2 * batch))
+        else:
+            pair(f"dw_conv per_channel {shape} int8 in, e[c] out", t8(batch, t_enc * s_, c), w,
+                 kw, 4 * (2 * c + batch))
+    # the static path's prologue sites: a block's first depthwise conv on a
+    # block end's raw int32 accumulator (C1 -> B1.1, the #8 form) and on a
+    # join's int8 output (the #9 form), each with its consumer epilogue
+    for c, k, x32 in [(256, 33, True), (512, 63, False)]:
+        kw = dict(padding=get_same_padding(k, 1, 1), in_len=full, m1=vec(c, 2**29, 2**31 - 1),
+                  e1=43 if x32 else 29, bits1=7, in_relu=True, out_len=full,
+                  m=vec(c, 2**29, 2**31 - 1), e=37, bits=6)
+        if x32:
+            kw["in_bias"] = vec(c, -2**18, 2**18)
+        pair(f"dw_conv prologue B={batch} T={t_enc} C={c} K={k} "
+             f"{'int32+bias' if x32 else 'int8'}+relu in, int8 out",
+             t32(batch, t_enc, c) if x32 else t8(batch, t_enc, c), t8(k, c), kw,
+             4 * (3 * c + 2 * batch))
+    # the epilogue-off function beside cuDNN (used nowhere in the port)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for c, k, d in [(512, 75, 1), (512, 87, 2)]:
+            pad = get_same_padding(k, 1, d)
+            x, w = t8(batch, t_enc, c), t8(k, c)
+            xf = x.permute(0, 2, 1).contiguous().float()
+            wf = w.t().contiguous().float()[:, None, :]
+
+            def library(xf=xf, wf=wf, c=c, pad=pad, d=d):
+                return F.conv1d(xf, wf, groups=c, padding=pad, dilation=d)
+
+            exact = torch.equal(library().round().to(torch.int32).permute(0, 2, 1),
+                                dw_conv(x, w, padding=pad, dilation=d))
+            r = pair(f"dw_conv B={batch} T={t_enc} C={c} K={k} s=1 d={d} epilogue off (cuDNN "
+                     f"{'exact' if exact else 'inexact'})", x, w, dict(padding=pad, dilation=d),
+                     0, library if exact else None)
+            r["library_exact"] = exact
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
+def time_requant_sites(chk, rows, rng, dev, card, batch=64, t_enc=768):
+    """Kernel 7 at the sites the per_channel path still runs in it: a
+    residual branch's input (int8 after a join, int32 after a block end),
+    C3's input (int32, ReLU), the residual joins and the decoder's input
+    (unmasked)."""
+    import numpy as np
+    import torch
+
+    from qasr_tpu_torch.kernels.requant import requant, requant_plain
+
+    def t8(*shape):
+        return torch.from_numpy(rng.integers(-64, 64, shape).astype(np.int8)).to(dev)
+
+    def t32(*shape):
+        return torch.from_numpy(rng.integers(-2**20, 2**20, shape).astype(np.int32)).to(dev)
+
+    def vec(c, lo, hi):
+        return torch.from_numpy(rng.integers(lo, hi, c).astype(np.int32)).to(dev)
+
+    full = torch.full((batch,), t_enc, dtype=torch.int32, device=dev)
+    e_pc = torch.from_numpy(rng.integers(36, 44, 1024).astype(np.int32)).to(dev)
+    for c, what, x32 in [(256, "input", False), (512, "input", False), (256, "input", True),
+                         (512, "input", True), (256, "join", True), (512, "join", True),
+                         (1024, "decoder", True)]:
+        z = t32(batch, t_enc, c) if x32 else t8(batch, t_enc, c)
+        kw = dict(lens=full if what == "input" else None,
+                  relu=what == "decoder" or (what == "input" and x32))
+        if what == "join":
+            kw.update(identity=t32(batch, t_enc, c), m_r=vec(c, 2**29, 2**31 - 1),
+                      e_r=e_pc[:c].flip(0).contiguous())
+        args = (z, vec(c, 2**29, 2**31 - 1), e_pc[:c].contiguous(), 6)
+        r = timed_pair(chk, "requant", f"requant N={batch * t_enc} C={c} "
+                       f"{'int32' if x32 else 'int8'} per-channel {what}",
+                       lambda a=args, kw=kw: requant(*a, **kw),
+                       lambda a=args, kw=kw: requant_plain(*a, **kw), card, rows)
+        r["bound"] = bound(z.numel() * (z.element_size() + 1 + 4 * (what == "join"))
+                           + 4 * c * (2 + 2 * (what == "join"))
+                           + (4 * batch if what == "input" else 0), 0)
+
+
 def phase_time(chk, model, tables, dev, card, report):
     import numpy as np
     import torch
 
-    from qasr_tpu_torch.kernels.dw_conv import dw_conv, dw_conv_plain
     from qasr_tpu_torch.kernels.pw_gemm import pw_gemm, pw_gemm_plain
-    from qasr_tpu_torch.kernels.requant import requant, requant_plain
     from qasr_tpu_torch.models.ctc_model import make_frozen_fn
-    from qasr_tpu_torch.models.jasper import get_same_padding
 
     batch, seconds = 64, 15.0
     n = int(16000 * seconds)
@@ -603,16 +846,7 @@ def phase_time(chk, model, tables, dev, card, report):
         return torch.from_numpy(rng.integers(lo, hi, c).astype(np.int32)).to(dev)
 
     full = torch.full((batch,), t_enc, dtype=torch.int32, device=dev)
-    for c, k, s_, d in [(64, 33, 2, 1), (256, 33, 1, 1), (512, 75, 1, 1), (512, 87, 1, 2)]:
-        x = t8(batch, t_enc * s_, c)
-        w = t8(k, c)
-        kw = dict(stride=s_, padding=get_same_padding(k, s_, d), dilation=d,
-                  out_len=full, m=vec(c, 2**29, 2**31 - 1), e=37, bits=7)
-        r = timed_pair(chk, "dw_conv", f"dw_conv B=64 T={t_enc * s_} C={c} K={k} s={s_} d={d} int8",
-                       lambda x=x, w=w, kw=kw: dw_conv(x, w, **kw),
-                       lambda x=x, w=w, kw=kw: dw_conv_plain(x, w, **kw), card, rows)
-        r["bound"] = bound(x.numel() + w.numel() + 4 * (c + batch) + batch * t_enc * c,
-                           2 * k * batch * t_enc * c)
+    time_dw_sites(chk, rows, rng, dev, card, dw_serving_sites(model.plan), batch, t_enc)
     for cin, cout, mode in [(64, 256, "requant"), (256, 256, "requant"), (512, 512, "requant"),
                             (512, 512, "join"), (512, 1024, "none"), (1024, 29, "none")]:
         x = t8(batch, t_enc, cin)
@@ -641,23 +875,6 @@ def phase_time(chk, model, tables, dev, card, report):
     def t32(*shape):
         return torch.from_numpy(rng.integers(-2**20, 2**20, shape).astype(np.int32)).to(dev)
 
-    # the prologue sites of the static path: a block's first depthwise conv
-    # on a block end's raw int32 accumulator (C1 -> B1.1, the #8 form) and
-    # on a join's int8 output (the #9 form), each with its consumer epilogue
-    for c, k, x32 in [(256, 33, True), (512, 63, False)]:
-        x = t32(batch, t_enc, c) if x32 else t8(batch, t_enc, c)
-        w = t8(k, c)
-        kw = dict(padding=get_same_padding(k, 1, 1), in_len=full, m1=vec(c, 2**29, 2**31 - 1),
-                  e1=43 if x32 else 29, bits1=7, in_relu=True, out_len=full,
-                  m=vec(c, 2**29, 2**31 - 1), e=37, bits=6)
-        if x32:
-            kw["in_bias"] = vec(c, -2**18, 2**18)
-        r = timed_pair(chk, "dw_conv", f"dw_conv prologue B=64 T={t_enc} C={c} K={k} "
-                       f"{'int32+bias' if x32 else 'int8'}+relu in, int8 out",
-                       lambda x=x, w=w, kw=kw: dw_conv(x, w, **kw),
-                       lambda x=x, w=w, kw=kw: dw_conv_plain(x, w, **kw), card, rows)
-        r["bound"] = bound(x.numel() * x.element_size() + w.numel() + 4 * (3 * c + 2 * batch)
-                           + batch * t_enc * c, 2 * k * batch * t_enc * c)
     # the prologue sites of Kernel 2: a residual pointwise conv on a join's
     # int8 output, C3 and the decoder on a raw int32 accumulator (the
     # decoder's input is not masked)
@@ -680,21 +897,7 @@ def phase_time(chk, model, tables, dev, card, report):
         r["bound"] = bound(x.numel() * x.element_size() + wt.numel() + 4 * (3 * cin + cout)
                            + (4 * batch if mask else 0) + 4 * batch * t_enc * cout,
                            2 * batch * t_enc * cin * cout)
-    # the requant kernel at the per_channel path's sites: an input requant
-    # (per-channel m and e, mask), a residual join, the decoder's input
-    e_pc = torch.from_numpy(rng.integers(36, 44, 1024).astype(np.int32)).to(dev)
-    for c, what in [(512, "input"), (512, "join"), (1024, "decoder")]:
-        z = t32(batch, t_enc, c)
-        kw = dict(lens=full if what == "input" else None, relu=what == "decoder")
-        if what == "join":
-            kw.update(identity=t32(batch, t_enc, c), m_r=vec(c, 2**29, 2**31 - 1),
-                      e_r=e_pc[:c].flip(0).contiguous())
-        args = (z, vec(c, 2**29, 2**31 - 1), e_pc[:c].contiguous(), 6)
-        r = timed_pair(chk, "requant", f"requant N={batch * t_enc} C={c} int32 per-channel "
-                       f"{what}", lambda a=args, kw=kw: requant(*a, **kw),
-                       lambda a=args, kw=kw: requant_plain(*a, **kw), card, rows)
-        r["bound"] = bound(z.numel() * (4 + 1 + 4 * (what == "join")) + 4 * c * (2 + 2 * (
-            what == "join")) + (4 * batch if what == "input" else 0), 0)
+    time_requant_sites(chk, rows, rng, dev, card, batch, t_enc)
     report["quartznet_per_kernel"] = rows
     return step, rows
 
@@ -1158,7 +1361,7 @@ def main() -> int:
             ("dw_conv", "qasr_tpu/kernels/cm_fused.py:248 (#1); qasr_tpu/kernels/depthwise.py:104 "
              "(#2); qasr_tpu/kernels/depthwise.py:409 (#3); qasr_tpu/kernels/cm_fused.py:575 "
              "(#6); qasr_tpu/kernels/cm_fused.py:486 (#7); qasr_tpu/kernels/cm_fused.py:374 "
-             "(#8); qasr_tpu/kernels/depthwise.py:284 (#9)", "C=512 K=75"),
+             "(#8); qasr_tpu/kernels/depthwise.py:284 (#9)", "C=512 K=75 s=1 d=1 epilogue off"),
             ("pw_gemm", "qasr_tpu/kernels/cm_fused.py:131 (#4); qasr_tpu/kernels/cm_fused.py:704 "
              "(#5); qasr_tpu/kernels/pw_matmul.py:51 (#11)", "512->512 requant"),
             ("requant", "qasr_tpu/kernels/requant.py:65,74 (#10)", "C=512 int32 per-channel input"),
@@ -1167,7 +1370,7 @@ def main() -> int:
             ("lin_epilogue", "qasr_tpu/kernels/gemm_fused.py:159", "q_u 256->256"),
             ("ffn_ln", "qasr_tpu/kernels/conf_module.py:206", "ffn_ln B=")]:
         r = next(r for r in rows if label in r["shape"])
-        kernels.append({"name": kind, "route": "cuda",
+        kernels.append({"name": kind, "route": "cuda", "shape": r["shape"],
                         "source": f"qasr_tpu_torch/kernels/csrc/{kind}.cu",
                         "replaces": replaces, "launches": counts[kind],
                         "max_abs_err": chk.max_err[kind], "ms": r["device_ms"],

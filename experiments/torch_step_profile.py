@@ -2,7 +2,8 @@
 path on a GPU: torch.profiler over the B=64 x 15 s serving step, for each
 dyadic mode asked for (static_e: FrozenExecFused, every requant in a
 prologue or epilogue of Kernels 1-2; per_channel: FrozenExecKernels,
-convs in Kernels 1-2 and every requant in the requant kernel).
+convs in Kernels 1-2, the requants next to a depthwise conv in Kernel 1's
+prologue and epilogue, the rest in the requant kernel).
 
     python3 experiments/torch_step_profile.py [--batch 64] [--seconds 15]
         [--dyadic static_e,per_channel] [--fused 1] [--out PATH]

@@ -29,15 +29,20 @@ def check_vec(name: str, arg: str, t: Optional[torch.Tensor], dtype,
                          f"{tuple(t.shape)} on {t.device}")
 
 
+def int8_clamp(name: str, bits) -> Tuple[int, int]:
+    """(lo, hi) of a requant that writes int8: [-2^(bits-1), 2^(bits-1)-1]."""
+    if not isinstance(bits, int) or not 2 <= bits <= 8:
+        raise ValueError(f"{name}: epilogue writes int8, bits must be in [2, 8], got {bits!r}")
+    n = 2 ** (bits - 1) - 1
+    return -n - 1, n
+
+
 def epilogue_bounds(name: str, e, bits) -> Tuple[int, int, int]:
     """(lo, hi, e) of the requant epilogue: a static exponent and an int8
     output clamp [-2^(bits-1), 2^(bits-1)-1]."""
     if not isinstance(e, int) or e < 1:
         raise ValueError(f"{name}: epilogue needs a static int exponent >= 1, got {e!r}")
-    if not isinstance(bits, int) or not 2 <= bits <= 8:
-        raise ValueError(f"{name}: epilogue writes int8, bits must be in [2, 8], got {bits!r}")
-    n = 2 ** (bits - 1) - 1
-    return -n - 1, n, e
+    return (*int8_clamp(name, bits), e)
 
 
 def static_pair(name: str, arg: str, pair) -> Tuple[int, int]:

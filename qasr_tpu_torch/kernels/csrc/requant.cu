@@ -16,14 +16,25 @@
 //
 // What bounds it on an H100: the bytes.  At a per_channel QuartzNet site
 // (B=64, T=768, C=512) it reads 100 MB of int32 and writes 25 MB of int8,
-// about 37 us of HBM time at 3.35 TB/s; the requant is some 20 integer
-// operations per element (one 64-bit product), far below the card's
-// integer rate at that byte count.
+// 0.0376 ms at 3.35 TB/s (0.0676 ms for a join, which reads a second 100
+// MB); the requant is some 20-35 integer instructions per element (one
+// 64-bit product), below the card's integer rate at that byte count.
 //
-// Design (simple first): one thread per element in a grid-stride loop
-// (neighbouring threads on neighbouring channels, so every access is
-// coalesced), 32-bit indices (the wrapper keeps B * T * C below 2^31), the
-// per-channel vectors read through the read-only cache.
+// Design: a (row tile, channel vector, batch) grid.  A thread owns V = 4
+// consecutive channels (the element path, V = 1, where C is not a multiple
+// of 4 or a tensor does not start on a 16-byte boundary), folds their m, e,
+// m_r and e_r into the hoisted requant constants of requant.cuh (qasr_rq)
+// once, and takes 4 rows of its tile (blockDim.y apart): their loads are
+// issued together, then per row 4 requants of ~15 instructions and one
+// 16-byte (int32) or 4-byte (int8) store; per row and warp that is 128
+// contiguous channels, 512 bytes of int32 input.  The batch
+// index comes from the grid, so the length mask is one compare per row with
+// no division per element, and a masked row is written 0 without being
+// read.  (16 channels a thread, one 16-byte int8 store, held 16 x 4
+// requant operands in registers: 229 of them, one block per SM, and the
+// join ran slower than the one-element-a-thread kernel it replaced.)  The
+// launcher's plan is kernels/requant.py::plan.
+#include <climits>
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -40,39 +51,103 @@ struct Side {
   int ms, es;
 };
 
-__device__ __forceinline__ int load_val(const Side& s, int idx) {
-  return s.z32 ? __ldg(static_cast<const int32_t*>(s.z) + idx)
-               : static_cast<int>(__ldg(static_cast<const int8_t*>(s.z) + idx));
-}
-
-__device__ __forceinline__ int side_requant(const Side& s, int v, int c) {
-  const int m = s.m ? __ldg(s.m + c) : s.ms;
-  int e = s.e ? __ldg(s.e + c) : s.es;
-  e = e < 1 ? 1 : e;
-  return qasr_requant(v, m, e);
-}
-
-__global__ void requant_kernel(Side a, Side r, int has_r, const int32_t* __restrict__ lens,
-                               void* __restrict__ out, int out32, int total, int C,
-                               int rows_per_batch, int relu, int lo, int hi) {
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < total; i += gridDim.x * blockDim.x) {
-    const int n = i / C;
-    const int c = i - n * C;
-    const bool keep = lens == nullptr ||
-                      (n % rows_per_batch) < __ldg(lens + n / rows_per_batch);
-    int s = 0;
-    if (keep) {
-      int v = load_val(a, i);
-      if (relu) v = v > 0 ? v : 0;
-      s = side_requant(a, v, c);
-      if (has_r) s += side_requant(r, load_val(r, i), c);
-    }
-    s = qasr_clamp(s, lo, hi);
-    if (out32)
-      static_cast<int32_t*>(out)[i] = s;
-    else
-      static_cast<int8_t*>(out)[i] = static_cast<int8_t>(s);
+// the V values at element idx of z (idx a multiple of V; V = 4 needs a
+// 16-byte aligned z, which the launcher checks, and C a multiple of 4)
+template <int V>
+__device__ __forceinline__ void load_vals(const Side& s, size_t idx, int (&v)[V]) {
+  if constexpr (V == 1) {
+    v[0] = s.z32 ? __ldg(static_cast<const int32_t*>(s.z) + idx)
+                 : static_cast<int>(__ldg(static_cast<const int8_t*>(s.z) + idx));
+  } else if (s.z32) {
+    const int4 q = __ldg(reinterpret_cast<const int4*>(static_cast<const int32_t*>(s.z) + idx));
+    v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+  } else {
+    const unsigned q = __ldg(reinterpret_cast<const unsigned*>(
+        static_cast<const int8_t*>(s.z) + idx));
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = static_cast<int8_t>(q >> (8 * i));
   }
+}
+
+template <int V>
+__device__ __forceinline__ void store_vals(void* out, int out32, size_t idx, const int (&s)[V]) {
+  if constexpr (V == 1) {
+    if (out32)
+      static_cast<int32_t*>(out)[idx] = s[0];
+    else
+      static_cast<int8_t*>(out)[idx] = static_cast<int8_t>(s[0]);
+  } else if (out32) {
+    *reinterpret_cast<int4*>(static_cast<int32_t*>(out) + idx) = make_int4(s[0], s[1], s[2], s[3]);
+  } else {
+    unsigned w = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) w |= static_cast<unsigned>(s[i] & 0xff) << (8 * i);
+    *reinterpret_cast<unsigned*>(static_cast<int8_t*>(out) + idx) = w;
+  }
+}
+
+constexpr int kRows = 4;   // rows a thread walks, their loads issued together
+
+template <int V, bool R>
+__global__ void requant_kernel(Side a, Side r, const int32_t* __restrict__ lens,
+                               void* __restrict__ out, int out32, int T, int C, int relu,
+                               int lo, int hi) {
+  const int c0 = (blockIdx.y * blockDim.x + threadIdx.x) * V;
+  if (c0 >= C) return;
+  const int b = blockIdx.z;
+  const int len = lens ? __ldg(lens + b) : INT_MAX;
+  QasrRq ra[V], rr[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    ra[i] = qasr_rq_make(a.m ? __ldg(a.m + c0 + i) : a.ms, qasr_exponent(a.e, a.es, c0 + i));
+    if constexpr (R) rr[i] = qasr_rq_make(r.m ? __ldg(r.m + c0 + i) : r.ms, qasr_exponent(r.e, r.es, c0 + i));
+  }
+  const int t0 = blockIdx.x * kRows * blockDim.y + threadIdx.y;
+  const size_t row0 = (static_cast<size_t>(b) * T + t0) * C + c0;
+  const size_t step = static_cast<size_t>(blockDim.y) * C;
+  int va[kRows][V], vr[kRows][V];
+#pragma unroll
+  for (int k = 0; k < kRows; ++k) {
+    const int t = t0 + k * static_cast<int>(blockDim.y);
+    if (t < T && t < len) {   // a masked row is not read
+      load_vals<V>(a, row0 + k * step, va[k]);
+      if constexpr (R) load_vals<V>(r, row0 + k * step, vr[k]);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kRows; ++k) {
+    const int t = t0 + k * static_cast<int>(blockDim.y);
+    if (t >= T) break;
+    int s[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i) s[i] = 0;   // masked: requant(0) = 0, inside the clamp
+    if (t < len) {
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        s[i] = qasr_rq(relu && va[k][i] < 0 ? 0 : va[k][i], ra[i]);
+        if constexpr (R) s[i] += qasr_rq(vr[k][i], rr[i]);
+        s[i] = qasr_clamp(s[i], lo, hi);
+      }
+    }
+    store_vals<V>(out, out32, row0 + k * step, s);
+  }
+}
+
+template <int V>
+int launch(const Side& a, const Side& r, int has_r, const int32_t* lens, void* out, int out32,
+           int batch, int T, int C, int relu, int lo, int hi, cudaStream_t stream) {
+  const int vecs = (C + V - 1) / V;
+  const int tx = vecs < 32 ? vecs : 32;
+  const int ty = 256 / tx;
+  const int rows = kRows * ty;
+  const dim3 grid((T + rows - 1) / rows, (vecs + tx - 1) / tx, batch);
+  if (has_r)
+    requant_kernel<V, true><<<grid, dim3(tx, ty), 0, stream>>>(a, r, lens, out, out32, T, C,
+                                                             relu, lo, hi);
+  else
+    requant_kernel<V, false><<<grid, dim3(tx, ty), 0, stream>>>(a, r, lens, out, out32, T, C,
+                                                              relu, lo, hi);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -84,12 +159,16 @@ extern "C" int qasr_requant_rows(const void* z, int z32, const int32_t* m, const
                                  int rows_per_batch, int relu, int lo, int hi, void* stream) {
   const Side a{z, z32, m, e, ms, es};
   const Side r{id, id32, m_r, e_r, ms_r, es_r};
-  const int total = n_rows * C;   // the wrapper keeps it below 2^31
-  if (total == 0) return 0;
-  const int threads = 256;
-  const int want = (total + threads - 1) / threads;
-  const int blocks = want < 132 * 32 ? want : 132 * 32;
-  requant_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      a, r, id != nullptr, lens, out, out32, total, C, rows_per_batch, relu, lo, hi);
-  return static_cast<int>(cudaGetLastError());
+  if (n_rows == 0 || C == 0) return 0;
+  const int batch = n_rows / rows_per_batch;
+  const int has_r = id != nullptr;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // the wrapper's plan: 4 channels a thread, else the element path (C not
+  // a multiple of 4, or a tensor that starts off a 16-byte boundary, such as
+  // a view)
+  const uintptr_t align = reinterpret_cast<uintptr_t>(z) | reinterpret_cast<uintptr_t>(id)
+                          | reinterpret_cast<uintptr_t>(out);
+  if (C % 4 != 0 || align % 16 != 0)
+    return launch<1>(a, r, has_r, lens, out, out32, batch, rows_per_batch, C, relu, lo, hi, s);
+  return launch<4>(a, r, has_r, lens, out, out32, batch, rows_per_batch, C, relu, lo, hi, s);
 }

@@ -27,6 +27,51 @@ __device__ __forceinline__ int qasr_requant(long long z, int m, int e) {
   return z < 0 ? -r : r;
 }
 
+// qasr_requant for a channel whose (m, e) a thread applies many times (the
+// per-channel requants of Kernels 1 and 7): qasr_rq_make folds m and e
+// into constants once, and qasr_rq is then a 32 x 32 -> 64-bit product, a
+// 64-bit add, two 64-bit shifts and a compare, with no rounding compare
+// chain.  For e in [1, 62], |z| <= 2^31 and m < 2^31, round_half_even(p /
+// 2^e) = (p + 2^(e-1) - 1 + bit_e(p)) >> e with p = |z| * m < 2^62 (the
+// sum stays below 2^63), and the result saturates at 2^26 exactly when the
+// sum is at least 2^(e+26).  e > 62 becomes m = 0 (every result 0), e < 1
+// counts as 1.  Equal to qasr_requant(z, m, max(e, 1)) on every such input;
+// the card check (kernels/requant.py::requant_device(fast=True)) holds both
+// to the plain requant over a boundary grid and 2 x 2^20 random triples.
+struct QasrRq {
+  unsigned m;
+  unsigned e;
+  unsigned long long hm1;    // 2^(e-1) - 1
+  unsigned long long sat;    // 2^(e+26): at or above it the result saturates
+};
+
+__device__ __forceinline__ QasrRq qasr_rq_make(int m, int e) {
+  e = e < 1 ? 1 : e;
+  QasrRq r;
+  r.m = e > 62 ? 0u : static_cast<unsigned>(m);
+  e = e > 62 ? 62 : e;
+  r.e = static_cast<unsigned>(e);
+  r.hm1 = (1ull << (e - 1)) - 1ull;
+  r.sat = e + 26 < 64 ? (1ull << (e + 26)) : ~0ull;
+  return r;
+}
+
+__device__ __forceinline__ int qasr_rq(int z, const QasrRq& r) {
+  const unsigned za = z < 0 ? 0u - static_cast<unsigned>(z) : static_cast<unsigned>(z);
+  const unsigned long long p = static_cast<unsigned long long>(za) * r.m;
+  const unsigned long long sum = p + r.hm1 + (static_cast<unsigned>(p >> r.e) & 1u);
+  const int q = sum >= r.sat ? (1 << 26) : static_cast<int>(sum >> r.e);
+  return z < 0 ? -q : q;
+}
+
+// The exponent of channel c: read from the (C,) vector ev or, when ev is
+// NULL, the scalar es.  One below 1 counts as 1, as dyadic_requant clamps
+// it (above 62 qasr_requant gives 0).
+__device__ __forceinline__ int qasr_exponent(const int32_t* __restrict__ ev, int es, int c) {
+  const int e = ev ? __ldg(ev + c) : es;
+  return e < 1 ? 1 : e;
+}
+
 __device__ __forceinline__ int qasr_clamp(int q, int lo, int hi) {
   return q < lo ? lo : (q > hi ? hi : q);
 }

@@ -1,6 +1,7 @@
-// Elementwise launch of the shared requant device function, so that it can
-// be held against the plain torch requant on the card (not on the serving
-// path), plus the error-string helper the Python wrappers report with.
+// Elementwise launch of the shared requant device functions (qasr_requant,
+// or with fast = 1 qasr_rq_make + qasr_rq), so that each can be held
+// against the plain torch requant on the card (not on the serving path),
+// plus the error-string helper the Python wrappers report with.
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -12,20 +13,20 @@ namespace {
 __global__ void requant_check_kernel(const int32_t* __restrict__ z,
                                      const int32_t* __restrict__ m,
                                      const int32_t* __restrict__ e,
-                                     int32_t* __restrict__ out, int n) {
+                                     int32_t* __restrict__ out, int n, int fast) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) out[i] = qasr_requant(z[i], m[i], e[i]);
+  if (i < n)
+    out[i] = fast ? qasr_rq(z[i], qasr_rq_make(m[i], e[i])) : qasr_requant(z[i], m[i], e[i]);
 }
 
 }  // namespace
 
 extern "C" int qasr_requant_check(const int32_t* z, const int32_t* m,
-                                  const int32_t* e, int32_t* out, int n,
+                                  const int32_t* e, int32_t* out, int n, int fast,
                                   void* stream) {
   if (n > 0) {
     requant_check_kernel<<<(n + 255) / 256, 256, 0,
-                           static_cast<cudaStream_t>(stream)>>>(z, m, e, out,
-                                                                n);
+                           static_cast<cudaStream_t>(stream)>>>(z, m, e, out, n, fast);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -151,7 +151,7 @@ def pw_gemm(x: torch.Tensor, wt: torch.Tensor, *,
     if x.dim() != 3:
         raise ValueError(f"pw_gemm: x must be (B, T, Cin), got {tuple(x.shape)}")
     b, t, cin = x.shape
-    pro, m1v, m1s, lo1, hi1, ee1 = check_prologue("pw_gemm", x, in_bias, in_len, m1, e1,
+    pro, m1v, m1s, _, ee1, lo1, hi1 = check_prologue("pw_gemm", x, in_bias, in_len, m1, e1,
                                                   bits1, cin, b)
     cout = wt.shape[0]
     if x.data_ptr() % 16 or wt.data_ptr() % 16:

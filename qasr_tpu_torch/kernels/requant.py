@@ -6,7 +6,7 @@ version on the card; those check launches are not on the serving path.
 
 ``requant`` launches its CUDA kernel for CUDA tensors and runs
 ``requant_plain`` for CPU tensors; it never falls back from one to the
-other."""
+other.  ``plan`` states its grid, ``check_launch`` the shapes it takes."""
 from __future__ import annotations
 
 from typing import Optional
@@ -16,12 +16,7 @@ import torch
 from qasr_tpu_torch.kernels import _build
 from qasr_tpu_torch.kernels.checks import check_act, check_vec, requant_operand
 from qasr_tpu_torch.models.jasper import mask_values
-from qasr_tpu_torch.ops.quant_prims import (
-    Dyadic,
-    dyadic_requant,
-    dyadic_requant_static,
-    requant_clamp,
-)
+from qasr_tpu_torch.ops.quant_prims import dyadic_requant_any, requant_clamp
 
 INT_FNS = {"i_exp": 0, "i_sigmoid_grid": 1, "isqrt": 2, "floor_div": 3}
 
@@ -32,15 +27,18 @@ def _require_cuda(name: str, t: torch.Tensor) -> None:
                          f"version is the torch op in ops/")
 
 
-def requant_device(z: torch.Tensor, m: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
-    """qasr_requant(z[i], m[i], e[i]) for 1-D int32 CUDA tensors."""
+def requant_device(z: torch.Tensor, m: torch.Tensor, e: torch.Tensor,
+                   fast: bool = False) -> torch.Tensor:
+    """qasr_requant(z[i], m[i], e[i]) for 1-D int32 CUDA tensors, or with
+    ``fast`` qasr_rq(z[i], qasr_rq_make(m[i], e[i])), the form Kernels 1
+    and 7 use."""
     _require_cuda("requant_device", z)
     n = z.shape[0]
     for name, t in (("z", z), ("m", m), ("e", e)):
         check_vec("requant_device", name, t, torch.int32, (n,), z.device)
     out = torch.empty_like(z)
     rc = _build.library().qasr_requant_check(
-        _build.ptr(z), _build.ptr(m), _build.ptr(e), _build.ptr(out), n,
+        _build.ptr(z), _build.ptr(m), _build.ptr(e), _build.ptr(out), n, int(fast),
         _build.stream_of(z))
     _build.check(rc, "requant_device")
     return out
@@ -81,14 +79,6 @@ def ln_core_device(x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _rq(z: torch.Tensor, m, e) -> torch.Tensor:
-    """requant(z, m, e): a static Python-int exponent, or per-channel /
-    0-d exponents (clamped to [1, 62], 0 above 62, as the JAX package)."""
-    if isinstance(e, int):
-        return dyadic_requant_static(z, m, e)
-    return dyadic_requant(z, Dyadic(m, e))
-
-
 def requant_plain(z: torch.Tensor, m, e, bits: int, *, relu: bool = False,
                   lens: Optional[torch.Tensor] = None,
                   identity: Optional[torch.Tensor] = None, m_r=None,
@@ -99,12 +89,45 @@ def requant_plain(z: torch.Tensor, m, e, bits: int, *, relu: bool = False,
     v = z.clamp_min(0) if relu else z
     if lens is not None:
         v = mask_values(v, lens)
-    q = _rq(v, m, e)
+    q = dyadic_requant_any(v, m, e)
     if identity is not None:
         i = identity if lens is None else mask_values(identity, lens)
-        q = q + _rq(i, m_r, e_r)
+        q = q + dyadic_requant_any(i, m_r, e_r)
     q = requant_clamp(q, bits)
     return q.to(torch.int8) if bits <= 8 else q.to(torch.int32)
+
+
+THREADS = 256     # threads per block
+GRID_YZ = 65535   # the grid's y (channel-vector blocks) and z (batch) limits
+
+
+def plan(b: int, t: int, c: int, aligned: bool = True) -> dict:
+    """Kernel 7's grid for one launch, as csrc/requant.cu's launcher
+    computes it.  A thread owns ``v`` consecutive channels (4; 1, the
+    element path, where C is not a multiple of 4 or a tensor does not start
+    on a 16-byte boundary) and takes 4 rows of its block's tile, ``rows`` =
+    4 * ``block[1]`` rows of one batch element (grid z)."""
+    v = 4 if c % 4 == 0 and aligned else 1
+    vecs = -(-c // v)
+    tx = min(vecs, 32)
+    ty = THREADS // tx
+    rows = 4 * ty
+    return {"v": v, "block": (tx, ty), "rows": rows,
+            "grid": (-(-t // rows), -(-vecs // tx), b)}
+
+
+def check_launch(b: int, t: int, c: int, bits: int) -> dict:
+    """The launch's plan, or ValueError for a shape the kernel does not
+    take: B * T * C at or above 2^31, bits outside [2, 32], a grid beyond
+    its y / z limits."""
+    if b * t * c >= 2 ** 31:
+        raise ValueError("requant: B * T * C must stay below 2^31")
+    if not isinstance(bits, int) or not 2 <= bits <= 32:
+        raise ValueError(f"requant: bits must be an int in [2, 32], got {bits!r}")
+    p = plan(b, t, c)
+    if p["grid"][1] > GRID_YZ or p["grid"][2] > GRID_YZ:
+        raise ValueError(f"requant: grid {p['grid']} beyond the y / z limit {GRID_YZ}")
+    return p
 
 
 def requant(z: torch.Tensor, m, e, bits: int, *, relu: bool = False,
@@ -130,10 +153,7 @@ def requant(z: torch.Tensor, m, e, bits: int, *, relu: bool = False,
     check_act("requant", z, 3)
     b, t, c = z.shape
     dev = z.device
-    if b * t * c >= 2 ** 31:
-        raise ValueError("requant: B * T * C must stay below 2^31")
-    if not isinstance(bits, int) or not 2 <= bits <= 32:
-        raise ValueError(f"requant: bits must be an int in [2, 32], got {bits!r}")
+    check_launch(b, t, c, bits)
     n = 2 ** (bits - 1) - 1
     mv, ms = requant_operand("requant", "m", m, c, dev, exponent=False)
     ev, es = requant_operand("requant", "e", e, c, dev, exponent=True)

@@ -53,8 +53,9 @@ def _pcm_f32(audio: torch.Tensor) -> torch.Tensor:
 def frozen_executor(tables, fused: bool = True):
     """The executor class for these tables: the plain FrozenExec when not
     ``fused``; else FrozenExecFused (every requant in a kernel's prologue
-    or epilogue) for static-exponent tables, FrozenExecKernels (every
-    requant in the requant kernel) for vector exponents ('per_channel')."""
+    or epilogue) for static-exponent tables, FrozenExecKernels (the
+    requants next to a depthwise conv in Kernel 1, the rest in the requant
+    kernel) for vector exponents ('per_channel')."""
     if not fused:
         return FrozenExec
     return FrozenExecFused if tables_all_static_e(tables) else FrozenExecKernels

@@ -166,18 +166,27 @@ def requant_clamp(q: torch.Tensor, bits: int) -> torch.Tensor:
     return q.clamp(-n - 1, n)
 
 
+def dyadic_requant_any(z: torch.Tensor, m, e) -> torch.Tensor:
+    """requant(z, m, e): dyadic_requant_static for a static Python-int
+    exponent, dyadic_requant for per-channel / 0-d exponents (clamped to
+    [1, 62], 0 above 62)."""
+    if isinstance(e, int):
+        return dyadic_requant_static(z, m, e)
+    return dyadic_requant(z, Dyadic(m, e))
+
+
 def requant_epilogue(acc: torch.Tensor, *, bias=None, relu: bool = False,
-                     lens: Optional[torch.Tensor] = None, m, e: int,
+                     lens: Optional[torch.Tensor] = None, m, e,
                      bits: int) -> torch.Tensor:
     """The kernels' consumer epilogue on an int32 (B, T, C) accumulator:
-    bias -> ReLU -> length mask -> static dyadic requant -> clamp -> int8.
-    Same op order as the JAX FrozenExec walk (conv + bias, activation, then
-    the consumer's mask and input requant)."""
+    bias -> ReLU -> length mask -> dyadic requant (``dyadic_requant_any``:
+    a static or per-channel exponent) -> clamp -> int8.  Same op order as the JAX
+    FrozenExec walk (conv + bias, activation, then the consumer's mask and
+    input requant)."""
     if bias is not None:
         acc = acc + bias
     if relu:
         acc = acc.clamp_min(0)
     if lens is not None:
         acc = mask_values(acc, lens)
-    q = requant_clamp(dyadic_requant_static(acc, m, e), bits)
-    return q.to(torch.int8)
+    return requant_clamp(dyadic_requant_any(acc, m, e), bits).to(torch.int8)

@@ -17,8 +17,10 @@ Executors, over (B, T, C):
                           requant and its prologue the requant of a
                           materialized input.
   * ``FrozenExecKernels`` any tables, vector exponents included: convs in
-                          Kernels 1/2 with the epilogue off, every requant
-                          in Kernel 7 (requant), as the JAX FrozenExec with
+                          Kernels 1/2, the requants next to a depthwise
+                          conv in Kernel 1's prologue and epilogue with
+                          per-channel exponents, the rest in Kernel 7
+                          (requant), as the JAX FrozenExec with
                           use_pallas=True.
 """
 from __future__ import annotations
@@ -512,13 +514,28 @@ class _Held:
         return _Held(self.values, self.scale, self.bias, True)
 
 
-def _requant_sites(tables) -> int:
-    """Requants of one FrozenExecKernels forward: every conv input that is
-    requantized (the entries with an ``act_m``; the float input is
-    quantized instead), every residual join, and the decoder's input."""
-    convs = [e for tb in tables["blocks"] for e in list(tb["convs"]) + list(tb["res"])]
-    return (sum(e is not None and "act_m" in e for e in convs)
-            + sum(len(tb["res_act"]) for tb in tables["blocks"]) + 1)
+def _folded_into_dw(specs, ci: int) -> bool:
+    """Whether FrozenExecKernels requantizes the input of conv ``ci`` of a
+    block's in-block convs inside Kernel 1: a depthwise conv's input in
+    its prologue, a pointwise conv's that reads a depthwise conv in that
+    conv's epilogue."""
+    return is_depthwise(specs[ci]) or (is_pointwise(specs[ci]) and ci > 0
+                                       and is_depthwise(specs[ci - 1]))
+
+
+def _requant_sites(plan: EncoderPlan, tables) -> int:
+    """Requant-kernel launches of one FrozenExecKernels forward: every conv
+    input that is requantized (the entries with an ``act_m``; the float
+    input is quantized instead) and that Kernel 1 does not take
+    (``_folded_into_dw``), every residual join, and the decoder's input."""
+    n = 1
+    for bp, tb in zip(plan.blocks, tables["blocks"]):
+        n += len(tb["res_act"])
+        for kind, specs in (("convs", bp.convs), ("res", bp.res)):
+            for ci, entry in enumerate(tb[kind]):
+                if entry is not None and "act_m" in entry:
+                    n += kind == "res" or not _folded_into_dw(specs, ci)
+    return n
 
 
 def kernel_launches(plan: EncoderPlan, tables=None) -> Dict[str, int]:
@@ -530,12 +547,13 @@ def kernel_launches(plan: EncoderPlan, tables=None) -> Dict[str, int]:
     prologues and epilogues, except a residual join that no pending
     pointwise conv can take (a depthwise block tail, a dense block's later
     panes), which runs in the requant kernel; with vector exponents
-    (FrozenExecKernels) every requant runs in the requant kernel."""
+    (FrozenExecKernels) the requants next to a depthwise conv ride in
+    Kernel 1 and the rest run in the requant kernel (``_requant_sites``)."""
     specs = [s for bp in plan.blocks for s in bp.convs + bp.res]
     counts = {"dw_conv": sum(map(is_depthwise, specs)),
               "pw_gemm": sum(map(is_pointwise, specs)) + 1}
     if tables is not None and not tables_all_static_e(tables):
-        counts["requant"] = _requant_sites(tables)
+        counts["requant"] = _requant_sites(plan, tables)
         return counts
     joins = sum(pi > 0 or not is_pointwise(bp.convs[-1])
                 for bp in plan.blocks if bp.residual for pi in range(len(bp.res)))
@@ -662,29 +680,40 @@ class FrozenExecFused(FrozenExec):
 class FrozenExecKernels(FrozenExec):
     """Any tables, vector exponents included (freeze dyadic_mode
     'per_channel'): the port's counterpart of the JAX FrozenExec with
-    use_pallas=True.  Every conv runs in Kernel 1 or 2 with the epilogue
-    off (int32 out with its bias and a staged ReLU, as _PendingConv); every
-    input requant (with its length mask), every residual join and the
-    decoder's input requant (unmasked) run in the requant kernel, which
-    takes per-channel mantissas and exponents.  Outside a kernel remain
-    only the first site's quantization of the float features and the
-    decoder's float log-softmax.  Needs int8 activations."""
+    use_pallas=True.  Every conv runs in Kernel 1 or 2 (a _PendingConv,
+    with its staged ReLU), and the requants next to a depthwise conv ride
+    in Kernel 1 with per-channel mantissas and exponents:
+
+      * a depthwise conv's input requant (with its length mask) in Kernel
+        1's prologue, on the materialized producer output (a _Held: a
+        pointwise conv's int32 output, or a join's int8 output);
+      * the input requant of a pointwise conv that reads a depthwise conv
+        in that conv's epilogue (bias -> ReLU -> mask -> requant -> int8).
+
+    Every other conv is flushed with the epilogue off (int32 out with its
+    bias, a _Held), and the remaining requants run in the requant kernel: a
+    residual branch's pointwise input, a non-separable block's input (C3),
+    every residual join and the decoder's input (unmasked).  Outside a
+    kernel remain only the first site's quantization of the float features
+    and the decoder's float log-softmax.  Needs int8 activations."""
 
     def __init__(self, tables, qcfg: QuantConfig, *, activation: str):
         super().__init__(tables, qcfg, activation=activation)
         _check_int8_acts("FrozenExecKernels", qcfg)
 
+    def _dw(self, p: _PendingConv, **kw) -> torch.Tensor:
+        s = p.spec
+        return dw_conv(p.xq, p.entry["wk"], stride=s.stride, padding=s.padding,
+                       dilation=s.dilation, bias=p.entry.get("b"), relu=p.relu, **p.pro, **kw)
+
     def _flush(self, x):
         """A pending conv through its kernel, epilogue off -> _Held int32."""
         if not isinstance(x, _PendingConv):
             return x
-        kw = dict(bias=x.entry.get("b"), relu=x.relu)
         if x.depthwise:
-            s = x.spec
-            y = dw_conv(x.xq, x.entry["wk"], stride=s.stride, padding=s.padding,
-                        dilation=s.dilation, **kw)
+            y = self._dw(x)
         else:
-            y = pw_gemm(x.xq, x.entry["wk"], **kw)
+            y = pw_gemm(x.xq, x.entry["wk"], bias=x.entry.get("b"), relu=x.relu)
         return _Held(y, x.entry["out_scale"])
 
     def masked_conv(self, site, spec: ConvSpec, x, lens):
@@ -693,13 +722,21 @@ class FrozenExecKernels(FrozenExec):
         if not (is_depthwise(spec) or is_pointwise(spec)):
             raise NotImplementedError(f"conv {spec} is neither depthwise nor pointwise")
         bits = self._act_bits(spec)
+        out_len = conv_out_len(lens, spec)
+        if isinstance(x, _PendingConv) and x.depthwise and is_pointwise(spec):
+            xq = self._dw(x, out_len=lens, m=entry["act_m"], e=entry["act_e"], bits=bits)
+            return _PendingConv(xq, entry, spec), out_len
         x = self._flush(x)
+        if isinstance(x, _Held) and is_depthwise(spec):
+            return _PendingConv(x.values, entry, spec, pro=dict(
+                in_bias=x.bias, in_relu=x.relu, in_len=lens, m1=entry["act_m"],
+                e1=entry["act_e"], bits1=bits)), out_len
         if isinstance(x, _Held):
             xq = requant(x.values, entry["act_m"], entry["act_e"], bits, relu=x.relu,
                          lens=lens)
         else:
             xq = self._requant_in(entry, x, lens, bits)
-        return _PendingConv(xq, entry, spec), conv_out_len(lens, spec)
+        return _PendingConv(xq, entry, spec), out_len
 
     def activation(self, x, dropout: float):
         if isinstance(x, _PendingConv):

@@ -3,8 +3,9 @@ every dyadic mode, end to end:
 
 (a) From the same float features and tables, FrozenExecFused (static
     exponents, every requant in a kernel's prologue or epilogue) and
-    FrozenExecKernels (any tables, every requant in the requant kernel) on
-    the kernels' plain versions give the int8 decoder input, int32 logits,
+    FrozenExecKernels (any tables; the requants next to a depthwise conv
+    in Kernel 1's prologue and epilogue with per-channel exponents, the
+    rest in the requant kernel) on the kernels' plain versions give the int8 decoder input, int32 logits,
     ids and enc_lens of the JAX FrozenExec, and for per_channel tables of
     the JAX FrozenExec(use_pallas=True) (requant_pallas in interpret mode),
     on a small plan with every site kind and dense residual blocks.
@@ -14,7 +15,8 @@ every dyadic mode, end to end:
     JAX package's transcripts.
 (d) Full-width QuartzNet15x5 reproduces the per_channel and the static_e
     golden records on FrozenExecKernels, with 77 dw_conv + 94 pw_gemm +
-    185 requant calls per per_channel forward (the plain executor's
+    32 requant calls per per_channel forward (153 of the 185 requant sites
+    fold into Kernel 1) (the plain executor's
     per_channel record is held on the card by chip_smoke.py).
 Tolerance: exact.
 """
@@ -142,8 +144,9 @@ def test_kernel_executors_match_jax(models, mode, monkeypatch):
     want_calls = {"requant": 0, **port_freeze.kernel_launches(pm.plan, tables)}
     assert calls == want_calls
     # the dense block's later pane joins in the requant kernel on the static
-    # path; per_channel requantizes at every conv input, join and the decoder
-    assert want_calls["requant"] == (1 if static else port_freeze._requant_sites(tables))
+    # path; per_channel requantizes there at the conv inputs Kernel 1 does
+    # not take, every join and the decoder
+    assert want_calls["requant"] == (1 if static else port_freeze._requant_sites(pm.plan, tables))
     ids_p, _ = make_frozen_fn(pm, tables, argmax=True, fused=False)(
         pcm, np.asarray([8000, 5600]))
     assert torch.equal(ids, ids_p)
@@ -174,6 +177,6 @@ def test_flagship_goldens_on_kernel_executors(monkeypatch):
     make_frozen_fn(model, tables := model.freeze("per_channel", device="cpu"))(
         np.zeros((1, 4000), np.int16), np.asarray([4000]))
     assert calls == port_freeze.kernel_launches(model.plan, tables) == {
-        "dw_conv": 77, "pw_gemm": 94, "requant": 185}
+        "dw_conv": 77, "pw_gemm": 94, "requant": 32}
     with pytest.raises(ValueError, match="static-exponent"):
         FrozenExecFused(tables, model.qcfg, activation="relu")
