@@ -31,14 +31,23 @@ result line.  Phases:
    inputs, scalar and per-channel mantissas and exponents (1, 31, 62, 63,
    70), identity and mask on and off, every row masked, and a view that
    starts off a 16-byte boundary; the requant device functions
-   (qasr_requant, and qasr_rq with its constants hoisted, as Kernels 1 and
-   7 use it) over a boundary grid and 2 x 2^20 random triples, z over all
-   of int32 in one half; the Conformer's integer device functions over their whole
-   domains (i_exp, i_sigmoid_grid, the LN square root, floor_div, the i-LN
-   row core); int_attention at T in {1, 37, 128, 129, 375, 500} with ragged
+   (qasr_requant, and qasr_rq with its constants hoisted, as Kernels 1, 4
+   and 7 use it) over a boundary grid and 2 x 2^20 random triples, z over
+   all of int32 in one half, and qasr_rq_f64 (Kernel 3's score requants)
+   on the triples in its domain plus 2^20 at |z| <= 2^21; the Conformer's
+   integer device functions over their whole domains (i_exp, and i_exp >> 4
+   from the table of its quadratic as Kernel 3 reads it; i_sigmoid_grid,
+   and Kernel 4's GLU-gate forms, the table lookup and the reciprocal
+   division, on [-N_IN-64, N_IN+64] and +-2^26; the invariant-divisor
+   division Kernel 3 divides by the row sum with, over every divisor in
+   [1, 2^20] against ten numerators each and 2 x 2^20 random pairs below
+   2^31; the LN square root, also as the float root Kernel 4 uses, on
+   [0, 2^22) and 2^20 random n < 2^30; floor_div; the i-LN row core in
+   both forms); int_attention at T in {1, 37, 128, 129, 375, 500} with ragged
    lengths and contexts -1, (8, 0), (4, 2), at d_k in {16, 96, 128}
-   besides the flagship's 64, and at T in {1300, 1500, 2600} on its
-   streaming form; conv_block at d in {64, 256, 512}, T in {1, 31, 375}
+   besides the flagship's 64, at T in {1300, 1500, 2600} on its
+   streaming form, and with score requants outside qasr_rq_f64's domain
+   at T 129 and 1300; conv_block at d in {64, 256, 512}, T in {1, 31, 375}
    with ragged lengths; lin_epilogue in its three modes at every (K, D) of
    the Conformer path (K = 4864 is 38 chunks of K), with and without bias,
    at N in {1, 37, 609, 12000}, on the flagship's sites and on seeded sites
@@ -276,8 +285,19 @@ def phase_requant(chk, dev):
               requant_device(zt, mt, et), want)
     chk.equal("requant_fn", "hoisted requant qasr_rq (boundary grid + fuzz)",
               requant_device(zt, mt, et, fast=True), want)
+    # qasr_rq_f64 on its domain: the triples above inside it, and Kernel 3's
+    # score requants (|z| <= d_k 2^14, e from 26)
+    za, mm = np.abs(z.astype(np.int64)), m.astype(np.int64)
+    lim = np.left_shift(np.int64(1), np.minimum(e.astype(np.int64) + 26, 62))
+    ok = (za * mm < lim) & (e <= 62)
+    zf = np.concatenate([z[ok], rng.integers(-(2**21), 2**21 + 1, n)]).astype(np.int32)
+    mf = np.concatenate([m[ok], rng.integers(1, 2**31, n)]).astype(np.int32)
+    ef = np.concatenate([e[ok], rng.integers(26, 63, n)]).astype(np.int32)
+    zt, mt, et = (torch.from_numpy(a).to(dev) for a in (zf, mf, ef))
+    chk.equal("requant_fn", "qasr_rq_f64 on its domain (grid + fuzz)",
+              requant_device(zt, mt, et, f64=True), dyadic_requant(zt, Dyadic(mt, et)))
     log(f"[3] requant device functions (qasr_requant, qasr_rq) == plain on {z.size} "
-        f"(z, m, e) triples")
+        f"(z, m, e) triples; qasr_rq_f64 on {zf.size} in its domain")
 
 
 def _tables(rng, c, m16, dev):
@@ -918,12 +938,46 @@ def phase_int_fns(chk, dev):
 
     q = torch.arange(-ism.N_IN, 1, dtype=torch.int32, device=dev)
     chk.equal("conformer_int", "i_exp on [-N_IN, 0]", int_fn_device("i_exp", q), ism.i_exp(q))
+    chk.equal("conformer_int", "i_exp >> 4 from the quadratic's table on [-N_IN, 0]",
+              int_fn_device("i_exp_tab", q), ism.i_exp(q) >> 4)
     q = torch.arange(-ism.N_IN - 64, ism.N_IN + 65, dtype=torch.int32, device=dev)
     chk.equal("conformer_int", "i_sigmoid_grid on [-N_IN-64, N_IN+64]",
               int_fn_device("i_sigmoid_grid", q), isg.i_sigmoid_grid(q))
+    # Kernel 4's GLU gate: the table lookup, over the whole domain and the
+    # requant's extremes
+    from qasr_tpu_torch.kernels.conv_block import sigmoid_table
+
+    qx = torch.cat([q, torch.tensor([-(1 << 26), -(1 << 26) + 1, (1 << 26) - 1, 1 << 26],
+                                    dtype=torch.int32, device=dev)])
+    chk.equal("conformer_int", "i_sigmoid_tab on [-N_IN-64, N_IN+64] and +-2^26",
+              int_fn_device("i_sigmoid_tab", qx, sigmoid_table(dev)), isg.i_sigmoid_grid(qx))
+    # Kernel 3's division by the row sum: every divisor in [1, 2^20] against
+    # a grid of numerators, then random pairs up to the numerator bound 2^31
+    dd = torch.arange(1, (1 << 20) + 1, dtype=torch.int64, device=dev)
+    top = (1 << 31) - 1
+    mult = top - top % dd
+    n_div = 0
+    for num in (torch.zeros_like(dd), torch.ones_like(dd), dd - 1, dd, dd + 1, 2 * dd - 1,
+                mult, mult - 1, torch.full_like(dd, top), 116_970 * 127 + dd // 2):
+        chk.equal("conformer_int", "div over den in [1, 2^20]",
+                  int_fn_device("div", num.to(torch.int32), dd.to(torch.int32)),
+                  torch.div(num, dd, rounding_mode="floor").to(torch.int32))
+        n_div += dd.numel()
+    drng = np.random.default_rng(4)
+    for dmax in (300_000_000, top):
+        num = torch.from_numpy(drng.integers(0, 1 << 31, 1 << 20)).to(dev)
+        den = torch.from_numpy(drng.integers(1, dmax + 1, 1 << 20)).to(dev)
+        chk.equal("conformer_int", f"div on random pairs, den up to {dmax}",
+                  int_fn_device("div", num.to(torch.int32), den.to(torch.int32)),
+                  torch.div(num, den, rounding_mode="floor").to(torch.int32))
+        n_div += num.numel()
     v = torch.arange(0, 2**16 + 1, dtype=torch.int32, device=dev) << 12
     chk.equal("conformer_int", "isqrt on var << 12, var in [0, 2^16]",
               int_fn_device("isqrt", v), iln.i_sqrt(v))
+    v = torch.cat([v, torch.arange(0, 1 << 22, dtype=torch.int32, device=dev),
+                   torch.randint(0, 1 << 30, (1 << 20,), dtype=torch.int32, device=dev)])
+    chk.equal("conformer_int", "isqrt_f on var << 12, [0, 2^22) and random n < 2^30",
+              int_fn_device("isqrt_f", v), iln.i_sqrt(v))
     rng = np.random.default_rng(3)
     n = np.arange(-70_000, 70_001, dtype=np.int32)
     a = np.concatenate([n, n, n, rng.integers(-2**30, 2**30, 1 << 20)]).astype(np.int32)
@@ -936,11 +990,14 @@ def phase_int_fns(chk, dev):
         x = rng.integers(-128, 128, (4096, d)).astype(np.int8)
         x[0], x[1], x[2, : d // 2] = 0, -3, 5
         xt = torch.from_numpy(x).to(dev)
-        chk.equal("conformer_int", f"i-LN row core d={d}", ln_core_device(xt),
-                  iln.i_layernorm_core(xt))
+        want = iln.i_layernorm_core(xt)
+        chk.equal("conformer_int", f"i-LN row core d={d}", ln_core_device(xt), want)
+        chk.equal("conformer_int", f"i-LN row core, divide form, d={d}",
+                  ln_core_device(xt, div=True), want)
     log(f"[3] Conformer integer device functions == plain over their domains "
-        f"(i_exp {ism.N_IN + 1}, i_sigmoid_grid {2 * ism.N_IN + 129}, isqrt 65537, "
-        f"floor_div {a.size}, i-LN 3 x 4096 rows)")
+        f"(i_exp {ism.N_IN + 1}, i_sigmoid_grid {2 * ism.N_IN + 129}, i_sigmoid_tab "
+        f"{qx.numel()}, i_exp from its table {ism.N_IN + 1}, div {n_div}, isqrt 65537, "
+        f"isqrt_f {v.numel()}, floor_div {a.size}, i-LN 3 x 4096 rows in both forms)")
 
 
 def small_conformer(dev, d_model):
@@ -1022,15 +1079,42 @@ def phase_int_attention(chk, dev, tables):
                       int_attention(qu, qv, k, v, p, lens, **kw),
                       int_attention_plain(qu, qv, k, v, p, lens, **kw))
             n += 1
-    log(f"[3] int_attention == plain at {n} (T, d_k, context) cases, ragged lengths, "
-        f"T in {ATT_T_LONG} on the streaming form")
+    # score requants outside qasr_rq_f64's domain take qasr_rq, both forms
+    for t in (129, ATT_T_LONG[0]):
+        qu, qv, k, v = (torch.from_numpy(rng.integers(-128, 128, (2, t, h, 64)).astype(np.int8))
+                        .to(dev) for _ in range(4))
+        p = torch.from_numpy(rng.integers(-128, 128, (2 * t - 1, h, 64)).astype(np.int8)).to(dev)
+        lens = torch.tensor([t, t // 2], dtype=torch.int32, device=dev)
+        kw = dict(ac=(2**30 + 5, 22), bd=(2**29 + 3, 21), ctx_rq=tbl["ctx_rq"], left=-1,
+                  right=-1, nbits=8)
+        chk.equal("int_attention", f"int_attention T={t} with score requants on qasr_rq",
+                  int_attention(qu, qv, k, v, p, lens, **kw),
+                  int_attention_plain(qu, qv, k, v, p, lens, **kw))
+        n += 1
+    # lengths past T count as T (the plain version's arange(T) < lens), both
+    # forms, with T off the 64-key chunk so the padded keys [T, Tp) exist
+    for t in (37, 375, ATT_T_LONG[0]):
+        qu, qv, k, v = (torch.from_numpy(rng.integers(-127, 127, (2, t, h, 64)).astype(np.int8))
+                        .to(dev) for _ in range(4))
+        p = torch.from_numpy(rng.integers(-127, 127, (2 * t - 1, h, 64)).astype(np.int8)).to(dev)
+        lens = torch.tensor([t + 1, t + 100], dtype=torch.int32, device=dev)
+        for left, right in ATT_CTX[::2]:
+            kw = dict(ac=tbl["ac_grid"], bd=tbl["bd_grid"], ctx_rq=tbl["ctx_rq"], left=left,
+                      right=right, nbits=8)
+            chk.equal("int_attention", f"int_attention T={t} lens={lens.tolist()} "
+                      f"ctx=({left}, {right})",
+                      int_attention(qu, qv, k, v, p, lens, **kw),
+                      int_attention_plain(qu, qv, k, v, p, lens, **kw))
+            n += 1
+    log(f"[3] int_attention == plain at {n} (T, d_k, context, requant) cases, ragged "
+        f"lengths and lengths past T, T in {ATT_T_LONG} on the streaming form")
 
 
 def phase_conv_block(chk, dev, tables):
     import numpy as np
     import torch
 
-    from qasr_tpu_torch.kernels.conv_block import conv_block, conv_block_plain
+    from qasr_tpu_torch.kernels.conv_block import _packed, conv_block, conv_block_plain
 
     rng = np.random.default_rng(6)
     layers = {64: small_conformer(dev, 64), 256: tables["encoder"]["layers"][3],
@@ -1042,10 +1126,17 @@ def phase_conv_block(chk, dev, tables):
                       for _ in range(2))
             lens = torch.from_numpy(np.concatenate([[t], rng.integers(1, t + 1, b - 1)])
                                     .astype(np.int32)).to(dev)
+            want = conv_block_plain(c8, x8, lens, layers[d], (15, 15), nbits=8)
             chk.equal("conv_block", f"conv_block d={d} B={b} T={t}",
-                      conv_block(c8, x8, lens, layers[d], (15, 15), nbits=8),
-                      conv_block_plain(c8, x8, lens, layers[d], (15, 15), nbits=8))
-    log(f"[3] conv_block == plain at d in {CONV_D} x T in {CONV_T}, ragged lengths")
+                      conv_block(c8, x8, lens, layers[d], (15, 15), nbits=8), want)
+            if d == 256 and t == 375:
+                # the same layer with every requant on qasr_rq (the form for
+                # tables outside qasr_rq_f64's domain)
+                rq_only = dict(layers[d], _conv_block={**_packed(layers[d]), "f64": False})
+                chk.equal("conv_block", f"conv_block d={d} B={b} T={t}, requants on qasr_rq",
+                          conv_block(c8, x8, lens, rq_only, (15, 15), nbits=8), want)
+    log(f"[3] conv_block == plain at d in {CONV_D} x T in {CONV_T}, ragged lengths, and "
+        f"with every requant on qasr_rq at d=256 T=375")
 
 
 def _lin_sites(tables):

@@ -35,9 +35,9 @@ _SIGNATURES = {
     "qasr_requant_rows": [_P, _I, _P, _P, _I, _I, _P, _I, _P, _P, _I, _I, _P, _P] + [_I] * 7
                          + [_P],
     "qasr_int_attention": [_P] * 7 + [_I] * 14 + [_P],
-    "qasr_conv_block": [_P] * 11 + [_I] * 6 + [_P],
+    "qasr_conv_block": [_P] * 14 + [_I] * 6 + [_P],
     "qasr_int_fn_check": [_I] + [_P] * 3 + [_I, _P],
-    "qasr_ln_check": [_P] * 2 + [_I] * 2 + [_P],
+    "qasr_ln_check": [_P] * 2 + [_I] * 3 + [_P],
     "qasr_lin_epilogue": [_P] * 6 + [_I] * 10 + [_P],
     "qasr_ffn_ln": [_P] * 9 + [_I] * 14 + [_P],
 }

@@ -6,15 +6,18 @@ one grid step per utterance; on the H100 that would fill 32 of 132 SMs,
 so the kernel splits in time instead, in two launches with ``glu8`` as
 the only intermediate in device memory:
 
-  stage A, per 64-row tile of the (B*T, d) stream: att_out GEMM + bias
+  stage A, per 32-row tile of the (B*T, d) stream: att_out GEMM + bias
   and stream requants -> x1 (kept in the output buffer); i-LayerNorm ->
   affine requant; one (d -> 2d) GLU GEMM with per-half requants and the
-  i-sigmoid of the gate; rows at or past ``len`` zeroed; glu_prod requant
-  -> glu8.
-  stage B, per 64-frame tile of one utterance with a (K-1)/2 halo:
-  depthwise taps over glu8 (zero outside [0, T)); BN affine requant;
-  i-swish; pw2 GEMM with the j3 stream join against x1 -> out.
+  i-sigmoid of the gate (``sigmoid_table``); rows at or past ``len``
+  zeroed; glu_prod requant -> glu8.
+  stage B, per 32-frame tile of one utterance with a K-1 frame halo:
+  time-packed dp4a depthwise taps over glu8 (zero outside [0, T); taps
+  from ``pack_taps``); BN affine requant; i-swish (``swish_table``); pw2
+  GEMM with the j3 stream join against x1 -> out.
 
+The tables and the packed weights are built and validated once per layer
+(``_packed``); a call checks only its activations.
 ``conv_block`` launches both stages for CUDA tensors (one launch count
 per call) and runs ``conv_block_plain`` (the XLA composition of
 qasr_tpu/quantize/conformer_freeze.py, in torch) for CPU tensors; it
@@ -29,17 +32,20 @@ import torch
 from qasr_tpu_torch.kernels import _build
 from qasr_tpu_torch.kernels.checks import check_vec, check_x
 from qasr_tpu_torch.models.jasper import mask_values
+from qasr_tpu_torch.ops.integer_sigmoid import i_sigmoid_grid
 from qasr_tpu_torch.ops.quant_prims import dyadic_requant_static
 from qasr_tpu_torch.quantize.conformer_int import (
     _conv_tail_mid,
     _glu_int,
     _join_lin,
     _ln_rq,
+    _swish8,
     clip8,
 )
 
-ROWS = 64            # rows per block in both stages (csrc/conv_block.cu)
+ROWS = 32            # rows per block in both stages (csrc/conv_block.cu)
 MAX_D = 512
+SIG_TAB = 4544       # entries of the GLU sigmoid table (csrc/conformer_int.cuh kSigTab)
 
 
 def conv_block_plain(c8: torch.Tensor, x8: torch.Tensor, lens: torch.Tensor,
@@ -55,15 +61,86 @@ def conv_block_plain(c8: torch.Tensor, x8: torch.Tensor, lens: torch.Tensor,
     return _join_lin(mid8, tbl["pw2"], x1, tbl["j3_stream"], nbits)
 
 
+def tap_groups(k_size: int):
+    """(ng, ngp): the depthwise tap groups of four that Kernel 4's time-packed
+    dp4a walks (the last output of a quad reaches tap 4 (ng - 1) + 3 - 3)
+    and the int32 words per channel of ``pack_taps`` (a leading zero word,
+    padded to an odd count so that a warp's channels fall on 32 banks)."""
+    ng = (k_size + 2) // 4 + 1
+    return ng, (ng + 1) | 1
+
+
+def pack_taps(dw_w: torch.Tensor) -> torch.Tensor:
+    """(K, d) int8 depthwise taps -> (d, ngp) int32: word 0 is 0, word 1 + g
+    holds taps 4g..4g+3 (byte i = tap 4g + i, 0 past K) of the channel."""
+    k_size, d = dw_w.shape
+    ng, ngp = tap_groups(k_size)
+    taps = torch.zeros((d, 4 * ngp), dtype=torch.uint8, device=dw_w.device)
+    taps[:, 4:4 + k_size] = dw_w.t().contiguous().view(torch.uint8)
+    return taps.view(torch.int32).contiguous()
+
+
+def sigmoid_table(device) -> torch.Tensor:
+    """i_sigmoid_grid at q in [0, SIG_TAB) as uint8: the kernel's GLU gate
+    reads it at min(|q|, SIG_TAB - 1) and mirrors it for q < 0 (the
+    function is odd about 64 and saturates from q = 4541)."""
+    q = torch.arange(SIG_TAB, dtype=torch.int32, device=device)
+    return i_sigmoid_grid(q).to(torch.uint8)
+
+
+def swish_table(tbl, nbits: int) -> torch.Tensor:
+    """The conv module's i-swish after the BN as a function of bn8: mid8 at
+    index bn8 + 128, as uint8 (the bytes of the int8 result)."""
+    bn8 = torch.arange(-128, 128, dtype=torch.int32, device=tbl["dw_w"].device).to(torch.int8)
+    return _swish8(bn8, tbl["bn_grid"], tbl["bn_prod"], nbits).view(torch.uint8).contiguous()
+
+
+def _f64_scales(tbl):
+    """(mf, ok): the per-column sites' m 2^-e as a (6, d) float64 tensor
+    (att_out, GLU a, GLU g, BN, pw2, ln affine; exact in float64), and whether every
+    column of them and the glu_prod requant stay in qasr_rq_f64's domain
+    (|z| m < 2^(e + 26) and 1 <= e <= 62, since qasr_rq counts e < 1 as 1
+    and mf does not) for every int8 input: |z| is at most 128 times the
+    column's weight L1 norm plus |bias| (times |sgn| for the BN), |sgn|
+    2^21 + |bias| for the ln affine (|i-LN| < 2^21 for an int8 row,
+    d <= 512), and 127 * 128 for glu_prod's a8 * sigmoid."""
+    def fits(zmax, m, e):
+        prod = zmax.to(torch.int64) * m.to(torch.int64).abs()
+        lim = 1 << min(62, int(e) + 26)
+        return 1 <= int(e) <= 62 and bool((prod < lim).all())
+
+    def weight_site(lin):
+        zmax = 128 * lin["wt"].to(torch.int64).abs().sum(1) + lin["b"].to(torch.int64).abs()
+        return zmax, lin["m"], lin["e"]
+
+    bn = tbl["dw_bn"]
+    dw_zmax = (128 * tbl["dw_w"].to(torch.int64).abs().sum(0) * bn["sgn"].to(torch.int64).abs()
+               + bn["b"].to(torch.int64).abs())
+    ln = tbl["ln_conv"]
+    ln_zmax = (ln["sgn"].to(torch.int64).abs() << 21) + ln["b"].to(torch.int64).abs()
+    sites = [weight_site(tbl["att_out"]), weight_site(tbl["pw1_a"]), weight_site(tbl["pw1_g"]),
+             (dw_zmax, bn["m"], bn["e"]), weight_site(tbl["pw2"]), (ln_zmax, ln["m"], ln["e"])]
+    ok = all(fits(z, m, e) for z, m, e in sites)
+    m_glu, e_glu = tbl["glu_prod"]
+    ok = ok and fits(torch.tensor([127 * 128]), torch.tensor([int(m_glu)]), e_glu)
+    mf = torch.stack([m.to(torch.float64) * 2.0 ** -int(e) for _, m, e in sites]).contiguous()
+    return mf, ok
+
+
 def _packed(tbl) -> Dict[str, Any]:
-    """The kernel's table layout, built once per layer table and cached in
-    it: the GLU weights interleaved so that each 64-row chunk holds 16 a-
-    rows then the matching 16 g-rows, twice; the per-channel int32 vectors
-    stacked (14, d); the static scalars as one int32 vector."""
+    """The kernel's table layout, built and validated once per layer table
+    and cached in it: the GLU weights interleaved so that each 64-row chunk
+    holds 16 a-rows then the matching 16 g-rows, twice; the depthwise taps
+    packed four a word (``pack_taps``); the per-channel int32 vectors
+    stacked (14, d); the static scalars as one int32 vector; the GLU
+    sigmoid table; the i-swish table per activation width (``swish``); the
+    per-column sites' requant scales in float64 and whether the kernel may
+    requant them on the FP64 pipe (``_f64_scales``)."""
     if "_conv_block" in tbl:
         return tbl["_conv_block"]
     a, g = tbl["pw1_a"], tbl["pw1_g"]
     d = a["wt"].shape[0]
+    k_size = tbl["dw_w"].shape[0]
     w_ag = torch.stack([a["wt"].reshape(d // 16, 16, d),
                         g["wt"].reshape(d // 16, 16, d)], dim=1).reshape(2 * d, d)
     vec = torch.stack([
@@ -77,9 +154,21 @@ def _packed(tbl) -> Dict[str, Any]:
                *tbl["bn_grid"], *tbl["bn_prod"], tbl["pw2"]["e"], *tbl["j3_stream"]]
     dev = a["wt"].device
     packed = {"w_ao": tbl["att_out"]["wt"].contiguous(), "w_ag": w_ag.contiguous(),
-              "dw_w": tbl["dw_w"].contiguous(), "w_2": tbl["pw2"]["wt"].contiguous(),
+              "dw_p": pack_taps(tbl["dw_w"]), "w_2": tbl["pw2"]["wt"].contiguous(),
               "vec": vec,
-              "sc": torch.tensor([int(s) for s in scalars], dtype=torch.int32, device=dev)}
+              "sc": torch.tensor([int(s) for s in scalars], dtype=torch.int32, device=dev),
+              "sig": sigmoid_table(dev), "swish": {}}
+    packed["mf"], packed["f64"] = _f64_scales(tbl)
+    if dev.type == "cuda":
+        shapes = {"w_ao": ((d, d), torch.int8), "w_ag": ((2 * d, d), torch.int8),
+                  "dw_p": ((d, tap_groups(k_size)[1]), torch.int32),
+                  "w_2": ((d, d), torch.int8), "vec": ((14, d), torch.int32),
+                  "sc": ((16,), torch.int32), "sig": ((SIG_TAB,), torch.uint8),
+                  "mf": ((6, d), torch.float64)}
+        for name, (shape, dtype) in shapes.items():
+            check_vec("conv_block", name, packed[name], dtype, shape, dev)
+            if packed[name].data_ptr() % 16:
+                raise ValueError(f"conv_block: packed {name} is not 16-byte aligned")
     tbl["_conv_block"] = packed
     return packed
 
@@ -110,17 +199,21 @@ def conv_block(c8: torch.Tensor, x8: torch.Tensor, lens: torch.Tensor, tbl,
                          f"aligned inputs (got B={b} T={t} d={d} K={k_size} "
                          f"padding={padding})")
     p = _packed(tbl)
-    for name, shape in (("w_ao", (d, d)), ("w_ag", (2 * d, d)), ("dw_w", (k_size, d)),
-                        ("w_2", (d, d)), ("vec", (14, d)), ("sc", (16,))):
-        check_vec("conv_block", name, p[name], torch.int32 if name in ("vec", "sc")
-                  else torch.int8, shape, dev)
+    if p["vec"].device != dev or p["vec"].shape[1] != d:
+        raise ValueError(f"conv_block: the layer's tables are for d={p['vec'].shape[1]} "
+                         f"on {p['vec'].device}, the input is d={d} on {dev}")
+    swish = p["swish"].get(nbits)
+    if swish is None:
+        swish = p["swish"][nbits] = swish_table(tbl, nbits)
     glu8 = torch.empty((b, t, d), dtype=torch.int8, device=dev)
     out = torch.empty((b, t, d), dtype=torch.int8, device=dev)
     rc = _build.library().qasr_conv_block(
         _build.ptr(c8), _build.ptr(x8), _build.ptr(lens), _build.ptr(p["w_ao"]),
-        _build.ptr(p["w_ag"]), _build.ptr(p["dw_w"]), _build.ptr(p["w_2"]),
-        _build.ptr(p["vec"]), _build.ptr(p["sc"]), _build.ptr(glu8), _build.ptr(out),
-        b, t, d, k_size, pad_l, 2 ** (nbits - 1) - 1, _build.stream_of(x8))
+        _build.ptr(p["w_ag"]), _build.ptr(p["dw_p"]), _build.ptr(p["w_2"]),
+        _build.ptr(p["vec"]), _build.ptr(p["sc"]), _build.ptr(p["mf"] if p["f64"] else None),
+        _build.ptr(p["sig"]), _build.ptr(swish),
+        _build.ptr(glu8), _build.ptr(out), b, t, d, k_size, pad_l, 2 ** (nbits - 1) - 1,
+        _build.stream_of(x8))
     _build.check(rc, "conv_block")
     conv_block.launches += 1
     return out

@@ -49,6 +49,67 @@ __device__ __forceinline__ int qasr_i_sigmoid_grid(int q) {
   return q >= 0 ? (1 << kKSig) - s_neg : s_neg;
 }
 
+// i_sigmoid_grid from a table of its values at q in [0, kSigTab): it is odd
+// about 64 (f(q) + f(-q) = 2^kKSig on its whole domain) and equals 2^kKSig
+// from q = 4541 on, so |q| clamped below kSigTab indexes the table
+// (kernels/conv_block.py::sigmoid_table builds it from the plain function;
+// the CPU tests hold it to the JAX package over the whole domain).
+constexpr int kSigTab = 4544;
+
+__device__ __forceinline__ int qasr_i_sigmoid_tab(const uint8_t* tab, int q) {
+  const int a = q < 0 ? -q : q;
+  const int s = tab[a < kSigTab ? a : kSigTab - 1];
+  return q >= 0 ? s : (1 << kKSig) - s;
+}
+
+// floor(n / d) for 0 <= n < 2^32 and 1 <= d < 2^31 by an invariant divisor
+// (Granlund and Montgomery 1994, fig. 4.1, N = 32): with l = ceil(log2 d),
+// m = floor(2^32 (2^l - d) / d) + 1 and t = mulhi(m, n), the quotient is
+// (t + ((n - t) >> min(l, 1))) >> max(l - 1, 0), exact on that whole range.
+// qasr_div_make is one 64-bit division, made once per divisor.
+struct QasrDiv {
+  unsigned m;
+  int s1, s2;
+};
+
+__device__ __forceinline__ QasrDiv qasr_div_make(unsigned d) {
+  const int l = d > 1u ? 32 - __clz(d - 1u) : 0;
+  QasrDiv r;
+  r.m = static_cast<unsigned>((((1ull << l) - d) << 32) / d + 1ull);
+  r.s1 = l < 1 ? l : 1;
+  r.s2 = l > 1 ? l - 1 : 0;
+  return r;
+}
+
+__device__ __forceinline__ unsigned qasr_div(unsigned n, const QasrDiv& r) {
+  const unsigned t = __umulhi(r.m, n);
+  return (t + ((n - t) >> r.s1)) >> r.s2;
+}
+
+// i_exp(-a) >> kPreshift for a in [0, kNIn] from a table of the quadratic
+// at r = a mod 568: i_exp(q) = ((r' + Q_B)^2 + Q_C) >> z with z = a / 568
+// and r' = -r, so the table holds qasr_exp_quad(r) for r in [0, kExpTab)
+// (the table is below 2^21, so a shift past 20 gives 0 as the reference)
+constexpr int kExpTab = -kQLn2;
+
+__device__ __forceinline__ int qasr_exp_quad(int r) { return (kQB - r) * (kQB - r) + kQC; }
+
+__device__ __forceinline__ int qasr_i_exp_pre(int a, const int* tab) {
+  const int z = static_cast<int>(static_cast<unsigned>(a) / static_cast<unsigned>(kExpTab));
+  const int s = z + kPreshift;
+  return tab[a - kExpTab * z] >> (s < 31 ? s : 31);
+}
+
+// floor(sqrt(n)) for 0 <= n < 2^30 from the float square root, which is
+// within 0.005 of sqrt(n) there, and one correction step each way
+__device__ __forceinline__ int qasr_isqrt_f(int n) {
+  if (n <= 0) return 0;
+  int r = static_cast<int>(sqrtf(static_cast<float>(n)));
+  r -= r * r > n ? 1 : 0;
+  r += (r + 1) * (r + 1) <= n ? 1 : 0;
+  return r;
+}
+
 // floor(sqrt(n)) for n >= 0 (0 for n <= 0), binary digit by digit
 __device__ __forceinline__ int qasr_isqrt(int n) {
   if (n <= 0) return 0;
@@ -72,15 +133,46 @@ __device__ __forceinline__ int qasr_warp_sum(int v) {
   return v;
 }
 
-__device__ __forceinline__ int qasr_warp_max(int v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
 // i_layernorm_core of one row of d int8 values, by one warp: lane l holds
 // columns l, l + 32, ... (kPer = d / 32 of them, d <= 32 * kMaxPer) in x
 // and receives (x - mu) / sigma at 2^-kLnK in y.
+// qasr_ln_row with its divisions by d as invariant-divisor divisions (dd =
+// qasr_div_make(d), made by the caller), the square root as qasr_isqrt_f,
+// and the division by sigma as a float estimate corrected once each way:
+// for an int8 row (d <= 512) the quotient |(x - mu) 2^16 / sigma| is below
+// 2^21 (sigma >= 64 unless var = 0, and then |x - mu| <= 22), so the
+// rounded-down float product is within 1 of the floor
+template <int kMaxPer>
+__device__ __forceinline__ void qasr_ln_row_div(const int (&x)[kMaxPer], int (&y)[kMaxPer],
+                                                int per, int d, const QasrDiv& dd) {
+  int s = 0;
+#pragma unroll
+  for (int k = 0; k < kMaxPer; ++k)
+    if (k < per) s += x[k];
+  s = qasr_warp_sum(s);
+  const int mu = s >= 0 ? static_cast<int>(qasr_div(static_cast<unsigned>(s + d / 2), dd))
+                        : -static_cast<int>(qasr_div(static_cast<unsigned>(-s + d / 2), dd));
+  int s2 = 0;
+#pragma unroll
+  for (int k = 0; k < kMaxPer; ++k)
+    if (k < per) s2 += (x[k] - mu) * (x[k] - mu);
+  s2 = qasr_warp_sum(s2);
+  const int var = static_cast<int>(qasr_div(static_cast<unsigned>(s2), dd));
+  int sigma = qasr_isqrt_f(var << (2 * kLnSB));
+  sigma = sigma > 1 ? sigma : 1;
+  const float rcp = __frcp_rn(static_cast<float>(sigma));
+#pragma unroll
+  for (int k = 0; k < kMaxPer; ++k) {
+    if (k < per) {
+      const int v = (x[k] - mu) * (1 << (kLnK + kLnSB));
+      int q = __float2int_rd(static_cast<float>(v) * rcp);
+      const int r = v - q * sigma;
+      q += (r >= sigma ? 1 : 0) - (r < 0 ? 1 : 0);
+      y[k] = q;
+    }
+  }
+}
+
 template <int kMaxPer>
 __device__ __forceinline__ void qasr_ln_row(const int (&x)[kMaxPer], int (&y)[kMaxPer],
                                             int per, int d) {

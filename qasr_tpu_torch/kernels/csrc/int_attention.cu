@@ -14,32 +14,52 @@
 // d_k=64): it must read 4 x 3.1 MB of q/k/v plus the pos table and write
 // 3.1 MB (about 5 us of HBM time at 3.35 TB/s), and do 3 products of
 // 32 x 4 x 375 x 375 x 64 multiply-adds (about 3.5 G int8 operations,
-// under 2 us of tensor-core time); the integer softmax's elementwise work
-// (about 20 integer operations per score, 18 M scores) is the largest
-// part of the arithmetic and runs on the CUDA cores.
+// under 2 us of tensor-core time).  What the card spends is integer work
+// on the CUDA cores, per score (18 M of them): two requants, the mask, the
+// row max, i_exp, the row sum and the rounding division.  The design cuts
+// that work:
+//  - both score requants are folded once a block: on the FP64 pipe
+//    (qasr_rq_f64: an fma that rounds half to even) when every int8 dot
+//    product's requant stays in its domain, as the flagship's grids do,
+//    else qasr_rq;
+//  - the mask is tested only in chunks that cross len, T or the [-right,
+//    left] band (score_epilogue<.., true, ..>); a full-context run masks
+//    only the last key chunk of each row and the last query tile;
+//  - the row max is gathered as the scores are written (a shuffle over the
+//    4 lanes of a row, then a shared-memory atomicMax a row), so the
+//    resident form has no separate max pass; the integer i_exp still needs
+//    the true max before any exponent, so max -> (exp, sum) -> divide stays
+//    (online rescaling is not exact here);
+//  - i_exp >> 4 is a lookup in a 568-entry table of its quadratic and a
+//    shift (qasr_i_exp_pre), the table made once a block;
+//  - the division by the row sum is a multiply-high and two shifts: one
+//    Granlund-Montgomery divisor a row (qasr_div, conformer_int.cuh; lane r
+//    of a warp makes row r's, so one 64-bit division serves the warp's
+//    rows), exact because the numerator e * n + den / 2 < 2^31 (e <=
+//    i_exp(0) >> 4 = 116,970, n <= 127, den < 2^31 while the int32 row sum
+//    holds);
+//  - K chunks and pos windows come in by cp.async (16 bytes when d_k is a
+//    multiple of 16, else 4) into a double buffer, so chunk j+1 loads while
+//    chunk j multiplies; V chunks are loaded into registers one chunk ahead
+//    and transposed with byte_perm on 4 x 4 byte blocks.
 //
-// Design (simple first): one 256-thread block per (batch, head, 32-query
-// tile).  Keys come in chunks of 64: content scores by mma.sync m16n8k32
-// s8 against the K chunk, and the Toeplitz diagonal of qv . pos as a
-// 32 x 96 product against the 95 pos rows the chunk needs (pos row
-// T-1+i-j lands at window column (i - i0) - (j - j0) + 63), gathered in
-// shared memory (chunk_scores).  Two forms share that step:
-//   resident (T up to about 1,300 frames): the tile's full int32 score
-//     rows live in shared memory, so the (T, T) scores never reach device
-//     memory; one warp per row then runs the integer softmax, and the int8
-//     probabilities multiply the V chunks (transposed into shared memory)
-//     on the tensor cores;
+// Blocks: one 256-thread block (8 warps) per (batch, head, kTQ-query tile).
+// Keys come in chunks of 64: content scores by mma.sync m16n8k32 s8
+// against the K chunk, and the Toeplitz diagonal of qv . pos as a kTQ x
+// (kTQ + 64) product against the pos rows the chunk needs (pos row
+// T-1+i-j lands at window column (i - i0) - (j - j0) + 63).  Two forms:
+//   resident (T up to 1,152 frames at d_k 64): the tile's full int32
+//     score rows live in shared memory; one warp per row then runs the
+//     softmax, and the int8 probabilities multiply the V chunks;
 //   streaming (any T): three passes over the key chunks, each recomputing
-//     the chunk's scores on the tensor cores: pass 1 takes the row maxima,
-//     pass 2 sums i_exp of the shifted scores, pass 3 forms the int8
-//     probabilities with the same rounding division and multiplies them
-//     into V.  Shared memory no longer grows with T; the price is three
-//     score products instead of one and i_exp twice.
-// The wrapper picks the resident form whenever its rows fit.  Both compute
-// the canonical integer softmax of ops/integer_softmax.py: masked scores
-// are -2^30 before the row max, a fully masked row has denominator 1.  The
-// epilogue requants and writes straight into the (B, T, h * d_k) layout.
-// No cp.async pipelining, no wgmma yet.
+//     the chunk's scores: pass 1 gathers the row maxima, pass 2 sums i_exp
+//     of the shifted scores, pass 3 forms the probabilities and multiplies
+//     them into V.  Shared memory does not grow with T.
+// kTQ is 32: 8 warps as 2 row x 4 column groups, 106 KB at T=375, so 2
+// blocks an SM, and the streaming form held to 128 registers for 2 as
+// well.  64 query rows a block (4 x 2 warps) let the same chunk loads serve
+// twice the queries, but the score rows then take 200 KB, 1 block an SM,
+// and the kernel ran slower (PERF.md, Kernel 3).
 #include <climits>
 #include <cstdint>
 
@@ -47,29 +67,22 @@
 
 #include "conformer_int.cuh"
 #include "requant.cuh"
+#include "tile_s8.cuh"
 
 namespace {
 
-constexpr int kTQ = 32;           // query rows per block
 constexpr int kKC = 64;           // keys per chunk
-constexpr int kPW = kTQ + kKC;    // pos rows per chunk window (95 used)
 constexpr int kThreads = 256;     // 8 warps
 constexpr int kVtw = kKC / 4 + 4; // transposed V chunk row, in words
-constexpr int kBdw = kPW + 1;     // bd row of the chunk, in words
 constexpr int kScw = kKC + 4;     // one chunk's score row (streaming), in words
 constexpr int kPcw = kKC / 4 + 4; // one chunk's int8 probability row, in words
 
-__device__ __forceinline__ void mma_s8(int (&c)[4], const int (&a)[4], int b0, int b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ int ld32(const int8_t* p) {
-  return *reinterpret_cast<const int*>(p);
-}
+constexpr int kTQ = 32;             // query rows per block
+constexpr int kCG = 8 / (kTQ / 16); // column groups of warps
+constexpr int kPW = kTQ + kKC;      // pos rows per window (kPW - 1 used)
+constexpr int kBdw = kPW + 1;       // bd row of the chunk, in words
+constexpr int kNA = kKC / kCG / 8;  // content n-tiles a warp
+constexpr int kNB = kPW / kCG / 8;  // bd n-tiles a warp
 
 // A fragment (16 x 32 int8, row-major) from a word-addressed smem tile
 __device__ __forceinline__ void load_a(int (&a)[4], const int* s, int ld, int row, int kw,
@@ -80,150 +93,269 @@ __device__ __forceinline__ void load_a(int (&a)[4], const int* s, int ld, int ro
   a[3] = s[(row + 8) * ld + kw + t4 + 4];
 }
 
-// Masked grid scores of query tile i0 against key chunk j0, written to
-// dst[il * ld + col0 + jl] for il < 32, jl < 64.  Qu/Qv hold the tile, Ks
+// rows r0 + r (r < nrows) of a (rows, rs bytes) int8 table -> smem rows of
+// kDKP / 4 + 4 words, by cp.async; rows outside [0, hi) and words from dk4
+// on are zero-filled.  v16: 16-byte copies (d_k a multiple of 16).
+template <int kDKP>
+__device__ __forceinline__ void stage_rows(int* dst, const int8_t* src, size_t rs, int r0,
+                                           int nrows, int hi, int dk4, bool v16) {
+  constexpr int kDkw = kDKP / 4 + 4;
+  // thread t copies piece t % kP of rows t / kP, t / kP + kThreads / kP, ...
+  if (v16) {
+    constexpr int kP = kDKP / 16;
+    const int pc = threadIdx.x % kP;
+    if (threadIdx.x >= kThreads / kP * kP) return;
+    const bool wok = 4 * pc < dk4;
+    for (int r = threadIdx.x / kP; r < nrows; r += kThreads / kP) {
+      const int row = r0 + r;
+      const bool ok = wok && row >= 0 && row < hi;
+      qasr_cp16(dst + r * kDkw + 4 * pc, ok ? src + row * rs + 16 * pc : src, ok ? 16 : 0);
+    }
+  } else {
+    constexpr int kW = kDKP / 4;
+    const int w = threadIdx.x % kW;
+    if (threadIdx.x >= kThreads / kW * kW) return;
+    const bool wok = w < dk4;
+    for (int r = threadIdx.x / kW; r < nrows; r += kThreads / kW) {
+      const int row = r0 + r;
+      const bool ok = wok && row >= 0 && row < hi;
+      qasr_cp4(dst + r * kDkw + w, ok ? src + row * rs + 4 * w : src, ok ? 4 : 0);
+    }
+  }
+}
+
+// key chunk j0 and its pos window, into one buffer of each (the caller commits)
+template <int kDKP>
+__device__ __forceinline__ void stage_chunk(int* Ks, int* Ps, const int8_t* k,
+                                            const int8_t* pos_h, size_t rs, int i0, int j0,
+                                            int T, int dk4, bool v16) {
+  stage_rows<kDKP>(Ks, k, rs, j0, kKC, T, dk4, v16);
+  stage_rows<kDKP>(Ps, pos_h, rs, T - 1 + i0 - j0 - (kKC - 1), kPW, 2 * T - 1, dk4,
+                   v16);
+}
+
+// the two score requants, folded once a block; f64 when both fit
+// qasr_rq_f64's domain for every |z| <= d_k 2^14 (int8 dot products)
+struct ScoreRq {
+  QasrRq ac, bd;
+  double f_ac, f_bd;
+  bool f64;
+};
+
+__device__ __forceinline__ bool fits_f64(long long zmax, int m, int e) {
+  return e >= 1 && e <= 62 && m >= 0 && (e + 26 >= 63 || zmax * m < (1ll << (e + 26)));
+}
+
+__device__ __forceinline__ ScoreRq score_rq(int ac_m, int ac_e, int bd_m, int bd_e, int dkp) {
+  ScoreRq r;
+  r.ac = qasr_rq_make(ac_m, ac_e);
+  r.bd = qasr_rq_make(bd_m, bd_e);
+  r.f_ac = qasr_rq_f64_scale(ac_m, ac_e);
+  r.f_bd = qasr_rq_f64_scale(bd_m, bd_e);
+  const long long zmax = static_cast<long long>(dkp) << 14;
+  r.f64 = fits_f64(zmax, ac_m, ac_e) && fits_f64(zmax, bd_m, bd_e);
+  return r;
+}
+
+// the epilogue of chunk_scores: grid scores (masked where kMask) to dst,
+// and each row's maximum gathered into rmax (when not null)
+template <bool kMask, bool kF64>
+__device__ __forceinline__ void score_epilogue(const int (&acc)[kNA][4],
+                                               const int* BD, int* dst, int ld, int col0,
+                                               int i0, int j0, int len, int left, int right,
+                                               const ScoreRq& rq, int* rmax) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t4 = lane & 3, wr = warp / kCG, wc = warp % kCG;
+  int mx[2] = {INT_MIN, INT_MIN};
+#pragma unroll
+  for (int jt = 0; jt < kNA; ++jt) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int il = wr * 16 + g + 8 * (r >> 1);
+      const int jl = wc * (kKC / kCG) + jt * 8 + 2 * t4 + (r & 1);
+      const int bd = BD[il * kBdw + il - jl + kKC - 1];
+      int s = kF64 ? qasr_rq_f64(acc[jt][r], rq.f_ac) + qasr_rq_f64(bd, rq.f_bd)
+                   : qasr_rq(acc[jt][r], rq.ac) + qasr_rq(bd, rq.bd);
+      if (kMask) {
+        const int i = i0 + il, j = j0 + jl;
+        if (i >= len || j >= len || (left >= 0 && i - j > left) || (right >= 0 && j - i > right))
+          s = kMasked;
+      }
+      dst[il * ld + col0 + jl] = s;
+      mx[r >> 1] = max(mx[r >> 1], s);
+    }
+  }
+  if (rmax != nullptr) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      int v = max(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      v = max(v, __shfl_xor_sync(0xffffffffu, v, 2));
+      if (t4 == 0) atomicMax(rmax + wr * 16 + g + 8 * h, v);
+    }
+  }
+}
+
+// Grid scores of query tile i0 against key chunk j0, written to
+// dst[il * ld + col0 + jl] for il < kTQ, jl < 64.  Qu/Qv hold the tile, Ks
 // the chunk's keys, Ps its pos window; the caller synchronises before
-// (loads) and after (readers of dst).
+// (loads) and after (readers of dst and rmax).  (A bd block per warp, the
+// 16 + 16 - 1 window columns its own scores read, spares the barrier
+// below but multiplies a third more: measured slower at 32 query rows.)
 template <int kDKP>
 __device__ __forceinline__ void chunk_scores(const int* Qu, const int* Qv, const int* Ks,
                                              const int* Ps, int* BD, int* dst, int ld,
                                              int col0, int i0, int j0, int len, int left,
-                                             int right, int ac_m, int ac_e, int bd_m,
-                                             int bd_e) {
+                                             int right, const ScoreRq& rq, int* rmax) {
   constexpr int kDkw = kDKP / 4 + 4;
   constexpr int kKs = kDKP / 32;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int wr = warp >> 2, wc = warp & 3;   // 2 x 4 warps
-  int acc[2][4] = {}, accb[3][4] = {};
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t4 = lane & 3, wr = warp / kCG, wc = warp % kCG;
+  int acc[kNA][4] = {}, accb[kNB][4] = {};
 #pragma unroll
   for (int ks = 0; ks < kKs; ++ks) {
     int a[4];
     load_a(a, Qu, kDkw, wr * 16 + g, ks * 8, t4);
 #pragma unroll
-    for (int jt = 0; jt < 2; ++jt) {
-      const int c = wc * 16 + jt * 8 + g;
-      mma_s8(acc[jt], a, Ks[c * kDkw + ks * 8 + t4], Ks[c * kDkw + ks * 8 + t4 + 4]);
+    for (int jt = 0; jt < kNA; ++jt) {
+      const int c = wc * (kKC / kCG) + jt * 8 + g;
+      qasr_mma_s8(acc[jt], a, Ks[c * kDkw + ks * 8 + t4], Ks[c * kDkw + ks * 8 + t4 + 4]);
     }
     load_a(a, Qv, kDkw, wr * 16 + g, ks * 8, t4);
 #pragma unroll
-    for (int jt = 0; jt < 3; ++jt) {
-      const int c = wc * 24 + jt * 8 + g;
-      mma_s8(accb[jt], a, Ps[c * kDkw + ks * 8 + t4], Ps[c * kDkw + ks * 8 + t4 + 4]);
+    for (int jt = 0; jt < kNB; ++jt) {
+      const int c = wc * (kPW / kCG) + jt * 8 + g;
+      qasr_mma_s8(accb[jt], a, Ps[c * kDkw + ks * 8 + t4], Ps[c * kDkw + ks * 8 + t4 + 4]);
     }
   }
   // accumulator (jt, r): row 16 wr + g + 8 (r >> 1), column 8 jt + 2 t4 + (r & 1)
 #pragma unroll
-  for (int jt = 0; jt < 3; ++jt)
+  for (int jt = 0; jt < kNB; ++jt)
 #pragma unroll
     for (int r = 0; r < 4; ++r)
-      BD[(wr * 16 + g + 8 * (r >> 1)) * kBdw + wc * 24 + jt * 8 + 2 * t4 + (r & 1)] =
-          accb[jt][r];
+      BD[(wr * 16 + g + 8 * (r >> 1)) * kBdw + wc * (kPW / kCG) + jt * 8 + 2 * t4 +
+         (r & 1)] = accb[jt][r];
   __syncthreads();
+  const bool clean = j0 + kKC <= len && i0 + kTQ <= len &&
+                     (left < 0 || i0 + kTQ - 1 - j0 <= left) &&
+                     (right < 0 || j0 + kKC - 1 - i0 <= right);
+  if (rq.f64) {
+    if (clean)
+      score_epilogue<false, true>(acc, BD, dst, ld, col0, i0, j0, len, left, right, rq, rmax);
+    else
+      score_epilogue<true, true>(acc, BD, dst, ld, col0, i0, j0, len, left, right, rq, rmax);
+  } else {
+    if (clean)
+      score_epilogue<false, false>(acc, BD, dst, ld, col0, i0, j0, len, left, right, rq,
+                                        rmax);
+    else
+      score_epilogue<true, false>(acc, BD, dst, ld, col0, i0, j0, len, left, right, rq,
+                                       rmax);
+  }
+}
+
+// V chunk j0 as 4 x 4 byte blocks (4 keys x 4 dims), one or two a thread,
+// held in registers between the load and the transposed store
+template <int kDKP>
+struct VBlocks {
+  static constexpr int kN = (16 * (kDKP / 4) + kThreads - 1) / kThreads;
+  unsigned a[kN][4];
+};
+
+// block idx -> (key quad kq, word w): a warp reads 8 rows x 16 bytes and
+// its stores fall on distinct banks but for pairs
+__device__ __forceinline__ void vblock_at(int idx, int& kq, int& w) {
+  const int hi = idx >> 5;
+  kq = ((idx >> 2) & 7) + 8 * (hi & 1);
+  w = (idx & 3) + 4 * (hi >> 1);
+}
+
+template <int kDKP>
+__device__ __forceinline__ void load_v(VBlocks<kDKP>& vb, const int8_t* v, size_t rs, int j0,
+                                       int T, int dk4) {
 #pragma unroll
-  for (int jt = 0; jt < 2; ++jt) {
+  for (int n = 0; n < VBlocks<kDKP>::kN; ++n) {
+    const int idx = threadIdx.x + n * kThreads;
+    if (idx >= 16 * (kDKP / 4)) break;
+    int kq, w;
+    vblock_at(idx, kq, w);
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int il = wr * 16 + g + 8 * (r >> 1);
-      const int jl = wc * 16 + jt * 8 + 2 * t4 + (r & 1);
-      const int i = i0 + il, j = j0 + jl;
-      const bool masked = i >= len || j >= len || (left >= 0 && i - j > left) ||
-                          (right >= 0 && j - i > right);
-      const int bd = BD[il * kBdw + il - jl + kKC - 1];
-      dst[il * ld + col0 + jl] = masked ? kMasked
-                                        : qasr_requant(acc[jt][r], ac_m, ac_e) +
-                                              qasr_requant(bd, bd_m, bd_e);
+    for (int rr = 0; rr < 4; ++rr) {
+      const int j = j0 + 4 * kq + rr;
+      vb.a[n][rr] = (j < T && w < dk4)
+                        ? *reinterpret_cast<const unsigned*>(v + j * rs + 4 * w)
+                        : 0u;
     }
   }
 }
 
-// The query tile's qu / qv rows into shared memory (zero past T and d_k).
+// the blocks transposed into Vt: (d, key) int8 rows of kVtw words
 template <int kDKP>
-__device__ __forceinline__ void load_queries(int* Qu, int* Qv, const int8_t* qu,
-                                             const int8_t* qv, size_t off, size_t rs,
-                                             int i0, int T, int dk4) {
-  constexpr int kDkw = kDKP / 4 + 4;
-  for (int idx = threadIdx.x; idx < kTQ * (kDKP / 4); idx += kThreads) {
-    const int r = idx / (kDKP / 4), w = idx % (kDKP / 4), i = i0 + r;
-    const bool ok = i < T && w < dk4;
-    Qu[r * kDkw + w] = ok ? ld32(qu + off + i * rs + 4 * w) : 0;
-    Qv[r * kDkw + w] = ok ? ld32(qv + off + i * rs + 4 * w) : 0;
-  }
-}
-
-// Key chunk j0 and its 96-row pos window into shared memory.
-template <int kDKP>
-__device__ __forceinline__ void load_keys(int* Ks, int* Ps, const int8_t* k,
-                                          const int8_t* pos_h, size_t off, size_t rs,
-                                          int i0, int j0, int T, int dk4) {
-  constexpr int kDkw = kDKP / 4 + 4;
-  for (int idx = threadIdx.x; idx < kKC * (kDKP / 4); idx += kThreads) {
-    const int r = idx / (kDKP / 4), w = idx % (kDKP / 4), j = j0 + r;
-    Ks[r * kDkw + w] = (j < T && w < dk4) ? ld32(k + off + j * rs + 4 * w) : 0;
-  }
-  const int pbase = T - 1 + i0 - j0 - (kKC - 1);
-  for (int idx = threadIdx.x; idx < kPW * (kDKP / 4); idx += kThreads) {
-    const int r = idx / (kDKP / 4), w = idx % (kDKP / 4), p = pbase + r;
-    Ps[r * kDkw + w] =
-        (p >= 0 && p < 2 * T - 1 && w < dk4) ? ld32(pos_h + p * rs + 4 * w) : 0;
-  }
-}
-
-// V chunk j0, transposed to (d, key) int8 rows of kVtw words.
-template <int kDKP>
-__device__ __forceinline__ void load_values_t(int* Vt, const int8_t* v, size_t off,
-                                              size_t rs, int j0, int T, int dk4) {
-  int8_t* vt8 = reinterpret_cast<int8_t*>(Vt);
-  for (int idx = threadIdx.x; idx < kKC * (kDKP / 4); idx += kThreads) {
-    const int r = idx / (kDKP / 4), w = idx % (kDKP / 4), j = j0 + r;
-    const int val = (j < T && w < dk4) ? ld32(v + off + j * rs + 4 * w) : 0;
+__device__ __forceinline__ void store_v(const VBlocks<kDKP>& vb, int* Vt) {
 #pragma unroll
-    for (int q = 0; q < 4; ++q)
-      vt8[(4 * w + q) * (kVtw * 4) + r] = static_cast<int8_t>(val >> (8 * q));
+  for (int n = 0; n < VBlocks<kDKP>::kN; ++n) {
+    const int idx = threadIdx.x + n * kThreads;
+    if (idx >= 16 * (kDKP / 4)) break;
+    int kq, w;
+    vblock_at(idx, kq, w);
+    unsigned o[4];
+    qasr_transpose4(vb.a[n], o);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) Vt[(4 * w + q) * kVtw + kq] = static_cast<int>(o[q]);
   }
 }
 
-// accc += P (32 x 64 int8, rows of ldp words from word column pc0) x V chunk
 template <int kDKP>
-__device__ __forceinline__ void prob_times_v(int (&accc)[kDKP / 32][4], const int* P,
+struct Ctx {
+  static constexpr int kNV = kDKP / kCG / 8;  // context n-tiles a warp
+};
+
+// accc += P (kTQ x 64 int8, rows of ldp words from word column pc0) x V chunk
+template <int kDKP>
+__device__ __forceinline__ void prob_times_v(int (&accc)[Ctx<kDKP>::kNV][4], const int* P,
                                              int ldp, int pc0, const int* Vt) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t4 = lane & 3, wr = warp >> 2, wc = warp & 3;
+  const int g = lane >> 2, t4 = lane & 3, wr = warp / kCG, wc = warp % kCG;
 #pragma unroll
   for (int ks = 0; ks < kKC / 32; ++ks) {
     int a[4];
     load_a(a, P, ldp, wr * 16 + g, pc0 + ks * 8, t4);
 #pragma unroll
-    for (int nt = 0; nt < kDKP / 32; ++nt) {
-      const int c = wc * (kDKP / 4) + nt * 8 + g;
-      mma_s8(accc[nt], a, Vt[c * kVtw + ks * 8 + t4], Vt[c * kVtw + ks * 8 + t4 + 4]);
+    for (int nt = 0; nt < Ctx<kDKP>::kNV; ++nt) {
+      const int c = wc * (kDKP / kCG) + nt * 8 + g;
+      qasr_mma_s8(accc[nt], a, Vt[c * kVtw + ks * 8 + t4], Vt[c * kVtw + ks * 8 + t4 + 4]);
     }
   }
 }
 
-// out = clamp(requant(accc, ctx_m, ctx_e)) into the (B, T, h * d_k) layout
+// out = clamp(requant(accc, ctx)) into the (B, T, h * d_k) layout
 template <int kDKP>
-__device__ __forceinline__ void store_context(const int (&accc)[kDKP / 32][4], int8_t* out,
-                                              size_t off, size_t rs, int i0, int T, int DK,
-                                              int ctx_m, int ctx_e, int n8) {
+__device__ __forceinline__ void store_context(const int (&accc)[Ctx<kDKP>::kNV][4],
+                                              int8_t* out, size_t rs, int i0, int T, int DK,
+                                              const QasrRq& rq_ctx, int n8) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t4 = lane & 3, wr = warp >> 2, wc = warp & 3;
+  const int g = lane >> 2, t4 = lane & 3, wr = warp / kCG, wc = warp % kCG;
 #pragma unroll
-  for (int nt = 0; nt < kDKP / 32; ++nt) {
+  for (int nt = 0; nt < Ctx<kDKP>::kNV; ++nt) {
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int i = i0 + wr * 16 + g + 8 * (r >> 1);
-      const int dd = wc * (kDKP / 4) + nt * 8 + 2 * t4 + (r & 1);
+      const int dd = wc * (kDKP / kCG) + nt * 8 + 2 * t4 + (r & 1);
       if (i < T && dd < DK)
-        out[off + i * rs + dd] =
-            static_cast<int8_t>(qasr_clamp(qasr_requant(accc[nt][r], ctx_m, ctx_e), -n8,
-                                           n8 - 1));
+        out[i * rs + dd] =
+            static_cast<int8_t>(qasr_clamp(qasr_rq(accc[nt][r], rq_ctx), -n8, n8 - 1));
     }
   }
 }
 
+// the softmax numerator of a score s against its row's max m: i_exp >> 4
+// from the table of its quadratic (Et, qasr_i_exp_pre), 0 where masked
+__device__ __forceinline__ int row_exp(int s, int m, const int* Et) {
+  const int e = qasr_i_exp_pre(min(m - s, kNIn), Et);
+  return s == kMasked ? 0 : e;
+}
+
 template <int kDKP>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 int_attention_kernel(const int8_t* __restrict__ qu, const int8_t* __restrict__ qv,
                      const int8_t* __restrict__ k, const int8_t* __restrict__ v,
                      const int8_t* __restrict__ pos, const int32_t* __restrict__ lens,
@@ -231,71 +363,105 @@ int_attention_kernel(const int8_t* __restrict__ qu, const int8_t* __restrict__ q
                      int ac_e, int bd_m, int bd_e, int ctx_m, int ctx_e, int left,
                      int right, int n8) {
   constexpr int kDkw = kDKP / 4 + 4;       // padded q/k/pos row, in words
-  extern __shared__ int smem[];
+  extern __shared__ int4 smem4[];
   const int sld = Tp + 8, paw = Tp / 4 + 4;
-  int* Qu = smem;
+  int* Qu = reinterpret_cast<int*>(smem4);
   int* Qv = Qu + kTQ * kDkw;
-  int* Ks = Qv + kTQ * kDkw;
-  int* Ps = Ks + kKC * kDkw;
-  int* Vt = Ps + kPW * kDkw;
-  int* BD = Vt + kDKP * kVtw;
+  int* Ks = Qv + kTQ * kDkw;               // 2 buffers of kKC rows
+  int* Ps = Ks + 2 * kKC * kDkw;           // 2 buffers of kPW rows
+  int* Vt = Ks;                            // 2 buffers of kDKP rows, once the scores are done
+  int* BD = Ps + 2 * kPW * kDkw;
   int* S = BD + kTQ * kBdw;
   int* Pa = S + kTQ * sld;
+  int* rmax = Pa + kTQ * paw;
+  int* Et = rmax + kTQ;                    // i_exp's quadratic, kExpTab words
 
   const int b = blockIdx.z, h = blockIdx.y, i0 = blockIdx.x * kTQ;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int len = lens[b];
+  const int len = min(lens[b], T);   // the plain version reads len > T as T
   const int dk4 = DK / 4;
+  const bool v16 = DK % 16 == 0;
   const size_t rs = static_cast<size_t>(H) * DK;   // bytes per time step
   const size_t off = static_cast<size_t>(b) * T * rs + static_cast<size_t>(h) * DK;
   const int8_t* pos_h = pos + static_cast<size_t>(h) * DK;
+  const ScoreRq rq = score_rq(ac_m, ac_e, bd_m, bd_e, kDKP);
+  const int nch = Tp / kKC;
 
-  load_queries<kDKP>(Qu, Qv, qu, qv, off, rs, i0, T, dk4);
-  // ---- scores, one chunk of 64 keys at a time --------------------------
-  for (int j0 = 0; j0 < Tp; j0 += kKC) {
-    load_keys<kDKP>(Ks, Ps, k, pos_h, off, rs, i0, j0, T, dk4);
-    __syncthreads();
-    chunk_scores<kDKP>(Qu, Qv, Ks, Ps, BD, S, sld, j0, i0, j0, len, left, right, ac_m,
-                       ac_e, bd_m, bd_e);
-    __syncthreads();
+  if (tid < kTQ) rmax[tid] = INT_MIN;
+  for (int r = tid; r < kExpTab; r += kThreads) Et[r] = qasr_exp_quad(r);
+  stage_rows<kDKP>(Qu, qu + off, rs, i0, kTQ, T, dk4, v16);
+  stage_rows<kDKP>(Qv, qv + off, rs, i0, kTQ, T, dk4, v16);
+  stage_chunk<kDKP>(Ks, Ps, k + off, pos_h, rs, i0, 0, T, dk4, v16);
+  qasr_cp_commit();
+  // ---- scores and row maxima, one chunk of 64 keys at a time -------------
+  for (int ci = 0; ci < nch; ++ci) {
+    qasr_cp_wait<0>();
+    __syncthreads();   // chunk ci landed; every warp is done with chunk ci - 1
+    if (ci + 1 < nch) {
+      const int nb = (ci + 1) & 1;
+      stage_chunk<kDKP>(Ks + nb * kKC * kDkw, Ps + nb * kPW * kDkw, k + off, pos_h, rs,
+                             i0, (ci + 1) * kKC, T, dk4, v16);
+      qasr_cp_commit();
+    }
+    const int cb = ci & 1;
+    chunk_scores<kDKP>(Qu, Qv, Ks + cb * kKC * kDkw, Ps + cb * kPW * kDkw, BD, S, sld,
+                            ci * kKC, i0, ci * kKC, len, left, right, rq, rmax);
   }
+  VBlocks<kDKP> vb;
+  load_v<kDKP>(vb, v + off, rs, 0, T, dk4);
+  __syncthreads();
 
-  // ---- integer softmax, one warp per row --------------------------------
-  for (int rr = 0; rr < kTQ / 8; ++rr) {
-    const int il = warp * (kTQ / 8) + rr;
-    int* srow = S + il * sld;
-    int m = INT_MIN;
-    for (int j = lane; j < T; j += 32) m = max(m, srow[j]);
-    m = qasr_warp_max(m);
+  // ---- integer softmax, a warp's kTQ / 8 rows at a time: exponents and
+  // row sums, then the rows' divisors made at once (lane r makes row r's)
+  constexpr int kRW = kTQ / 8;
+  int dens[kRW];
+#pragma unroll
+  for (int rr = 0; rr < kRW; ++rr) {
+    int* srow = S + (warp * kRW + rr) * sld;
+    const int m = rmax[warp * kRW + rr];
     int sum = 0;
-    for (int j = lane; j < T; j += 32) {
-      const int s = srow[j];
-      const int q = max(s - m, -kNIn);
-      const int e = s == kMasked ? 0 : (qasr_i_exp(q) >> kPreshift);
+    for (int j = lane; j < Tp; j += 32) {   // keys from T on are masked: e = 0
+      const int e = row_exp(srow[j], m, Et);
       srow[j] = e;
       sum += e;
     }
-    const int den = max(qasr_warp_sum(sum), 1);
+    dens[rr] = max(qasr_warp_sum(sum), 1);
+  }
+  int mine = dens[0];
+#pragma unroll
+  for (int rr = 1; rr < kRW; ++rr) mine = lane == rr ? dens[rr] : mine;
+  const QasrDiv dmine = qasr_div_make(static_cast<unsigned>(mine));
+#pragma unroll
+  for (int rr = 0; rr < kRW; ++rr) {
+    const int il = warp * kRW + rr;
+    QasrDiv dv;
+    dv.m = __shfl_sync(0xffffffffu, dmine.m, rr);
+    dv.s1 = __shfl_sync(0xffffffffu, dmine.s1, rr);
+    dv.s2 = __shfl_sync(0xffffffffu, dmine.s2, rr);
+    const int* srow = S + il * sld;
+    const int half = dens[rr] >> 1;
     int8_t* prow = reinterpret_cast<int8_t*>(Pa + il * paw);
     for (int j = lane; j < Tp; j += 32)
-      prow[j] = static_cast<int8_t>(j < T ? (srow[j] * n8 + (den >> 1)) / den : 0);
+      prow[j] = static_cast<int8_t>(qasr_div(static_cast<unsigned>(srow[j] * n8 + half), dv));
   }
+  store_v<kDKP>(vb, Vt);
+  __syncthreads();
 
-  // ---- context: probabilities x V, chunk by chunk -------------------------
-  int accc[kDKP / 32][4] = {};
-  for (int j0 = 0; j0 < Tp; j0 += kKC) {
+  // ---- context: probabilities x V, chunk by chunk, V one chunk ahead ------
+  int accc[Ctx<kDKP>::kNV][4] = {};
+  for (int ci = 0; ci < nch; ++ci) {
+    if (ci + 1 < nch) load_v<kDKP>(vb, v + off, rs, (ci + 1) * kKC, T, dk4);
+    prob_times_v<kDKP>(accc, Pa, paw, ci * (kKC / 4), Vt + (ci & 1) * kDKP * kVtw);
+    if (ci + 1 < nch) store_v<kDKP>(vb, Vt + ((ci + 1) & 1) * kDKP * kVtw);
     __syncthreads();
-    load_values_t<kDKP>(Vt, v, off, rs, j0, T, dk4);
-    __syncthreads();
-    prob_times_v<kDKP>(accc, Pa, paw, j0 / 4, Vt);
   }
-  store_context<kDKP>(accc, out, off, rs, i0, T, DK, ctx_m, ctx_e, n8);
+  store_context<kDKP>(accc, out + off, rs, i0, T, DK, qasr_rq_make(ctx_m, ctx_e), n8);
 }
 
 // The streaming form: three passes over the key chunks (see the note at
 // the top); shared memory independent of T.
 template <int kDKP>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 int_attention_stream_kernel(const int8_t* __restrict__ qu, const int8_t* __restrict__ qv,
                             const int8_t* __restrict__ k, const int8_t* __restrict__ v,
                             const int8_t* __restrict__ pos,
@@ -303,79 +469,96 @@ int_attention_stream_kernel(const int8_t* __restrict__ qu, const int8_t* __restr
                             int T, int H, int DK, int Tp, int ac_m, int ac_e, int bd_m,
                             int bd_e, int ctx_m, int ctx_e, int left, int right, int n8) {
   constexpr int kDkw = kDKP / 4 + 4;
-  extern __shared__ int smem[];
-  int* Qu = smem;
+  extern __shared__ int4 smem4[];
+  int* Qu = reinterpret_cast<int*>(smem4);
   int* Qv = Qu + kTQ * kDkw;
-  int* Ks = Qv + kTQ * kDkw;
-  int* Ps = Ks + kKC * kDkw;
-  int* Vt = Ps + kPW * kDkw;
+  int* Ks = Qv + kTQ * kDkw;       // 2 buffers
+  int* Ps = Ks + 2 * kKC * kDkw;   // 2 buffers
+  int* Vt = Ps + 2 * kPW * kDkw;
   int* BD = Vt + kDKP * kVtw;
-  int* Sc = BD + kTQ * kBdw;       // the chunk's scores
+  int* Sc = BD + kTQ * kBdw;   // the chunk's scores
   int* Pc = Sc + kTQ * kScw;       // the chunk's int8 probabilities
   int* rmax = Pc + kTQ * kPcw;     // per row: max over all keys
   int* rden = rmax + kTQ;          // per row: sum of i_exp >> 4
+  int* rdiv = rden + kTQ;          // per row: the divisor's (m, s1, s2)
+  int* Et = rdiv + 3 * kTQ;        // i_exp's quadratic, kExpTab words
 
   const int b = blockIdx.z, h = blockIdx.y, i0 = blockIdx.x * kTQ;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int len = lens[b];
+  const int len = min(lens[b], T);   // the plain version reads len > T as T
   const int dk4 = DK / 4;
+  const bool v16 = DK % 16 == 0;
   const size_t rs = static_cast<size_t>(H) * DK;
   const size_t off = static_cast<size_t>(b) * T * rs + static_cast<size_t>(h) * DK;
   const int8_t* pos_h = pos + static_cast<size_t>(h) * DK;
+  const ScoreRq rq = score_rq(ac_m, ac_e, bd_m, bd_e, kDKP);
+  const int nch = Tp / kKC;
 
-  load_queries<kDKP>(Qu, Qv, qu, qv, off, rs, i0, T, dk4);
+  stage_rows<kDKP>(Qu, qu + off, rs, i0, kTQ, T, dk4, v16);
+  stage_rows<kDKP>(Qv, qv + off, rs, i0, kTQ, T, dk4, v16);
   if (tid < kTQ) {
     rmax[tid] = INT_MIN;
     rden[tid] = 0;
   }
-  int accc[kDKP / 32][4] = {};
+  for (int r = tid; r < kExpTab; r += kThreads) Et[r] = qasr_exp_quad(r);
+  int accc[Ctx<kDKP>::kNV][4] = {};
+  VBlocks<kDKP> vb;
   for (int pass = 0; pass < 3; ++pass) {
-    for (int j0 = 0; j0 < Tp; j0 += kKC) {
-      __syncthreads();   // the last chunk's readers are done with every buffer
-      load_keys<kDKP>(Ks, Ps, k, pos_h, off, rs, i0, j0, T, dk4);
-      if (pass == 2) load_values_t<kDKP>(Vt, v, off, rs, j0, T, dk4);
-      __syncthreads();
-      chunk_scores<kDKP>(Qu, Qv, Ks, Ps, BD, Sc, kScw, 0, i0, j0, len, left, right, ac_m,
-                         ac_e, bd_m, bd_e);
+    __syncthreads();   // the last pass's readers are done with every buffer
+    if (pass == 2 && tid < kTQ) {
+      const QasrDiv dv = qasr_div_make(static_cast<unsigned>(max(rden[tid], 1)));
+      rdiv[3 * tid] = static_cast<int>(dv.m);
+      rdiv[3 * tid + 1] = dv.s1;
+      rdiv[3 * tid + 2] = dv.s2;
+    }
+    stage_chunk<kDKP>(Ks, Ps, k + off, pos_h, rs, i0, 0, T, dk4, v16);
+    qasr_cp_commit();
+    for (int ci = 0; ci < nch; ++ci) {
+      const int j0 = ci * kKC;
+      qasr_cp_wait<0>();
+      __syncthreads();   // chunk ci landed; every warp is done with chunk ci - 1
+      if (ci + 1 < nch) {
+        const int nb = (ci + 1) & 1;
+        stage_chunk<kDKP>(Ks + nb * kKC * kDkw, Ps + nb * kPW * kDkw, k + off, pos_h,
+                               rs, i0, j0 + kKC, T, dk4, v16);
+        qasr_cp_commit();
+      }
+      if (pass == 2) load_v<kDKP>(vb, v + off, rs, j0, T, dk4);
+      const int cb = ci & 1;
+      chunk_scores<kDKP>(Qu, Qv, Ks + cb * kKC * kDkw, Ps + cb * kPW * kDkw, BD, Sc,
+                              kScw, 0, i0, j0, len, left, right, rq,
+                              pass == 0 ? rmax : nullptr);
+      if (pass == 0) continue;
       __syncthreads();
       for (int rr = 0; rr < kTQ / 8; ++rr) {
         const int il = warp * (kTQ / 8) + rr;
         const int* srow = Sc + il * kScw;
-        if (pass == 0) {
-          int m = INT_MIN;
-          for (int jl = lane; jl < kKC; jl += 32)
-            if (j0 + jl < T) m = max(m, srow[jl]);
-          m = qasr_warp_max(m);
-          if (lane == 0) rmax[il] = max(rmax[il], m);
-          continue;
-        }
         const int m = rmax[il];
-        const int den = pass == 2 ? max(rden[il], 1) : 1;   // final after pass 1
-        int sum = 0;
-        int8_t* prow = reinterpret_cast<int8_t*>(Pc + il * kPcw);
-        for (int jl = lane; jl < kKC; jl += 32) {
-          int e = 0;
-          if (j0 + jl < T) {
-            const int s = srow[jl];
-            e = s == kMasked ? 0 : (qasr_i_exp(max(s - m, -kNIn)) >> kPreshift);
-          }
-          if (pass == 1)
-            sum += e;
-          else
-            prow[jl] = static_cast<int8_t>(j0 + jl < T ? (e * n8 + (den >> 1)) / den : 0);
-        }
         if (pass == 1) {
+          int sum = 0;
+          for (int jl = lane; jl < kKC; jl += 32) sum += row_exp(srow[jl], m, Et);
           sum = qasr_warp_sum(sum);
           if (lane == 0) rden[il] += sum;
+          continue;
         }
+        const int den = max(rden[il], 1);
+        QasrDiv dv;
+        dv.m = static_cast<unsigned>(rdiv[3 * il]);
+        dv.s1 = rdiv[3 * il + 1];
+        dv.s2 = rdiv[3 * il + 2];
+        int8_t* prow = reinterpret_cast<int8_t*>(Pc + il * kPcw);
+        for (int jl = lane; jl < kKC; jl += 32)
+          prow[jl] = static_cast<int8_t>(
+              qasr_div(static_cast<unsigned>(row_exp(srow[jl], m, Et) * n8 + (den >> 1)), dv));
       }
       if (pass == 2) {
+        store_v<kDKP>(vb, Vt);
         __syncthreads();
         prob_times_v<kDKP>(accc, Pc, kPcw, 0, Vt);
       }
     }
   }
-  store_context<kDKP>(accc, out, off, rs, i0, T, DK, ctx_m, ctx_e, n8);
+  store_context<kDKP>(accc, out + off, rs, i0, T, DK, qasr_rq_make(ctx_m, ctx_e), n8);
 }
 
 template <int kDKP>
@@ -384,13 +567,15 @@ int launch(const int8_t* qu, const int8_t* qv, const int8_t* k, const int8_t* v,
            int DK, int ac_m, int ac_e, int bd_m, int bd_e, int ctx_m, int ctx_e, int left,
            int right, int n8, int streaming, cudaStream_t stream) {
   const int Tp = (T + kKC - 1) / kKC * kKC;
-  size_t words = static_cast<size_t>(2 * kTQ + kKC + kPW) * (kDKP / 4 + 4) +
-                 static_cast<size_t>(kDKP) * kVtw + kTQ * kBdw;
-  words += streaming ? kTQ * (kScw + kPcw + 2)
+  // kernels/int_attention.py::smem_bytes states the same layout
+  size_t words = static_cast<size_t>(2 * kTQ + 2 * kKC + 2 * kPW) * (kDKP / 4 + 4) +
+                 kTQ * kBdw;
+  words += streaming ? static_cast<size_t>(kDKP) * kVtw + kTQ * (kScw + kPcw + 5) + kExpTab
                      : static_cast<size_t>(kTQ) * (Tp + 8) +
-                           static_cast<size_t>(kTQ) * (Tp / 4 + 4);
+                           static_cast<size_t>(kTQ) * (Tp / 4 + 4) + kTQ + kExpTab;
   const size_t shm = 4 * words;
-  auto* kernel = streaming ? int_attention_stream_kernel<kDKP> : int_attention_kernel<kDKP>;
+  auto* kernel = streaming ? int_attention_stream_kernel<kDKP>
+                           : int_attention_kernel<kDKP>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(shm));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -406,8 +591,7 @@ extern "C" int qasr_int_attention(const int8_t* qu, const int8_t* qv, const int8
                                   const int8_t* v, const int8_t* pos, const int32_t* lens,
                                   int8_t* out, int B, int T, int H, int DK, int ac_m,
                                   int ac_e, int bd_m, int bd_e, int ctx_m, int ctx_e,
-                                  int left, int right, int n8, int streaming,
-                                  void* stream) {
+                                  int left, int right, int n8, int streaming, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch ((DK + 31) / 32) {
     case 1:
@@ -420,8 +604,8 @@ extern "C" int qasr_int_attention(const int8_t* qu, const int8_t* qv, const int8
       return launch<96>(qu, qv, k, v, pos, lens, out, B, T, H, DK, ac_m, ac_e, bd_m, bd_e,
                         ctx_m, ctx_e, left, right, n8, streaming, s);
     case 4:
-      return launch<128>(qu, qv, k, v, pos, lens, out, B, T, H, DK, ac_m, ac_e, bd_m,
-                         bd_e, ctx_m, ctx_e, left, right, n8, streaming, s);
+      return launch<128>(qu, qv, k, v, pos, lens, out, B, T, H, DK, ac_m, ac_e, bd_m, bd_e,
+                         ctx_m, ctx_e, left, right, n8, streaming, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -64,6 +64,24 @@ __device__ __forceinline__ int qasr_rq(int z, const QasrRq& r) {
   return z < 0 ? -q : q;
 }
 
+// qasr_requant(z, m, e) on the FP64 pipe, for a site whose |z| * m stays
+// below 2^(e + 26) (no saturation), e <= 62: M = m 2^-e is exact as a
+// double, and the fma adds 1.5 * 2^52 to the exact product z * M with one
+// rounding, to the nearest integer, ties to even (the sum lies in [2^52,
+// 2^53), where the unit is 1, and 1.5 * 2^52 is even); the low word of the
+// sum is that integer's two's complement.  z becomes a double by the
+// same trick (2^52 + 2^31 + z, built from its bits).  One integer and two
+// FP64 instructions in place of qasr_rq's ~14 integer ones.
+__device__ __forceinline__ double qasr_rq_f64_scale(int m, int e) {
+  return scalbn(static_cast<double>(m), -e);
+}
+
+__device__ __forceinline__ int qasr_rq_f64(int z, double M) {
+  const double zd = __hiloint2double(0x43300000, z ^ static_cast<int>(0x80000000u)) -
+                    4503601774854144.0;   // 2^52 + 2^31
+  return __double2loint(fma(zd, M, 6755399441055744.0));   // 1.5 * 2^52
+}
+
 // The exponent of channel c: read from the (C,) vector ev or, when ev is
 // NULL, the scalar es.  One below 1 counts as 1, as dyadic_requant clamps
 // it (above 62 qasr_requant gives 0).

@@ -1,5 +1,6 @@
 // Elementwise launch of the shared requant device functions (qasr_requant,
-// or with fast = 1 qasr_rq_make + qasr_rq), so that each can be held
+// with fast = 1 qasr_rq_make + qasr_rq, with fast = 2 qasr_rq_f64 on its
+// domain), so that each can be held
 // against the plain torch requant on the card (not on the serving path),
 // plus the error-string helper the Python wrappers report with.
 #include <cstdint>
@@ -15,7 +16,10 @@ __global__ void requant_check_kernel(const int32_t* __restrict__ z,
                                      const int32_t* __restrict__ e,
                                      int32_t* __restrict__ out, int n, int fast) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n)
+  if (i >= n) return;
+  if (fast == 2)
+    out[i] = qasr_rq_f64(z[i], qasr_rq_f64_scale(m[i], e[i]));
+  else
     out[i] = fast ? qasr_rq(z[i], qasr_rq_make(m[i], e[i])) : qasr_requant(z[i], m[i], e[i]);
 }
 

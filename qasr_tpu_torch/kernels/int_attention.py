@@ -38,11 +38,13 @@ def smem_bytes(t: int, d_k: int) -> int:
     (csrc/int_attention.cu's layout); the streaming form takes any T."""
     tp = -(-t // KC) * KC
     dkw = -(-d_k // 32) * 8 + 4                     # padded row, in words
-    return 4 * ((2 * TQ + KC + TQ + KC) * dkw       # Qu, Qv, K chunk, pos window
-                + (-(-d_k // 32) * 32) * (KC // 4 + 4)  # V chunk, transposed
-                + TQ * (TQ + KC + 1)                # bd of the chunk
+    pw = TQ + KC                                    # pos rows per window
+    return 4 * ((2 * TQ + 2 * KC + 2 * pw) * dkw    # Qu, Qv, 2 K chunks, 2 pos windows
+                + TQ * (pw + 1)                     # bd of the chunk
                 + TQ * (tp + 8)                     # score rows
-                + TQ * (tp // 4 + 4))               # int8 probabilities
+                + TQ * (tp // 4 + 4)                # int8 probabilities
+                + TQ                                # row maxima
+                + 568)                              # i_exp's quadratic table
 
 
 def resident(t: int, d_k: int) -> bool:

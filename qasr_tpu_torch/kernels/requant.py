@@ -18,7 +18,8 @@ from qasr_tpu_torch.kernels.checks import check_act, check_vec, requant_operand
 from qasr_tpu_torch.models.jasper import mask_values
 from qasr_tpu_torch.ops.quant_prims import dyadic_requant_any, requant_clamp
 
-INT_FNS = {"i_exp": 0, "i_sigmoid_grid": 1, "isqrt": 2, "floor_div": 3}
+INT_FNS = {"i_exp": 0, "i_sigmoid_grid": 1, "isqrt": 2, "floor_div": 3, "i_sigmoid_tab": 4,
+           "div": 5, "isqrt_f": 6, "i_exp_tab": 7}
 
 
 def _require_cuda(name: str, t: torch.Tensor) -> None:
@@ -28,17 +29,18 @@ def _require_cuda(name: str, t: torch.Tensor) -> None:
 
 
 def requant_device(z: torch.Tensor, m: torch.Tensor, e: torch.Tensor,
-                   fast: bool = False) -> torch.Tensor:
+                   fast: bool = False, f64: bool = False) -> torch.Tensor:
     """qasr_requant(z[i], m[i], e[i]) for 1-D int32 CUDA tensors, or with
     ``fast`` qasr_rq(z[i], qasr_rq_make(m[i], e[i])), the form Kernels 1
-    and 7 use."""
+    and 7 use, or with ``f64`` qasr_rq_f64 (Kernel 3's score requants; exact
+    where |z| * m < 2^(e + 26), e <= 62)."""
     _require_cuda("requant_device", z)
     n = z.shape[0]
     for name, t in (("z", z), ("m", m), ("e", e)):
         check_vec("requant_device", name, t, torch.int32, (n,), z.device)
     out = torch.empty_like(z)
     rc = _build.library().qasr_requant_check(
-        _build.ptr(z), _build.ptr(m), _build.ptr(e), _build.ptr(out), n, int(fast),
+        _build.ptr(z), _build.ptr(m), _build.ptr(e), _build.ptr(out), n, 2 if f64 else int(fast),
         _build.stream_of(z))
     _build.check(rc, "requant_device")
     return out
@@ -46,14 +48,24 @@ def requant_device(z: torch.Tensor, m: torch.Tensor, e: torch.Tensor,
 
 def int_fn_device(fn: str, a: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One conformer_int.cuh function elementwise over 1-D int32 CUDA
-    tensors: i_exp(a), i_sigmoid_grid(a), isqrt(a) or floor_div(a, b)."""
+    tensors: i_exp(a), i_sigmoid_grid(a), isqrt(a), floor_div(a, b),
+    i_sigmoid_tab(a) over the uint8 table b (qasr_i_sigmoid_tab, Kernel 4's
+    GLU gate; b from kernels/conv_block.py::sigmoid_table), isqrt_f(a) (the
+    float square root corrected, a < 2^30), i_exp_tab(a) (i_exp(a) >> 4 from
+    the table of its quadratic, Kernel 3's softmax) or div(a, b)
+    (qasr_div, Kernel 3's division by the row sum: a in [0, 2^31), b in
+    [1, 2^31), the divisor's constants made per element)."""
     _require_cuda("int_fn_device", a)
     n = a.shape[0]
     check_vec("int_fn_device", "a", a, torch.int32, (n,), a.device)
-    if fn == "floor_div":
+    if fn in ("floor_div", "div"):
         if b is None:
-            raise ValueError("int_fn_device: floor_div needs b")
+            raise ValueError(f"int_fn_device: {fn} needs b")
         check_vec("int_fn_device", "b", b, torch.int32, (n,), a.device)
+    elif fn == "i_sigmoid_tab":
+        from qasr_tpu_torch.kernels.conv_block import SIG_TAB
+
+        check_vec("int_fn_device", "b", b, torch.uint8, (SIG_TAB,), a.device)
     out = torch.empty_like(a)
     rc = _build.library().qasr_int_fn_check(
         INT_FNS[fn], _build.ptr(a), _build.ptr(b), _build.ptr(out), n, _build.stream_of(a))
@@ -61,14 +73,15 @@ def int_fn_device(fn: str, a: torch.Tensor, b: Optional[torch.Tensor] = None) ->
     return out
 
 
-def ln_core_device(x: torch.Tensor) -> torch.Tensor:
-    """The device i-LN row core (qasr_ln_row) over the rows of a 2-D int8
-    CUDA tensor (d a multiple of 32, at most 512) -> int32."""
+def ln_core_device(x: torch.Tensor, div: bool = False) -> torch.Tensor:
+    """The device i-LN row core (qasr_ln_row, or with ``div`` Kernel 4's
+    qasr_ln_row_div) over the rows of a 2-D int8 CUDA tensor (d a multiple
+    of 32, at most 512) -> int32."""
     _require_cuda("ln_core_device", x)
     rows, d = x.shape
     check_vec("ln_core_device", "x", x, torch.int8, (rows, d), x.device)
     out = torch.empty((rows, d), dtype=torch.int32, device=x.device)
-    rc = _build.library().qasr_ln_check(_build.ptr(x), _build.ptr(out), rows, d,
+    rc = _build.library().qasr_ln_check(_build.ptr(x), _build.ptr(out), rows, d, int(div),
                                         _build.stream_of(x))
     _build.check(rc, "ln_core_device")
     return out
