@@ -52,7 +52,10 @@ result line.  Phases:
    the Conformer path (K = 4864 is 38 chunks of K), with and without bias,
    at N in {1, 37, 609, 12000}, on the flagship's sites and on seeded sites
    with exponents above 31; ffn_ln
-   at d in {64, 256, 512} x T in {1, 31, 375}, tail on and off;
+   at d in {64, 256, 512} x T in {1, 31, 375}, tail on and off, its
+   per-column requants on the FP64 pipe, and at T = 375 also with every
+   site, and with l1 alone, pushed out of qasr_rq_f64's domain (so that
+   the host sends them to qasr_rq);
 4. the golden checks: full-width QuartzNet15x5 reproduces the JAX static_e
    record exactly on FrozenExecFused, FrozenExecKernels and the plain path,
    and the JAX per_channel record on FrozenExecKernels and the plain path;
@@ -83,8 +86,10 @@ result line.  Phases:
    form, the static prologue sites, and the epilogue-off function at C=512
    K=75 and C2 beside cuDNN's float32 depthwise conv; Kernel 7 at every
    kind of site the per_channel path still runs in it; Kernel 2's sites;
-   int_attention's streaming form at T=1500), with its bound (bytes over 3.35 TB/s or int8 operations over
-   1,979 TOP/s, from this run's inputs) and, where one PyTorch call
+   int_attention's streaming form at T=1500; ffn_ln as FFN1 + ln_att, FFN2
+   + ln_out and the last layer's FFN2 without a tail), with its bound
+   (bytes over 3.35 TB/s or int8 operations over 1,979 TOP/s, from this
+   run's inputs) and, where one PyTorch call
    computes the same function, that call's time: each as CUDA events
    around one call (call_ms, the wrapper's host time included) and as
    device time (device_ms: torch.profiler over 10 calls, the named
@@ -1190,31 +1195,75 @@ def phase_lin_epilogue(chk, dev, tables):
         f"join, with and without bias, N in {LIN_N}, and seeded e > 31")
 
 
+def out_of_f64(site):
+    """A copy of a requant site pushed out of qasr_rq_f64's domain: its
+    mantissas rescaled to e = 20 (about the same function) and column 0's
+    made 2^30, so that some |z| m reaches 2^(e + 26) and the kernel has to
+    requant the site with qasr_rq (saturating column 0)."""
+    e = int(site["e"])
+    if e < 20:
+        raise AssertionError(f"out_of_f64 needs e >= 20, got {e}")
+    m = (site["m"] >> (e - 20)).clone()
+    m[0] = 2 ** 30
+    return {**{k: v for k, v in site.items() if not k.startswith("_")}, "m": m, "e": 20}
+
+
+def ffn_forms(layers):
+    """Kernel 6's three forms on the Conformer path: (label, layer table,
+    half, stream requant, tail): FFN1 with the ln_att tail, FFN2 with the
+    ln_out tail (the next layer's stream), the last layer's FFN2 without."""
+    first, last = layers[0], layers[-1]
+    return [("ff1 + ln_att", first, "ff1", "j1_stream", first["ln_att"]),
+            ("ff2 + ln_out", first, "ff2", "j4_stream", first["ln_out"]),
+            ("ff2 no tail", last, "ff2", "j4_stream", None)]
+
+
 def phase_ffn_ln(chk, dev, tables):
     import numpy as np
     import torch
 
-    from qasr_tpu_torch.kernels.ffn_ln import ffn_ln, ffn_ln_plain
+    from qasr_tpu_torch.kernels.ffn_ln import _packed, ffn_ln, ffn_ln_plain
 
     rng = np.random.default_rng(10)
     layers = {64: small_conformer(dev, 64), 256: tables["encoder"]["layers"][0],
               512: small_conformer(dev, 512)}
+    n = 0
     for d in FFN_D:
         tbl = layers[d]
-        for t in FFN_T:
-            b = (32 if d == 256 else 4) if t == 375 else 3
-            x = torch.from_numpy(rng.integers(-127, 127, (b, t, d)).astype(np.int8)).to(dev)
-            for tail in (tbl["ln_att"], None):
-                args = (x, tbl["ln_ff1"], tbl["ff1_l1"], tbl["ff1_grid"], tbl["ff1_prod"],
-                        tbl["ff1_l2"], tbl["j1_stream"], tail)
-                (got, got_t), (want, want_t) = ffn_ln(*args, nbits=8), ffn_ln_plain(*args, nbits=8)
-                what = f"ffn_ln d={d} B={b} T={t} tail={tail is not None}"
-                chk.equal("ffn_ln", what, got, want)
-                if tail is not None:
-                    chk.equal("ffn_ln", what + " (tail)", got_t, want_t)
-                elif got_t is not None:
-                    raise AssertionError(f"{what}: a tail without a tail table")
-    log(f"[3] ffn_ln == plain at d in {FFN_D} x T in {FFN_T}, tail on and off")
+        sites = {"ln": tbl["ln_ff1"], "l1": tbl["ff1_l1"], "l2": tbl["ff1_l2"],
+                 "tail": tbl["ln_att"]}
+        # the layer as it is (the flagship's sites all on the FP64 pipe);
+        # then all four sites, and l1 alone, pushed onto qasr_rq
+        variants = [("as frozen", sites),
+                    ("qasr_rq", {k: out_of_f64(v) for k, v in sites.items()}),
+                    ("l1 on qasr_rq", {**sites, "l1": out_of_f64(sites["l1"])})]
+        for label, st in variants:
+            on_f64 = {k: _packed(v)["mf"] is not None for k, v in st.items()}
+            if any(on_f64[k] for k, v in st.items() if v is not sites[k]) or \
+                    (d == 256 and label == "as frozen" and not all(on_f64.values())):
+                raise AssertionError(f"d={d} {label}: the host's requant choice {on_f64}")
+            if label == "as frozen":
+                log(f"[3] ffn_ln d={d}: sites on the FP64 pipe {on_f64}")
+            for t in FFN_T:
+                if label != "as frozen" and t != FFN_T[-1]:
+                    continue
+                b = (32 if d == 256 else 4) if t == 375 else 3
+                x = torch.from_numpy(rng.integers(-127, 127, (b, t, d)).astype(np.int8)).to(dev)
+                for tail in (st["tail"], None):
+                    args = (x, st["ln"], st["l1"], tbl["ff1_grid"], tbl["ff1_prod"], st["l2"],
+                            tbl["j1_stream"], tail)
+                    (got, got_t), (want, want_t) = (ffn_ln(*args, nbits=8),
+                                                    ffn_ln_plain(*args, nbits=8))
+                    what = f"ffn_ln d={d} B={b} T={t} tail={tail is not None} {label}"
+                    chk.equal("ffn_ln", what, got, want)
+                    if tail is not None:
+                        chk.equal("ffn_ln", what + " (tail)", got_t, want_t)
+                    elif got_t is not None:
+                        raise AssertionError(f"{what}: a tail without a tail table")
+                    n += 1
+    log(f"[3] ffn_ln == plain at {n} cases: d in {FFN_D} x T in {FFN_T} (N ragged against "
+        f"32-row tiles), tail on and off, the layers as frozen; at "
+        f"T={FFN_T[-1]} also every site, and l1 alone, pushed onto qasr_rq")
 
 
 def conformer_plans():
@@ -1365,18 +1414,24 @@ def phase_conformer_time(chk, model, tables, dev, card, report):
         vec_bytes = 4 * dout * (1 + ("b" in site))
         r["bound"] = bound(x.numel() + site["wt"].numel() + vec_bytes
                            + rows_ * dout * (1 + (mode == "join")), 2 * rows_ * kin * dout)
-    # Kernel 6: the FFN1 half with its ln_att tail
-    f = tbl["ff1_l1"]["wt"].shape[0]
-    args = (x8, tbl["ln_ff1"], tbl["ff1_l1"], tbl["ff1_grid"], tbl["ff1_prod"], tbl["ff1_l2"],
-            tbl["j1_stream"], tbl["ln_att"])
-    r = timed_pair(chk, "ffn_ln", f"ffn_ln B={batch} T={t} d={d} f={f} tail",
-                   lambda: ffn_ln(*args, nbits=8)[1], lambda: ffn_ln_plain(*args, nbits=8)[1],
-                   card, rows)
-    chk.equal("ffn_ln", "ffn_ln at the serving shape (joined stream)",
-              ffn_ln(*args, nbits=8)[0], ffn_ln_plain(*args, nbits=8)[0])
-    # x in, stream and tail out; both weights; the (3, d) / (2, f) / (2, d) rows
-    r["bound"] = bound(3 * batch * t * d + 2 * d * f + 4 * (3 * d + 2 * f + 2 * d + 3 * d),
-                       2 * 2 * batch * t * d * f)
+    # Kernel 6 in its three forms; the first is the kernels line's
+    layers = tables["encoder"]["layers"]
+    for form, lt, half, stream, tail in ffn_forms(layers):
+        f = lt[f"{half}_l1"]["wt"].shape[0]
+        args = (x8, lt[f"ln_{half}"], lt[f"{half}_l1"], lt[f"{half}_grid"], lt[f"{half}_prod"],
+                lt[f"{half}_l2"], lt[stream], tail)
+        pick = 0 if tail is None else 1
+        r = timed_pair(chk, "ffn_ln", f"ffn_ln B={batch} T={t} d={d} f={f} {form}",
+                       lambda a=args, i=pick: ffn_ln(*a, nbits=8)[i],
+                       lambda a=args, i=pick: ffn_ln_plain(*a, nbits=8)[i], card, rows)
+        if tail is not None:
+            chk.equal("ffn_ln", f"ffn_ln {form} at the serving shape (joined stream)",
+                      ffn_ln(*args, nbits=8)[0], ffn_ln_plain(*args, nbits=8)[0])
+        # x in, stream (and tail) out; both weights; the (3, d) / (2, f) / (2, d) rows
+        outs = 1 if tail is None else 2
+        r["bound"] = bound((1 + outs) * batch * t * d + 2 * d * f
+                           + 4 * (3 * d + 2 * f + 2 * d + (0 if tail is None else 3 * d)),
+                           2 * 2 * batch * t * d * f)
     report["conformer_per_kernel"] = rows
     return step, rows
 
@@ -1459,7 +1514,7 @@ def main() -> int:
             ("int_attention", "qasr_tpu/kernels/int_attention.py:170", "int_attention B="),
             ("conv_block", "qasr_tpu/kernels/conf_module.py:341", "conv_block B="),
             ("lin_epilogue", "qasr_tpu/kernels/gemm_fused.py:159", "q_u 256->256"),
-            ("ffn_ln", "qasr_tpu/kernels/conf_module.py:206", "ffn_ln B=")]:
+            ("ffn_ln", "qasr_tpu/kernels/conf_module.py:206", "ff1 + ln_att")]:
         r = next(r for r in rows if label in r["shape"])
         kernels.append({"name": kind, "route": "cuda", "shape": r["shape"],
                         "source": f"qasr_tpu_torch/kernels/csrc/{kind}.cu",

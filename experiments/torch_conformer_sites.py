@@ -45,10 +45,11 @@ def sass_loops(block):
     return loops
 
 
-def dump_sass(lib_path, out_dir):
+def dump_sass(lib_path, out_dir, kernels=("conv_block_stage", "int_attention")):
     """cuobjdump -sass of the library, split per function into out_dir;
     returns {function: {"ops": {opcode: count}, "loops": sass_loops}} for
-    Kernels 3 and 4."""
+    the functions whose names hold one of ``kernels`` (Kernels 3 and 4 by
+    default)."""
     from qasr_tpu_torch.kernels import _build
 
     tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
@@ -58,7 +59,7 @@ def dump_sass(lib_path, out_dir):
     counts = {}
     for block in re.split(r"\n\s*Function : ", text)[1:]:
         name = block.split("\n", 1)[0].strip()
-        if not any(s in name for s in ("conv_block_stage", "int_attention")):
+        if not any(s in name for s in kernels):
             continue
         with open(os.path.join(out_dir, f"{name[:120]}.sass"), "w") as f:
             f.write(block)

@@ -39,7 +39,7 @@ _SIGNATURES = {
     "qasr_int_fn_check": [_I] + [_P] * 3 + [_I, _P],
     "qasr_ln_check": [_P] * 2 + [_I] * 3 + [_P],
     "qasr_lin_epilogue": [_P] * 6 + [_I] * 10 + [_P],
-    "qasr_ffn_ln": [_P] * 9 + [_I] * 14 + [_P],
+    "qasr_ffn_ln": [_P] * 15 + [_I] * 8 + [_P],
 }
 
 _lock = threading.Lock()

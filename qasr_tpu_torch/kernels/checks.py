@@ -1,6 +1,8 @@
 """Argument checks shared by the kernel wrappers: a CUDA kernel takes
 pointers, so every device, dtype, shape and contiguity it relies on is
-verified in Python first and anything else raises."""
+verified in Python first and anything else raises.  Also the host's proof
+that a per-column requant site may run on the FP64 pipe (``f64_fits``),
+which Kernel 4 applies per layer and Kernel 6 per site."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -80,3 +82,30 @@ def requant_operand(name: str, arg: str, v, c: int, device, exponent: bool):
         raise ValueError(f"{name}: scalar mantissa {arg} must lie in [0, 2^31), got {s}")
     return None, s
 
+
+def weight_zmax(lin) -> torch.Tensor:
+    """(dout,) int64 bound on |z| = |x . W[o] + b[o]| of a linear site over
+    every int8 input x: 128 times the row's L1 norm plus |b|."""
+    zmax = 128 * lin["wt"].to(torch.int64).abs().sum(1)
+    return zmax + lin["b"].to(torch.int64).abs() if "b" in lin else zmax
+
+
+def affine_zmax(site) -> torch.Tensor:
+    """(d,) int64 bound on |z| = |sgn y + b| of an i-LN affine site: |y| <
+    2^21 for the i-LN of an int8 row of d <= 512 values."""
+    return (site["sgn"].to(torch.int64).abs() << 21) + site["b"].to(torch.int64).abs()
+
+
+def f64_fits(zmax: torch.Tensor, m, e) -> bool:
+    """Whether qasr_rq_f64 (csrc/requant.cuh) equals the exact requant
+    (m, e) on every |z| <= zmax: |z| m < 2^(e + 26) for every column (so
+    no result saturates and z m 2^-e stays far inside the fma's exact
+    range), and 1 <= e <= 62 (qasr_rq counts e < 1 as 1, m 2^-e does not)."""
+    prod = zmax.to(torch.int64) * torch.as_tensor(m).to(torch.int64).abs()
+    lim = 1 << min(62, int(e) + 26)
+    return 1 <= int(e) <= 62 and bool((prod < lim).all())
+
+
+def f64_scale(m, e) -> torch.Tensor:
+    """m 2^-e as float64, per column (exact: m < 2^31)."""
+    return torch.as_tensor(m).to(torch.float64) * 2.0 ** -int(e)

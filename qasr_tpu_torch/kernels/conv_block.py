@@ -30,7 +30,14 @@ from typing import Any, Dict
 import torch
 
 from qasr_tpu_torch.kernels import _build
-from qasr_tpu_torch.kernels.checks import check_vec, check_x
+from qasr_tpu_torch.kernels.checks import (
+    affine_zmax,
+    check_vec,
+    check_x,
+    f64_fits,
+    f64_scale,
+    weight_zmax,
+)
 from qasr_tpu_torch.models.jasper import mask_values
 from qasr_tpu_torch.ops.integer_sigmoid import i_sigmoid_grid
 from qasr_tpu_torch.ops.quant_prims import dyadic_requant_static
@@ -39,8 +46,8 @@ from qasr_tpu_torch.quantize.conformer_int import (
     _glu_int,
     _join_lin,
     _ln_rq,
-    _swish8,
     clip8,
+    swish_lut,
 )
 
 ROWS = 32            # rows per block in both stages (csrc/conv_block.cu)
@@ -91,39 +98,31 @@ def sigmoid_table(device) -> torch.Tensor:
 def swish_table(tbl, nbits: int) -> torch.Tensor:
     """The conv module's i-swish after the BN as a function of bn8: mid8 at
     index bn8 + 128, as uint8 (the bytes of the int8 result)."""
-    bn8 = torch.arange(-128, 128, dtype=torch.int32, device=tbl["dw_w"].device).to(torch.int8)
-    return _swish8(bn8, tbl["bn_grid"], tbl["bn_prod"], nbits).view(torch.uint8).contiguous()
+    return swish_lut(tbl["bn_grid"], tbl["bn_prod"], nbits, tbl["dw_w"].device)
 
 
 def _f64_scales(tbl):
     """(mf, ok): the per-column sites' m 2^-e as a (6, d) float64 tensor
-    (att_out, GLU a, GLU g, BN, pw2, ln affine; exact in float64), and whether every
-    column of them and the glu_prod requant stay in qasr_rq_f64's domain
-    (|z| m < 2^(e + 26) and 1 <= e <= 62, since qasr_rq counts e < 1 as 1
-    and mf does not) for every int8 input: |z| is at most 128 times the
-    column's weight L1 norm plus |bias| (times |sgn| for the BN), |sgn|
-    2^21 + |bias| for the ln affine (|i-LN| < 2^21 for an int8 row,
-    d <= 512), and 127 * 128 for glu_prod's a8 * sigmoid."""
-    def fits(zmax, m, e):
-        prod = zmax.to(torch.int64) * m.to(torch.int64).abs()
-        lim = 1 << min(62, int(e) + 26)
-        return 1 <= int(e) <= 62 and bool((prod < lim).all())
-
-    def weight_site(lin):
-        zmax = 128 * lin["wt"].to(torch.int64).abs().sum(1) + lin["b"].to(torch.int64).abs()
-        return zmax, lin["m"], lin["e"]
-
+    (att_out, GLU a, GLU g, BN, pw2, ln affine), and whether every column
+    of them and the glu_prod requant stay in qasr_rq_f64's domain for
+    every int8 input (``checks.f64_fits``): |z| is bounded by
+    ``checks.weight_zmax`` at the linear sites, by 128 times the column's
+    tap L1 norm times |sgn| plus |bias| at the BN, by
+    ``checks.affine_zmax`` at the ln affine, and by 127 * 128 for
+    glu_prod's a8 * sigmoid."""
     bn = tbl["dw_bn"]
     dw_zmax = (128 * tbl["dw_w"].to(torch.int64).abs().sum(0) * bn["sgn"].to(torch.int64).abs()
                + bn["b"].to(torch.int64).abs())
     ln = tbl["ln_conv"]
-    ln_zmax = (ln["sgn"].to(torch.int64).abs() << 21) + ln["b"].to(torch.int64).abs()
-    sites = [weight_site(tbl["att_out"]), weight_site(tbl["pw1_a"]), weight_site(tbl["pw1_g"]),
-             (dw_zmax, bn["m"], bn["e"]), weight_site(tbl["pw2"]), (ln_zmax, ln["m"], ln["e"])]
-    ok = all(fits(z, m, e) for z, m, e in sites)
+
+    def lin(name):
+        return weight_zmax(tbl[name]), tbl[name]["m"], tbl[name]["e"]
+    sites = [lin("att_out"), lin("pw1_a"), lin("pw1_g"), (dw_zmax, bn["m"], bn["e"]), lin("pw2"),
+             (affine_zmax(ln), ln["m"], ln["e"])]
+    ok = all(f64_fits(z, m, e) for z, m, e in sites)
     m_glu, e_glu = tbl["glu_prod"]
-    ok = ok and fits(torch.tensor([127 * 128]), torch.tensor([int(m_glu)]), e_glu)
-    mf = torch.stack([m.to(torch.float64) * 2.0 ** -int(e) for _, m, e in sites]).contiguous()
+    ok = ok and f64_fits(torch.tensor([127 * 128]), torch.tensor([int(m_glu)]), e_glu)
+    mf = torch.stack([f64_scale(m, e) for _, m, e in sites]).contiguous()
     return mf, ok
 
 

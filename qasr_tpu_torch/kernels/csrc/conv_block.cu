@@ -79,14 +79,6 @@ constexpr int kPer = 16;          // depthwise outputs per task: 4 quads of 4
 
 __device__ __forceinline__ int clamp8(int q, int n8) { return qasr_clamp(q, -n8, n8 - 1); }
 
-// qasr_rq_make(m, e) for a site whose exponent e is shared by every column:
-// `site` = qasr_rq_make(1, e) folds e once; m < 2^31
-__device__ __forceinline__ QasrRq rq_col(const QasrRq& site, int m) {
-  QasrRq r = site;
-  r.m = site.m ? static_cast<unsigned>(m) : 0u;
-  return r;
-}
-
 // a thread's share of copying rows of d bytes in 16-byte pieces: piece q
 // of rows r, r + step, ... (threads from step * (d / 16) on copy none), so
 // that the copy loops carry no division
@@ -138,28 +130,6 @@ __device__ __forceinline__ void gemm_tile(const int* As, const int* Ws, int lda,
   }
 }
 
-// the requant of one column of a per-column site: qasr_rq with the
-// column's mantissa folded into the site's constants, or (kF64) qasr_rq_f64
-// with the column's m 2^-e from mf
-template <bool kF64>
-struct ColRq {
-  QasrRq q;
-  double f;
-  __device__ __forceinline__ ColRq(const QasrRq& site, const int32_t* m, const double* mf, int o) {
-    if (kF64)
-      f = __ldg(mf + o);
-    else
-      q = rq_col(site, __ldg(m + o));
-  }
-  __device__ __forceinline__ int operator()(int z) const {
-    return kF64 ? qasr_rq_f64(z, f) : qasr_rq(z, q);
-  }
-};
-
-__device__ __forceinline__ short pack2(int lo, int hi) {
-  return static_cast<short>((lo & 0xff) | ((hi & 0xff) << 8));
-}
-
 // The i-LN of the tile's x1 rows (kRows / 4 a warp) and the ln_conv affine
 // requant into A8; kP >= d / 32 values a lane (the lane's columns' affine
 // constants are loaded once for its rows)
@@ -194,7 +164,7 @@ __device__ __forceinline__ void ln_rows(const int8_t* X1, int8_t* A8, int lda,
       if (k < per) {
         const int z = ls[k] * yv[k] + lb[k];
         A8[rl * lda * 4 + lane + 32 * k] = static_cast<int8_t>(
-            clamp8(kF64 ? qasr_rq_f64(z, lf[k]) : qasr_rq(z, rq_col(s_ln, lm[k])), n8));
+            clamp8(kF64 ? qasr_rq_f64(z, lf[k]) : qasr_rq(z, qasr_rq_col(s_ln, lm[k])), n8));
       }
     }
   }
@@ -284,7 +254,7 @@ conv_block_stage_a(const int8_t* __restrict__ c8, const int8_t* __restrict__ x8,
       for (int j = 0; j < 4; ++j) {
         const int o = c * 64 + wc * 32 + j * 8 + 2 * t4;
         const int b0 = __ldg(vec + o), b1 = __ldg(vec + o + 1);
-        const ColRq<kF64> q0(s_ao, vec + d, mf, o), q1(s_ao, vec + d, mf, o + 1);
+        const QasrColRq<kF64> q0(s_ao, vec + d, mf, o), q1(s_ao, vec + d, mf, o + 1);
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int rl = wr * 16 + g + 8 * h, n = n0 + rl;
@@ -293,9 +263,10 @@ conv_block_stage_a(const int8_t* __restrict__ c8, const int8_t* __restrict__ x8,
             const short xs = *reinterpret_cast<const short*>(X8 + rl * d + o);
             v0 = clamp8(q0(acc[j][2 * h] + b0) + T2[static_cast<int8_t>(xs & 0xff) + 128], n8);
             v1 = clamp8(q1(acc[j][2 * h + 1] + b1) + T2[static_cast<int8_t>(xs >> 8) + 128], n8);
-            *reinterpret_cast<short*>(x1out + static_cast<size_t>(n) * d + o) = pack2(v0, v1);
+            *reinterpret_cast<short*>(x1out + static_cast<size_t>(n) * d + o) =
+                qasr_pack2(v0, v1);
           }
-          *reinterpret_cast<short*>(X1 + rl * d + o) = pack2(v0, v1);
+          *reinterpret_cast<short*>(X1 + rl * d + o) = qasr_pack2(v0, v1);
         }
       }
     } else {
@@ -306,10 +277,10 @@ conv_block_stage_a(const int8_t* __restrict__ c8, const int8_t* __restrict__ x8,
         const int o = cg * 32 + wc * 16 + j * 8 + 2 * t4;
         const int ba[2] = {__ldg(vec + 5 * d + o), __ldg(vec + 5 * d + o + 1)};
         const int bg[2] = {__ldg(vec + 7 * d + o), __ldg(vec + 7 * d + o + 1)};
-        const ColRq<kF64> qa[2] = {ColRq<kF64>(s_a, vec + 6 * d, mf + d, o),
-                                   ColRq<kF64>(s_a, vec + 6 * d, mf + d, o + 1)};
-        const ColRq<kF64> qg[2] = {ColRq<kF64>(s_g, vec + 8 * d, mf + 2 * d, o),
-                                   ColRq<kF64>(s_g, vec + 8 * d, mf + 2 * d, o + 1)};
+        const QasrColRq<kF64> qa[2] = {QasrColRq<kF64>(s_a, vec + 6 * d, mf + d, o),
+                                       QasrColRq<kF64>(s_a, vec + 6 * d, mf + d, o + 1)};
+        const QasrColRq<kF64> qg[2] = {QasrColRq<kF64>(s_g, vec + 8 * d, mf + 2 * d, o),
+                                       QasrColRq<kF64>(s_g, vec + 8 * d, mf + 2 * d, o + 1)};
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int n = n0 + wr * 16 + g + 8 * h;
@@ -322,7 +293,8 @@ conv_block_stage_a(const int8_t* __restrict__ c8, const int8_t* __restrict__ x8,
             const int y = live[h] ? a8 * qasr_i_sigmoid_tab(Sig, gg) : 0;
             v[u] = clamp8(kF64 ? qasr_rq_f64(y, f_glu) : qasr_rq(y, rq_glu), n8);
           }
-          *reinterpret_cast<short*>(glu8 + static_cast<size_t>(n) * d + o) = pack2(v[0], v[1]);
+          *reinterpret_cast<short*>(glu8 + static_cast<size_t>(n) * d + o) =
+              qasr_pack2(v[0], v[1]);
         }
       }
     }
@@ -441,7 +413,7 @@ conv_block_stage_b(const int8_t* __restrict__ glu8, const int32_t* __restrict__ 
         x3 = xr[gi + 7];
       }
       const int sgn = __ldg(vec + 9 * d + c), bias = __ldg(vec + 10 * d + c);
-      const ColRq<kF64> q(s_dw, vec + 11 * d, mf + 3 * d, c);
+      const QasrColRq<kF64> q(s_dw, vec + 11 * d, mf + 3 * d, c);
 #pragma unroll
       for (int u = 0; u < kPer; ++u) {
         const int bn = clamp8(q(sgn * acc[u] + bias), n8);
@@ -478,16 +450,17 @@ conv_block_stage_b(const int8_t* __restrict__ glu8, const int32_t* __restrict__ 
     for (int j = 0; j < 4; ++j) {
       const int o = c * 64 + wc * 32 + j * 8 + 2 * t4;
       const int b0 = __ldg(vec + 12 * d + o), b1 = __ldg(vec + 12 * d + o + 1);
-      const ColRq<kF64> q0(s_2, vec + 13 * d, mf + 4 * d, o), q1(s_2, vec + 13 * d, mf + 4 * d, o + 1);
+      const QasrColRq<kF64> q0(s_2, vec + 13 * d, mf + 4 * d, o),
+          q1(s_2, vec + 13 * d, mf + 4 * d, o + 1);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int rl = wr * 16 + g + 8 * h, t = t0 + rl;
         if (t >= T) continue;
         const short xs = *reinterpret_cast<const short*>(X1s + rl * d + o);
         *reinterpret_cast<short*>(out + base + static_cast<size_t>(t) * d + o) =
-            pack2(clamp8(q0(acc[j][2 * h] + b0) + T3[static_cast<int8_t>(xs & 0xff) + 128], n8),
-                  clamp8(q1(acc[j][2 * h + 1] + b1) + T3[static_cast<int8_t>(xs >> 8) + 128],
-                         n8));
+            qasr_pack2(
+                clamp8(q0(acc[j][2 * h] + b0) + T3[static_cast<int8_t>(xs & 0xff) + 128], n8),
+                clamp8(q1(acc[j][2 * h + 1] + b1) + T3[static_cast<int8_t>(xs >> 8) + 128], n8));
       }
     }
   }

@@ -82,6 +82,34 @@ __device__ __forceinline__ int qasr_rq_f64(int z, double M) {
   return __double2loint(fma(zd, M, 6755399441055744.0));   // 1.5 * 2^52
 }
 
+// qasr_rq_make(m, e) for a site whose exponent e is shared by every column:
+// `site` = qasr_rq_make(1, e) folds e once; m < 2^31
+__device__ __forceinline__ QasrRq qasr_rq_col(const QasrRq& site, int m) {
+  QasrRq r = site;
+  r.m = site.m ? static_cast<unsigned>(m) : 0u;
+  return r;
+}
+
+// The requant of one column o of a per-column site (Kernels 4 and 6):
+// qasr_rq with the column's mantissa m[o] folded into the site's constants,
+// or (kF64, where the host has proven the site's domain) qasr_rq_f64 with
+// the column's m 2^-e from mf[o]
+template <bool kF64>
+struct QasrColRq {
+  QasrRq q;
+  double f;
+  __device__ __forceinline__ QasrColRq(const QasrRq& site, const int32_t* m, const double* mf,
+                                       int o) {
+    if (kF64)
+      f = __ldg(mf + o);
+    else
+      q = qasr_rq_col(site, __ldg(m + o));
+  }
+  __device__ __forceinline__ int operator()(int z) const {
+    return kF64 ? qasr_rq_f64(z, f) : qasr_rq(z, q);
+  }
+};
+
 // The exponent of channel c: read from the (C,) vector ev or, when ev is
 // NULL, the scalar es.  One below 1 counts as 1, as dyadic_requant clamps
 // it (above 62 qasr_requant gives 0).

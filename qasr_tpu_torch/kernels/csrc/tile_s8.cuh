@@ -1,7 +1,7 @@
-// Tile helpers of the Conformer kernels (int_attention.cu, conv_block.cu):
-// the int8 m16n8k32 tensor-core product, 16- and 4-byte cp.async into
-// shared memory with zero fill, ldmatrix fragment loads, and the 4 x 4 byte
-// transpose.
+// Tile helpers of the Conformer kernels (int_attention.cu, conv_block.cu,
+// ffn_ln.cu): the int8 m16n8k32 tensor-core product, 16- and 4-byte
+// cp.async into shared memory with zero fill, ldmatrix fragment loads, two
+// int8 values packed into a 16-bit word, and the 4 x 4 byte transpose.
 #pragma once
 
 #include <cstdint>
@@ -45,6 +45,11 @@ __device__ __forceinline__ void qasr_ldsm4(int (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(qasr_smem_addr(p)));
+}
+
+// two int8 values (their low bytes) as one 16-bit word, lo first
+__device__ __forceinline__ short qasr_pack2(int lo, int hi) {
+  return static_cast<short>((lo & 0xff) | ((hi & 0xff) << 8));
 }
 
 // the 4 x 4 byte transpose of four words: byte j of word i -> byte i of word j

@@ -75,6 +75,14 @@ def _swish8(a8: torch.Tensor, grid, prod, bits: int) -> torch.Tensor:
     return clip8(dyadic_requant_static(a32 * i_sigmoid_grid(g), prod[0], prod[1]), bits)
 
 
+def swish_lut(grid, prod, bits: int, device) -> torch.Tensor:
+    """``_swish8`` over every int8 input as a table: the result at index
+    a8 + 128, as uint8 (the bytes of the int8 result).  Kernels 4 and 6
+    look their i-swish up in it."""
+    a8 = torch.arange(-128, 128, dtype=torch.int32, device=device).to(torch.int8)
+    return _swish8(a8, grid, prod, bits).view(torch.uint8).contiguous()
+
+
 def _ffn_mid(x8, tbl_l1, grid, prod, bits: int):
     """FFN first half: l1 linear -> requant -> integer swish -> int8."""
     return _swish8(_lin_rq(x8, tbl_l1, bits), grid, prod, bits)

@@ -12,7 +12,14 @@
     QASR_CONF_MOD / QASR_CONF_FUSED / QASR_CONF_ATT flags (a fresh jit per
     setting): exact from the features with ``subsampling=""``, exact from
     JAX's x8 with the striding subsampler.
-(c) The plan's values and launch counts; the kernels' packed rows.
+(c) The plan's values and launch counts.
+(d) What Kernel 6 takes from the host and cannot be run here: its packed
+    rows, FP64 scales and weight tiles (read back as the kernel's
+    ldmatrix addresses read them), the x-tile swizzle, the per-site choice
+    of the FP64 requant against an integer model of the check, a numpy
+    model of qasr_rq_f64 against the plain requant over each site's proven
+    domain, and the i-swish and stream tables against the JAX package's
+    ``_ffn_mid`` / ``_join_int`` pieces over all 256 inputs.
 Tolerance: exact throughout.
 """
 import numpy as np
@@ -31,7 +38,7 @@ from qasr_tpu.models.conformer import subsample_convs as jax_subsample
 from qasr_tpu.quantize.conformer_ptq import ConformerQuantConfig, calibrate_conformer
 from qasr_tpu_torch.compat.from_jax import conformer_tables_from_jax
 from qasr_tpu_torch.kernels import ffn_ln as port_ffn
-from qasr_tpu_torch.kernels.ffn_ln import bm_rows, ffn_ln, ffn_ln_plain, ln_rows
+from qasr_tpu_torch.kernels.ffn_ln import ffn_ln, ffn_ln_plain
 from qasr_tpu_torch.kernels.lin_epilogue import lin_epilogue, lin_epilogue_plain
 from qasr_tpu_torch.models.conformer import ConformerConfig
 from qasr_tpu_torch.quantize import conformer_freeze as port_cf
@@ -201,12 +208,55 @@ def test_ffn_ln_plain_matches_pallas(frozen_small, layer, half, tail, b, t):
     assert ffn_ln.launches == before
 
 
+def _unpack_as_read(tiles: np.ndarray, nout: int, k: int) -> np.ndarray:
+    """W (nout, k) as ffn_ln.cu's consumers read it from the packed tile
+    sequence: tile (chunk c0, K offset k0) at byte c0 K + k0 rows, and in
+    it, for consumer warp w, fragment pair p, ldmatrix matrix q, lane row
+    rr and k32 step ks (gemm_chunk), weight row n = 32 w + 16 p + 8 (q >> 1)
+    + rr, 16 bytes at unit (2 ks + (q & 1)) ^ ((rr >> 1) & 3) of the row.
+    Checks that the eight rows of each ldmatrix matrix fall on eight
+    distinct 16-byte bank groups."""
+    cols, kt = port_ffn.COLS, port_ffn.KT
+    w = np.zeros((nout, k), np.int8)
+    seen = np.zeros((nout, k), bool)
+    off = 0
+    for c0 in range(0, nout, cols):
+        rows = min(cols, nout - c0)
+        for k0 in range(0, k, kt):
+            assert off == c0 * k + k0 * rows
+            stage = tiles[off:off + rows * kt]
+            off += rows * kt
+            for wp in range(4):
+                if 32 * wp >= rows:
+                    continue
+                for p in range(2):
+                    for q in range(4):
+                        for ks in range(2):
+                            groups = set()
+                            for rr in range(8):
+                                n = 32 * wp + 16 * p + 8 * (q >> 1) + rr
+                                unit = (2 * ks + (q & 1)) ^ ((rr >> 1) & 3)
+                                a = n * kt + 16 * unit
+                                groups.add((a // 16) % 8)
+                                kb = k0 + 32 * ks + 16 * (q & 1)
+                                w[c0 + n, kb:kb + 16] = stage[a:a + 16]
+                                seen[c0 + n, kb:kb + 16] = True
+                            assert len(groups) == 8
+    assert off == tiles.size and seen.all()
+    return w
+
+
 def test_ffn_ln_kernel_layout(frozen_small):
-    """Kernel 6's packed rows: (sgn, b, m) of an i-LN site, (b, m) of a
-    linear site, int32, built once and cached in the site's table."""
+    """Kernel 6's packed form of a layer's sites: (sgn, b, m) of an i-LN
+    site and (b, m) of a linear site as int32 rows, the FP64 scales m 2^-e
+    (every site of the small model is in the FP64 domain), the weights as
+    the tile sequence the kernel reads (a 64-row last chunk at f = 256 /
+    d = 64 included), built once and cached in the site's table."""
     _, _, _, pt = frozen_small
     tbl = pt["layers"][0]
-    ln3, bm1, bm2 = ln_rows(tbl["ln_ff1"]), bm_rows(tbl["ff1_l1"]), bm_rows(tbl["ff1_l2"])
+    p_ln, p1, p2 = (port_ffn._packed(tbl["ln_ff1"]), port_ffn._packed(tbl["ff1_l1"]),
+                    port_ffn._packed(tbl["ff1_l2"]))
+    ln3, bm1, bm2 = p_ln["rows"], p1["rows"], p2["rows"]
     assert tuple(ln3.shape) == (3, 64) and tuple(bm1.shape) == (2, 256) \
         and tuple(bm2.shape) == (2, 64)
     for row, name in enumerate(("sgn", "b", "m")):
@@ -215,10 +265,186 @@ def test_ffn_ln_kernel_layout(frozen_small):
         assert torch.equal(bm1[row], tbl["ff1_l1"][name])
         assert torch.equal(bm2[row], tbl["ff1_l2"][name])
     assert all(v.dtype == torch.int32 and v.is_contiguous() for v in (ln3, bm1, bm2))
-    assert ln_rows(tbl["ln_ff1"]) is ln3 and bm_rows(tbl["ff1_l1"]) is bm1
+    assert port_ffn._packed(tbl["ln_ff1"]) is p_ln and port_ffn._packed(tbl["ff1_l1"]) is p1
+    for p, site in ((p_ln, tbl["ln_ff1"]), (p1, tbl["ff1_l1"]), (p2, tbl["ff1_l2"])):
+        assert p["mf"].dtype == torch.float64 and p["mf"].is_contiguous()
+        np.testing.assert_array_equal(np.ldexp(p["mf"].numpy(), site["e"]), site["m"].numpy())
     # the kernels take the device tables' (dout, din) weights as they are
     assert tuple(tbl["ff1_l1"]["wt"].shape) == (256, 64) \
         and tuple(tbl["ff1_l2"]["wt"].shape) == (64, 256)
+    for p, wt in ((p1, tbl["ff1_l1"]["wt"]), (p2, tbl["ff1_l2"]["wt"])):
+        assert p["tiles"].dtype == torch.int8 and p["tiles"].numel() == wt.numel()
+        np.testing.assert_array_equal(_unpack_as_read(p["tiles"].numpy(), *wt.shape), wt.numpy())
+
+
+@pytest.mark.parametrize("nout,k", [(128, 64), (192, 320), (64, 512), (1024, 256)])
+def test_ffn_ln_tile_packing_shapes(nout, k):
+    """pack_tiles at the widths the kernel takes: one chunk, a 64-row last
+    chunk, K of 5 tiles, the flagship's l1."""
+    wt = torch.from_numpy(_i8(np.random.default_rng(nout + k), nout, k))
+    np.testing.assert_array_equal(_unpack_as_read(port_ffn.pack_tiles(wt).numpy(), nout, k),
+                                  wt.numpy())
+
+
+def test_ffn_ln_x_tile_swizzle():
+    """ffn_ln.cu's xat: byte c of row r of the x tile at r d + 16 ((u & ~3)
+    | ((u ^ r) & 3)) + (c & 15), u = c >> 4: a permutation of each row, so
+    the 16-byte copies in and out and the byte reads see every x once; the
+    join's eight rows at one column share a 16-byte bank group at most two
+    at a time (eight at once unswizzled, d a multiple of 128)."""
+    for d in (64, 192, 256, 512):
+        c = np.arange(d)
+        for r in range(32):
+            u = c >> 4
+            a = r * d + 16 * ((u & ~3) | ((u ^ r) & 3)) + (c & 15)
+            assert sorted(a.tolist()) == list(range(r * d, (r + 1) * d))
+        for o in range(0, d, 2):
+            rows = np.arange(8)
+            u = o >> 4
+            a = rows * d + 16 * ((u & ~3) | ((u ^ rows) & 3))
+            assert np.bincount((a // 16) % 8).max() <= 2
+
+
+def _sites(tbl):
+    """The FFN halves' requant sites of one layer table: (name, kind)."""
+    out = [("ln_ff1", "affine"), ("ff1_l1", "linear"), ("ff1_l2", "linear"),
+           ("ln_att", "affine"), ("ln_ff2", "affine"), ("ff2_l1", "linear"),
+           ("ff2_l2", "linear")]
+    return out + ([("ln_out", "affine")] if "m" in tbl["ln_out"] else [])
+
+
+def _zmax_model(site, kind):
+    """Per column, in Python integers: 128 |W[o]|_1 + |b[o]| (linear), or
+    |sgn[o]| 2^21 + |b[o]| (affine: |i-LN| < 2^21 for an int8 row)."""
+    b = [abs(int(v)) for v in site["b"].tolist()]
+    if kind == "linear":
+        return [128 * sum(abs(int(v)) for v in row) + bb
+                for row, bb in zip(site["wt"].tolist(), b)]
+    return [abs(int(s_)) * 2 ** 21 + bb for s_, bb in zip(site["sgn"].tolist(), b)]
+
+
+def _fits_model(zmax, m, e):
+    """qasr_rq_f64's domain: 1 <= e <= 62 and |z| m < 2^(e + 26) for every
+    column's |z| <= zmax, in Python integers."""
+    return 1 <= e <= 62 and all(z * abs(int(mm)) < 2 ** min(62, e + 26)
+                                for z, mm in zip(zmax, m.tolist()))
+
+
+def test_ffn_f64_domain_matches_integer_model(frozen_small):
+    """The host's per-site choice of the FP64 requant (``site_f64`` through
+    ``checks.f64_fits``) at every FFN site of both layers, against the
+    check done in Python integers; every site of the small model takes the
+    FP64 path."""
+    _, _, _, pt = frozen_small
+    for li, tbl in enumerate(pt["layers"]):
+        for name, kind in _sites(tbl):
+            site = {k: v for k, v in tbl[name].items() if not k.startswith("_")}
+            zmax = _zmax_model(site, kind)
+            want = _fits_model(zmax, site["m"], site["e"])
+            zt = (port_ffn.weight_zmax if kind == "linear" else port_ffn.affine_zmax)(site)
+            assert zt.tolist() == zmax, (li, name)
+            assert want and (port_ffn.site_f64(site, zt) is not None), (li, name)
+
+
+@pytest.mark.parametrize("kind", ["affine", "linear"])
+def test_ffn_f64_domain_boundary(frozen_small, kind):
+    """A column bent onto the domain's edge (the other columns' m set to
+    1): the largest m with |z|max m < 2^(e+26) is in it, the next one is
+    not; an exponent of 0 or 63 sends the site to qasr_rq, 62 does not.
+    The helper agrees with the integer model in each case."""
+    _, _, _, pt = frozen_small
+    tbl = pt["layers"][0]
+    base = {k: v for k, v in tbl["ff1_l1" if kind == "linear" else "ln_ff1"].items()
+            if not k.startswith("_")}
+    zmax = _zmax_model(base, kind)
+    e = 20
+    m_in = (2 ** (e + 26) - 1) // zmax[0]
+    cases = []
+    for m0, want in ((m_in, True), (m_in + 1, False)):
+        m = torch.ones_like(base["m"])
+        m[0] = m0
+        cases.append(({**base, "m": m, "e": e}, want))
+    for e_, want in ((0, False), (63, False), (62, True)):
+        cases.append(({**base, "m": torch.ones_like(base["m"]), "e": e_}, want))
+    for site, want in cases:
+        assert _fits_model(zmax, site["m"], site["e"]) == want
+        zt = port_ffn.weight_zmax(site) if kind == "linear" else port_ffn.affine_zmax(site)
+        assert (port_ffn.site_f64(site, zt) is not None) == want
+
+
+def _rq_f64_model(z: np.ndarray, m: int, e: int) -> np.ndarray:
+    """requant.cuh::qasr_rq_f64 step by step: z made a double by the 2^52 +
+    2^31 trick (numpy float64, exact), M = m 2^-e, the fma z M + 1.5 2^52
+    rounded once to the nearest double, ties to even (exact integer
+    arithmetic: the sum lies in [2^52, 2^53), where the doubles are the
+    integers), then the low word of its bits as int32."""
+    bits = (np.uint64(0x43300000) << np.uint64(32)) | (
+        (z.astype(np.int64) ^ 0x80000000) & 0xffffffff).astype(np.uint64)
+    zd = bits.view(np.float64) - 4503601774854144.0
+    np.testing.assert_array_equal(zd, z.astype(np.float64))
+    assert np.ldexp(np.float64(m) * 2.0 ** -e, e) == m        # M is exact
+    out = []
+    for zi in zd.astype(np.int64).tolist():
+        q, r = divmod(zi * m + 3 * 2 ** (51 + e), 2 ** e)
+        half = 2 ** (e - 1)
+        q += 1 if r > half or (r == half and q % 2) else 0
+        assert 2 ** 52 <= q < 2 ** 53
+        low = int(np.array([float(q)]).view(np.uint64)[0]) & 0xffffffff
+        out.append(low - 2 ** 32 if low >= 2 ** 31 else low)
+    return np.asarray(out, np.int64)
+
+
+def test_rq_f64_model_on_proven_domain(frozen_small):
+    """On every FFN site of both layers, the FP64 requant (numpy model)
+    equals the JAX package's plain requant over the site's proven domain:
+    for each column, |z| <= its bound at the extremes, around 0 and at 48
+    random points (4 columns a site, spread over its width)."""
+    from qasr_tpu.ops.quant_prims import dyadic_requant_static as jax_rq
+
+    _, _, _, pt = frozen_small
+    rng = np.random.default_rng(44)
+    for li, tbl in enumerate(pt["layers"]):
+        for name, kind in _sites(tbl):
+            site = tbl[name]
+            zmax = _zmax_model(site, kind)
+            cols = np.linspace(0, len(zmax) - 1, 4).astype(int)
+            for o in cols:
+                zm = min(zmax[o], 2 ** 29 - 1)
+                z = np.concatenate([[zm, -zm, zm - 1, 1 - zm, 0, 1, -1],
+                                    rng.integers(-zm, zm + 1, 48)]).astype(np.int64)
+                m = int(site["m"][o])
+                want = np.asarray(jax_rq(jnp.asarray(z, jnp.int32), jnp.asarray(m), site["e"]))
+                np.testing.assert_array_equal(_rq_f64_model(z, m, site["e"]), want,
+                                              err_msg=f"layer {li} {name} column {o}")
+
+
+@pytest.mark.parametrize("nbits", [8, 6])
+def test_ffn_tables_match_jax_ffn_mid(frozen_small, nbits):
+    """The host's tables over all 256 int8 inputs against the pieces of the
+    JAX package's ``_ffn_mid`` / ``_join_int``: the i-swish (grid requant,
+    i_sigmoid_grid, product requant, clamp) and the stream requant of the
+    join, for both FFN halves of both layers."""
+    from qasr_tpu.ops.integer_sigmoid import i_sigmoid_grid as jax_sigmoid
+    from qasr_tpu.ops.quant_prims import dyadic_requant_static as jax_rq
+
+    _, _, jt, pt = frozen_small
+    v = jnp.arange(-128, 128, dtype=jnp.int32)
+    n = 2 ** (nbits - 1) - 1
+    for li, (jl, plyr) in enumerate(zip(jt["layers"], pt["layers"])):
+        for half, stream in (("ff1", "j1_stream"), ("ff2", "j4_stream")):
+            grid, prod = jl[f"{half}_grid"], jl[f"{half}_prod"]
+            g = jax_rq(v, jnp.asarray(grid[0]), grid[1])
+            want = np.clip(np.asarray(jax_rq(v * jax_sigmoid(g), jnp.asarray(prod[0]), prod[1])),
+                           -n, n - 1)
+            got = port_ffn.swish_lut(plyr[f"{half}_grid"], plyr[f"{half}_prod"], nbits, "cpu")
+            assert got.dtype == torch.uint8 and tuple(got.shape) == (256,)
+            np.testing.assert_array_equal(got.view(torch.int8).numpy().astype(np.int32), want,
+                                          err_msg=f"layer {li} {half} swish")
+            js = jl[stream]
+            want_s = np.asarray(jax_rq(v, jnp.asarray(js[0]), js[1]))
+            got_s = port_ffn.stream_table(plyr[stream], "cpu")
+            assert got_s.dtype == torch.int32 and tuple(got_s.shape) == (256,)
+            np.testing.assert_array_equal(got_s.numpy(), want_s, err_msg=f"layer {li} {stream}")
 
 
 JAX_FLAGS = {("1", True): {"QASR_CONF_MOD": "1", "QASR_CONF_FUSED": "1", "QASR_CONF_ATT": "1"},
@@ -275,10 +501,12 @@ def test_kernel_launches_per_plan():
 
 
 def test_ffn_ln_shared_memory_budget():
-    """Kernel 6's block (32 rows): the weight stage, the LN output, the
-    swish activation, the stream tile and the swish table.  Three blocks
-    share an SM at the flagship d=256; d=512 with ff=4 fits one block."""
-    assert port_ffn.smem_bytes(256, 1024) == 4 * (64 * 68 + 32 * (68 + 260)) + 32 * 256 + 256
+    """Kernel 6's block (32 rows): the weight ring, the x tile, the LN
+    output, the swish activation, the stream and swish tables and the
+    stages' mbarriers.  Three blocks share an SM at the flagship d=256;
+    d=512 with ff=4 fits one block."""
+    assert port_ffn.smem_bytes(256, 1024) == 3 * 128 * 64 + 32 * (2 * 256 + 16) \
+        + 32 * (1024 + 16) + 4 * 256 + 256 + 3 * 2 * 8
     assert 3 * (port_ffn.smem_bytes(256, 1024) + 1024) <= port_ffn.SMEM_LIMIT
     assert port_ffn.smem_bytes(512, 2048) <= port_ffn.SMEM_LIMIT
     assert port_ffn.smem_bytes(512, 6144) > port_ffn.SMEM_LIMIT   # ff = 12 at d=512 raises
