@@ -9,9 +9,10 @@ every requant in a prologue or epilogue of Kernels 1-2; per_channel on
 FrozenExecKernels, convs in Kernels 1-2, the requants next to a depthwise
 conv in Kernel 1's prologue and epilogue with per-channel exponents, the
 rest in Kernel 7) and
-the frozen W8A8 Conformer-CTC (16 x 256), with nothing that falls back: no
-CUDA, a failed kernel build or any failed phase exits non-zero before the
-result line.  Phases:
+the frozen W8A8 Conformer-CTC (16 x 256), and QuartzNet15x5's zero-shot
+workflow (synthesis, calibration, the dynamic forward, the CLIs), with
+nothing that falls back: no CUDA, a failed kernel build or any failed
+phase exits non-zero before the result line.  Phases:
 
 1. the card's name and power limit (nvidia-smi);
 2. build every kernel from qasr_tpu_torch/kernels/csrc (one nvcc per
@@ -24,7 +25,8 @@ result line.  Phases:
    epilogue mode; dw_conv also with per-channel exponents e / e1 spread
    over 1-31 plus 0, 62, 63 and 70 in six prologue / epilogue modes),
    pw_gemm at N in {1, 37, 609} (a ragged last row tile),
-   Cin 64 (a single K chunk) to 1024, Cout 29 (one 32-column tile, rows of
+   Cin 64 (a single K chunk) to 1024 and 24 / 40 (the wrapper zero-pads
+   them to a multiple of 16), Cout 29 (one 32-column tile, rows of
    29 or 116 bytes) to 1024 (the prologue's resident A tile reused over 8
    column tiles); the
    requant kernel at C in {64, 256, 512, 1024, 29, 24} with int8 and int32
@@ -93,7 +95,31 @@ result line.  Phases:
    computes the same function, that call's time: each as CUDA events
    around one call (call_ms, the wrapper's host time included) and as
    device time (device_ms: torch.profiler over 10 calls, the named
-   kernels' device time per call).
+   kernels' device time per call);
+7. the zero-shot workflow on full-width QuartzNet15x5 at W6A6: (a)
+   ``get_synthetic_data`` at the reference recipe (8 x 500 frames, 200
+   Adam iterations, lr 0.01; a CUDA graph replay an iteration) for 2
+   problems: every loss finite, each problem's last below its first, and
+   the first 3 losses of one start point on the card within SYNTH_RTOL of
+   the CPU's (eager) at 2 x 200 frames; distill_loss's input gradient at
+   8 x 500 frames within GRAD_RTOL (norm-wise) of the CPU's, which the
+   same backward under TF32 must exceed; (b) ``calibrate`` on those
+   batches, min / max and percentile 99.9 (histogram_quantile at the
+   sites above 2^18 elements): 77 dw_conv + 94 pw_gemm launches a forward,
+   and the range state equal bit for bit to the plain QuantExec's on the
+   card; the calibrating forward (B=8 x 500 frames) timed; (d) the dynamic
+   forward's ids equal the plain QuantExec's (77 + 94 launches), and the
+   dynamic forward at B=64 x 15 s timed; (e) ``cli.synthesize`` then
+   ``cli.inference --weight_bit 6 --act_bit 6 --percentile 99.9`` on a
+   manifest of 4 seeded wavs: a finite WER and the hypotheses of the plain
+   frozen executor; (c) ``calibrate_on_noise(2, 2, 4 s, seed 0)`` against
+   the committed noise ranges (the JAX package's seed-0 recipe): the
+   first site (the features alone) within 1e-4 of its range, every site
+   within 15% of its range; beside them, how far the CPU's features, or
+   the card's times (1 + 1e-5 N(0, 1)), move the port's own ranges, and
+   what planted faults of the recipe read (another seed and percentile
+   99.9 must read above 15%); how many frozen table entries differ from
+   the golden record's tables.
 
 Prints the card line, a {"kernels": [...]} line (each kernel's "ms" and
 "library_ms" are device times at the site "shape" names, "call_ms" and
@@ -116,7 +142,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 DW_SITES = ([(64, 33, 2, 1)]
             + [(c, k, 1, 1) for c in (256, 512) for k in (33, 39, 51, 63, 75)]
             + [(512, 87, 1, 2)])
-PW_CIN = (64, 256, 512, 1024)
+# 24 and 40: the tiny test preset's widths, below / off a multiple of 16
+# (the wrapper zero-pads the contraction)
+PW_CIN = (64, 256, 512, 1024, 24, 40)
 PW_COUT = (256, 512, 1024, 29)
 # the Conformer kernels' check grid
 ATT_T = (1, 37, 128, 129, 375, 500)
@@ -1436,6 +1464,408 @@ def phase_conformer_time(chk, model, tables, dev, card, report):
     return step, rows
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the zero-shot workflow (synthesis, calibration, dynamic, CLIs)
+# ---------------------------------------------------------------------------
+
+# card vs CPU, the first 3 losses from one start point (~3 float32 ulps at
+# their 4.2e7)
+SYNTH_RTOL = 3e-7
+# card vs CPU, distill_loss's input gradient at the recipe's shape (norm-wise);
+# the same backward with TF32 on must read above it
+GRAD_RTOL = 2e-5
+# noise ranges vs the committed ones (the JAX package's seed-0 recipe): of
+# each site's range (above what the port reads from features perturbed at
+# the committed ranges' own first-site offset, below what another noise
+# seed or percentile 99.9 reads), and at the first site, which sees the
+# features alone
+NOISE_RANGE_TOL = 0.15
+FIRST_SITE_TOL = 1e-4
+FRONT_PERTURBATION = 1e-5
+PERTURBATION_SEEDS = (1, 2, 3)
+
+
+def qstate_sites(qstate, path=""):
+    """[(site, x_min, x_max)] of every activation site, in one fixed order."""
+    if isinstance(qstate, dict) and "x_min" in qstate:
+        return [(path, float(qstate["x_min"]), float(qstate["x_max"]))]
+    if isinstance(qstate, dict):
+        return [s for k in sorted(qstate) for s in qstate_sites(qstate[k], f"{path}.{k}")]
+    return [s for i, q in enumerate(qstate) for s in qstate_sites(q, f"{path}[{i}]")]
+
+
+def table_entries_differing(a, b) -> int:
+    """Elements (array entries, or static scalars) that differ between two
+    host table trees of the same structure."""
+    import numpy as np
+
+    if isinstance(a, dict):
+        return sum(table_entries_differing(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return sum(table_entries_differing(x, y) for x, y in zip(a, b))
+    if isinstance(a, (np.ndarray, np.generic)):
+        a, b = np.asarray(a), np.asarray(b)
+        return int(np.sum(a != b)) if a.shape == b.shape else int(max(a.size, b.size))
+    return int(a != b)
+
+
+def write_manifest(root, rng, sr=16000):
+    """4 seeded wavs (tone + noise) and their JSON-lines manifest."""
+    import numpy as np
+
+    from qasr_tpu_torch.data.audio import write_wav
+
+    texts = ("hello world", "the quick brown fox", "zero shot quantization",
+             "integer only speech recognition")
+    path = os.path.join(root, "manifest.json")
+    with open(path, "w") as f:
+        for i, text in enumerate(texts):
+            n = int(sr * (1.5 + 0.5 * i))
+            t = np.arange(n) / sr
+            x = (0.3 * np.sin(2 * np.pi * (180 + 60 * i) * t)
+                 + 0.05 * rng.normal(size=n)).astype(np.float32)
+            wav = os.path.join(root, f"utt{i}.wav")
+            write_wav(wav, x, sr)
+            f.write(json.dumps({"audio_filepath": wav, "duration": n / sr, "text": text}) + "\n")
+    return path
+
+
+def phase_workflow(chk, dev, card, report, name="QuartzNet15x5Base-En"):
+    import math
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from qasr_tpu_torch.cli import inference as cli_inference
+    from qasr_tpu_torch.cli import synthesize as cli_synthesize
+    from qasr_tpu_torch.data.dataset import AudioToCharDataset, DataLoader
+    from qasr_tpu_torch.models.ctc_model import ASRModel, make_frozen_fn
+    from qasr_tpu_torch.models.jasper import init_qstate, qstate_to_device
+    from qasr_tpu_torch.quantize.freeze import kernel_launches
+    from qasr_tpu_torch.quantize.synth import get_synthetic_data, start_points
+
+    out = report.setdefault("workflow", {})
+    model = ASRModel.from_pretrained(name, allow_random_weights=True)
+    per_fwd = kernel_launches(model.plan)
+    dim = model.plan.feat_in
+
+    # (a) synthesis at the reference recipe's shapes, 2 problems
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    data, losses = get_synthetic_data(model.plan, model.params["encoder"], batch_size=8,
+                                      dim=dim, seqlen=500, train_iter=200, num_batch=2,
+                                      lr=0.01, seed=0, device=dev, verbose=False,
+                                      return_losses=True)
+    torch.cuda.synchronize()
+    s_iter = (time.perf_counter() - t0) / 400
+    for i, ls in enumerate(losses):
+        if not all(math.isfinite(v) for v in ls) or not ls[-1] < ls[0]:
+            raise AssertionError(f"synthesis problem {i}: losses {ls[0]} -> {ls[-1]} "
+                                 f"(finite={all(math.isfinite(v) for v in ls)})")
+    x0 = start_points(1, 2, 200, dim, seed=1)
+    kw = dict(batch_size=2, dim=dim, seqlen=200, train_iter=3, lr=0.01, x0=x0, verbose=False,
+              return_losses=True)
+    l_card = get_synthetic_data(model.plan, model.params["encoder"], device=dev, **kw)[1][0]
+    l_cpu = get_synthetic_data(model.plan, model.params["encoder"], device="cpu", **kw)[1][0]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(l_card, l_cpu))
+    if rel > SYNTH_RTOL:
+        raise AssertionError(f"synthesis losses card {l_card} vs CPU {l_cpu}: rel {rel}")
+    log(f"[7a] synthesis 2 x (8 x 500 x {dim}), 200 iterations: losses {losses[0][0]:.2f} -> "
+        f"{losses[0][-1]:.2f}, {losses[1][0]:.2f} -> {losses[1][-1]:.2f}, all finite; "
+        f"{s_iter * 1e3:.2f} ms an iteration [{card}]; first 3 losses at 2 x 200 card "
+        f"{l_card} vs CPU {l_cpu}, max rel {rel:.2e} <= {SYNTH_RTOL}")
+    t0 = time.perf_counter()
+    g_rel, g_rel_tf32 = synthesis_grad_rel(model.plan, model.params["encoder"], dev, dim)
+    if g_rel > GRAD_RTOL or not g_rel_tf32 > GRAD_RTOL:
+        raise AssertionError(f"distill_loss gradient card vs CPU: rel {g_rel:.3e} (TF32 on: "
+                             f"{g_rel_tf32:.3e}), tolerance {GRAD_RTOL:g}")
+    log(f"[7a] distill_loss gradient at 8 x 500 x {dim}, card vs CPU: norm-wise rel "
+        f"{g_rel:.3e} <= {GRAD_RTOL:g}; the backward with TF32 on reads {g_rel_tf32:.3e} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    out.update(synth_ms_per_iter=s_iter * 1e3, synth_losses=[[ls[0], ls[-1]] for ls in losses],
+               synth_cpu_rel=rel, synth_grad_rel=g_rel, synth_grad_rel_tf32=g_rel_tf32)
+
+    # (b) calibration on the synthetic batches, kernels against plain
+    model.set_quant_bit(6, "all")
+    model.bn_folding()
+    for pct in (None, 99.9):
+        model.set_percentile(pct)
+        model.qstate = init_qstate(model.plan)
+        reset_counts()
+        model.calibrate(data, device=dev)
+        counts = read_counts()
+        expect = planned({k: 2 * v for k, v in per_fwd.items()})
+        if counts != expect:
+            raise AssertionError(f"calibration launches {counts} != {expect} (2 forwards)")
+        q_kernel = model.qstate
+        model.qstate = init_qstate(model.plan)
+        model.calibrate(data, device=dev, kernels=False)
+        a, b = qstate_sites(q_kernel), qstate_sites(model.qstate)
+        bad = sum(x != y for x, y in zip(a, b))
+        if bad or len(a) != len(b):
+            raise AssertionError(f"calibration (percentile {pct}): {bad} of {len(a)} sites' "
+                                 f"ranges differ from the plain QuantExec's")
+        log(f"[7b] calibrate on 2 synthetic batches, percentile {pct}: the {len(a)} sites' "
+            f"ranges equal the plain QuantExec's bit for bit; launches {counts} (a forward: "
+            f"{per_fwd})")
+    feats = data[0]
+    lens = torch.full((8,), 500, dtype=torch.int32, device=dev)
+    qs = qstate_to_device(model.qstate, dev)
+    calib = {}
+    for pct in (None, 99.9):
+        model.set_percentile(pct)
+        # the plain path once (it ran in the comparison above), the kernels' median of 3
+        for path, kern, reps in (("kernel", True, 3), ("plain", False, 1)):
+            calib[f"{path} percentile={pct}"] = statistics.median(cuda_ms(
+                lambda kern=kern: model.encode_decode_quant(feats, lens, qs, update_ranges=True,
+                                                            kernels=kern), reps=reps, warmup=0))
+    log(f"[7b] calibrating forward B=8 x 500 frames, ms (kernels: median of 3; plain: one call): "
+        f"{ {k: round(v, 3) for k, v in calib.items()} } [{card}]")
+    out["calibrate_forward_ms"] = calib
+
+    time_workflow_sites(chk, report.setdefault("workflow_per_kernel", []), dev, card)
+
+    # (d) the dynamic forward, kernels against plain
+    model.set_percentile(None)
+    model.set_dynamic(True)
+    utts, _ = seeded_requests(7)
+    batch, blens = pad_batch(utts)
+    reset_counts()
+    _, el_k, ids_k = model.forward(batch, blens, device=dev)
+    counts = read_counts()
+    _, el_p, ids_p = model.forward(batch, blens, device=dev, kernels=False)
+    if counts != planned(per_fwd):
+        raise AssertionError(f"dynamic forward launches {counts} != {per_fwd}")
+    if not (torch.equal(ids_k, ids_p) and torch.equal(el_k, el_p)):
+        raise AssertionError("dynamic forward: kernel ids differ from the plain QuantExec's")
+    log(f"[7d] dynamic forward of 4 requests: ids == plain QuantExec, launches {counts}")
+    b64, n64 = 64, 16000 * 15
+    audio = torch.from_numpy(np.random.default_rng(0).normal(size=(b64, n64))
+                             .astype(np.float32) * 0.1).to(dev)
+    alens = torch.full((b64,), n64, dtype=torch.int32, device=dev)
+    dyn = {}
+    for path, kern, reps in (("kernel", True, 3), ("plain", False, 1)):
+        dyn[path] = statistics.median(cuda_ms(
+            lambda kern=kern: model.forward(audio, alens, device=dev, kernels=kern), reps=reps,
+            warmup=1))
+    log(f"[7d] dynamic forward B=64 x 15 s: kernel {dyn['kernel']:.3f} ms (median of 3), plain "
+        f"{dyn['plain']:.3f} ms (one call after one) [{card}]")
+    out["dynamic_forward_ms"] = dyn
+    del audio
+
+    # (e) the CLIs on a manifest of 4 seeded wavs
+    with tempfile.TemporaryDirectory() as tmp:
+        manifest = write_manifest(tmp, np.random.default_rng(5))
+        pkl = cli_synthesize.main(["--asr_model", name, "--num_batch", "1",
+                                   "--batch_size", "4", "--seqlen", "300", "--train_iter",
+                                   "50", "--dump_path", tmp, "--allow_random_weights", "--device", str(dev)])
+        wer, hyps, refs, cal = cli_inference.run(
+            ["--asr_model", name, "--dataset", manifest, "--load", pkl,
+             "--weight_bit", "6", "--act_bit", "6", "--percentile", "99.9",
+             "--allow_random_weights", "--batch_size", "4", "--device", str(dev)])
+        if not math.isfinite(wer):
+            raise AssertionError(f"cli.inference WER {wer}")
+        ds = AudioToCharDataset(manifest, labels=list(cal.vocabulary))
+        plain_fn = make_frozen_fn(cal, cal.freeze("static_e", dev), argmax=True, fused=False)
+        want = []
+        for audio_b, alens_b, _, _ in DataLoader(ds, batch_size=4):
+            want += cal.ids_to_text(*plain_fn(audio_b, alens_b))
+        if hyps != want:
+            raise AssertionError(f"cli.inference hypotheses {hyps} != plain frozen {want}")
+    log(f"[7e] cli.synthesize -> cli.inference W6A6 percentile 99.9: WER {wer:.4f}; "
+        f"hypotheses == plain frozen executor's: {[h[:40] for h in hyps]}")
+    out.update(cli_wer=wer, cli_hypotheses=hyps)
+
+    # (c) the noise recipe of the committed ranges; how far a float front's
+    # rounding alone moves them; and what faults of the recipe read
+    phase_noise_ranges(model, dev, out)
+
+
+def phase_noise_ranges(model, dev, out):
+    """calibrate_on_noise(2, 2, 4 s, seed 0), the recipe of the committed
+    ranges, against them at a fixed tolerance.  Witnesses of how far the
+    float front's rounding moves a random stack's deep ranges: the same
+    recipe from the features computed on the CPU, and from the card's
+    features times (1 + 1e-5 N(0, 1)) for a few seeds.  Planted faults of
+    the recipe (another seed, one batch, percentile 99.9, momentum 0.9,
+    exact calibration requants) and what each reads against the
+    committed ranges; another seed's and percentile 99.9's must read
+    above the tolerance.  Prints how many frozen table entries differ
+    from the golden record's tables."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from qasr_tpu_torch import golden
+    from qasr_tpu_torch.models.jasper import init_qstate
+
+    model.set_dynamic(False)
+    model.set_percentile(None)
+    base_qcfg = model.qcfg
+    ref_model = golden.quartznet15x5_w6a6()
+    ref = ref_model.qstate
+
+    def calibrated(feats=None, seed=0, batches=2, **qcfg):
+        model.qcfg = dataclasses.replace(base_qcfg, **qcfg)
+        model.qstate = init_qstate(model.plan)
+        if feats is None:
+            model.calibrate_on_noise(batches=batches, batch_size=2, seconds=4.0, seed=seed,
+                                     device=dev)
+        else:
+            model.calibrate(feats, device=dev)
+        model.qcfg = base_qcfg
+        return model.qstate
+
+    def worst(q, against=ref):
+        return site_deviations(q, against)[0][0]
+
+    port_q = calibrated()
+    devs = site_deviations(port_q, ref)
+    first = next(d for d in devs if d[1] == ".blocks[0].convs[0]")[0]
+    # the recipe's audio, as calibrate_on_noise draws it
+    rng = np.random.default_rng(0)
+    n = 16000 * 4
+    audio = [torch.from_numpy(rng.normal(size=(2, n)).astype(np.float32) * 0.1)
+             for _ in range(2)]
+    lens = torch.full((2,), n, dtype=torch.int32)
+    card_feats = [model.frontend(a.to(dev), lens.to(dev), dither=0.0) for a in audio]
+    cpu_feats = [tuple(v.to(dev) for v in model.frontend(a, lens, dither=0.0)) for a in audio]
+    witness = {"cpu front": site_deviations(calibrated(cpu_feats), port_q)}
+    for seed in PERTURBATION_SEEDS:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        feats = [(f * (1 + FRONT_PERTURBATION * torch.randn(f.shape, generator=gen, device=dev)),
+                  fl) for f, fl in card_feats]
+        witness[f"perturbed seed {seed}"] = site_deviations(calibrated(feats), port_q)
+    moves = {}
+    for devs_w in witness.values():
+        for d in devs_w:
+            moves[d[1]] = max(moves.get(d[1], 0.0), d[0])
+    faults = {"seed 1": calibrated(seed=1), "one batch": calibrated(batches=1),
+              "percentile 99.9": calibrated(percentile=99.9),
+              "act_momentum 0.9": calibrated(act_momentum=0.9),
+              "calib_exact": calibrated(calib_exact=True)}
+    fault_worst = {k: worst(q) for k, q in faults.items()}
+    model.qstate = port_q
+    differ = table_entries_differing(model.freeze_host("static_e"),
+                                     ref_model.freeze_host("static_e"))
+    med = statistics.median(d[0] for d in devs)
+    out.update(noise_range_worst=devs[0][0], noise_range_median=med, noise_first_site=first,
+               noise_witness_worst={k: v[0][0] for k, v in witness.items()},
+               noise_fault_worst=fault_worst, noise_table_entries_differing=differ,
+               noise_site_deviation=[list(d) + [moves[d[1]]] for d in devs])
+    for d in devs[:8]:
+        log(f"[7c]   {d[1]}: ({d[2]:.6g}, {d[3]:.6g}) vs committed ({d[4]:.6g}, {d[5]:.6g}): "
+            f"{d[0]:.3%} of its range; the witnesses move it up to {moves[d[1]]:.3%}")
+    log(f"[7c] calibrate_on_noise(2, 2, 4 s, seed 0): {len(devs)} sites against the committed "
+        f"ranges: worst {devs[0][0]:.3%}, median {med:.3%} of a site's range (tolerance "
+        f"{NOISE_RANGE_TOL:.0%}), the first site (features only) {first:.2e} (tolerance "
+        f"{FIRST_SITE_TOL:g}); the port's own ranges move, worst site: "
+        f"{ {k: f'{v[0][0]:.3%}' for k, v in witness.items()} }; planted faults read "
+        f"{ {k: f'{v:.3%}' for k, v in fault_worst.items()} }; {differ} frozen table entries "
+        f"differ from the golden record's tables")
+    if devs[0][0] > NOISE_RANGE_TOL or first > FIRST_SITE_TOL:
+        raise AssertionError(f"noise ranges off the committed ones: worst site {devs[0][0]:.3%} "
+                             f"(tolerance {NOISE_RANGE_TOL:.0%}), first site {first:.2e} "
+                             f"(tolerance {FIRST_SITE_TOL:g})")
+    blind = [k for k in ("seed 1", "percentile 99.9") if not fault_worst[k] > NOISE_RANGE_TOL]
+    if blind:
+        raise AssertionError(f"the noise-range tolerance cannot see the planted faults {blind}")
+
+
+def synthesis_grad_rel(plan, enc_params, dev, dim):
+    """Norm-wise relative difference of distill_loss's input gradient on the
+    card from the CPU's, at the recipe's shape (8 x 500) from one start
+    point: through ``loss_and_backward``, as synthesis steps, and with the
+    backward under TF32 (PyTorch's cuDNN default), the fault the gate must
+    see."""
+    import torch
+
+    from qasr_tpu_torch.models.jasper import params_to_device
+    from qasr_tpu_torch.quantize.synth import (bn_targets, distill_loss, loss_and_backward,
+                                               start_points)
+
+    x0 = start_points(1, 8, 500, dim, seed=2)[0]
+
+    def grad(device, tf32=False):
+        params = params_to_device(enc_params, device)
+        targets = bn_targets(plan, params)
+        x = x0.to(device, copy=True).requires_grad_(True)
+        lens = torch.full((8,), 500, dtype=torch.int32, device=device)
+        if not tf32:
+            loss_and_backward(plan, params, x, lens, targets)
+            return x.grad.double().cpu()
+        flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+        try:
+            distill_loss(plan, params, x, lens, targets).backward()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+        return x.grad.double().cpu()
+
+    g_cpu = grad("cpu")
+
+    def rel(g):
+        return float(torch.linalg.vector_norm(g - g_cpu) / torch.linalg.vector_norm(g_cpu))
+
+    return rel(grad(dev)), rel(grad(dev, tf32=True))
+
+
+def time_workflow_sites(chk, rows, dev, card):
+    """Kernels 1 and 2 in the forms QuantExec runs them (int8 in, int32 out,
+    no epilogue) at the calibrating forward's shapes (B=8, T=250 after the
+    stride-2 site) and the dynamic forward's (B=64 x 15 s: T=751), against
+    their plain versions; beside cuDNN's float32 depthwise conv (TF32 off,
+    exact here) and torch._int_mm."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from qasr_tpu_torch.kernels.dw_conv import dw_conv, dw_conv_plain
+    from qasr_tpu_torch.kernels.pw_gemm import pw_gemm, pw_gemm_plain
+
+    rng = np.random.default_rng(9)
+
+    def t8(*shape):
+        return torch.from_numpy(rng.integers(-32, 32, shape).astype(np.int8)).to(dev)
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for b, t in ((8, 250), (64, 751)):
+            c, k = 512, 75
+            x, w = t8(b, t, c), t8(k, c)
+            xf = x.permute(0, 2, 1).contiguous().float()
+            wf = w.t().contiguous().float()[:, None, :]
+            r = timed_pair(chk, "dw_conv", f"dw_conv QuantExec B={b} T={t} C={c} K={k} int8 in, "
+                           f"int32 out", lambda x=x, w=w: dw_conv(x, w, padding=k // 2),
+                           lambda x=x, w=w: dw_conv_plain(x, w, padding=k // 2), card, rows,
+                           lambda xf=xf, wf=wf: F.conv1d(xf, wf, groups=c, padding=k // 2))
+            r["bound"] = bound(x.numel() + w.numel() + 4 * b * t * c, 2 * k * b * t * c)
+            x, wt = t8(b, t, c), t8(c, c)
+            bias = torch.from_numpy(rng.integers(-3000, 3000, c).astype(np.int32)).to(dev)
+            x2, wt_t = x.reshape(-1, c), wt.t()
+            r = timed_pair(chk, "pw_gemm", f"pw_gemm QuantExec N={b * t} {c}->{c} int8 in, "
+                           f"int32 + bias out", lambda x=x, wt=wt: pw_gemm(x, wt, bias=bias),
+                           lambda x=x, wt=wt: pw_gemm_plain(x, wt, bias=bias), card, rows,
+                           lambda x2=x2, wt_t=wt_t: torch._int_mm(x2, wt_t))
+            r["bound"] = bound(x.numel() + wt.numel() + 4 * c + 4 * b * t * c, 2 * b * t * c * c)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
+def site_deviations(q, ref):
+    """[(deviation / the reference site's range, site, lo, hi, ref lo, ref hi)]
+    of every activation site, largest first."""
+    devs = []
+    for (site, lo, hi), (_, rlo, rhi) in zip(qstate_sites(q), qstate_sites(ref)):
+        mag = max(abs(rlo), abs(rhi))
+        d = max(abs(lo - rlo), abs(hi - rhi))
+        devs.append((d / mag if mag else (0.0 if d == 0 else math.inf), site, lo, hi, rlo, rhi))
+    return sorted(devs, reverse=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="PyTorch port smoke test on one GPU")
     ap.add_argument("--report", help="also write a JSON report of every number here")
@@ -1500,6 +1930,7 @@ def main() -> int:
     phase_conformer_time(chk, conf_model, conf_tables, dev, card, report)
     log(f"[6] {chk.n} kernel-vs-plain comparisons in all, the main paths' shapes included, "
         f"exact; max |d| {chk.max_err}")
+    phase_workflow(chk, dev, card, report)
 
     rows = report["quartznet_per_kernel"] + report["conformer_per_kernel"]
     kernels = []

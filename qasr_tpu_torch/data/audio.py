@@ -1,17 +1,18 @@
-"""WAV input for the serving entry points (a copy of the parts of
-qasr_tpu/data/audio.py the port uses; the port imports nothing of the JAX
-package).
+"""WAV input and output (a copy of the parts of qasr_tpu/data/audio.py
+the port uses; the port imports nothing of the JAX package).
 
 16-bit mono WAVs at the target rate are read as int16 PCM without a float
 pass; other widths, channel counts or rates go through a float decode,
 scipy's polyphase resampler and an exact re-grid to int16, as in the JAX
-package's ``read_audio_pcm16`` at its default options.
+package's ``read_audio_pcm16`` at its default options.  ``read_audio``
+gives float32 samples from an offset for a duration; ``write_wav`` writes
+16-bit mono.
 """
 from __future__ import annotations
 
 import math
 import wave
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -62,9 +63,31 @@ def resample(x: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
     return resample_poly(x, target_sr // g, orig_sr // g).astype(np.float32)
 
 
+def read_audio(path: str, target_sr: int = 16000, offset: float = 0.0,
+               duration: Optional[float] = None) -> np.ndarray:
+    """A WAV file as float32 samples at ``target_sr``, from ``offset``
+    seconds for ``duration`` seconds (None: to the end)."""
+    x, sr = read_wav(path)
+    if offset:
+        x = x[int(offset * sr):]
+    if duration:
+        x = x[: int(duration * sr)]
+    return resample(x, sr, target_sr)
+
+
 def read_audio_pcm16(path: str, target_sr: int = 16000) -> np.ndarray:
     """A WAV file as int16 PCM at ``target_sr``."""
     x16, sr = read_wav_pcm16(path)
     if sr == target_sr:
         return x16
     return float_to_pcm16(resample(x16.astype(np.float32) / 32768.0, sr, target_sr))
+
+
+def write_wav(path: str, x: np.ndarray, sr: int = 16000) -> None:
+    """Float samples in [-1, 1] as a 16-bit mono WAV (x * 32767, clipped)."""
+    x16 = np.clip(x * 32767.0, -32768, 32767).astype("<i2")
+    with wave.open(path, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(sr)
+        w.writeframes(x16.tobytes())

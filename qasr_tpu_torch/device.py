@@ -1,5 +1,8 @@
-"""Explicit device selection: the port never picks a device silently."""
+"""Explicit device selection: the port never picks a device silently.
+Also ``no_tf32``, the float32 precision its float regions run at."""
 from __future__ import annotations
+
+from contextlib import contextmanager
 
 import torch
 
@@ -26,3 +29,17 @@ def as_device(device) -> torch.device:
     if dev.type == "cuda":
         return require_cuda(dev.index or 0)
     return dev
+
+
+@contextmanager
+def no_tf32():
+    """float32 matmuls and convs in full float32 (TF32 off), the flags
+    restored after: the float regions are held to the JAX package's
+    float32 results."""
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags

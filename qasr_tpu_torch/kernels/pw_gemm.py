@@ -13,6 +13,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from qasr_tpu_torch.kernels import _build
 from qasr_tpu_torch.kernels.checks import check_vec, epilogue_bounds
@@ -79,6 +80,19 @@ def int_matmul(x2: torch.Tensor, wt: torch.Tensor) -> torch.Tensor:
     return (x2.to(torch.float64) @ wt.to(torch.float64).t()).to(torch.int32)
 
 
+def pad_k(x: torch.Tensor, wt: torch.Tensor, in_bias, m1):
+    """Zero-pad the contraction (Cin) of x, wt and the prologue's
+    per-channel in_bias / m1 up to a multiple of 16, the TMA row pitch
+    Kernel 2 needs.  Exact: a padded channel holds 0 (its requant too), and
+    its weights are 0."""
+    pad = (-x.shape[2]) % 16
+    if isinstance(in_bias, torch.Tensor):
+        in_bias = F.pad(in_bias, (0, pad))
+    if isinstance(m1, torch.Tensor) and m1.dim() > 0:
+        m1 = F.pad(m1, (0, pad))
+    return F.pad(x, (0, pad)), F.pad(wt, (0, pad)), in_bias, m1
+
+
 def _mode(m, res) -> int:
     if res is not None:
         return MODE_JOIN
@@ -126,6 +140,7 @@ def pw_gemm(x: torch.Tensor, wt: torch.Tensor, *,
             bits1: Optional[int] = None) -> torch.Tensor:
     """Pointwise conv of x (B, T, Cin) with wt (Cout, Cin) int8.
 
+    Cin need not be a multiple of 16: the wrapper zero-pads it (``pad_k``).
     Prologue off (``m1`` None): x is int8.  Prologue on: x is int8 or int32
     and its rows are first ``clamp(requant(mask(relu?(x + in_bias)), m1,
     e1), bits1)``, m1 a (Cin,) int32 vector or a scalar, the mask zeroing frames
@@ -150,6 +165,8 @@ def pw_gemm(x: torch.Tensor, wt: torch.Tensor, *,
         raise ValueError(f"pw_gemm: unsupported device {x.device}")
     if x.dim() != 3:
         raise ValueError(f"pw_gemm: x must be (B, T, Cin), got {tuple(x.shape)}")
+    if x.shape[2] % 16:
+        x, wt, in_bias, m1 = pad_k(x, wt, in_bias, m1)
     b, t, cin = x.shape
     pro, m1v, m1s, _, ee1, lo1, hi1 = check_prologue("pw_gemm", x, in_bias, in_len, m1, e1,
                                                   bits1, cin, b)

@@ -6,7 +6,8 @@ Dataclass mirrors of NeMo's YAML schema: BlockConfig (JasperEncoderConfig),
 EncoderConfig (ConvASREncoderConfig), DecoderConfig (ConvASRDecoderConfig),
 ModelConfig, and the QuartzNet / Jasper / MatchboxNet presets, with the
 JAX package's field names and defaults (``dataclasses.asdict`` of the two
-compare equal); and the frozen path's QuantConfig.
+compare equal); ``register_preset`` adds one by name; and QuantConfig, the
+quantization knobs of the inference CLI.
 """
 from __future__ import annotations
 
@@ -68,11 +69,19 @@ class DecoderConfig:
 
 @dataclass(frozen=True)
 class QuantConfig:
-    """The frozen path's quantization bits (the JAX QuantConfig's
-    calibration knobs come with the calibration port)."""
+    """Runtime quantization knobs (the JAX QuantConfig's fields and
+    defaults; the frozen tables read only the bits)."""
 
+    mode: str = "symmetric"       # 'none' | 'symmetric'
     weight_bit: int = 8
     act_bit: int = 8
+    percentile: Optional[float] = None
+    dynamic: bool = False
+    act_momentum: float = 0.95    # the EMA of the running ranges; -1: min / max
+    # calibration requants: False = float32 multiplier (ranges are all that
+    # calibration produces); True = the exact dyadic requant on in-graph
+    # float32-frexp mantissas
+    calib_exact: bool = False
 
 
 @dataclass(frozen=True)
@@ -166,3 +175,9 @@ PRESETS = {
     "Jasper10x5Dr": jasper10x5dr,
     "MatchboxNet-3x1x64": matchboxnet3x1x64,
 }
+
+
+def register_preset(name: str, factory) -> None:
+    """Register a model factory (returning a ModelConfig) under a
+    pretrained-style name."""
+    PRESETS[name] = factory

@@ -18,6 +18,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from qasr_tpu_torch.device import no_tf32
+
 
 @dataclass(frozen=True)
 class ConformerConfig:
@@ -221,17 +223,12 @@ def subsample_convs(p, cfg: ConformerConfig, x: torch.Tensor, lens: torch.Tensor
     ``subsampler_to_device``.  float32 with TF32 off."""
     if cfg.subsampling != "striding":
         raise NotImplementedError(f"subsampling {cfg.subsampling!r} is not ported")
-    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
+    with no_tf32():
         y = x.to(torch.float32)[:, None]                     # (B, 1, T, F)
         for blk in p["convs"]:
             # the bias is added after the convolution, as the JAX package does
             y = torch.relu(F.conv2d(y, blk["c1"]["w"], stride=2)
                            + blk["c1"]["b"][:, None, None])
             lens = _sub_out_len_arr(lens, cfg.subsampling)
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     b, c, t, f = y.shape
     return y.permute(0, 2, 1, 3).reshape(b, t, c * f), lens

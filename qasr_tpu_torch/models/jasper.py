@@ -1,22 +1,42 @@
-"""Jasper/QuartzNet plan, host parameters and the shared block walk
-(port of qasr_tpu/models/jasper.py).
+"""Jasper/QuartzNet plan, host parameters, the shared block walk and its
+float and calibrating executors (port of qasr_tpu/models/jasper.py).
 
 Layout stays channels-last (B, T, C), as in the JAX package, so the port's
 tensors compare one to one with the reference's.  Parameter init, BN
 folding and the range state are host numpy and give the same arrays as the
 JAX package from the same ``np.random.default_rng(seed)``.
+
+Executors of the walk besides the frozen ones (quantize/freeze.py):
+  * ``FloatExec``  float32 convs (TF32 off), BN folded or not; collects the
+                   pre-BN (mean, var) per BN site for data-free synthesis.
+  * ``QuantExec``  integer convs with in-graph scales: calibration (the
+                   running ranges of every activation site) and dynamic
+                   quantization (per-batch ranges).  Depthwise convs run in
+                   Kernel 1 and pointwise convs in Kernel 2, both without
+                   their requant epilogue; on CPU tensors the wrappers run
+                   their plain versions.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from qasr_tpu_torch.models.config import DecoderConfig, EncoderConfig
+from qasr_tpu_torch.device import no_tf32
+from qasr_tpu_torch.models.config import DecoderConfig, EncoderConfig, QuantConfig
+from qasr_tpu_torch.ops.quant_prims import (
+    QTensor,
+    mask_values,
+    quantize,
+    requantize,
+    requantize_approx,
+    symmetric_scale,
+)
+from qasr_tpu_torch.ops.stats import quantile_range
 
 BN_EPS = 1e-3  # nn.BatchNorm1d(eps=1e-3) in the reference's JasperBlock
 
@@ -265,12 +285,6 @@ def pad_frames_aligned(feats: torch.Tensor, mult: int = 64) -> torch.Tensor:
     return F.pad(feats, (0, 0, 0, pad)) if pad else feats
 
 
-def mask_values(x: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
-    """Zero the frames at and after each sample's length; x (B, T, C)."""
-    keep = torch.arange(x.shape[1], device=lens.device)[None, :] < lens[:, None]
-    return torch.where(keep[:, :, None], x, torch.zeros((), dtype=x.dtype, device=x.device))
-
-
 def depthwise_conv_int(x: torch.Tensor, w: torch.Tensor, stride: int,
                        padding: int, dilation: int) -> torch.Tensor:
     """Integer depthwise conv as a sum of strided slices, int32 accumulate.
@@ -333,3 +347,320 @@ DECODER_SPEC_TEMPLATE = dict(kernel=1, stride=1, dilation=1, groups=1, heads=-1,
 
 def decoder_spec(feat_in: int, num_classes_with_blank: int) -> ConvSpec:
     return ConvSpec(in_ch=feat_in, out_ch=num_classes_with_blank, **DECODER_SPEC_TEMPLATE)
+
+
+# ---------------------------------------------------------------------------
+# Float convs and the float executor
+# ---------------------------------------------------------------------------
+
+
+def conv_nwc(x: torch.Tensor, w: torch.Tensor, spec: ConvSpec,
+             b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Float 1-D conv of x (B, T, C) with w (K, C/groups, Cout), grouped or
+    depthwise; ``heads`` fold channels into the batch.  float32 with TF32
+    off, the counterpart of the JAX package's precision HIGHEST."""
+    sh = x.shape
+    if spec.heads != -1:
+        x = x.reshape(sh[0], sh[1], sh[2] // spec.heads, spec.heads)
+        x = x.permute(0, 2, 1, 3).reshape(-1, sh[1], spec.heads)
+    groups = spec.groups if spec.heads == -1 else spec.heads
+    with no_tf32():
+        y = F.conv1d(x.transpose(1, 2), w.permute(2, 1, 0), None, spec.stride,
+                     spec.padding, spec.dilation, groups).transpose(1, 2)
+    if spec.heads != -1:
+        t2 = y.shape[1]
+        y = y.reshape(sh[0], sh[2] // spec.heads, t2, spec.heads)
+        y = y.permute(0, 2, 1, 3).reshape(sh[0], t2, sh[2])
+    return y if b is None else y + b
+
+
+def group_shuffle(x: torch.Tensor, groups: int) -> torch.Tensor:
+    """GroupShuffle over the channels of (B, T, C)."""
+    b, t, c = x.shape
+    return x.reshape(b, t, groups, c // groups).transpose(2, 3).reshape(b, t, c)
+
+
+def _apply_activation(x: torch.Tensor, kind: str) -> torch.Tensor:
+    if kind == "relu":
+        return torch.relu(x)
+    if kind == "hardtanh":
+        return x.clamp(0.0, 20.0)
+    if kind == "selu":
+        return F.selu(x)
+    if kind == "swish":
+        return x * torch.sigmoid(x)
+    raise ValueError(f"unknown activation {kind}")
+
+
+class FloatExec:
+    """The float32 path.  BN is applied where the params still hold it,
+    else the folded bias is inside the conv.  With ``collect_bn_stats``,
+    ``bn_stats`` gathers the per-channel (mean, var with Bessel's
+    correction) over (batch, time) of every pre-BN conv output, the
+    statistics data-free synthesis matches to the BN running statistics.
+    Params are torch tensors on the input's device."""
+
+    def __init__(self, params, *, activation: str, collect_bn_stats: bool = False):
+        self.params = params
+        self.activation_kind = activation
+        self.collect = collect_bn_stats
+        self.bn_stats: List[Tuple[torch.Tensor, torch.Tensor]] = []
+
+    def masked_conv(self, site, spec: ConvSpec, x, lens):
+        bi, kind, i = site
+        p = self.params["blocks"][bi][kind][i]
+        y = conv_nwc(mask_values(x, lens), p["w"], spec, p.get("b"))
+        if spec.has_bn and self.collect:
+            self.bn_stats.append((y.mean(dim=(0, 1)), y.var(dim=(0, 1), correction=1)))
+        if spec.has_bn and "bn" in p:
+            bn = p["bn"]
+            y = (y - bn["mean"]) / torch.sqrt(bn["var"] + BN_EPS) * bn["gamma"] + bn["beta"]
+        return y, conv_out_len(lens, spec)
+
+    def residual_add(self, block_idx: int, pane: int, out, res_out, mode: str):
+        if mode in ("add", "stride_add"):
+            return out + res_out
+        return torch.maximum(out, res_out)
+
+    def activation(self, x, dropout: float):
+        return _apply_activation(x, self.activation_kind)
+
+    def group_shuffle(self, x, groups):
+        return group_shuffle(x, groups)
+
+    def squeeze_excite(self, block_idx, x, bp):
+        raise NotImplementedError("SqueezeExcite is not ported")
+
+
+# ---------------------------------------------------------------------------
+# The calibrating / dynamic integer executor
+# ---------------------------------------------------------------------------
+
+# W8A8's asymmetric sites store 9-bit activations, which Kernels 1 and 2 do
+# not take; the ROADMAP item that widens them
+WIDE_OPERANDS = ("W8A8 QuartzNet on the card needs int16 operands and outputs in "
+                 "Kernels 1, 2 and 7 (ROADMAP queue C)")
+
+
+def check_operand_bits(device: torch.device, act_bits: int, weight_bit: int) -> bool:
+    """Whether a conv's operands are wider than int8; raises
+    NotImplementedError for such operands on CUDA, where Kernels 1 and 2
+    take int8 only."""
+    wide = act_bits > 8 or weight_bit > 8
+    if wide and device.type == "cuda":
+        raise NotImplementedError(WIDE_OPERANDS)
+    return wide
+
+
+# above this many elements a percentile range comes from histogram_quantile
+# instead of a sort (torch.quantile also refuses inputs above 2**24)
+_QUANTILE_SORT_MAX = 1 << 18
+
+
+def _ema_ranges(state, bmin, bmax, momentum: float):
+    """The running-range update: the first batch initializes (a state with
+    x_min == x_max), later ones move by an EMA, or by min / max at
+    momentum -1."""
+    init = state["x_min"] == state["x_max"]
+    if momentum == -1:
+        nmin = torch.minimum(state["x_min"], bmin)
+        nmax = torch.maximum(state["x_max"], bmax)
+    else:
+        nmin = state["x_min"] * momentum + bmin * (1 - momentum)
+        nmax = state["x_max"] * momentum + bmax * (1 - momentum)
+    return {"x_min": torch.where(init, state["x_min"] + bmin, nmin),
+            "x_max": torch.where(init, state["x_max"] + bmax, nmax)}
+
+
+def _batch_ranges(x_f: torch.Tensor, percentile: Optional[float]):
+    """(low, high) of one batch: min / max, or the percentile pair
+    (torch.quantile up to 2**18 elements, histogram_quantile above)."""
+    if percentile is None:
+        return torch.aminmax(x_f)
+    if x_f.numel() > _QUANTILE_SORT_MAX:
+        return quantile_range(x_f, percentile)
+    flat = x_f.reshape(-1)
+    return (torch.quantile(flat, 1.0 - percentile / 100.0),
+            torch.quantile(flat, percentile / 100.0))
+
+
+def params_to_device(tree, device) -> Any:
+    """A params tree (numpy or torch leaves) as float32 torch tensors on
+    ``device``."""
+    if isinstance(tree, dict):
+        return {k: params_to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_to_device(v, device) for v in tree]
+    return torch.as_tensor(tree, dtype=torch.float32).to(device)
+
+
+def qstate_to_device(qstate, device) -> Dict[str, Any]:
+    """The range state as 0-d float32 tensors on ``device``."""
+    if isinstance(qstate, dict):
+        return {k: qstate_to_device(v, device) for k, v in qstate.items()}
+    if isinstance(qstate, (list, tuple)):
+        return [qstate_to_device(v, device) for v in qstate]
+    return torch.as_tensor(np.float32(qstate), device=device)
+
+
+def qstate_to_host(qstate) -> Dict[str, Any]:
+    """The range state as 0-d numpy float32 arrays (one read-back)."""
+    if isinstance(qstate, dict):
+        return {k: qstate_to_host(v) for k, v in qstate.items()}
+    if isinstance(qstate, (list, tuple)):
+        return [qstate_to_host(v) for v in qstate]
+    return np.asarray(qstate.cpu().numpy(), np.float32)
+
+
+def quantize_weights(p, weight_bit: int) -> Dict[str, Any]:
+    """A conv's per-output-channel symmetric weights: ``scale`` (Cout,) and
+    ``wk`` the integers in the kernels' layout (depthwise (K, C),
+    pointwise (Cout, Cin)), int8 where they fit."""
+    w = p["w"]
+    scale = symmetric_scale(w.amin(dim=(0, 1)), w.amax(dim=(0, 1)), weight_bit)
+    w_int = quantize(w, scale, weight_bit)
+    narrow = w_int.to(torch.int8) if weight_bit <= 8 else w_int
+    k, cin_g, _ = w.shape
+    wk = narrow[:, 0, :].contiguous() if cin_g == 1 and k > 1 else narrow[0].t().contiguous()
+    return {"scale": scale, "wk": wk, "b": p.get("b")}
+
+
+class QuantExec:
+    """Integer path with in-graph scales (port of the JAX QuantExec).
+
+    ``update_ranges``: calibration; each activation site's batch range
+    (min / max, or the ``qcfg.percentile`` pair) moves its running range
+    in ``new_qstate`` (``_ema_ranges``), and the requants use the float32
+    multiplier unless ``qcfg.calib_exact``.  ``qcfg.dynamic``: each site
+    quantizes with its batch range.  Otherwise the static running ranges
+    of ``qstate``.  Params must be BN-folded torch tensors; ``qstate`` holds
+    0-d tensors on their device (``qstate_to_device``).
+
+    Convs: depthwise in Kernel 1 (``dw_conv``, epilogue off), pointwise
+    (the decoder's too) in Kernel 2 (``pw_gemm``, no epilogue), int8
+    operands, int32 out; ``kernels=False`` runs their plain versions, the
+    oracle.  Operands wider than 8 bits (W8A8's asymmetric sites) run the
+    plain versions on the CPU and raise NotImplementedError on CUDA.
+    ``weights`` caches each site's quantized weights across batches."""
+
+    def __init__(self, params, qstate, qcfg: QuantConfig, *, activation: str,
+                 update_ranges: bool, kernels: bool = True,
+                 weights: Optional[Dict[Any, Any]] = None):
+        for b in params["blocks"]:
+            for c in b["convs"] + b["res"]:
+                if "bn" in c:
+                    raise ValueError("quant path requires BN-folded params; call "
+                                     "fold_bn_encoder first")
+        # imported here: the kernel wrappers import this module
+        from qasr_tpu_torch.kernels.dw_conv import dw_conv, dw_conv_plain
+        from qasr_tpu_torch.kernels.pw_gemm import pw_gemm, pw_gemm_plain
+
+        self._dw, self._pw = (dw_conv, pw_gemm) if kernels else (dw_conv_plain, pw_gemm_plain)
+        self.params = params
+        self.qcfg = qcfg
+        self.activation_kind = activation
+        self.update = update_ranges
+        self.weights = {} if weights is None else weights
+        self.new_qstate = _copy_tree(qstate)
+
+    # -- act quant ---------------------------------------------------------
+
+    def act_quantize(self, path, x, bits: int, identity: Optional[QTensor] = None) -> QTensor:
+        node = self.new_qstate
+        for k in path[:-1]:
+            node = node[k]
+        state = node[path[-1]]
+        x_f = x.dequantize() if isinstance(x, QTensor) else x
+        if identity is not None:
+            x_f = x_f + identity.dequantize()
+        if self.update:
+            bmin, bmax = _batch_ranges(x_f, self.qcfg.percentile)
+            state = _ema_ranges(state, bmin, bmax, self.qcfg.act_momentum)
+            node[path[-1]] = state
+        if self.qcfg.dynamic:
+            x_min, x_max = _batch_ranges(x_f, self.qcfg.percentile)
+        else:
+            x_min, x_max = state["x_min"], state["x_max"]
+        scale = symmetric_scale(x_min, x_max, bits)
+        if isinstance(x, QTensor):
+            if self.update and not self.qcfg.calib_exact:
+                return requantize_approx(x, scale, bits, identity=identity)
+            return requantize(x, scale, bits, identity=identity)
+        return QTensor(quantize(x, scale, bits), scale)
+
+    # -- conv ---------------------------------------------------------------
+
+    def _qconv(self, key, p, spec: ConvSpec, x: QTensor, bits: int) -> QTensor:
+        if key not in self.weights:
+            self.weights[key] = quantize_weights(p, self.qcfg.weight_bit)
+        wq = self.weights[key]
+        out_scale = wq["scale"] * x.scale
+        b_int = None
+        if wq["b"] is not None:
+            b_int = torch.round(torch.reciprocal(out_scale) * wq["b"]).to(torch.int32)
+        wide = check_operand_bits(x.values.device, bits, self.qcfg.weight_bit)
+        xv = x.values.to(torch.int32 if wide else torch.int8)
+        if is_depthwise(spec):
+            y = self._dw(xv, wq["wk"], stride=spec.stride, padding=spec.padding,
+                         dilation=spec.dilation, bias=b_int)
+        elif is_pointwise(spec):
+            y = self._pw(xv, wq["wk"], bias=b_int)
+        else:
+            raise NotImplementedError(f"conv {spec} is neither depthwise nor pointwise")
+        return QTensor(y, out_scale)
+
+    def _act_storage_bits(self, spec: ConvSpec) -> int:
+        return self.qcfg.act_bit + (1 if spec.asymmetric else 0)
+
+    def masked_conv(self, site, spec: ConvSpec, x, lens):
+        bi, kind, i = site
+        if isinstance(x, QTensor):
+            x = QTensor(mask_values(x.values, lens), x.scale)
+        else:
+            x = mask_values(x, lens)
+        bits = self._act_storage_bits(spec)
+        xq = self.act_quantize(("blocks", bi, kind, i), x, bits)
+        y = self._qconv(site, self.params["blocks"][bi][kind][i], spec, xq, bits)
+        return y, conv_out_len(lens, spec)
+
+    def residual_add(self, block_idx: int, pane: int, out: QTensor, res_out: QTensor,
+                     mode: str) -> QTensor:
+        if mode not in ("add", "stride_add"):
+            raise NotImplementedError(f"residual mode {mode!r}")
+        return self.act_quantize(("blocks", block_idx, "res_act"), out,
+                                 self.qcfg.act_bit, identity=res_out)
+
+    def activation(self, x: QTensor, dropout: float) -> QTensor:
+        if self.activation_kind == "relu":
+            return QTensor(x.values.clamp_min(0), x.scale)
+        y = _apply_activation(x.dequantize(), self.activation_kind)
+        return QTensor(torch.round(y / x.scale).to(torch.int32), x.scale)
+
+    def group_shuffle(self, x, groups):
+        raise NotImplementedError("grouped convs are not ported")
+
+    def squeeze_excite(self, block_idx, x, bp):
+        raise NotImplementedError("SqueezeExcite does not support quantization")
+
+
+def _copy_tree(t):
+    if isinstance(t, dict):
+        return {k: _copy_tree(v) for k, v in t.items()}
+    if isinstance(t, (list, tuple)):
+        return [_copy_tree(v) for v in t]
+    return t
+
+
+def decoder_forward_float(params, x: torch.Tensor) -> torch.Tensor:
+    """ConvASRDecoder in float32: 1x1 conv + bias, log-softmax."""
+    spec = decoder_spec(x.shape[-1], params["w"].shape[-1])
+    return torch.log_softmax(conv_nwc(x, params["w"], spec, params["b"]), dim=-1)
+
+
+def decoder_forward_quant(exec_: QuantExec, dec_params, x: QTensor) -> torch.Tensor:
+    """The decoder on QuantExec: its input site (act_bit, unmasked), the
+    integer 1x1 conv (Kernel 2), then dequantize and log-softmax."""
+    spec = decoder_spec(x.values.shape[-1], dec_params["w"].shape[-1])
+    xq = exec_.act_quantize(("decoder_act",), x, exec_.qcfg.act_bit)
+    y = exec_._qconv("decoder", dec_params, spec, xq, exec_.qcfg.act_bit)
+    return torch.log_softmax(y.dequantize(), dim=-1)

@@ -18,6 +18,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from qasr_tpu_torch.device import no_tf32
+
 LOG_GUARD = 2.0 ** -24
 STD_GUARD = 1e-5
 
@@ -177,14 +179,9 @@ class MelFrontend:
             x = x + d * torch.randn(x.shape, generator=generator, device=x.device)
         if cfg.preemph is not None and cfg.preemph > 0:
             x = torch.cat([x[:, :1], x[:, 1:] - cfg.preemph * x[:, :-1]], dim=1)
-        tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        try:
+        with no_tf32():
             p = stft_power(x, self.window.to(x.device), cfg.n_fft, cfg.hop_length)
             mel = torch.matmul(p, self.fb.to(x.device))
-        finally:
-            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
         mel = torch.log(mel + self.log_guard)
         t = mel.shape[1]
         mask = torch.arange(t, device=x.device)[None, :] < seq_len[:, None]

@@ -14,6 +14,10 @@ device function (kernels/csrc/requant.cuh).
 
 The host table builders are copied (their JAX module imports jax): numpy
 float64 frexp plus Decimal ROUND_HALF_UP, as the reference's batch_frexp.
+Calibration and dynamic quantization derive their multipliers on the
+device instead (``dyadic_from_scale``: float32 frexp from the bits, no
+host sync) and requantize with them (``requantize``), or with the float32
+multiplier itself (``requantize_approx``, calibration's default).
 """
 from __future__ import annotations
 
@@ -23,8 +27,6 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
-
-from qasr_tpu_torch.models.jasper import mask_values
 
 # saturation sentinel of the JAX requant (quant_prims.py:210): far above any
 # activation clamp bound, low enough that two results sum inside int32
@@ -39,12 +41,21 @@ class QTensor(NamedTuple):
     values: torch.Tensor
     scale: object
 
+    def dequantize(self) -> torch.Tensor:
+        return self.values.to(torch.float32) * self.scale
+
 
 class Dyadic(NamedTuple):
     """Dyadic multiplier m * 2**-e (m int32, e int32 or a Python int)."""
 
     m: object
     e: object
+
+
+def mask_values(x: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+    """Zero the frames at and after each sample's length; x (B, T, C)."""
+    keep = torch.arange(x.shape[1], device=lens.device)[None, :] < lens[:, None]
+    return torch.where(keep[:, :, None], x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def symmetric_scale(x_min: torch.Tensor, x_max: torch.Tensor, bits: int) -> torch.Tensor:
@@ -108,6 +119,17 @@ def dyadic_from_scale_host_static_e(new_scale, max_bit: int = 31):
     m = np.maximum(m, 1)
     shape = np.asarray(new_scale).shape
     return m.reshape(shape).astype(np.int32), e
+
+
+def dyadic_from_scale(new_scale: torch.Tensor, max_bit: int = 31) -> Dyadic:
+    """In-graph decomposition of a float32 ``new_scale`` (calibration and
+    dynamic quantization): frexp from the float's bits, read on the device
+    through an int32 view.  m keeps float32's 24 significand bits shifted
+    up to bit 31; e = 31 - exponent.  Exact for normal floats."""
+    bits = new_scale.to(torch.float32).contiguous().view(torch.int32)
+    exp = ((bits >> 23) & 0xFF) - 126  # x = m * 2**exp, m in [0.5, 1)
+    m24 = (bits & 0x7FFFFF) | 0x800000
+    return Dyadic(m24 << (max_bit - 24), max_bit - exp)
 
 
 def _as_i64(v, device) -> torch.Tensor:
@@ -190,3 +212,33 @@ def requant_epilogue(acc: torch.Tensor, *, bias=None, relu: bool = False,
     if lens is not None:
         acc = mask_values(acc, lens)
     return requant_clamp(dyadic_requant_any(acc, m, e), bits).to(torch.int8)
+
+
+def requantize(x: QTensor, out_scale: torch.Tensor, bits: int, *,
+               dyadic: Optional[Dyadic] = None,
+               identity: Optional[QTensor] = None,
+               identity_dyadic: Optional[Dyadic] = None) -> QTensor:
+    """Requantize ``x`` (plus ``identity``, a residual join) onto
+    ``out_scale``: clamp(requant(x.q, m, e) [+ requant(id.q, m1, e1)],
+    -n-1, n), int32 values.  Without ``dyadic`` the multipliers come from
+    the float32 scale ratios on the device (``dyadic_from_scale``)."""
+    if dyadic is None:
+        dyadic = dyadic_from_scale(x.scale / out_scale)
+    q = dyadic_requant(x.values, dyadic)
+    if identity is not None:
+        if identity_dyadic is None:
+            identity_dyadic = dyadic_from_scale(identity.scale / out_scale)
+        q = q + dyadic_requant(identity.values, identity_dyadic)
+    return QTensor(requant_clamp(q, bits), out_scale)
+
+
+def requantize_approx(x: QTensor, out_scale: torch.Tensor, bits: int,
+                      identity: Optional[QTensor] = None) -> QTensor:
+    """The float-multiplier requant of calibration:
+    clamp(round(x.q * f32(s_in / s_out)) [+ the same for identity], -n-1,
+    n), int32 values.  The float32 multiplier differs from the dyadic one by
+    at most 2**-24 relative; calibration keeps only the ranges."""
+    q = torch.round(x.values.to(torch.float32) * (x.scale / out_scale))
+    if identity is not None:
+        q = q + torch.round(identity.values.to(torch.float32) * (identity.scale / out_scale))
+    return QTensor(requant_clamp(q.to(torch.int32), bits), out_scale)

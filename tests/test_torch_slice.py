@@ -9,7 +9,8 @@
     libraries), first-site int8 codes flip on <= 0.1% of elements and only
     by +-1, and make_frozen_fn gives equal enc_lens (ids equal whenever the
     codes are).
-(c) Importing the port and a CPU forward never import jax or qasr_tpu;
+(c) Importing the port (every module, the calibration workflow's and the
+    CLIs' included) and a CPU forward never import jax or qasr_tpu;
     the port's sources import nothing of qasr_tpu; device=None means the
     CUDA device.
 Full-width QuartzNet15x5 is held to the committed golden record.
@@ -166,6 +167,9 @@ import numpy as np, torch
 import qasr_tpu_torch
 for mod in pkgutil.walk_packages(qasr_tpu_torch.__path__, "qasr_tpu_torch."):
     importlib.import_module(mod.name)
+for name in ("cli.inference", "cli.synthesize", "quantize.synth", "compat.pickle_io",
+             "data.dataset", "data.parsers", "ops.stats"):
+    assert "qasr_tpu_torch." + name in sys.modules, name
 from qasr_tpu_torch.models.config import BlockConfig, DecoderConfig, EncoderConfig, ModelConfig
 from qasr_tpu_torch.models.conformer import ConformerConfig
 from qasr_tpu_torch.models.conformer_ctc import ConformerCTC
