@@ -10,7 +10,8 @@ FrozenExecKernels, convs in Kernels 1-2, the requants next to a depthwise
 conv in Kernel 1's prologue and epilogue with per-channel exponents, the
 rest in Kernel 7) and
 the frozen W8A8 Conformer-CTC (16 x 256), and QuartzNet15x5's zero-shot
-workflow (synthesis, calibration, the dynamic forward, the CLIs), with
+workflow (synthesis, calibration, the dynamic forward, the CLIs) and the
+Conformer-CTC's (synthesis, calibration, freeze and serve, dynamic), with
 nothing that falls back: no CUDA, a failed kernel build or any failed
 phase exits non-zero before the result line.  Phases:
 
@@ -119,7 +120,32 @@ phase exits non-zero before the result line.  Phases:
    the card's times (1 + 1e-5 N(0, 1)), move the port's own ranges, and
    what planted faults of the recipe read (another seed and percentile
    99.9 must read above 15%); how many frozen table entries differ from
-   the golden record's tables.
+   the golden record's tables;
+8. the Conformer-CTC's zero-shot workflow at full width (16 x 256, W8A8,
+   every integer flag and static attention): (a) synthesis at
+   ``quantize_encoder_synthetic``'s recipe (2 problems of 8 x 128 frames,
+   200 Adam iterations, lr 0.02; a CUDA graph replay an iteration): every
+   loss finite, each problem's last below its first, the first 3 losses of
+   one start point within CONF_SYNTH_RTOL of the CPU's (2 x 128 frames),
+   conformer_distill_loss's input gradient at 8 x 128 within
+   CONF_GRAD_RTOL (norm-wise) of the CPU's, which the same backward under
+   TF32 must exceed; (b) ``quantize_encoder`` on those batches: 16 dw_conv
+   + 178 pw_gemm launches a forward (pre_out's 4,864-wide contraction in
+   two) and the range state equal bit for bit to the plain path's, and
+   at momentum 0.9 equal to the plain path's and moved off 0.95's (the
+   EMA over the 2 batches); then ``freeze`` and 4 seeded requests through ``transcribe_greedy``: 16 + 16
+   + 32 + 81 launches and the plain frozen executor's ids; (c) the
+   committed asset's recipe (one batch of 4 x 15 s of seed-0 noise x 0.1)
+   against its ranges: pre_out within 1e-4 and every site within
+   CONF_RANGE_L of its range, planted faults (another noise seed,
+   percentile 99.9) above it, momentum 0.9 printed (one batch never
+   applies the EMA), and how many frozen table entries differ from the
+   golden record's tables; (d) the dynamic forward at B=32 x 15 s: the
+   plain path's log-probs bit for bit (and so its ids), 16 + 179
+   launches, and its time; Kernels 1 and 2 against their plain versions
+   at its shapes (B=32 T'=375; N=12,000, the K-split included); (e) the calibrating forward at B=4 x 15 s and Kernels 1 and
+   2 at its shapes against their plain versions, cuDNN's depthwise conv
+   and torch._int_mm.
 
 Prints the card line, a {"kernels": [...]} line (each kernel's "ms" and
 "library_ms" are device times at the site "shape" names, "call_ms" and
@@ -130,6 +156,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -1541,7 +1568,8 @@ def phase_workflow(chk, dev, card, report, name="QuartzNet15x5Base-En"):
     from qasr_tpu_torch.cli import synthesize as cli_synthesize
     from qasr_tpu_torch.data.dataset import AudioToCharDataset, DataLoader
     from qasr_tpu_torch.models.ctc_model import ASRModel, make_frozen_fn
-    from qasr_tpu_torch.models.jasper import init_qstate, qstate_to_device
+    from qasr_tpu_torch.models.jasper import init_qstate
+    from qasr_tpu_torch.quantize.ranges import qstate_to_device
     from qasr_tpu_torch.quantize.freeze import kernel_launches
     from qasr_tpu_torch.quantize.synth import get_synthetic_data, start_points
 
@@ -1782,7 +1810,7 @@ def synthesis_grad_rel(plan, enc_params, dev, dim):
     see."""
     import torch
 
-    from qasr_tpu_torch.models.jasper import params_to_device
+    from qasr_tpu_torch.quantize.ranges import params_to_device
     from qasr_tpu_torch.quantize.synth import (bn_targets, distill_loss, loss_and_backward,
                                                start_points)
 
@@ -1853,6 +1881,370 @@ def time_workflow_sites(chk, rows, dev, card):
             r["bound"] = bound(x.numel() + wt.numel() + 4 * c + 4 * b * t * c, 2 * b * t * c * c)
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the Conformer's zero-shot workflow (synthesis, calibration,
+# freeze and serve, the asset's recipe, dynamic)
+# ---------------------------------------------------------------------------
+
+CONF_FLAGS = dict(quantize_attention=True, integer_softmax=True, integer_layernorm=True,
+                  integer_activations=True, static_attention=True)
+# quantize_encoder_synthetic's recipe (the JAX package's defaults)
+CONF_SYNTH = dict(num_batch=2, batch_size=8, seqlen=128, train_iter=200, lr=0.02, seed=0)
+CONF_SECONDS = 15.0
+# card vs CPU, the first 3 synthesis losses of one start point (2 x 128 frames)
+CONF_SYNTH_RTOL = 1e-5
+# card vs CPU, conformer_distill_loss's input gradient at 8 x 128 (norm-wise);
+# the same backward with TF32 on must read above it
+CONF_GRAD_RTOL = 1e-4
+# the committed asset's recipe (one batch of 4 x 15 s of seed-0 noise x 0.1)
+# against its ranges, as a share of each site's range: every site within
+# CONF_RANGE_L, pre_out within CONF_PRE_OUT_TOL.  L sits above what the
+# port reads on the CPU against the asset (5.9%) and how far a 1e-5
+# perturbation of the features moves the port's own ranges (up to 9.7%),
+# below the planted faults (another noise seed 27.8%, percentile 99.9
+# 52.3%): experiments/torch_conformer_asset_ranges.py --device cpu
+CONF_RANGE_L = 0.15
+CONF_PRE_OUT_TOL = 1e-4
+
+
+def conformer_synth_grad_rel(model, dev):
+    """Norm-wise relative difference of conformer_distill_loss's input
+    gradient on the card from the CPU's at the recipe's 8 x 128 frames from
+    one start point: through ``backward_no_tf32``, as synthesis steps, and
+    with the backward under TF32 (the fault the gate must see)."""
+    import torch
+
+    from qasr_tpu_torch.models.conformer import encoder_params_to_device
+    from qasr_tpu_torch.quantize.conformer_synth import (conformer_bn_targets,
+                                                         conformer_distill_loss)
+    from qasr_tpu_torch.quantize.synth import backward_no_tf32, start_points
+
+    b, t = CONF_SYNTH["batch_size"], CONF_SYNTH["seqlen"]
+    x0 = start_points(1, b, t, model.ccfg.feat_in, seed=2)[0]
+
+    def grad(device, tf32=False):
+        params = encoder_params_to_device(model.params["encoder"], device)
+        targets = conformer_bn_targets(params)
+        x = x0.to(device, copy=True).requires_grad_(True)
+        lens = torch.full((b,), t, dtype=torch.int32, device=device)
+
+        def loss(v):
+            return conformer_distill_loss(params, model.ccfg, v, lens, targets)
+        if not tf32:
+            backward_no_tf32(loss, x)
+            return x.grad.double().cpu()
+        flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+        try:
+            loss(x).backward()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+        return x.grad.double().cpu()
+
+    g_cpu = grad("cpu")
+
+    def rel(g):
+        return float(torch.linalg.vector_norm(g - g_cpu) / torch.linalg.vector_norm(g_cpu))
+
+    return rel(grad(dev)), rel(grad(dev, tf32=True))
+
+
+def recipe_noise(seed, batch=4, seconds=CONF_SECONDS):
+    """The asset's recipe audio: default_rng(seed).normal((32, n)) x 0.1,
+    the first ``batch`` rows (experiments/torch_conformer_golden.py)."""
+    import numpy as np
+
+    n = int(16000 * seconds)
+    audio = (np.random.default_rng(seed).normal(size=(32, n)) * 0.1).astype(np.float32)
+    return audio[:batch], np.full((batch,), n, np.int32)
+
+
+def phase_conformer_workflow(chk, dev, card, report):
+    """Phase 8: the flagship Conformer-CTC's zero-shot workflow."""
+    import torch
+
+    from qasr_tpu_torch.golden import conformer_flagship_configs
+    from qasr_tpu_torch.models.conformer_ctc import ConformerCTC, make_conformer_frozen_fn
+    from qasr_tpu_torch.quantize.conformer_freeze import kernel_launches
+    from qasr_tpu_torch.quantize.conformer_ptq import ptq_kernel_launches
+    from qasr_tpu_torch.quantize.conformer_synth import get_synthetic_conformer_data
+    from qasr_tpu_torch.quantize.synth import start_points
+
+    t_phase = time.perf_counter()
+    out = report.setdefault("conformer_workflow", {})
+    model = ConformerCTC.from_config(*conformer_flagship_configs(), seed=0)
+    ccfg = model.ccfg
+    enc = model.params["encoder"]
+
+    # (a) synthesis at quantize_encoder_synthetic's recipe
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    data, losses = get_synthetic_conformer_data(enc, ccfg, device=dev, **CONF_SYNTH)
+    torch.cuda.synchronize()
+    s_iter = (time.perf_counter() - t0) / (CONF_SYNTH["num_batch"] * CONF_SYNTH["train_iter"])
+    for i, ls in enumerate(losses):
+        if not all(math.isfinite(v) for v in ls) or not ls[-1] < ls[0]:
+            raise AssertionError(f"Conformer synthesis problem {i}: losses {ls[0]} -> {ls[-1]}")
+    x0 = start_points(1, 2, CONF_SYNTH["seqlen"], ccfg.feat_in, seed=1)
+    kw = dict(batch_size=2, seqlen=CONF_SYNTH["seqlen"], train_iter=3, lr=CONF_SYNTH["lr"],
+              x0=x0)
+    l_card = get_synthetic_conformer_data(enc, ccfg, device=dev, **kw)[1][0]
+    l_cpu = get_synthetic_conformer_data(enc, ccfg, device="cpu", **kw)[1][0]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(l_card, l_cpu))
+    if rel > CONF_SYNTH_RTOL:
+        raise AssertionError(f"Conformer synthesis losses card {l_card} vs CPU {l_cpu}: rel {rel}")
+    g_rel, g_rel_tf32 = conformer_synth_grad_rel(model, dev)
+    if g_rel > CONF_GRAD_RTOL or not g_rel_tf32 > CONF_GRAD_RTOL:
+        raise AssertionError(f"conformer_distill_loss gradient card vs CPU: rel {g_rel:.3e} "
+                             f"(TF32 on: {g_rel_tf32:.3e}), tolerance {CONF_GRAD_RTOL:g}")
+    log(f"[8a] Conformer synthesis {CONF_SYNTH['num_batch']} x ({CONF_SYNTH['batch_size']} x "
+        f"{CONF_SYNTH['seqlen']} x {ccfg.feat_in}), "
+        f"{CONF_SYNTH['train_iter']} iterations: losses "
+        f"{[(round(ls[0], 3), round(ls[-1], 3)) for ls in losses]}, all finite; "
+        f"{s_iter * 1e3:.2f} ms an iteration [{card}]; first 3 losses at 2 x 128 card {l_card} "
+        f"vs CPU {l_cpu}, max rel {rel:.2e} <= {CONF_SYNTH_RTOL:g}; input gradient at the recipe's "
+        f"norm-wise rel {g_rel:.3e} <= {CONF_GRAD_RTOL:g}, with a TF32 backward {g_rel_tf32:.3e}")
+    out.update(synth_ms_per_iter=s_iter * 1e3, synth_losses=[[ls[0], ls[-1]] for ls in losses],
+               synth_cpu_rel=rel, synth_grad_rel=g_rel, synth_grad_rel_tf32=g_rel_tf32)
+
+    # (b) calibration on the synthetic batches, kernels against plain; then
+    # freeze and serve from the port's own ranges
+    per_fwd = ptq_kernel_launches(ccfg)
+    reset_counts()
+    model.quantize_encoder(data, features=True, device=dev, **CONF_FLAGS)
+    calib_counts = read_counts()
+    expect = planned({k: len(data) * v for k, v in per_fwd.items()})
+    if calib_counts != expect:
+        raise AssertionError(f"Conformer calibration launches {calib_counts} != {expect}")
+    q_kernel = model.enc_qstate
+    model.quantize_encoder(data, features=True, device=dev, kernels=False, **CONF_FLAGS)
+    a, b = qstate_sites(q_kernel), qstate_sites(model.enc_qstate)
+    bad = sum(x != y for x, y in zip(a, b))
+    if bad or len(a) != len(b):
+        raise AssertionError(f"Conformer calibration: {bad} of {len(a)} sites' ranges differ "
+                             f"from the plain path's")
+    log(f"[8b] Conformer calibration on the {len(data)} synthetic batches, every integer flag "
+        f"and static attention: the {len(a)} sites' ranges equal the plain path's bit for bit; "
+        f"launches {calib_counts} (a forward: {per_fwd})")
+    tables = model.freeze(dev)
+    utts, secs = seeded_requests(10)
+    batch, lens = pad_batch(utts)
+    ids_p, el_p = make_conformer_frozen_fn(model, tables, argmax=True, kernels=False)(batch, lens)
+    plain_texts = model.ids_to_text(ids_p, el_p)
+    model.transcribe_greedy(batch[:1, :len(utts[0])], lens[:1], device=dev)  # build + cache
+    reset_counts()
+    texts = model.transcribe_greedy(batch, lens, device=dev)
+    counts = read_counts()
+    if counts != planned(kernel_launches(ccfg)):
+        raise AssertionError(f"frozen Conformer from the port's ranges: launches {counts}")
+    ids_k, el_k = make_conformer_frozen_fn(model, tables, argmax=True)(batch, lens)
+    if not (torch.equal(ids_k, ids_p) and torch.equal(el_k, el_p)) or texts != plain_texts:
+        raise AssertionError("frozen Conformer from the port's ranges: kernel ids differ from "
+                             "the plain executor's")
+    log(f"[8b] froze on those ranges and served 4 requests ({secs} s): launches {counts}; ids "
+        f"== plain executor; {[t_[:40] for t_ in texts]}")
+    out.update(calib_launches=calib_counts, served_launches=counts, served_texts=texts)
+
+    # the EMA: over these 2 batches momentum 0.9 must move the ranges off
+    # 0.95's, kernels and plain alike (the asset's one-batch recipe in (c)
+    # never applies the EMA)
+    m90 = {}
+    for kern in (True, False):
+        model.quantize_encoder(data, features=True, device=dev, kernels=kern, momentum=0.9,
+                               **CONF_FLAGS)
+        m90[kern] = qstate_sites(model.enc_qstate)
+    if m90[True] != m90[False]:
+        raise AssertionError("Conformer calibration at momentum 0.9: kernel ranges differ from "
+                             "the plain path's")
+    moved = sum(x != y for x, y in zip(m90[True], a))
+    if not moved:
+        raise AssertionError("Conformer calibration: momentum 0.9 gave momentum 0.95's ranges")
+    log(f"[8b] at momentum 0.9 the ranges equal the plain path's and {moved} of {len(a)} sites "
+        f"moved off momentum 0.95's")
+    out["calib_momentum_sites_moved"] = moved
+
+    # (c) the committed asset's recipe, and planted faults of it
+    conformer_asset_ranges(model, dev, out)
+
+    # (d) the dynamic forward at B=32 x 15 s, kernels against plain
+    a4, l4 = recipe_noise(0)
+    model.quantize_encoder([(a4, l4)], dynamic=True, device=dev, **CONF_FLAGS)
+    audio32, lens32 = recipe_noise(0, batch=32)
+    audio32 = torch.from_numpy(audio32).to(dev)
+    lens32 = torch.from_numpy(lens32).to(dev)
+    model.forward(audio32[:2], lens32[:2], device=dev)
+    reset_counts()
+    lp_k, el_k = model.forward(audio32, lens32, device=dev)
+    counts = read_counts()
+    lp_p, el_p = model.forward(audio32, lens32, device=dev, kernels=False)
+    if counts != planned(ptq_kernel_launches(ccfg, head=True)):
+        raise AssertionError(f"dynamic Conformer forward launches {counts}")
+    # the same int32 products, then the same float ops: the log-probs agree
+    # bit for bit
+    if not (torch.equal(lp_k, lp_p) and torch.equal(lp_k.argmax(-1), lp_p.argmax(-1))
+            and torch.equal(el_k, el_p)):
+        raise AssertionError(f"dynamic Conformer forward: kernel log-probs differ from the plain "
+                             f"path's (max |d| {float((lp_k - lp_p).abs().max()):.3e})")
+    check_dynamic_shapes(chk, dev, ccfg, lp_k.shape[0], lp_k.shape[1])
+    dyn = {}
+    for path, kern, reps in (("kernel", True, 3), ("plain", False, 1)):
+        dyn[path] = statistics.median(cuda_ms(
+            lambda kern=kern: model.forward(audio32, lens32, device=dev, kernels=kern),
+            reps=reps, warmup=1))
+    log(f"[8d] dynamic Conformer forward B=32 x 15 s: log-probs == plain path bit for bit, "
+        f"launches {counts}; "
+        f"kernel {dyn['kernel']:.3f} ms (median of 3), plain {dyn['plain']:.3f} ms (one call "
+        f"after one) [{card}]")
+    out["dynamic_forward_ms"] = dyn
+    del audio32, lp_k, lp_p
+
+    # (e) the calibrating forward at B=4 x 15 s and Kernels 1 and 2 at its shapes
+    time_conformer_calibration(chk, model, dev, card, report)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[8] phase 8 took {out['seconds']:.1f} s")
+
+
+def check_dynamic_shapes(chk, dev, ccfg, b, t):
+    """Kernels 1 and 2 against their plain versions on seeded int8 at the
+    dynamic forward's shapes: the depthwise at B=b, T=t, and the linears
+    and pre_out's K-split at N = b * t."""
+    import numpy as np
+    import torch
+
+    from qasr_tpu_torch.kernels.dw_conv import dw_conv, dw_conv_plain
+    from qasr_tpu_torch.kernels.pw_gemm import pw_gemm, pw_gemm_plain
+    from qasr_tpu_torch.quantize.conformer_ptq import pre_out_width
+
+    rng = np.random.default_rng(13)
+
+    def t8(*shape):
+        return torch.from_numpy(rng.integers(-127, 128, shape).astype(np.int8)).to(dev)
+
+    c, k, d_ff = ccfg.d_model, ccfg.conv_kernel_size, ccfg.d_ff
+    x, w = t8(b, t, c), t8(k, c)
+    chk.equal("dw_conv", f"dw_conv dynamic Conformer B={b} T={t} C={c} K={k}",
+              dw_conv(x, w, padding=k // 2), dw_conv_plain(x, w, padding=k // 2))
+    n = b * t
+    for cin, cout in ((c, c), (c, d_ff), (d_ff, c), (c, 2 * c), (pre_out_width(ccfg), c)):
+        x3, wt = t8(1, n, cin), t8(cout, cin)
+        chk.equal("pw_gemm", f"pw_gemm dynamic Conformer N={n} {cin}->{cout}",
+                  pw_gemm(x3, wt), pw_gemm_plain(x3, wt))
+    log(f"[8d] Kernels 1 and 2 at the dynamic forward's shapes (B={b} T={t}; N={n}, pre_out's "
+        f"K-split {pre_out_width(ccfg)}->{c} included) equal their plain versions")
+
+
+def conformer_asset_ranges(model, dev, out):
+    """quantize_encoder on the committed asset's recipe (one batch of 4 x
+    15 s of seed-0 noise x 0.1, every integer flag, static attention)
+    against its ranges: pre_out within CONF_PRE_OUT_TOL of its range, every
+    site within CONF_RANGE_L.  Planted faults of the recipe (another noise
+    seed, percentile 99.9: must read above L; momentum 0.9: one batch
+    initializes every range, so it reads as the recipe does) and what each
+    reads; how many frozen table entries differ from the golden record's
+    tables."""
+    from qasr_tpu_torch import golden
+
+    ref = golden.conformer16x256_w8a8()
+
+    def calibrated(seed=0, **kw):
+        model.quantize_encoder([recipe_noise(seed)], device=dev, **dict(CONF_FLAGS, **kw))
+        return model.enc_qstate
+
+    port_q = calibrated()
+    devs = site_deviations(port_q, ref.enc_qstate)
+    pre = next(d for d in devs if d[1] == ".pre_out")[0]
+    faults = {"seed 1": calibrated(seed=1), "percentile 99.9": calibrated(percentile=99.9),
+              "momentum 0.9": calibrated(momentum=0.9)}
+    fault_worst = {k: site_deviations(q, ref.enc_qstate)[0][0] for k, q in faults.items()}
+    model.enc_qstate = port_q
+    differ = table_entries_differing(model.freeze_host(), ref.freeze_host())
+    med = statistics.median(d[0] for d in devs)
+    out.update(asset_range_worst=devs[0][0], asset_range_median=med, asset_pre_out=pre,
+               asset_fault_worst=fault_worst, asset_table_entries_differing=differ,
+               asset_site_deviation=[list(d) for d in devs])
+    for d in devs[:6]:
+        log(f"[8c]   {d[1]}: ({d[2]:.6g}, {d[3]:.6g}) vs committed ({d[4]:.6g}, {d[5]:.6g}): "
+            f"{d[0]:.4%} of its range")
+    log(f"[8c] the asset's recipe: {len(devs)} sites against the committed ranges: worst "
+        f"{devs[0][0]:.4%}, median {med:.4%} of a site's range (L = {CONF_RANGE_L:.0%}), pre_out "
+        f"{pre:.2e} (tolerance {CONF_PRE_OUT_TOL:g}); planted faults read "
+        f"{ {k: f'{v:.3%}' for k, v in fault_worst.items()} }; {differ} frozen table entries "
+        f"differ from the golden record's tables")
+    if devs[0][0] > CONF_RANGE_L or pre > CONF_PRE_OUT_TOL:
+        raise AssertionError(f"the asset's recipe off its ranges: worst site {devs[0][0]:.4%} "
+                             f"(L {CONF_RANGE_L:.0%}), pre_out {pre:.2e}")
+    blind = [k for k in ("seed 1", "percentile 99.9") if not fault_worst[k] > CONF_RANGE_L]
+    if blind:
+        raise AssertionError(f"L cannot see the planted faults {blind}")
+
+
+def time_conformer_calibration(chk, model, dev, card, report):
+    """The calibrating forward (every flag, static attention) at B=4 x 15 s,
+    kernels and plain, and Kernels 1 and 2 at its shapes (Kernel 1: C 256,
+    K 31, T 375; Kernel 2 at N = 1,500: 256->256, 256->1024, 1024->256,
+    256->512 and pre_out's K-split 4,864->256), each against its plain
+    version, cuDNN's float32 depthwise conv (TF32 off, exact here) or
+    torch._int_mm."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from qasr_tpu_torch.kernels.dw_conv import dw_conv, dw_conv_plain
+    from qasr_tpu_torch.kernels.pw_gemm import pw_gemm, pw_gemm_plain
+    from qasr_tpu_torch.models.ctc_model import _pcm_f32
+    from qasr_tpu_torch.quantize.ranges import qstate_to_device
+    from qasr_tpu_torch.quantize.conformer_ptq import (conformer_encoder_apply_ptq,
+                                                       quantize_conformer_weights)
+
+    out = report["conformer_workflow"]
+    model.quantize_encoder([recipe_noise(0)], device=dev, **CONF_FLAGS)
+    a4, l4 = (torch.from_numpy(v).to(dev) for v in recipe_noise(0))
+    feats, fl = model.frontend(_pcm_f32(a4), l4, dither=0.0)
+    qp = quantize_conformer_weights(model.params["encoder"], model.ccfg,
+                                    model.enc_qcfg.weight_bit, dev)
+    qs = qstate_to_device(model.enc_qstate, dev)
+    calib = {}
+    for path, kern, reps in (("kernel", True, 3), ("plain", False, 1)):
+        calib[path] = statistics.median(cuda_ms(
+            lambda kern=kern: conformer_encoder_apply_ptq(qp, model.ccfg, model.enc_qcfg, qs,
+                                                          feats, fl, update=True, kernels=kern),
+            reps=reps, warmup=1))
+    log(f"[8e] calibrating Conformer forward B=4 x 15 s (T'=375): kernel {calib['kernel']:.3f} "
+        f"ms (median of 3), plain {calib['plain']:.3f} ms (one call after one) [{card}]")
+    out["calibrate_forward_ms"] = calib
+
+    rows = report.setdefault("conformer_workflow_per_kernel", [])
+    rng = np.random.default_rng(12)
+
+    def t8(*shape):
+        return torch.from_numpy(rng.integers(-127, 128, shape).astype(np.int8)).to(dev)
+
+    b, t, c, k = 4, 375, model.ccfg.d_model, model.ccfg.conv_kernel_size
+    x, w = t8(b, t, c), t8(k, c)
+    xf = x.permute(0, 2, 1).contiguous().float()
+    wf = w.t().contiguous().float()[:, None, :]
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        r = timed_pair(chk, "dw_conv", f"dw_conv Conformer calibration B={b} T={t} C={c} K={k} "
+                       f"int8 in, int32 out", lambda: dw_conv(x, w, padding=k // 2),
+                       lambda: dw_conv_plain(x, w, padding=k // 2), card, rows,
+                       lambda: F.conv1d(xf, wf, groups=c, padding=k // 2))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    r["bound"] = bound(x.numel() + w.numel() + 4 * b * t * c, 2 * k * b * t * c)
+    n = b * t
+    for cin, cout in ((256, 256), (256, 1024), (1024, 256), (256, 512), (4864, 256)):
+        x3, wt = t8(1, n, cin), t8(cout, cin)
+        x2, wt_t = x3[0], wt.t()
+        r = timed_pair(chk, "pw_gemm", f"pw_gemm Conformer calibration N={n} {cin}->{cout} "
+                       f"int8 in, int32 out" + (" (K-split)" if cin > 2944 else ""),
+                       lambda x3=x3, wt=wt: pw_gemm(x3, wt),
+                       lambda x3=x3, wt=wt: pw_gemm_plain(x3, wt), card, rows,
+                       lambda x2=x2, wt_t=wt_t: torch._int_mm(x2, wt_t))
+        r["bound"] = bound(x3.numel() + wt.numel() + 4 * n * cout, 2 * n * cin * cout)
 
 
 def site_deviations(q, ref):
@@ -1931,6 +2323,7 @@ def main() -> int:
     log(f"[6] {chk.n} kernel-vs-plain comparisons in all, the main paths' shapes included, "
         f"exact; max |d| {chk.max_err}")
     phase_workflow(chk, dev, card, report)
+    phase_conformer_workflow(chk, dev, card, report)
 
     rows = report["quartznet_per_kernel"] + report["conformer_per_kernel"]
     kernels = []

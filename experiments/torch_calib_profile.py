@@ -71,7 +71,8 @@ def main() -> int:
     import torch
 
     from qasr_tpu_torch.models.ctc_model import ASRModel
-    from qasr_tpu_torch.models.jasper import init_qstate, qstate_to_device
+    from qasr_tpu_torch.models.jasper import init_qstate
+    from qasr_tpu_torch.quantize.ranges import qstate_to_device
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,

@@ -170,7 +170,9 @@ def conformer_flagship_configs(layers: int = 16, d_model: int = 256):
 
 
 def conformer16x256_w8a8(seed: int = 0) -> ConformerCTC:
-    """The flagship Conformer-CTC with the committed calibrated ranges."""
+    """The flagship Conformer-CTC with the committed calibrated ranges: it
+    runs the PTQ forward until ``freeze(device)``, which serving callers
+    call first."""
     model = ConformerCTC.from_config(*conformer_flagship_configs(), seed=seed)
     with open(CONF_QSTATE_PATH) as f:
         model.qstate_from_json(f.read())

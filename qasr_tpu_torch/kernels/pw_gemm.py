@@ -10,7 +10,7 @@ other.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -64,6 +64,22 @@ def check_launch(n_rows: int, cin: int, cout: int, pro: bool, x_dtype: torch.dty
         raise ValueError(f"pw_gemm: Cin={cin} Cout={cout} needs {p['smem']} bytes of shared "
                          f"memory, above {SMEM_LIMIT}")
     return p
+
+
+def k_pieces(cin: int, cout: int) -> List[Tuple[int, int]]:
+    """(start, stop) of the contraction pieces a no-epilogue launch takes
+    Cin (a multiple of 16) in: Cin whole where ``plan`` fits a block's
+    shared memory (Cin up to 23 chunks of 128 bytes, 2,944), else the
+    fewest pieces of whole 128-byte chunks that fit, as even as the
+    chunks allow (the Conformer's pre_out, 4,864 = 2 x 2,432).  Their int32
+    products add up exactly: integer adds commute, and freeze bounds keep
+    the accumulator below 2^31."""
+    nk = -(-cin // CHUNK)
+    n = 1
+    while plan(-(-nk // n) * CHUNK, cout)["smem"] > SMEM_LIMIT:
+        n += 1
+    per = -(-nk // n) * CHUNK
+    return [(a, min(a + per, cin)) for a in range(0, cin, per)]
 
 
 def int_matmul(x2: torch.Tensor, wt: torch.Tensor) -> torch.Tensor:
@@ -140,7 +156,9 @@ def pw_gemm(x: torch.Tensor, wt: torch.Tensor, *,
             bits1: Optional[int] = None) -> torch.Tensor:
     """Pointwise conv of x (B, T, Cin) with wt (Cout, Cin) int8.
 
-    Cin need not be a multiple of 16: the wrapper zero-pads it (``pad_k``).
+    Cin need not be a multiple of 16: the wrapper zero-pads it (``pad_k``);
+    without prologue and epilogue a Cin above what a block's shared memory
+    holds runs as ``k_pieces`` launches whose int32 products are added.
     Prologue off (``m1`` None): x is int8.  Prologue on: x is int8 or int32
     and its rows are first ``clamp(requant(mask(relu?(x + in_bias)), m1,
     e1), bits1)``, m1 a (Cin,) int32 vector or a scalar, the mask zeroing frames
@@ -171,6 +189,13 @@ def pw_gemm(x: torch.Tensor, wt: torch.Tensor, *,
     pro, m1v, m1s, _, ee1, lo1, hi1 = check_prologue("pw_gemm", x, in_bias, in_len, m1, e1,
                                                   bits1, cin, b)
     cout = wt.shape[0]
+    pieces = k_pieces(cin, cout) if mode == MODE_NONE and not pro else [(0, cin)]
+    if len(pieces) > 1:
+        acc = sum(pw_gemm(x[..., a:z].contiguous(), wt[:, a:z].contiguous())
+                  for a, z in pieces)
+        if bias is not None:
+            acc = acc + bias
+        return acc.clamp_min(0) if relu else acc
     if x.data_ptr() % 16 or wt.data_ptr() % 16:
         raise ValueError("pw_gemm: x and wt must be 16-byte aligned")
     check_launch(b * t, cin, cout, bool(pro), x.dtype)

@@ -1,24 +1,29 @@
-"""Conformer encoder: configuration, host parameters and the float
-subsampler (port of the serving subset of qasr_tpu/models/conformer.py).
+"""Conformer encoder: configuration, host parameters, the float subsampler
+and the float encoder (port of qasr_tpu/models/conformer.py).
 
 Parameters are host numpy drawn from ``np.random.default_rng`` in the JAX
-package's order, so the same seed gives the same arrays bit for bit.
-Layout stays (B, T, D) channels-last.  The subsampler's convolutions are
-the one float region in front of the integer encoder; they run in float32
-with TF32 off (the JAX package's ``QASR_SUB_PREC=hi`` lowering): a
-lower-precision lowering flips first-site int8 codes.
+package's order, so the same seed gives the same arrays bit for bit;
+``encoder_params_to_device`` makes the torch tree the float and
+quantized forwards take.  Layout stays (B, T, D) channels-last.  Every
+float region runs in float32 with TF32 off (the JAX package's
+``QASR_SUB_PREC=hi`` lowering for the subsampler): a lower-precision
+lowering flips first-site int8 codes.  The encoder's depthwise conv is a
+plain ``F.conv1d(groups=C)``, standing in for the JAX package's
+partitioner-safe ``ops/grouped_conv.py``.
 """
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from qasr_tpu_torch.device import no_tf32
+from qasr_tpu_torch.quantize.ranges import params_to_device
 
 
 @dataclass(frozen=True)
@@ -232,3 +237,174 @@ def subsample_convs(p, cfg: ConformerConfig, x: torch.Tensor, lens: torch.Tensor
             lens = _sub_out_len_arr(lens, cfg.subsampling)
     b, c, t, f = y.shape
     return y.permute(0, 2, 1, 3).reshape(b, t, c * f), lens
+
+
+def conv_subsampling(p, cfg: ConformerConfig, x: torch.Tensor, lens: torch.Tensor):
+    """(B, T, F) -> ((B, T', d_model), lens'): the conv stack, then the
+    ``out`` projection."""
+    y, lens = subsample_convs(p, cfg, x, lens)
+    return _apply_linear(p["out"], y), lens
+
+
+# ---------------------------------------------------------------------------
+# the float encoder (torch params from ``encoder_params_to_device``)
+# ---------------------------------------------------------------------------
+
+
+def encoder_params_to_device(params, device) -> Dict[str, Any]:
+    """Host encoder params -> float32 torch tensors on ``device``, the
+    subsampler's conv kernels as OIHW (``subsampler_to_device``)."""
+    tree = params_to_device(params, device)
+    if "convs" in params["pre_encode"]:
+        tree["pre_encode"].update(subsampler_to_device(params["pre_encode"], device))
+    return tree
+
+
+@functools.lru_cache(maxsize=16)
+def position_tables(t: int, d_model: int, device: torch.device):
+    """(the (2T-1, d) sinusoid table, the (T, T) rel-shift index
+    T-1+i-j) on ``device``, built once per length (so a captured CUDA
+    graph finds them there)."""
+    pe = torch.from_numpy(rel_positional_encoding(t, d_model)).to(device)
+    i = torch.arange(t, device=device)
+    return pe, (t - 1) + i[:, None] - i[None, :]
+
+
+def _apply_linear(p, x: torch.Tensor) -> torch.Tensor:
+    y = torch.matmul(x, p["w"])
+    return y + p["b"] if "b" in p else y
+
+
+def _layer_norm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    mu = x.mean(dim=-1, keepdim=True)
+    var = x.var(dim=-1, unbiased=False, keepdim=True)
+    return (x - mu) / torch.sqrt(var + eps) * p["gamma"] + p["beta"]
+
+
+def _swish(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(x)
+
+
+def rel_shift(bd_full: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """(B, H, T, 2T-1) position scores -> (B, H, T, T): column j of row i
+    reads position T-1+i-j (the legacy rel-shift)."""
+    b, h, t, _ = bd_full.shape
+    return torch.gather(bd_full, -1, idx.expand(b, h, t, t))
+
+
+def _masked_softmax(scores: torch.Tensor, mask_h: torch.Tensor) -> torch.Tensor:
+    scores = torch.where(mask_h, torch.finfo(scores.dtype).min, scores)
+    return torch.where(mask_h, 0.0, torch.softmax(scores, dim=-1))
+
+
+def rel_attention(p, x: torch.Tensor, pos_emb: torch.Tensor, idx: torch.Tensor,
+                  att_mask: torch.Tensor, pos_bias_u, pos_bias_v, n_heads: int) -> torch.Tensor:
+    """Relative-position multi-head attention: scores[i, j] =
+    ((q_i + u) . k_j + (q_i + v) . P[T-1+i-j]) / sqrt(d_k)."""
+    b, t, d = x.shape
+    d_k = d // n_heads
+    q = _apply_linear(p["q"], x).reshape(b, t, n_heads, d_k)
+    k = _apply_linear(p["k"], x).reshape(b, t, n_heads, d_k)
+    v = _apply_linear(p["v"], x).reshape(b, t, n_heads, d_k)
+    pos = _apply_linear(p["pos"], pos_emb).reshape(2 * t - 1, n_heads, d_k)
+    ac = torch.einsum("bihd,bjhd->bhij", q + pos_bias_u, k)
+    bd = rel_shift(torch.einsum("bihd,phd->bhip", q + pos_bias_v, pos), idx)
+    attn = _masked_softmax((ac + bd) / math.sqrt(d_k), att_mask[:, None])
+    ctx = torch.einsum("bhij,bjhd->bihd", attn, v).reshape(b, t, d)
+    return _apply_linear(p["out"], ctx)
+
+
+def abs_attention(p, x: torch.Tensor, att_mask: torch.Tensor, n_heads: int) -> torch.Tensor:
+    b, t, d = x.shape
+    d_k = d // n_heads
+    q = _apply_linear(p["q"], x).reshape(b, t, n_heads, d_k)
+    k = _apply_linear(p["k"], x).reshape(b, t, n_heads, d_k)
+    v = _apply_linear(p["v"], x).reshape(b, t, n_heads, d_k)
+    scores = torch.einsum("bihd,bjhd->bhij", q, k) / math.sqrt(d_k)
+    attn = _masked_softmax(scores, att_mask[:, None])
+    ctx = torch.einsum("bhij,bjhd->bihd", attn, v).reshape(b, t, d)
+    return _apply_linear(p["out"], ctx)
+
+
+def depthwise_conv_float(y: torch.Tensor, w: torch.Tensor, padding: Tuple[int, int]):
+    """Depthwise conv of (B, T, C) float32 with (K, 1, C) taps, (left,
+    right) zero padding, no bias: ``F.conv1d(groups=C)``."""
+    c = y.shape[-1]
+    yc = F.pad(y.transpose(1, 2), tuple(padding))
+    return F.conv1d(yc, w.permute(2, 1, 0), groups=c).transpose(1, 2)
+
+
+def conformer_conv_module(p, x: torch.Tensor, pad_mask: torch.Tensor,
+                          stats_out: Optional[list] = None,
+                          padding: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """pw1 -> GLU -> mask -> depthwise -> BN (running statistics) -> swish
+    -> pw2.  ``stats_out`` collects the pre-BN depthwise output's
+    pad-masked per-channel batch (mean, var), what data-free synthesis
+    matches."""
+    y = _apply_linear({"w": p["pw1"]["w"][0], "b": p["pw1"]["b"]}, x)
+    a, g = torch.chunk(y, 2, dim=-1)
+    y = torch.where(pad_mask[:, :, None], 0.0, a * torch.sigmoid(g))
+    k = p["dw"]["w"].shape[0]
+    if padding is None:
+        padding = ((k - 1) // 2, (k - 1) // 2)
+    y = depthwise_conv_float(y, p["dw"]["w"], padding) + p["dw"]["b"]
+    if stats_out is not None:
+        # padded frames hold bias values, not data
+        vm = (~pad_mask)[:, :, None].to(y.dtype)
+        cnt = vm.sum().clamp_min(1.0)
+        mu = (y * vm).sum(dim=(0, 1)) / cnt
+        var = (vm * (y - mu) ** 2).sum(dim=(0, 1)) / cnt
+        stats_out.append((mu, var))
+    bn = p["bn"]
+    y = (y - bn["mean"]) / torch.sqrt(bn["var"] + 1e-5) * bn["gamma"] + bn["beta"]
+    return _apply_linear({"w": p["pw2"]["w"][0], "b": p["pw2"]["b"]}, _swish(y))
+
+
+def _feed_forward(p, x: torch.Tensor) -> torch.Tensor:
+    return _apply_linear(p["l2"], _swish(_apply_linear(p["l1"], x)))
+
+
+def encoder_masks(cfg: ConformerConfig, t: int, lens: torch.Tensor):
+    """(valid (B, T) bool, attention mask (B, T, T), True = masked)."""
+    valid = torch.arange(t, device=lens.device)[None, :] < lens[:, None]
+    return valid, attention_mask(valid, cfg.att_context_size)
+
+
+def conformer_encoder_apply(params, cfg: ConformerConfig, x: torch.Tensor, lens: torch.Tensor,
+                            *, train: bool = False,
+                            bn_stats: Optional[List] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, T, F) float32 features -> ((B, T', d) encodings, lens'), the
+    eval graph (no dropout), float32 with TF32 off.  ``params`` from
+    ``encoder_params_to_device``; ``bn_stats``, a list, collects each conv
+    module's pre-BN (mean, var)."""
+    if train:
+        raise NotImplementedError("train-mode dropout is not ported (ROADMAP queue A "
+                                  "item 12, training)")
+    with no_tf32():
+        if cfg.subsampling:
+            x, lens = conv_subsampling(params["pre_encode"], cfg, x, lens)
+        else:
+            x = _apply_linear(params["pre_encode"]["linear"], x.to(torch.float32))
+        t = x.shape[1]
+        if cfg.xscaling:
+            x = x * math.sqrt(cfg.d_model)
+        pos_emb, idx = position_tables(t, cfg.d_model, x.device)
+        valid, att_mask = encoder_masks(cfg, t, lens)
+        pad_mask = ~valid
+        u, v = params.get("pos_bias_u"), params.get("pos_bias_v")
+        for lp in params["layers"]:
+            x = 0.5 * _feed_forward(lp["ff1"], _layer_norm(lp["norm_ff1"], x)) + x
+            y = _layer_norm(lp["norm_att"], x)
+            if cfg.self_attention_model == "rel_pos":
+                y = rel_attention(lp["att"], y, pos_emb, idx, att_mask,
+                                  lp.get("pos_bias_u", u), lp.get("pos_bias_v", v), cfg.n_heads)
+            else:
+                y = abs_attention(lp["att"], y, att_mask, cfg.n_heads)
+            x = y + x
+            x = conformer_conv_module(lp["conv"], _layer_norm(lp["norm_conv"], x), pad_mask,
+                                      stats_out=bn_stats, padding=cfg.dw_padding) + x
+            x = 0.5 * _feed_forward(lp["ff2"], _layer_norm(lp["norm_ff2"], x)) + x
+            x = _layer_norm(lp["norm_out"], x)
+        if "out_proj" in params:
+            x = _apply_linear(params["out_proj"], x)
+    return x, lens

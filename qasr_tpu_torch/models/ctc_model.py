@@ -42,9 +42,6 @@ from qasr_tpu_torch.models.jasper import (
     init_encoder_params,
     init_qstate,
     pad_frames_aligned,
-    params_to_device,
-    qstate_to_device,
-    qstate_to_host,
 )
 from qasr_tpu_torch.ops.features import MelFrontend, preprocessor_config_from_dict
 from qasr_tpu_torch.quantize.freeze import (
@@ -56,6 +53,7 @@ from qasr_tpu_torch.quantize.freeze import (
     tables_all_static_e,
     tables_to_device,
 )
+from qasr_tpu_torch.quantize.ranges import params_to_device, qstate_to_device, qstate_to_host
 
 log = logging.getLogger(__name__)
 

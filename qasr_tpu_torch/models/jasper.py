@@ -36,7 +36,7 @@ from qasr_tpu_torch.ops.quant_prims import (
     requantize_approx,
     symmetric_scale,
 )
-from qasr_tpu_torch.ops.stats import quantile_range
+from qasr_tpu_torch.quantize.ranges import batch_ranges, copy_tree, ema_ranges
 
 BN_EPS = 1e-3  # nn.BatchNorm1d(eps=1e-3) in the reference's JasperBlock
 
@@ -452,66 +452,6 @@ def check_operand_bits(device: torch.device, act_bits: int, weight_bit: int) -> 
     return wide
 
 
-# above this many elements a percentile range comes from histogram_quantile
-# instead of a sort (torch.quantile also refuses inputs above 2**24)
-_QUANTILE_SORT_MAX = 1 << 18
-
-
-def _ema_ranges(state, bmin, bmax, momentum: float):
-    """The running-range update: the first batch initializes (a state with
-    x_min == x_max), later ones move by an EMA, or by min / max at
-    momentum -1."""
-    init = state["x_min"] == state["x_max"]
-    if momentum == -1:
-        nmin = torch.minimum(state["x_min"], bmin)
-        nmax = torch.maximum(state["x_max"], bmax)
-    else:
-        nmin = state["x_min"] * momentum + bmin * (1 - momentum)
-        nmax = state["x_max"] * momentum + bmax * (1 - momentum)
-    return {"x_min": torch.where(init, state["x_min"] + bmin, nmin),
-            "x_max": torch.where(init, state["x_max"] + bmax, nmax)}
-
-
-def _batch_ranges(x_f: torch.Tensor, percentile: Optional[float]):
-    """(low, high) of one batch: min / max, or the percentile pair
-    (torch.quantile up to 2**18 elements, histogram_quantile above)."""
-    if percentile is None:
-        return torch.aminmax(x_f)
-    if x_f.numel() > _QUANTILE_SORT_MAX:
-        return quantile_range(x_f, percentile)
-    flat = x_f.reshape(-1)
-    return (torch.quantile(flat, 1.0 - percentile / 100.0),
-            torch.quantile(flat, percentile / 100.0))
-
-
-def params_to_device(tree, device) -> Any:
-    """A params tree (numpy or torch leaves) as float32 torch tensors on
-    ``device``."""
-    if isinstance(tree, dict):
-        return {k: params_to_device(v, device) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [params_to_device(v, device) for v in tree]
-    return torch.as_tensor(tree, dtype=torch.float32).to(device)
-
-
-def qstate_to_device(qstate, device) -> Dict[str, Any]:
-    """The range state as 0-d float32 tensors on ``device``."""
-    if isinstance(qstate, dict):
-        return {k: qstate_to_device(v, device) for k, v in qstate.items()}
-    if isinstance(qstate, (list, tuple)):
-        return [qstate_to_device(v, device) for v in qstate]
-    return torch.as_tensor(np.float32(qstate), device=device)
-
-
-def qstate_to_host(qstate) -> Dict[str, Any]:
-    """The range state as 0-d numpy float32 arrays (one read-back)."""
-    if isinstance(qstate, dict):
-        return {k: qstate_to_host(v) for k, v in qstate.items()}
-    if isinstance(qstate, (list, tuple)):
-        return [qstate_to_host(v) for v in qstate]
-    return np.asarray(qstate.cpu().numpy(), np.float32)
-
-
 def quantize_weights(p, weight_bit: int) -> Dict[str, Any]:
     """A conv's per-output-channel symmetric weights: ``scale`` (Cout,) and
     ``wk`` the integers in the kernels' layout (depthwise (K, C),
@@ -530,7 +470,7 @@ class QuantExec:
 
     ``update_ranges``: calibration; each activation site's batch range
     (min / max, or the ``qcfg.percentile`` pair) moves its running range
-    in ``new_qstate`` (``_ema_ranges``), and the requants use the float32
+    in ``new_qstate`` (``ema_ranges``), and the requants use the float32
     multiplier unless ``qcfg.calib_exact``.  ``qcfg.dynamic``: each site
     quantizes with its batch range.  Otherwise the static running ranges
     of ``qstate``.  Params must be BN-folded torch tensors; ``qstate`` holds
@@ -561,7 +501,7 @@ class QuantExec:
         self.activation_kind = activation
         self.update = update_ranges
         self.weights = {} if weights is None else weights
-        self.new_qstate = _copy_tree(qstate)
+        self.new_qstate = copy_tree(qstate)
 
     # -- act quant ---------------------------------------------------------
 
@@ -574,11 +514,11 @@ class QuantExec:
         if identity is not None:
             x_f = x_f + identity.dequantize()
         if self.update:
-            bmin, bmax = _batch_ranges(x_f, self.qcfg.percentile)
-            state = _ema_ranges(state, bmin, bmax, self.qcfg.act_momentum)
+            bmin, bmax = batch_ranges(x_f, self.qcfg.percentile)
+            state = ema_ranges(state, bmin, bmax, self.qcfg.act_momentum)
             node[path[-1]] = state
         if self.qcfg.dynamic:
-            x_min, x_max = _batch_ranges(x_f, self.qcfg.percentile)
+            x_min, x_max = batch_ranges(x_f, self.qcfg.percentile)
         else:
             x_min, x_max = state["x_min"], state["x_max"]
         scale = symmetric_scale(x_min, x_max, bits)
@@ -641,14 +581,6 @@ class QuantExec:
 
     def squeeze_excite(self, block_idx, x, bp):
         raise NotImplementedError("SqueezeExcite does not support quantization")
-
-
-def _copy_tree(t):
-    if isinstance(t, dict):
-        return {k: _copy_tree(v) for k, v in t.items()}
-    if isinstance(t, (list, tuple)):
-        return [_copy_tree(v) for v in t]
-    return t
 
 
 def decoder_forward_float(params, x: torch.Tensor) -> torch.Tensor:

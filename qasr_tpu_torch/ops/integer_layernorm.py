@@ -47,3 +47,11 @@ def i_layernorm_core(q: torch.Tensor) -> torch.Tensor:
     var = floor_div((d * d).sum(dim=-1, keepdim=True, dtype=torch.int32), d_ax)
     sigma_s = i_sqrt(torch.bitwise_left_shift(var, 2 * _SB)).clamp_min(1)
     return floor_div(torch.bitwise_left_shift(d, _K + _SB), sigma_s)
+
+
+def i_layernorm(q: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
+    """LayerNorm over the last axis of an integer tensor of any scale (it
+    cancels): the integer core at 2^-_K, then the float affine, in the JAX
+    package's order (y * 2^-_K) * gamma + beta."""
+    y = i_layernorm_core(q)
+    return y.to(torch.float32) * (1.0 / (1 << _K)) * gamma + beta

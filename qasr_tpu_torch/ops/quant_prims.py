@@ -58,11 +58,17 @@ def mask_values(x: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
     return torch.where(keep[:, :, None], x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+def f32_div(y: torch.Tensor, s: float) -> torch.Tensor:
+    """y / s as an IEEE division in y's dtype (a 0-d device tensor: CUDA
+    divides by a host scalar through its reciprocal, an ulp off)."""
+    return y / torch.full((), s, dtype=y.dtype, device=y.device)
+
+
 def symmetric_scale(x_min: torch.Tensor, x_max: torch.Tensor, bits: int) -> torch.Tensor:
     """clamp(max(|x_min|, |x_max|), 1e-8) / (2^(bits-1) - 1), elementwise,
     in the inputs' float dtype (per tensor or per channel)."""
     n = 2 ** (bits - 1) - 1
-    return torch.maximum(x_min.abs(), x_max.abs()).clamp_min(1e-8) / n
+    return f32_div(torch.maximum(x_min.abs(), x_max.abs()).clamp_min(1e-8), n)
 
 
 def quantize(x: torch.Tensor, scale: torch.Tensor, bits: int) -> torch.Tensor:

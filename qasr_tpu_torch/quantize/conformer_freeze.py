@@ -44,7 +44,7 @@ from qasr_tpu_torch.ops.integer_layernorm import _K as _K_LN
 from qasr_tpu_torch.ops.integer_layernorm import i_layernorm_core
 from qasr_tpu_torch.ops.integer_sigmoid import K_SIG
 from qasr_tpu_torch.ops.integer_softmax import S_IN
-from qasr_tpu_torch.ops.quant_prims import dyadic_from_scale_host_static_e
+from qasr_tpu_torch.ops.quant_prims import dyadic_from_scale_host_static_e, f32_div
 from qasr_tpu_torch.quantize.conformer_int import _ln_rq, clip8
 from qasr_tpu_torch.quantize.conformer_ptq import ConformerQuantConfig
 from qasr_tpu_torch.quantize.freeze import tables_digest
@@ -320,12 +320,6 @@ class ConformerPlan:
 DEFAULT_PLAN = ConformerPlan("1", True)
 
 
-def _f32_div(y: torch.Tensor, s: float) -> torch.Tensor:
-    """y / f32(s) as an IEEE division (a one-element device tensor: CUDA
-    divides by a host scalar through its reciprocal)."""
-    return y / torch.full((1,), s, dtype=torch.float32, device=y.device)
-
-
 def conformer_x8(tables, cfg: ConformerConfig, feats: torch.Tensor,
                  lens: torch.Tensor):
     """Float features (B, T, F) -> (x8 (B, T', c*f) int8, lens'): the
@@ -334,7 +328,7 @@ def conformer_x8(tables, cfg: ConformerConfig, feats: torch.Tensor,
         y, lens = subsample_convs(tables["subsampler"], cfg, feats, lens)
     else:
         y = feats.to(torch.float32)
-    return clip8(torch.round(_f32_div(y, tables["S_pre"])), tables["act_bit"]), lens
+    return clip8(torch.round(f32_div(y, tables["S_pre"])), tables["act_bit"]), lens
 
 
 def conformer_encode(tables, cfg: ConformerConfig, x8: torch.Tensor,

@@ -12,13 +12,14 @@ independent and run one after another, each with its own BN statistics.
 from __future__ import annotations
 
 import time
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from qasr_tpu_torch.device import as_device, no_tf32
-from qasr_tpu_torch.models.jasper import EncoderPlan, FloatExec, encoder_forward, params_to_device
+from qasr_tpu_torch.models.jasper import EncoderPlan, FloatExec, encoder_forward
+from qasr_tpu_torch.quantize.ranges import params_to_device
 
 EPS = 1e-6
 
@@ -57,19 +58,24 @@ def distill_loss(plan: EncoderPlan, enc_params, x: torch.Tensor, lens: torch.Ten
     return total
 
 
-def loss_and_backward(plan: EncoderPlan, enc_params, x: torch.Tensor, lens: torch.Tensor,
-                      targets) -> torch.Tensor:
-    """``distill_loss`` and its backward into ``x.grad``, both with TF32
-    off (the backward's convs and matmuls too); returns the loss.  Every
-    synthesis step runs through here."""
+def backward_no_tf32(loss_fn: Callable[[torch.Tensor], torch.Tensor],
+                     x: torch.Tensor) -> torch.Tensor:
+    """loss_fn(x) and its backward into ``x.grad``, both with TF32 off (the
+    backward's convs and matmuls too); returns the loss.  Every synthesis
+    step runs through here."""
     with no_tf32():
-        loss = distill_loss(plan, enc_params, x, lens, targets)
+        loss = loss_fn(x)
         loss.backward()
     return loss
 
 
-def _capture_step(plan: EncoderPlan, enc_params, x: torch.Tensor, lens: torch.Tensor,
-                  targets, opt) -> Tuple[torch.cuda.CUDAGraph, torch.Tensor]:
+def loss_and_backward(plan: EncoderPlan, enc_params, x: torch.Tensor, lens: torch.Tensor,
+                      targets) -> torch.Tensor:
+    """``distill_loss`` and its backward (``backward_no_tf32``)."""
+    return backward_no_tf32(lambda v: distill_loss(plan, enc_params, v, lens, targets), x)
+
+
+def _capture_step(loss_fn, x: torch.Tensor, opt) -> Tuple[torch.cuda.CUDAGraph, torch.Tensor]:
     """One iteration (forward, backward, Adam step) captured in a CUDA
     graph, and its loss tensor.  Three warm-up steps on a side stream make
     the lazy initializations and the optimizer's state; x and that state
@@ -80,7 +86,7 @@ def _capture_step(plan: EncoderPlan, enc_params, x: torch.Tensor, lens: torch.Te
     with torch.cuda.stream(side):
         for _ in range(3):
             opt.zero_grad(set_to_none=True)
-            loss_and_backward(plan, enc_params, x, lens, targets)
+            backward_no_tf32(loss_fn, x)
             opt.step()
     torch.cuda.current_stream(x.device).wait_stream(side)
     with torch.no_grad():
@@ -91,35 +97,34 @@ def _capture_step(plan: EncoderPlan, enc_params, x: torch.Tensor, lens: torch.Te
     graph = torch.cuda.CUDAGraph()
     opt.zero_grad(set_to_none=True)
     with torch.cuda.graph(graph):
-        loss = loss_and_backward(plan, enc_params, x, lens, targets)
+        loss = backward_no_tf32(loss_fn, x)
         opt.step()
     return graph, loss
 
 
-def synthesize_batch(plan: EncoderPlan, enc_params, x0: torch.Tensor, *,
-                     train_iter: int, lr: float, targets) -> Tuple[torch.Tensor, List[float]]:
-    """One distillation problem from the start point x0 (B, T, C):
-    ``train_iter`` Adam steps (torch's defaults) under the plateau schedule,
-    which reads each step's loss.  Returns (the batch, the losses).  On
-    CUDA an iteration is one CUDA graph replay (the eager loop is bound by
-    its ~4,000 kernel launches), with a capturable Adam whose learning rate
-    is a device tensor the schedule updates in place."""
+def optimize_input(loss_fn: Callable[[torch.Tensor], torch.Tensor], x0: torch.Tensor, *,
+                   train_iter: int, lr: float) -> Tuple[torch.Tensor, List[float]]:
+    """Minimize loss_fn over its input from x0: ``train_iter`` Adam steps
+    (torch's defaults) under the plateau schedule, which reads each step's
+    loss.  Returns (the input, the losses).  On CUDA an iteration is one
+    CUDA graph replay (an eager loop is bound by its thousands of kernel
+    launches), with a capturable Adam whose learning rate is a device
+    tensor the schedule updates in place."""
     x = x0.detach().clone().requires_grad_(True)
-    lens = torch.full((x.shape[0],), x.shape[1], dtype=torch.int32, device=x.device)
     graphed = x.device.type == "cuda"
     lr_t = torch.tensor(float(lr), device=x.device) if graphed else lr
     opt = torch.optim.Adam([x], lr=lr_t, capturable=graphed)
     sched = torch.optim.lr_scheduler.ReduceLROnPlateau(
         opt, mode="min", factor=0.1, patience=25, threshold=1e-4, min_lr=1e-4)
     if graphed:
-        graph, loss = _capture_step(plan, enc_params, x, lens, targets, opt)
+        graph, loss = _capture_step(loss_fn, x, opt)
     losses: List[float] = []
     for _ in range(train_iter):
         if graphed:
             graph.replay()
         else:
             opt.zero_grad(set_to_none=True)
-            loss = loss_and_backward(plan, enc_params, x, lens, targets)
+            loss = backward_no_tf32(loss_fn, x)
             opt.step()
         losses.append(loss.item())
         sched.step(losses[-1])
@@ -128,6 +133,16 @@ def synthesize_batch(plan: EncoderPlan, enc_params, x0: torch.Tensor, *,
             lr_t.fill_(float(group["lr"]))
             group["lr"] = lr_t
     return x.detach(), losses
+
+
+def synthesize_batch(plan: EncoderPlan, enc_params, x0: torch.Tensor, *,
+                     train_iter: int, lr: float, targets) -> Tuple[torch.Tensor, List[float]]:
+    """One distillation problem from the start point x0 (B, T, C):
+    ``optimize_input`` on ``distill_loss``.  Returns (the batch, the
+    losses)."""
+    lens = torch.full((x0.shape[0],), x0.shape[1], dtype=torch.int32, device=x0.device)
+    return optimize_input(lambda x: distill_loss(plan, enc_params, x, lens, targets), x0,
+                          train_iter=train_iter, lr=lr)
 
 
 def start_points(num_batch: int, batch_size: int, seqlen: int, dim: int,

@@ -48,6 +48,7 @@ from qasr_tpu_torch.models.ctc_model import ASRModel
 from qasr_tpu_torch.ops import quant_prims as PQ
 from qasr_tpu_torch.ops.stats import histogram_quantile
 from qasr_tpu_torch.quantize.freeze import tables_digest
+from qasr_tpu_torch.quantize.ranges import batch_ranges
 from test_jasper_model import make_model
 
 FLOAT_RTOL = 1e-5
@@ -137,7 +138,7 @@ def test_histogram_quantile_matches_jax(n):
     # the calibration's batch ranges: histogram above 2**18, a sort below
     with jax.disable_jit():
         j_lo, j_hi = JJ._batch_ranges(jnp.asarray(x), 99.9)
-    p_lo, p_hi = PJ._batch_ranges(torch.from_numpy(x), 99.9)
+    p_lo, p_hi = batch_ranges(torch.from_numpy(x), 99.9)
     np.testing.assert_allclose([float(p_lo), float(p_hi)], [float(j_lo), float(j_hi)],
                                rtol=PERCENTILE_RTOL)
 

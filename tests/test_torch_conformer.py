@@ -222,6 +222,8 @@ def test_serving_from_pcm_matches_jax(request, which):
     pcm, lens = _noise_pcm(29, 1.3)
     pcm_f = pcm.astype(np.float32) / 32768.0   # the JAX frontend takes float PCM
     lp_j, el_j = (np.asarray(o) for o in jm.forward(pcm_f, lens))
+    pm.freeze(device="cpu")    # both models serve frozen (jm froze in _build)
+    assert pm.mode() == "frozen"
     lp_p, el_p = pm.forward(pcm, lens, device="cpu")
     np.testing.assert_array_equal(el_p.numpy(), el_j)
     assert lp_p.shape == lp_j.shape

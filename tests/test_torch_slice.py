@@ -168,7 +168,9 @@ import qasr_tpu_torch
 for mod in pkgutil.walk_packages(qasr_tpu_torch.__path__, "qasr_tpu_torch."):
     importlib.import_module(mod.name)
 for name in ("cli.inference", "cli.synthesize", "quantize.synth", "compat.pickle_io",
-             "data.dataset", "data.parsers", "ops.stats"):
+             "data.dataset", "data.parsers", "ops.stats", "quantize.conformer_ptq",
+             "quantize.conformer_synth", "quantize.ranges", "models.conformer",
+             "models.conformer_ctc"):
     assert "qasr_tpu_torch." + name in sys.modules, name
 from qasr_tpu_torch.models.config import BlockConfig, DecoderConfig, EncoderConfig, ModelConfig
 from qasr_tpu_torch.models.conformer import ConformerConfig
@@ -202,10 +204,19 @@ qs["dec_in"] = {"x_min": np.float32(0), "x_max": np.float32(0)}
 for site in [qs["pre_out"], qs["dec_in"]] + [s for layer in qs["layers"] for s in layer.values()]:
     site["x_min"], site["x_max"] = np.float32(-1.5), np.float32(2.0)
 c.enc_qstate = qs
+c.freeze(device="cpu")
 rng = np.random.default_rng(0)
 pcm = (rng.normal(size=(2, 8000)) * 3000).astype(np.int16)
 texts = c.transcribe_greedy(pcm, np.asarray([8000, 6000]), device="cpu")
 assert len(texts) == 2
+# the Conformer's zero-shot workflow: synthesis, calibration, the PTQ forward
+c2 = ConformerCTC.from_config(mcfg, ccfg)
+c2.quantize_encoder_synthetic(num_batch=1, batch_size=2, seqlen=24, train_iter=2,
+                              device="cpu", **{k: True for k in (
+                                  "quantize_attention", "integer_softmax", "integer_layernorm",
+                                  "integer_activations", "static_attention")})
+assert c2.mode() == "ptq" and len(c2.transcribe_greedy(pcm, np.asarray([8000, 6000]),
+                                                       device="cpu")) == 2
 assert "jax" not in sys.modules, sorted(k for k in sys.modules if k.startswith("jax"))
 bad = sorted(k for k, v in sys.modules.items()
              if (k == "qasr_tpu" or k.startswith("qasr_tpu.")) and v is not None)

@@ -27,7 +27,7 @@ import torch
 from qasr_tpu.compat import pickle_io as jax_pickle_io
 from qasr_tpu.quantize import synth as JS
 from qasr_tpu_torch.compat import pickle_io
-from qasr_tpu_torch.models.jasper import params_to_device
+from qasr_tpu_torch.quantize.ranges import params_to_device
 from qasr_tpu_torch.quantize import synth as PS
 from test_torch_calibrate import tiny_models
 
