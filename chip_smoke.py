@@ -11,7 +11,9 @@ conv in Kernel 1's prologue and epilogue with per-channel exponents, the
 rest in Kernel 7) and
 the frozen W8A8 Conformer-CTC (16 x 256), and QuartzNet15x5's zero-shot
 workflow (synthesis, calibration, the dynamic forward, the CLIs) and the
-Conformer-CTC's (synthesis, calibration, freeze and serve, dynamic), with
+Conformer-CTC's (synthesis, calibration, freeze and serve, dynamic), and
+both families through their checkpoints (.nemo, .qasr, from_pretrained)
+with the CTC beam search and the vggnet subsampler and the LSTM head, with
 nothing that falls back: no CUDA, a failed kernel build or any failed
 phase exits non-zero before the result line.  Phases:
 
@@ -146,6 +148,29 @@ phase exits non-zero before the result line.  Phases:
    at its shapes (B=32 T'=375; N=12,000, the K-split included); (e) the calibrating forward at B=4 x 15 s and Kernels 1 and
    2 at its shapes against their plain versions, cuDNN's depthwise conv
    and torch._int_mm.
+
+9. checkpoints and decoding: (a) QuartzNet15x5 seed 0 -> ``save_to(.nemo)``
+   -> ``from_pretrained`` by path and by name through
+   ``$QASR_PRETRAINED_DIR`` (params bit-equal); folded with the committed
+   ranges, its static_e and per_channel tables equal the in-memory
+   model's and the golden records hold; ``save_to(.qasr)`` (folded, with
+   ranges) -> ``restore_from`` -> B=64 x 15 s on Kernels 1 / 2 (and 7 on
+   per_channel) with the planned launches and the unsaved model's ids;
+   ``cli.inference --asr_model x.nemo --calib_manifest --decoder beam``
+   prints WER: and the beam over the plain frozen executor's log-probs;
+   (b) the flagship Conformer-CTC with its committed ranges -> ``.qasr``
+   -> ``restore_from`` -> ``freeze``: the golden record, and at B=32 x 15
+   s the planned launches and the unsaved model's ids;
+   ``cli.conformer_infer --restore --calib_manifest --integer --freeze
+   --decoder beam`` prints WER: and the beam over the plain frozen path's
+   log-probs; (c) the vggnet Conformer 16 x 256 W8A8 (pre projection
+   5,120 -> 256): calibrated on the asset's recipe with kernel ranges equal
+   to plain, frozen, at B=32 x 15 s the planned launches and the plain
+   path's ids; Kernel 5 at its pre projection against its plain version,
+   timed beside torch._int_mm (a second lin_epilogue row of the kernels
+   line); (d) the LSTM head (hidden 640, 1 layer) on the flagship's frozen
+   encoder: its log-probs on the card within LSTM_ATOL of the CPU's on the
+   same encodings, equal greedy ids; phase 9's seconds.
 
 Prints the card line, a {"kernels": [...]} line (each kernel's "ms" and
 "library_ms" are device times at the site "shape" names, "call_ms" and
@@ -2258,6 +2283,282 @@ def site_deviations(q, ref):
     return sorted(devs, reverse=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 9: checkpoints and decoding (.nemo / .qasr, from_pretrained, the
+# vggnet subsampler, the LSTM head, the beam-search CLIs)
+# ---------------------------------------------------------------------------
+
+# the serving batches phase 9 holds restored models to: QuartzNet B x 15 s,
+# the Conformer B x 15 s (phase 6's)
+CKPT_QN_BATCH, CKPT_CONF_BATCH, CKPT_SECONDS = 64, 32, 15.0
+# the LSTM head on the card against the CPU on the same encodings
+LSTM_ATOL = 1e-4
+
+
+def trees_equal(a, b) -> bool:
+    """Two params / range trees hold the same arrays, dtypes and keys."""
+    import numpy as np
+
+    from qasr_tpu_torch.utils.checkpoint import flatten_tree
+
+    fa, fb = flatten_tree(a), flatten_tree(b)
+    return fa.keys() == fb.keys() and all(
+        fa[k].dtype == fb[k].dtype and np.array_equal(fa[k], fb[k]) for k in fa)
+
+
+def noise_batch(batch, seconds, dev):
+    """Phase 6's seeded noise audio (B, n) float32 and its lengths, on dev."""
+    import numpy as np
+    import torch
+
+    n = int(16000 * seconds)
+    audio = np.random.default_rng(0).normal(size=(batch, n)).astype(np.float32) * 0.1
+    return (torch.from_numpy(audio).to(dev),
+            torch.full((batch,), n, dtype=torch.int32, device=dev))
+
+
+def run_cli(main, argv):
+    """Run a CLI's main() with its standard output captured; the output
+    must hold a "WER:" line, which is echoed."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = main(argv)
+    line = next((ln for ln in buf.getvalue().splitlines() if ln.startswith("WER:")), None)
+    if line is None:
+        raise AssertionError(f"the CLI printed no WER: line: {buf.getvalue()[-2000:]}")
+    return result, line
+
+
+def phase_checkpoints(chk, dev, card, report, qn_model, qn_tables, conf_model, conf_tables):
+    """Phase 9 (checkpoints and decoding); returns the vggnet pre row of the
+    kernels line."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from qasr_tpu_torch import golden
+    from qasr_tpu_torch.cli import conformer_infer as cli_conformer
+    from qasr_tpu_torch.cli import inference as cli_inference
+    from qasr_tpu_torch.data.dataset import AudioToCharDataset, DataLoader
+    from qasr_tpu_torch.decode.beam_search import BeamSearchDecoderWithLM
+    from qasr_tpu_torch.kernels.lin_epilogue import lin_epilogue, lin_epilogue_plain
+    from qasr_tpu_torch.models.config import quartznet15x5
+    from qasr_tpu_torch.models.conformer_ctc import ConformerCTC, make_conformer_frozen_fn
+    from qasr_tpu_torch.models.ctc_model import ASRModel, frozen_executor, make_frozen_fn
+    from qasr_tpu_torch.models.lstm_decoder import lstm_decoder_forward
+    from qasr_tpu_torch.quantize import conformer_freeze as cf
+    from qasr_tpu_torch.quantize.freeze import kernel_launches, tables_digest, tables_to_device
+    from qasr_tpu_torch.quantize.ranges import params_to_device
+
+    t_phase = time.perf_counter()
+    out = report.setdefault("checkpoints", {})
+    tmp = tempfile.mkdtemp(prefix="qasr_smoke_ckpt_")
+    saved_env = os.environ.get("QASR_PRETRAINED_DIR")
+    try:
+        manifest = write_manifest(tmp, np.random.default_rng(5))
+        ds = AudioToCharDataset(manifest, labels=list(golden.CONF_LABELS))
+
+        # (a) QuartzNet15x5: .nemo by path and by name, fold + committed
+        # ranges -> the golden tables, .qasr -> serving on Kernels 1 / 2 / 7
+        name = "QuartzNet15x5Base-En"
+        fresh = ASRModel.from_config(quartznet15x5(), seed=0)
+        nemo = os.path.join(tmp, "x.nemo")
+        t0 = time.perf_counter()
+        fresh.save_to(nemo)
+        t_save = time.perf_counter() - t0
+        by_path = ASRModel.from_pretrained(nemo)
+        cache = os.path.join(tmp, "pretrained")
+        os.makedirs(cache)
+        shutil.copy(nemo, os.path.join(cache, name + ".nemo"))
+        os.environ["QASR_PRETRAINED_DIR"] = cache
+        by_name = ASRModel.from_pretrained(name)
+        for how, m in (("path", by_path), ("name", by_name)):
+            if not trees_equal(m.params, fresh.params) or m.cfg != fresh.cfg:
+                raise AssertionError(f"QuartzNet .nemo by {how}: params or config differ")
+        log(f"[9a] QuartzNet15x5 seed 0 -> .nemo ({os.path.getsize(nemo) / 2**20:.1f} MiB, "
+            f"{t_save:.1f} s) -> from_pretrained by path and by name ($QASR_PRETRAINED_DIR): "
+            f"params bit-equal")
+        m = by_name
+        m.set_quant_bit(6, "weight")
+        m.set_quant_bit(6, "act")
+        m.bn_folding()
+        with open(golden.QSTATE_PATH) as f:
+            m.qstate_from_json(f.read())
+        feats, flens = golden.golden_features(m.plan.feat_in)
+        for mode in QUARTZNET_MODES:
+            host = m.freeze_host(mode)
+            digest = tables_digest(host)
+            if digest != tables_digest(qn_model.freeze_host(mode)):
+                raise AssertionError(f"restored QuartzNet {mode} tables differ from the "
+                                     f"in-memory model's")
+            tables = tables_to_device(host, dev)
+            bad = golden.compare_golden(golden.port_record(
+                m, tables, feats, flens, executor=frozen_executor(tables)),
+                golden.load_golden(mode))
+            if bad:
+                raise AssertionError(f"restored QuartzNet {mode}: golden mismatch in {bad}")
+        log(f"[9a] folded + committed ranges: static_e and per_channel tables equal the "
+            f"in-memory model's, golden records hold")
+        qasr = os.path.join(tmp, "y.qasr")
+        m.save_to(qasr)
+        r = ASRModel.restore_from(qasr)
+        if not (r.folded and trees_equal(r.params, m.params) and trees_equal(r.qstate, m.qstate)
+                and r.qcfg == m.qcfg):
+            raise AssertionError("QuartzNet .qasr: folded state, params, ranges or knobs differ")
+        audio, lens = noise_batch(CKPT_QN_BATCH, CKPT_SECONDS, dev)
+        for mode in QUARTZNET_MODES:
+            tables_r = r.freeze(mode, dev)
+            fn_r = make_frozen_fn(r, tables_r, argmax=True)
+            reset_counts()
+            ids_r, el_r = fn_r(audio, lens)
+            counts = read_counts()
+            if counts != planned(kernel_launches(r.plan, tables_r)):
+                raise AssertionError(f"restored QuartzNet {mode} launches {counts}")
+            ids_u, el_u = make_frozen_fn(qn_model, qn_tables[mode], argmax=True)(audio, lens)
+            if not (torch.equal(ids_r, ids_u) and torch.equal(el_r, el_u)):
+                raise AssertionError(f"restored QuartzNet {mode}: ids differ from the "
+                                     f"unsaved model's")
+            log(f"[9a] .qasr (folded, ranges) -> restore_from -> {mode} B={CKPT_QN_BATCH} x "
+                f"{CKPT_SECONDS:g} s: ids == unsaved model's; launches {counts}")
+        del audio
+        (wer, hyps, _, cal), line = run_cli(cli_inference.run, [
+            "--asr_model", nemo, "--dataset", manifest, "--calib_manifest", manifest,
+            "--weight_bit", "6", "--act_bit", "6", "--decoder", "beam", "--beam_width", "16",
+            "--batch_size", "4", "--device", str(dev)])
+        beam = BeamSearchDecoderWithLM(list(cal.vocabulary), beam_width=16)
+        plain_fn = make_frozen_fn(cal, cal.freeze("static_e", dev), fused=False)
+        want = []
+        for audio_b, alens_b, _, _ in DataLoader(ds, batch_size=4):
+            want += [c[0][1] if c else "" for c in beam(*plain_fn(audio_b, alens_b))]
+        if hyps != want or not math.isfinite(wer):
+            raise AssertionError(f"cli.inference --decoder beam: {hyps} != {want} (WER {wer})")
+        log(f"[9a] cli.inference --asr_model x.nemo --calib_manifest --decoder beam: {line}; "
+            f"hypotheses == the beam over the plain frozen executor's log-probs")
+        out.update(quartznet_cli_wer=wer, quartznet_cli_hypotheses=hyps)
+
+        # (b) the Conformer-CTC 16 x 256 W8A8 through .qasr
+        cq = os.path.join(tmp, "conf.qasr")
+        conf_model.save_to(cq)
+        rc = ConformerCTC.restore_from(cq)
+        if rc.mode() != "ptq" or not (trees_equal(rc.params, conf_model.params)
+                                      and trees_equal(rc.enc_qstate, conf_model.enc_qstate)):
+            raise AssertionError("Conformer .qasr: params or ranges differ")
+        tables_rc = rc.freeze(dev)
+        res = golden.check_conformer_golden(rc, tables_rc)
+        if res["bad"]:
+            raise AssertionError(f"restored Conformer: golden mismatch in {res['bad']}")
+        audio, lens = noise_batch(CKPT_CONF_BATCH, CKPT_SECONDS, dev)
+        reset_counts()
+        ids_r, el_r = make_conformer_frozen_fn(rc, tables_rc, argmax=True)(audio, lens)
+        counts = read_counts()
+        if counts != planned(cf.kernel_launches(rc.ccfg)):
+            raise AssertionError(f"restored Conformer launches {counts}")
+        ids_u, el_u = make_conformer_frozen_fn(conf_model, conf_tables, argmax=True)(audio, lens)
+        if not (torch.equal(ids_r, ids_u) and torch.equal(el_r, el_u)):
+            raise AssertionError("restored Conformer: ids differ from the unsaved model's")
+        log(f"[9b] Conformer-CTC 16 x 256 .qasr ({os.path.getsize(cq) / 2**20:.1f} MiB) -> "
+            f"restore_from -> freeze: golden record holds; B={CKPT_CONF_BATCH} x "
+            f"{CKPT_SECONDS:g} s ids == unsaved model's; launches {counts}")
+        (wer, hyps, _, cm), line = run_cli(cli_conformer.run, [
+            "--restore", cq, "--dataset", manifest, "--calib_manifest", manifest,
+            "--integer", "--freeze", "--decoder", "beam", "--beam_width", "16",
+            "--batch_size", "4", "--device", str(dev)])
+        want = []
+        for audio_b, alens_b, _, _ in DataLoader(ds, batch_size=4):
+            want += cm.transcribe_beam(audio_b, alens_b, beam_width=16, device=dev,
+                                       kernels=False)
+        if cm.mode() != "frozen" or hyps != want or not math.isfinite(wer):
+            raise AssertionError(f"cli.conformer_infer: {hyps} != {want} (WER {wer}, "
+                                 f"mode {cm.mode()})")
+        log(f"[9b] cli.conformer_infer --restore --calib_manifest --integer --freeze --decoder "
+            f"beam: {line}; hypotheses == the beam over the plain frozen path's log-probs")
+        out.update(conformer_cli_wer=wer, conformer_cli_hypotheses=hyps)
+
+        # (c) the vggnet Conformer 16 x 256 W8A8: calibrate on the asset's
+        # recipe, freeze, kernels against plain; Kernel 5 at pre 5,120 -> 256
+        cfg, ccfg = golden.conformer_flagship_configs()
+        vm = ConformerCTC.from_config(cfg, dataclasses.replace(ccfg, subsampling="vggnet"),
+                                      seed=0)
+        noise = recipe_noise(0)
+        vm.quantize_encoder([noise], device=dev, **CONF_FLAGS)
+        q_kernel = vm.enc_qstate
+        vm.quantize_encoder([noise], device=dev, kernels=False, **CONF_FLAGS)
+        a, b = qstate_sites(q_kernel), qstate_sites(vm.enc_qstate)
+        if a != b:
+            raise AssertionError("vggnet calibration: kernel ranges differ from plain")
+        tables_v = vm.freeze(dev)
+        reset_counts()
+        ids_k, el_k = make_conformer_frozen_fn(vm, tables_v, argmax=True)(audio, lens)
+        counts_v = read_counts()
+        if counts_v != planned(cf.kernel_launches(vm.ccfg)):
+            raise AssertionError(f"vggnet Conformer launches {counts_v}")
+        ids_p, el_p = make_conformer_frozen_fn(vm, tables_v, argmax=True, kernels=False)(audio,
+                                                                                      lens)
+        if not (torch.equal(ids_k, ids_p) and torch.equal(el_k, el_p)):
+            raise AssertionError("vggnet Conformer: kernel ids differ from the plain path's")
+        if len(torch.unique(ids_k)) < 2:
+            raise AssertionError("degenerate vggnet ids")
+        with torch.no_grad():
+            f, fl = vm.frontend(audio, lens, dither=0.0)
+            x8, _ = cf.conformer_x8(tables_v["encoder"], vm.ccfg, f, fl)
+        site = tables_v["encoder"]["pre"]
+        dout, kin = site["wt"].shape
+        x2 = x8.reshape(-1, kin).contiguous()
+        rows = []
+        r_pre = timed_pair(chk, "lin_epilogue", f"lin_epilogue N={x2.shape[0]} pre {kin}->{dout} "
+                           f"rq (vggnet)", lambda: lin_epilogue(x2, site, nbits=8),
+                           lambda: lin_epilogue_plain(x2, site, nbits=8), card, rows,
+                           lambda w=site["wt"].t(): torch._int_mm(x2, w))
+        r_pre["bound"] = bound(x2.numel() + site["wt"].numel() + 4 * dout * (1 + ("b" in site))
+                               + x2.shape[0] * dout, 2 * x2.shape[0] * kin * dout)
+        r_pre["launches"] = counts_v["lin_epilogue"]
+        log(f"[9c] vggnet Conformer 16 x 256 (pre {kin} -> {dout}): calibrated on the asset's "
+            f"recipe, kernel ranges == plain; frozen B={CKPT_CONF_BATCH} x {CKPT_SECONDS:g} s "
+            f"ids == plain path's; launches {counts_v}")
+        del audio, f, x8, x2
+
+        # (d) the LSTM head (hidden 640, 1 layer) on the flagship's frozen encoder
+        lm = ConformerCTC.from_config(cfg, ccfg, seed=0, decoder_kind="lstm", lstm_hidden=640)
+        lm.params = {"encoder": conf_model.params["encoder"], "decoder": lm.params["decoder"]}
+        lm.enc_qcfg, lm.enc_qstate = conf_model.enc_qcfg, conf_model.enc_qstate
+        tables_l = lm.freeze(dev)
+        utts, _ = seeded_requests(9)
+        batch, blens = pad_batch(utts)
+        lp_card, el_card = lm.forward(batch, blens, device=dev)
+        with torch.no_grad():
+            fb, fbl = lm.frontend(torch.from_numpy(batch).to(dev).to(torch.float32) * 2.0 ** -15,
+                                  torch.from_numpy(blens).to(dev), dither=0.0)
+            x8, sl = cf.conformer_x8(tables_l["encoder"], lm.ccfg, fb, fbl)
+            enc, el = cf.conformer_encode(tables_l["encoder"], lm.ccfg, x8, sl)
+            lp_head = lm.head(tables_l, enc)
+            lp_cpu = lstm_decoder_forward(params_to_device(lm.params["decoder"], "cpu"),
+                                          enc.cpu())
+        if not (torch.equal(lp_head, lp_card) and torch.equal(el, el_card)):
+            raise AssertionError("LSTM head: forward differs from the head on its encodings")
+        err = float((lp_head.cpu() - lp_cpu).abs().max())
+        if err > LSTM_ATOL or not torch.equal(lp_head.argmax(-1).cpu(), lp_cpu.argmax(-1)):
+            raise AssertionError(f"LSTM head card vs CPU: max |d| {err} (tolerance "
+                                 f"{LSTM_ATOL}) or ids differ")
+        log(f"[9d] LSTM head (640, 1 layer) on the frozen encoder, 4 requests: card log-probs "
+            f"within {err:.2e} of the CPU's (tolerance {LSTM_ATOL:g}), greedy ids equal")
+        out.update(lstm_max_abs_err=err)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        if saved_env is None:
+            os.environ.pop("QASR_PRETRAINED_DIR", None)
+        else:
+            os.environ["QASR_PRETRAINED_DIR"] = saved_env
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[9] phase 9 took {out['seconds']:.1f} s")
+    return r_pre
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="PyTorch port smoke test on one GPU")
     ap.add_argument("--report", help="also write a JSON report of every number here")
@@ -2324,9 +2625,20 @@ def main() -> int:
         f"exact; max |d| {chk.max_err}")
     phase_workflow(chk, dev, card, report)
     phase_conformer_workflow(chk, dev, card, report)
+    vgg_pre = phase_checkpoints(chk, dev, card, report, model, tables, conf_model, conf_tables)
 
     rows = report["quartznet_per_kernel"] + report["conformer_per_kernel"]
     kernels = []
+
+    def kernel_row(kind, replaces, r, launches):
+        return {"name": kind, "route": "cuda", "shape": r["shape"],
+                "source": f"qasr_tpu_torch/kernels/csrc/{kind}.cu",
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": chk.max_err[kind], "ms": r["device_ms"],
+                "call_ms": r["call_ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+                "library_ms": r["library_device_ms"],
+                "library_call_ms": r["library_call_ms"]}
     for kind, replaces, label in [
             ("dw_conv", "qasr_tpu/kernels/cm_fused.py:248 (#1); qasr_tpu/kernels/depthwise.py:104 "
              "(#2); qasr_tpu/kernels/depthwise.py:409 (#3); qasr_tpu/kernels/cm_fused.py:575 "
@@ -2340,14 +2652,10 @@ def main() -> int:
             ("lin_epilogue", "qasr_tpu/kernels/gemm_fused.py:159", "q_u 256->256"),
             ("ffn_ln", "qasr_tpu/kernels/conf_module.py:206", "ff1 + ln_att")]:
         r = next(r for r in rows if label in r["shape"])
-        kernels.append({"name": kind, "route": "cuda", "shape": r["shape"],
-                        "source": f"qasr_tpu_torch/kernels/csrc/{kind}.cu",
-                        "replaces": replaces, "launches": counts[kind],
-                        "max_abs_err": chk.max_err[kind], "ms": r["device_ms"],
-                        "call_ms": r["call_ms"], "plain_ms": r["plain_ms"],
-                        "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
-                        "library_ms": r["library_device_ms"],
-                        "library_call_ms": r["library_call_ms"]})
+        kernels.append(kernel_row(kind, replaces, r, counts[kind]))
+    # Kernel 5 at the vggnet subsampler's pre projection (launches: phase 9c's path)
+    kernels.append(kernel_row("lin_epilogue", "qasr_tpu/kernels/gemm_fused.py:159", vgg_pre,
+                              vgg_pre["launches"]))
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     log(f"[6] whole smoke run {report['seconds']:.1f} s")

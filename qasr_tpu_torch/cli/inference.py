@@ -3,13 +3,17 @@
     python -m qasr_tpu_torch.cli.inference --asr_model QuartzNet15x5Base-En \
         --dataset manifest.json --load syn_nb50_iter200_lr0.010.pkl \
         --weight_bit 6 --act_bit 6 [--percentile 99.9] [--dynamic | --no_quant] \
-        [--device cpu] [--allow_random_weights]
+        [--decoder beam [--lm_path lm.arpa --alpha A --beta B]] [--device cpu] \
+        [--allow_random_weights]
 
-Set the bits and the percentile, fold BN, calibrate on the synthetic pickle
-(or real audio from ``--calib_manifest``), evaluate on the frozen integer
-tables (``--dynamic``: per-batch ranges; ``--no_quant``: float32), collapse
-greedily and print ``WER: <value>``.  Runs on the CUDA device unless
-``--device cpu``.  ``--decoder beam`` is not ported.
+``--asr_model`` is a ``.nemo`` path or a name (``$QASR_PRETRAINED_DIR/
+<name>.nemo``, a model card's cached file; with ``--allow_random_weights``
+a preset's random weights).  Set the bits and the percentile, fold BN,
+calibrate on the synthetic pickle (or real audio from
+``--calib_manifest``), evaluate on the frozen integer tables
+(``--dynamic``: per-batch ranges; ``--no_quant``: float32), decode
+greedily or with the CTC prefix beam search (and an ARPA LM) and print
+``WER: <value>``.  Runs on the CUDA device unless ``--device cpu``.
 """
 from __future__ import annotations
 
@@ -20,7 +24,7 @@ from typing import List, Tuple
 def build_parser() -> ArgumentParser:
     parser = ArgumentParser(description="Integer-only quantized evaluation")
     parser.add_argument("--asr_model", type=str, default="QuartzNet15x5Base-En", required=True,
-                        help="Pass: 'QuartzNet15x5Base-En'")
+                        help="a .nemo path or a model name, e.g. 'QuartzNet15x5Base-En'")
     parser.add_argument("--dataset", type=str, required=True,
                         help="path to evaluation data (JSON-lines manifest)")
     parser.add_argument("--batch_size", type=int, default=8)
@@ -61,9 +65,6 @@ def build_parser() -> ArgumentParser:
 def run(argv=None) -> Tuple[float, List[str], List[str], object]:
     """The workflow; returns (WER, hypotheses, references, the model)."""
     args = build_parser().parse_args(argv)
-    if args.decoder == "beam":
-        raise NotImplementedError("--decoder beam: CTC beam search with an LM is not ported "
-                                  "(ROADMAP queue A item 10)")
 
     from qasr_tpu_torch.compat.pickle_io import load_synthetic
     from qasr_tpu_torch.data.dataset import AudioToCharDataset, DataLoader
@@ -113,14 +114,23 @@ def run(argv=None) -> Tuple[float, List[str], List[str], object]:
 
     print("Evaluating...")
     model.set_dynamic(args.dynamic)
+    beam = None
+    if args.decoder == "beam":
+        from qasr_tpu_torch.decode.beam_search import BeamSearchDecoderWithLM
+
+        beam = BeamSearchDecoderWithLM(list(model.vocabulary), beam_width=args.beam_width,
+                                       alpha=args.alpha, beta=args.beta, lm_path=args.lm_path)
     hypotheses: List[str] = []
     references: List[str] = []
     labels_map = dict(enumerate(model.vocabulary))
     for i, (audio, alens, tokens, tlens) in enumerate(loader):
         if i == args.eval_early_stop:
             break
-        _, enc_lens, ids = model.forward(audio, alens, device=dev)
-        hypotheses += model.ids_to_text(ids, enc_lens)
+        log_probs, enc_lens, ids = model.forward(audio, alens, device=dev)
+        if beam is not None:
+            hypotheses += [c[0][1] if c else "" for c in beam(log_probs, enc_lens)]
+        else:
+            hypotheses += model.ids_to_text(ids, enc_lens)
         references += ["".join(labels_map[int(c)] for c in tokens[b][:int(tlens[b])])
                        for b in range(tokens.shape[0])]
     wer_value = word_error_rate(hypotheses=hypotheses, references=references)

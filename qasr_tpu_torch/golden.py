@@ -37,7 +37,7 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
-from qasr_tpu_torch.models.config import DecoderConfig, EncoderConfig, ModelConfig
+from qasr_tpu_torch.models.config import DecoderConfig, EncoderConfig, ModelConfig, quartznet15x5
 from qasr_tpu_torch.models.conformer import ConformerConfig
 from qasr_tpu_torch.models.conformer_ctc import ConformerCTC
 from qasr_tpu_torch.models.ctc_model import ASRModel, frozen_forward
@@ -70,8 +70,7 @@ FEATURE_SEED, FEATURE_T, FEATURE_LENS = 1234, 320, (320, 251)
 def quartznet15x5_w6a6(seed: int = 0) -> ASRModel:
     """QuartzNet15x5 at full width, W6A6, BN-folded, with the committed
     noise-calibrated ranges: the model bench.py and entry() serve."""
-    model = ASRModel.from_pretrained("QuartzNet15x5Base-En", seed=seed,
-                                     allow_random_weights=True)
+    model = ASRModel.from_config(quartznet15x5(), seed=seed)
     model.set_quant_bit(6, "weight")
     model.set_quant_bit(6, "act")
     model.bn_folding()

@@ -1,16 +1,20 @@
-"""Model configuration schemas of the port (a copy of the parts of
-qasr_tpu/models/config.py the port uses; the port imports nothing of the
-JAX package).
+"""Model configuration schemas of the port (a copy of
+qasr_tpu/models/config.py; the port imports nothing of the JAX package).
 
 Dataclass mirrors of NeMo's YAML schema: BlockConfig (JasperEncoderConfig),
 EncoderConfig (ConvASREncoderConfig), DecoderConfig (ConvASRDecoderConfig),
 ModelConfig, and the QuartzNet / Jasper / MatchboxNet presets, with the
 JAX package's field names and defaults (``dataclasses.asdict`` of the two
 compare equal); ``register_preset`` adds one by name; and QuantConfig, the
-quantization knobs of the inference CLI.
+quantization knobs of the inference CLI.  ``ModelConfig.from_yaml`` /
+``from_dict`` read NeMo's model YAML (``resolve_interpolations`` resolves
+its ``${a.b}`` references) and ``config_to_dict`` writes it back, as the
+archives store it (through ``utils/yaml_io.py``: no PyYAML).
 """
 from __future__ import annotations
 
+import dataclasses
+import re
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
@@ -41,6 +45,16 @@ class BlockConfig:
     kernel_size_factor: float = 1.0
     stride_last: bool = False
 
+    @classmethod
+    def from_dict(cls, d: dict) -> "BlockConfig":
+        d = dict(d)
+        d.pop("se_context_window", None)
+        for k in ("kernel", "stride", "dilation"):
+            if k in d:
+                v = d[k]
+                d[k] = tuple(v) if isinstance(v, (list, tuple)) else (v,)
+        return cls(**_known(cls, d))
+
 
 @dataclass(frozen=True)
 class EncoderConfig:
@@ -56,6 +70,13 @@ class EncoderConfig:
     quant_mode: str = "symmetric"
     quant_bit: int = 8
 
+    @classmethod
+    def from_dict(cls, d: dict) -> "EncoderConfig":
+        d = dict(d)
+        d.pop("_target_", None)
+        blocks = tuple(BlockConfig.from_dict(b) for b in d.pop("jasper"))
+        return cls(blocks=blocks, **_known(cls, d))
+
 
 @dataclass(frozen=True)
 class DecoderConfig:
@@ -66,6 +87,20 @@ class DecoderConfig:
     quant_mode: str = "symmetric"
     quant_bit: int = 8
 
+    @classmethod
+    def from_dict(cls, d: dict) -> "DecoderConfig":
+        d = dict(d)
+        d.pop("_target_", None)
+        if d.get("vocabulary"):
+            d["vocabulary"] = tuple(d["vocabulary"])
+        return cls(**_known(cls, d))
+
+
+def _known(cls, d: dict) -> dict:
+    """The entries of ``d`` that name fields of ``cls``."""
+    names = {f.name for f in dataclasses.fields(cls)}
+    return {k: v for k, v in d.items() if k in names}
+
 
 @dataclass(frozen=True)
 class QuantConfig:
@@ -75,6 +110,7 @@ class QuantConfig:
     mode: str = "symmetric"       # 'none' | 'symmetric'
     weight_bit: int = 8
     act_bit: int = 8
+    bias_bit: int = 32
     percentile: Optional[float] = None
     dynamic: bool = False
     act_momentum: float = 0.95    # the EMA of the running ranges; -1: min / max
@@ -92,7 +128,80 @@ class ModelConfig:
     spec_augment: Optional[dict] = None
     labels: Tuple[str, ...] = tuple(DEFAULT_LABELS)
     sample_rate: int = 16000
+    # a BPE model's tokenizer section ({'type': 'bpe', 'model_path': ...});
+    # model_path may name an archive artifact, resolved at restore
     tokenizer: Optional[dict] = None
+
+    @classmethod
+    def from_yaml(cls, path: str) -> "ModelConfig":
+        from qasr_tpu_torch.utils.yaml_io import safe_load
+
+        with open(path, encoding="utf-8") as f:
+            raw = resolve_interpolations(safe_load(f))
+        return cls.from_dict(raw["model"] if "model" in raw else raw)
+
+    @classmethod
+    def from_dict(cls, m: dict) -> "ModelConfig":
+        labels = tuple(m.get("labels", DEFAULT_LABELS))
+        enc = EncoderConfig.from_dict(m["encoder"])
+        dec_d = dict(m["decoder"])
+        # a non-Jasper encoder (the Conformer's) has no blocks, and so no
+        # default for the decoder's feat_in
+        if not dec_d.get("feat_in") and enc.blocks:
+            dec_d["feat_in"] = enc.blocks[-1].filters
+        dec_d.setdefault("num_classes", len(labels))
+        if not dec_d.get("vocabulary"):
+            dec_d["vocabulary"] = labels
+        return cls(encoder=enc, decoder=DecoderConfig.from_dict(dec_d),
+                   preprocessor=m.get("preprocessor", {}), spec_augment=m.get("spec_augment"),
+                   labels=labels, sample_rate=m.get("sample_rate", 16000),
+                   tokenizer=m.get("tokenizer"))
+
+
+def resolve_interpolations(raw):
+    """OmegaConf-style ``${a.b.c}`` references (a whole string) replaced by
+    the value at that path of ``raw``; a path that does not resolve stays
+    a string."""
+    pattern = re.compile(r"^\$\{([\w.]+)\}$")
+
+    def lookup(path):
+        node = raw
+        for k in path.split("."):
+            node = node[k]
+        return node
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v) for v in node]
+        if isinstance(node, str):
+            m = pattern.match(node)
+            if m:
+                try:
+                    return walk(lookup(m.group(1)))
+                except (KeyError, TypeError):
+                    return node
+        return node
+
+    return walk(raw)
+
+
+def config_to_dict(cfg: ModelConfig) -> dict:
+    """A ModelConfig as the YAML-shaped dict ``ModelConfig.from_dict``
+    reads (the archives' model_config.yaml)."""
+    enc = dataclasses.asdict(cfg.encoder)
+    blocks = enc.pop("blocks")
+    enc["jasper"] = [{k: (list(v) if isinstance(v, tuple) else v) for k, v in b.items()}
+                     for b in blocks]
+    enc["feat_in"] = cfg.encoder.feat_in
+    dec = dataclasses.asdict(cfg.decoder)
+    dec["vocabulary"] = list(dec["vocabulary"])
+    out = {"sample_rate": cfg.sample_rate, "labels": list(cfg.labels),
+           "preprocessor": dict(cfg.preprocessor), "encoder": enc, "decoder": dec}
+    if cfg.tokenizer:
+        out["tokenizer"] = dict(cfg.tokenizer)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -224,16 +224,27 @@ def subsampler_to_device(p, device) -> Dict[str, Any]:
 
 def subsample_convs(p, cfg: ConformerConfig, x: torch.Tensor, lens: torch.Tensor):
     """The subsampler's conv stack + channel flatten, without the d_model
-    projection: (B, T, F) float32 -> ((B, T', c*f), lens').  ``p`` from
-    ``subsampler_to_device``.  float32 with TF32 off."""
-    if cfg.subsampling != "striding":
-        raise NotImplementedError(f"subsampling {cfg.subsampling!r} is not ported")
+    projection: (B, T, F) float32 -> ((B, T', c*f), lens').  'striding':
+    3x3 stride-2 convs; 'vggnet': two 3x3 pad-1 convs and a 2x2 ceil-mode
+    max-pool a stage.  ``p`` from ``subsampler_to_device``.  float32 with
+    TF32 off."""
+    if cfg.subsampling not in ("striding", "vggnet"):
+        raise ValueError(f"unknown subsampling {cfg.subsampling!r}")
     with no_tf32():
         y = x.to(torch.float32)[:, None]                     # (B, 1, T, F)
         for blk in p["convs"]:
             # the bias is added after the convolution, as the JAX package does
-            y = torch.relu(F.conv2d(y, blk["c1"]["w"], stride=2)
-                           + blk["c1"]["b"][:, None, None])
+            if cfg.subsampling == "vggnet":
+                y = torch.relu(F.conv2d(y, blk["c1"]["w"], padding=1)
+                               + blk["c1"]["b"][:, None, None])
+                y = torch.relu(F.conv2d(y, blk["c2"]["w"], padding=1)
+                               + blk["c2"]["b"][:, None, None])
+                # k2 s2 ceil mode: an odd edge's last window holds one row
+                # (the JAX package pads it with -inf)
+                y = F.max_pool2d(y, 2, 2, ceil_mode=True)
+            else:
+                y = torch.relu(F.conv2d(y, blk["c1"]["w"], stride=2)
+                               + blk["c1"]["b"][:, None, None])
             lens = _sub_out_len_arr(lens, cfg.subsampling)
     b, c, t, f = y.shape
     return y.permute(0, 2, 1, 3).reshape(b, t, c * f), lens

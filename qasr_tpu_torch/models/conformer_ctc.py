@@ -1,18 +1,21 @@
-"""Conformer-CTC: the Conformer encoder with a linear CTC head, its
-zero-shot quantization workflow and its frozen integer serving path (port
-of qasr_tpu/models/conformer_ctc.py without training, checkpoints and the
-LSTM head).
+"""Conformer-CTC: the Conformer encoder with a linear or LSTM CTC head, its
+zero-shot quantization workflow, its frozen integer serving path and its
+checkpoints (port of qasr_tpu/models/conformer_ctc.py without training).
 
 ``ConformerCTC`` holds the host state (configs, numpy float params, the
 calibrated range state, the frozen host tables).  ``quantize_encoder``
 calibrates the ranges (on audio or features; its integer products on
 Kernels 1 and 2), ``quantize_encoder_synthetic`` first synthesizes the
 features from the BN statistics, ``freeze`` builds the integer tables.
-``forward`` / ``transcribe_greedy`` dispatch as the JAX package does: the
-frozen integer encoder when tables exist, else the calibrated PTQ forward
-when ranges exist, else the float encoder.  ``make_conformer_frozen_fn``
-is the frozen serving function: int16 or float32 PCM in, log-probs (or
-greedy ids) and encoder lengths out.
+``forward`` / ``transcribe_greedy`` / ``transcribe_beam`` dispatch as the
+JAX package does: the frozen integer encoder when tables exist, else the
+calibrated PTQ forward when ranges exist, else the float encoder; the
+linear head is quantized at its 'dec_in' site on the first two, the LSTM
+head stays float everywhere.  ``make_conformer_frozen_fn`` is the frozen
+serving function: int16 or float32 PCM in, log-probs (or greedy ids) and
+encoder lengths out.  ``save_to`` / ``restore_from`` write and read the
+``.qasr`` archive (the JAX package's layout), ``conformer_ctc_from_yaml``
+/ ``_from_dict`` build the model from NeMo's Conformer YAML.
 """
 from __future__ import annotations
 
@@ -26,7 +29,13 @@ import torch
 
 from qasr_tpu_torch.decode.ctc import ctc_collapse
 from qasr_tpu_torch.device import as_device, no_tf32
-from qasr_tpu_torch.models.config import ModelConfig
+from qasr_tpu_torch.models.config import (
+    DecoderConfig,
+    EncoderConfig,
+    ModelConfig,
+    config_to_dict,
+    resolve_interpolations,
+)
 from qasr_tpu_torch.models.conformer import (
     ConformerConfig,
     _linear,
@@ -35,6 +44,7 @@ from qasr_tpu_torch.models.conformer import (
     init_conformer_params,
 )
 from qasr_tpu_torch.models.ctc_model import _pcm_f32
+from qasr_tpu_torch.models.lstm_decoder import init_lstm_decoder, lstm_decoder_forward, lstm_shape
 from qasr_tpu_torch.ops.features import MelFrontend, preprocessor_config_from_dict
 from qasr_tpu_torch.quantize.conformer_freeze import (
     DEFAULT_PLAN,
@@ -91,7 +101,8 @@ class ConformerCTC:
     cfg: ModelConfig               # labels and preprocessor
     ccfg: ConformerConfig
     frontend: MelFrontend
-    params: Dict[str, Any]         # {'encoder', 'decoder': {'w', 'b'}} numpy
+    params: Dict[str, Any]         # {'encoder', 'decoder'} numpy
+    decoder_kind: str = "linear"   # 'linear' | 'lstm'
     enc_qcfg: Any = None
     enc_qstate: Any = None         # encoder ranges + the head's 'dec_in' site
     enc_frozen: Any = None         # the host tables after freeze()
@@ -106,16 +117,25 @@ class ConformerCTC:
         self._ranges_used = (self.enc_qcfg, self.enc_qstate)
 
     @classmethod
-    def from_config(cls, cfg: ModelConfig, ccfg: ConformerConfig,
-                    seed: int = 0) -> "ConformerCTC":
-        """Random weights from ``seed``, equal to the JAX package's (the
-        CTC head d -> V+1 is drawn first, then the encoder)."""
+    def from_config(cls, cfg: ModelConfig, ccfg: ConformerConfig, seed: int = 0,
+                    decoder_kind: str = "linear", lstm_hidden: int = 640, lstm_layers: int = 1,
+                    bidirectional: bool = False) -> "ConformerCTC":
+        """Random weights from ``seed``, equal to the JAX package's: the
+        head first (a linear d -> V+1, or the LSTM head), then the
+        encoder."""
         rng = np.random.default_rng(seed)
         d_out = ccfg.feat_out if ccfg.feat_out > 0 else ccfg.d_model
-        dec = _linear(rng, d_out, len(cfg.labels) + 1)
+        if decoder_kind == "lstm":
+            dec = init_lstm_decoder(rng, d_out, len(cfg.labels), hidden=lstm_hidden,
+                                    num_layers=lstm_layers, bidirectional=bidirectional)
+        elif decoder_kind == "linear":
+            dec = _linear(rng, d_out, len(cfg.labels) + 1)
+        else:
+            raise ValueError(f"unknown decoder_kind {decoder_kind!r}")
         return cls(cfg=cfg, ccfg=ccfg,
                    frontend=MelFrontend(preprocessor_config_from_dict(cfg.preprocessor)),
-                   params={"encoder": init_conformer_params(rng, ccfg), "decoder": dec})
+                   params={"encoder": init_conformer_params(rng, ccfg), "decoder": dec},
+                   decoder_kind=decoder_kind)
 
     @property
     def vocabulary(self) -> List[str]:
@@ -169,9 +189,16 @@ class ConformerCTC:
             else:
                 tree = {"encoder": quantize_conformer_weights(self.params["encoder"], self.ccfg,
                                                               wbit, dev),
-                        "decoder": quantize_linear(self.params["decoder"], wbit, dev)}
+                        "decoder": self._head_weights(wbit, dev)}
             od.weights[(kind, wbit)] = tree
         return od.weights[(kind, wbit)]
+
+    def _head_weights(self, wbit: int, dev: torch.device):
+        """The integer paths' head on ``dev``: the linear one quantized at
+        ``wbit``, the LSTM one float."""
+        if self.decoder_kind == "lstm":
+            return params_to_device(self.params["decoder"], dev)
+        return quantize_linear(self.params["decoder"], wbit, dev)
 
     def _device_qstate(self, dev: torch.device):
         od = self._on(dev)
@@ -273,17 +300,21 @@ class ConformerCTC:
         od = self._on(dev)
         if self.enc_frozen is None:
             self.enc_frozen = self.freeze_host()
-        head = dict(quantize_linear(self.params["decoder"], self.enc_qcfg.weight_bit, dev),
-                    dec_in={k: torch.as_tensor(np.float32(v), device=dev)
-                            for k, v in self.enc_qstate["dec_in"].items()})
+        head = self._head_weights(self.enc_qcfg.weight_bit, dev)
+        if self.decoder_kind == "linear":
+            head["dec_in"] = {k: torch.as_tensor(np.float32(v), device=dev)
+                              for k, v in self.enc_qstate["dec_in"].items()}
         od.tables = {"encoder": conformer_tables_to_device(self.enc_frozen, dev), "head": head}
         od.fns.clear()
         return od.tables
 
     def head(self, tables, enc: torch.Tensor) -> torch.Tensor:
-        """The frozen path's quantized CTC head: the 'dec_in' activation
-        quant, an int8 product, the float epilogue, log-softmax."""
+        """The frozen path's CTC head: the linear one quantized (the
+        'dec_in' activation quant, an int8 product, the float epilogue,
+        log-softmax), the LSTM one float."""
         h = tables["head"]
+        if self.decoder_kind == "lstm":
+            return lstm_decoder_forward(h, enc)
         eq, _ = _act_quant(h["dec_in"], enc, None, self.enc_qcfg, update=False)
         return torch.log_softmax(_qlinear(h, eq), dim=-1)
 
@@ -311,6 +342,8 @@ class ConformerCTC:
         if mode == "float":
             p = self._weights(dev, "float")
             enc, el = conformer_encoder_apply(p["encoder"], self.ccfg, feats, feat_lens)
+            if self.decoder_kind == "lstm":
+                return lstm_decoder_forward(p["decoder"], enc), el
             with no_tf32():
                 logits = enc @ p["decoder"]["w"] + p["decoder"]["b"]
         else:
@@ -318,6 +351,8 @@ class ConformerCTC:
             qs = self._device_qstate(dev)
             enc, el, _ = conformer_encoder_apply_ptq(qp["encoder"], self.ccfg, self.enc_qcfg,
                                                      qs, feats, feat_lens, kernels=kernels)
+            if self.decoder_kind == "lstm":
+                return lstm_decoder_forward(qp["decoder"], enc), el
             eq, _ = _act_quant(qs["dec_in"], enc, None, self.enc_qcfg)
             logits = _qlinear(qp["decoder"], eq, kernels)
         return torch.log_softmax(logits, dim=-1), el
@@ -352,9 +387,89 @@ class ConformerCTC:
         return self.ids_to_text(ids, enc_lens)
 
     def ids_to_text(self, ids: torch.Tensor, enc_lens: torch.Tensor) -> List[str]:
-        """Greedy CTC collapse of (B, T) ids within each sample's length."""
-        return ctc_collapse(ids.cpu().numpy(), self.blank_id, self.vocabulary,
-                            enc_lens.cpu().numpy())
+        """Greedy CTC collapse of (B, T) ids within each sample's length;
+        a model with a tokenizer detokenizes the kept ids."""
+        ids, lens = ids.cpu().numpy(), enc_lens.cpu().numpy()
+        tok = getattr(self, "tokenizer", None)
+        if tok is None:
+            return ctc_collapse(ids, self.blank_id, self.vocabulary, lens)
+        out = []
+        for row, n in zip(ids, lens):
+            kept, prev = [], -1
+            for v in row[:int(n)]:
+                if v != prev and v != self.blank_id:
+                    kept.append(int(v))
+                prev = v
+            out.append(tok.ids_to_text(kept))
+        return out
+
+    def transcribe_beam(self, audio, alens, beam_width: int = 64, lm=None, device=None,
+                        plan: ConformerPlan = DEFAULT_PLAN, kernels: bool = True,
+                        **beam_kwargs) -> List[str]:
+        """The best CTC prefix-beam-search transcript of each sample of a
+        padded PCM batch, over ``forward``'s log-probs (in ``mode()``):
+        ``lm`` is a ``BeamSearchDecoderWithLM`` (with its LM), else one of
+        ``beam_width`` over the vocabulary and ``beam_kwargs``."""
+        from qasr_tpu_torch.decode.beam_search import BeamSearchDecoderWithLM
+
+        lp, enc_lens = self.forward(audio, alens, device=device, plan=plan, kernels=kernels)
+        dec = lm if lm is not None else BeamSearchDecoderWithLM(
+            self.vocabulary, beam_width=beam_width, **beam_kwargs)
+        return [hyps[0][1] if hyps else "" for hyps in dec(lp, enc_lens)]
+
+    # -- checkpoints ------------------------------------------------------------
+
+    def save_to(self, path: str) -> None:
+        """A ``.qasr``: the config, the params, the ranges when calibrated,
+        and under '_qasr_meta' the encoder's config, the head's kind and
+        shape, the quantization config and the tokenizer artifact."""
+        from qasr_tpu_torch.utils.checkpoint import save_qasr
+
+        meta: Dict[str, Any] = {"family": "conformer_ctc",
+                                "conformer_cfg": dataclasses.asdict(self.ccfg),
+                                "decoder_kind": self.decoder_kind}
+        if self.decoder_kind == "lstm":
+            meta["lstm"] = lstm_shape(self.params["decoder"])
+        if self.enc_qcfg is not None:
+            meta["enc_qcfg"] = dataclasses.asdict(self.enc_qcfg)
+        artifacts = {}
+        tok = getattr(self, "tokenizer", None)
+        if tok is not None and getattr(tok, "path", None):
+            artifacts["tokenizer.json"] = tok.path
+            meta["tokenizer"] = "tokenizer.json"
+        save_qasr(path, config_to_dict(self.cfg), self.params, self.enc_qstate, meta=meta,
+                  artifacts=artifacts)
+
+    @classmethod
+    def restore_from(cls, path: str) -> "ConformerCTC":
+        """The model ``save_to`` (of either package) wrote: params, ranges
+        and quantization config, head and tokenizer; it serves PTQ until
+        ``freeze``."""
+        from qasr_tpu_torch.data.tokenizers import BPETokenizer
+        from qasr_tpu_torch.utils.checkpoint import load_qasr, unflatten_into
+
+        cfg_d, flat, artifacts = load_qasr(path)
+        meta = cfg_d.pop("_qasr_meta", {}) or {}
+        if meta.get("family") != "conformer_ctc":
+            raise ValueError(f"{path} is not a Conformer-CTC checkpoint "
+                             f"(family={meta.get('family')!r})")
+        lstm = meta.get("lstm") or {}
+        model = cls.from_config(ModelConfig.from_dict(cfg_d),
+                                ConformerConfig(**meta["conformer_cfg"]),
+                                decoder_kind=meta.get("decoder_kind", "linear"),
+                                lstm_hidden=lstm.get("hidden", 640),
+                                lstm_layers=lstm.get("layers", 1),
+                                bidirectional=lstm.get("bidirectional", False))
+        model.params = unflatten_into(model.params, flat, "params/")
+        if meta.get("enc_qcfg") and any(k.startswith("qstate/") for k in flat):
+            qcfg = ConformerQuantConfig(**meta["enc_qcfg"])
+            tmpl = init_conformer_qstate(model.ccfg, qcfg)
+            tmpl["dec_in"] = {"x_min": np.zeros((), np.float32),
+                              "x_max": np.zeros((), np.float32)}
+            model.enc_qcfg, model.enc_qstate = qcfg, unflatten_into(tmpl, flat, "qstate/")
+        if meta.get("tokenizer") in artifacts:
+            model.tokenizer = BPETokenizer(artifacts[meta["tokenizer"]])
+        return model
 
     def _serving_fn(self, device, argmax: bool, plan: ConformerPlan, kernels: bool = True):
         dev = as_device(device)
@@ -398,3 +513,64 @@ def make_conformer_frozen_fn(model: ConformerCTC, tables, argmax: bool = False,
         return (lp.argmax(dim=-1) if argmax else lp), enc_lens
 
     return fn
+
+
+# ---------------------------------------------------------------------------
+# NeMo's Conformer YAML
+# ---------------------------------------------------------------------------
+
+
+def conformer_config_from_dict(d: Dict[str, Any]) -> ConformerConfig:
+    """NeMo's ConformerEncoder section as a ConformerConfig (the same field
+    names; an unknown field raises; subsampling_conv_channels -1 means
+    d_model)."""
+    d = dict(d)
+    d.pop("_target_", None)
+    unknown = set(d) - {f.name for f in dataclasses.fields(ConformerConfig)}
+    if unknown:
+        raise ValueError(f"unsupported ConformerEncoder fields: {unknown}")
+    if d.get("subsampling_conv_channels") == -1:
+        d["subsampling_conv_channels"] = d.get("d_model", 256)
+    return ConformerConfig(**d)
+
+
+def conformer_ctc_from_yaml(path: str, tokenizer=None, seed: int = 0) -> ConformerCTC:
+    """A Conformer-CTC from NeMo's Conformer YAML (conformer_char.yaml,
+    conformer_bpe.yaml, ...; ``${...}`` references resolved): a char
+    config's labels from the YAML, a BPE config's from ``tokenizer``."""
+    from qasr_tpu_torch.utils.yaml_io import safe_load
+
+    with open(path, encoding="utf-8") as f:
+        raw = safe_load(f)
+    return conformer_ctc_from_dict(resolve_interpolations(raw)["model"], tokenizer=tokenizer,
+                                   seed=seed)
+
+
+def conformer_ctc_from_dict(m: Dict[str, Any], tokenizer=None, seed: int = 0) -> ConformerCTC:
+    """The model section of a Conformer YAML as a ConformerCTC: an
+    LSTMDecoder ``_target_`` gives the LSTM head (lstm_hidden_size,
+    num_layers, bidirectional), any other the linear one."""
+    if tokenizer is not None:
+        labels = tuple(tokenizer.vocab)
+    else:
+        labels = tuple(m.get("labels") or ())
+        if not labels:
+            raise ValueError("config has no labels (a BPE config?): pass tokenizer=")
+    ccfg = conformer_config_from_dict(m["encoder"])
+    d_out = ccfg.feat_out if ccfg.feat_out > 0 else ccfg.d_model
+    cfg = ModelConfig(encoder=EncoderConfig(feat_in=ccfg.feat_in, blocks=()),
+                      decoder=DecoderConfig(feat_in=d_out, num_classes=len(labels),
+                                            vocabulary=labels),
+                      preprocessor=m.get("preprocessor", {}), spec_augment=m.get("spec_augment"),
+                      labels=labels, sample_rate=m.get("sample_rate", 16000))
+    dec = dict(m.get("decoder", {}))
+    if "LSTMDecoder" in dec.get("_target_", ""):
+        model = ConformerCTC.from_config(cfg, ccfg, seed=seed, decoder_kind="lstm",
+                                         lstm_hidden=dec.get("lstm_hidden_size", 640),
+                                         lstm_layers=dec.get("num_layers", 1),
+                                         bidirectional=bool(dec.get("bidirectional", False)))
+    else:
+        model = ConformerCTC.from_config(cfg, ccfg, seed=seed)
+    if tokenizer is not None:
+        model.tokenizer = tokenizer
+    return model

@@ -11,12 +11,20 @@ fp32 (FloatExec), quant (QuantExec on static or, with ``set_dynamic``,
 per-batch ranges) or frozen.  ``make_frozen_fn`` is the serving function:
 int16 or float32 PCM in, greedy ids (or log-probs) and encoder lengths
 out.  Entry points run on the CUDA device unless given ``device="cpu"``.
+
+Checkpoints: ``from_pretrained`` (a ``.nemo`` path, a name found as
+``$QASR_PRETRAINED_DIR/<name>.nemo``, or a model card's cached or fetched
+file), ``save_to`` / ``restore_from`` (``.nemo``: NeMo's layout, float
+params; ``.qasr``: config, params, ranges and the quantization knobs, a
+folded model too), archive artifacts (a BPE model's tokenizer), and
+``change_vocabulary``.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import logging
+import os
 from dataclasses import dataclass, replace
 from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
@@ -27,7 +35,7 @@ from qasr_tpu_torch.data.audio import read_audio_pcm16
 from qasr_tpu_torch.data.dataset import bucket_pad
 from qasr_tpu_torch.decode.ctc import ctc_collapse
 from qasr_tpu_torch.device import as_device
-from qasr_tpu_torch.models.config import PRESETS, ModelConfig, QuantConfig
+from qasr_tpu_torch.models.config import PRESETS, ModelConfig, QuantConfig, config_to_dict
 from qasr_tpu_torch.models.jasper import (
     WIDE_OPERANDS,
     EncoderPlan,
@@ -129,6 +137,9 @@ class ASRModel:
     qstate: Dict[str, Any]
     qcfg: QuantConfig
     folded: bool = False
+    # {archive name: local file}: packed into save_to's archives, resolved
+    # again on restore (a BPE model's tokenizer.json)
+    artifacts: Dict[str, str] = dataclasses.field(default_factory=dict)
     _fn_cache: Dict[Any, Any] = dataclasses.field(default_factory=dict)
 
     @classmethod
@@ -144,18 +155,150 @@ class ASRModel:
                    params=params, qstate=init_qstate(plan), qcfg=QuantConfig())
 
     @classmethod
-    def from_pretrained(cls, name: str, seed: int = 0,
-                        allow_random_weights: bool = False) -> "ASRModel":
-        """A preset by name, with random weights from ``seed``.  Checkpoint
-        loading (.nemo) is not ported: without ``allow_random_weights`` this
-        raises rather than hand back fabricated weights."""
-        if name not in PRESETS:
-            raise ValueError(f"unknown model: {name}")
-        if not allow_random_weights:
-            raise FileNotFoundError(
-                f"no checkpoint loader in the port for '{name}'; pass "
-                f"allow_random_weights=True for an architecture-only model")
-        return cls.from_config(PRESETS[name](), seed=seed)
+    def from_pretrained(cls, name_or_path: str, seed: int = 0,
+                        allow_random_weights: bool = False, refresh_cache: bool = False,
+                        fetcher=None) -> "ASRModel":
+        """A ``.nemo`` path; else ``$QASR_PRETRAINED_DIR/<name>.nemo``;
+        else (unless ``allow_random_weights`` without a ``fetcher``) a
+        model card's file from the md5-keyed cache, fetched on a miss only
+        through ``fetcher`` or ``utils.cloud.set_default_fetcher`` (no
+        network attempt otherwise).  A preset name that resolves to no file
+        raises, unless ``allow_random_weights`` asks for the architecture
+        with random weights from ``seed``."""
+        if name_or_path.endswith(".nemo"):
+            return cls._from_nemo(name_or_path)
+        cache_dir = os.environ.get("QASR_PRETRAINED_DIR")
+        if cache_dir:
+            local = os.path.join(cache_dir, name_or_path + ".nemo")
+            if os.path.exists(local):
+                return cls._from_nemo(local)
+        # a caller that asked for random weights is not held up by the cards
+        # unless it passed a fetcher
+        if fetcher is not None or not allow_random_weights:
+            from qasr_tpu_torch.utils import cloud
+
+            try:
+                path = cloud.resolve_pretrained(name_or_path, refresh_cache=refresh_cache,
+                                                fetcher=fetcher)
+            except RuntimeError as e:       # not cached, and no fetcher or a failed fetch
+                log.warning(f"pretrained checkpoint for {name_or_path!r} not found: {e}")
+                path = None
+            if path is not None:
+                return cls._from_nemo(path)
+        if name_or_path in PRESETS:
+            if not allow_random_weights:
+                raise FileNotFoundError(
+                    f"no checkpoint for preset '{name_or_path}' (pass a .nemo path, set "
+                    f"$QASR_PRETRAINED_DIR, or pass allow_random_weights=True for an "
+                    f"architecture-only random-weight model)")
+            return cls.from_config(PRESETS[name_or_path](), seed=seed)
+        raise ValueError(f"unknown model: {name_or_path}")
+
+    @classmethod
+    def _from_nemo(cls, path: str) -> "ASRModel":
+        from qasr_tpu_torch.compat.nemo_loader import load_nemo
+
+        cfg, params, artifacts = load_nemo(path)
+        plan = build_encoder_plan(cfg.encoder)
+        model = cls(cfg=cfg, plan=plan,
+                    frontend=MelFrontend(preprocessor_config_from_dict(cfg.preprocessor)),
+                    params=params, qstate=init_qstate(plan), qcfg=QuantConfig(),
+                    artifacts=artifacts)
+        model._attach_tokenizer()
+        return model
+
+    def register_artifact(self, arcname: str, src_path: str) -> str:
+        """Pack ``src_path`` as ``arcname`` into the archives ``save_to``
+        writes."""
+        self.artifacts[arcname] = src_path
+        return arcname
+
+    def _attach_tokenizer(self) -> None:
+        """A config with a tokenizer section: resolve its model file
+        against the artifacts and become the BPE model."""
+        tok_cfg = self.cfg.tokenizer
+        if not tok_cfg:
+            return
+        from qasr_tpu_torch.data.tokenizers import tokenizer_from_config
+        from qasr_tpu_torch.models.ctc_bpe_model import EncDecCTCModelBPE
+
+        tok_cfg = dict(tok_cfg)
+        if tok_cfg.get("model_path") in self.artifacts:
+            tok_cfg["model_path"] = self.artifacts[tok_cfg["model_path"]]
+        self.__class__ = EncDecCTCModelBPE
+        self.tokenizer = tokenizer_from_config(tok_cfg)
+
+    def save_to(self, path: str) -> None:
+        """A ``.nemo`` (NeMo's layout: config and float params; a folded
+        model raises) or a ``.qasr`` (config, params, ranges, and the
+        folding and quantization knobs), with the artifacts."""
+        if path.endswith(".nemo"):
+            if self.folded:
+                raise ValueError(".nemo export requires unfolded params (save before "
+                                 "bn_folding)")
+            from qasr_tpu_torch.compat.nemo_loader import save_nemo
+
+            save_nemo(path, config_to_dict(self.cfg), self.plan, self.params,
+                      artifacts=self.artifacts)
+            return
+        from qasr_tpu_torch.utils.checkpoint import save_qasr
+
+        meta = {"folded": self.folded, "qcfg": dataclasses.asdict(self.qcfg)}
+        save_qasr(path, config_to_dict(self.cfg), self.params, self.qstate, meta=meta,
+                  artifacts=self.artifacts)
+
+    @classmethod
+    def restore_from(cls, path: str) -> "ASRModel":
+        """The model ``save_to`` wrote (either format); a folded ``.qasr``
+        folds its template first, so the trees line up."""
+        if path.endswith(".nemo"):
+            return cls._from_nemo(path)
+        from qasr_tpu_torch.utils.checkpoint import load_qasr, unflatten_into
+
+        cfg_d, flat, artifacts = load_qasr(path)
+        meta = cfg_d.pop("_qasr_meta", {}) or {}
+        model = cls.from_config(ModelConfig.from_dict(cfg_d))
+        model.artifacts = artifacts
+        if meta.get("folded"):
+            model.bn_folding()
+        model.params = unflatten_into(model.params, flat, "params/")
+        if any(k.startswith("qstate/") for k in flat):
+            model.qstate = unflatten_into(model.qstate, flat, "qstate/")
+        if meta.get("qcfg"):
+            model.qcfg = QuantConfig(**meta["qcfg"])
+        model._attach_tokenizer()
+        return model
+
+    @staticmethod
+    def list_available_models():
+        """The model cards: name, checkpoint file, published float WERs."""
+        return [
+            {"name": "QuartzNet15x5Base-En", "artifact": "QuartzNet15x5Base-En.nemo",
+             "dev_clean_wer": 3.79, "dev_other_wer": 10.05},
+            {"name": "QuartzNet5x5LS-En", "artifact": "QuartzNet5x5LS-En.nemo",
+             "dev_clean_wer": 5.37, "dev_other_wer": 15.69},
+            {"name": "QuartzNet15x5NR-En", "artifact": "QuartzNet15x5NR-En.nemo",
+             "dev_clean_wer": 3.96, "dev_other_wer": 10.14},
+            {"name": "Jasper10x5Dr-En", "artifact": "Jasper10x5Dr-En.nemo",
+             "dev_clean_wer": 3.37, "dev_other_wer": 9.81},
+            {"name": "MatchboxNet-3x1x64", "artifact": None,
+             "task": "speech-commands classification"},
+        ]
+
+    def change_vocabulary(self, new_vocabulary: Sequence[str]) -> None:
+        """A new label set: a new decoder head (drawn from seed 0, as the
+        JAX package's), the encoder kept, the head's input range reset and
+        every device state and serving function dropped."""
+        if list(new_vocabulary) == list(self.vocabulary):
+            return
+        dec_cfg = replace(self.cfg.decoder, num_classes=len(new_vocabulary),
+                          vocabulary=tuple(new_vocabulary))
+        self.cfg = replace(self.cfg, decoder=dec_cfg, labels=tuple(new_vocabulary))
+        self.params = dict(self.params,
+                           decoder=init_decoder_params(np.random.default_rng(0), dec_cfg))
+        self.qstate["decoder_act"] = {"x_min": np.zeros((), np.float32),
+                                      "x_max": np.zeros((), np.float32)}
+        self._drop_cached()
 
     @property
     def vocabulary(self) -> Sequence[str]:

@@ -32,7 +32,7 @@ setup(
                                     "qasr_tpu_torch", "qasr_tpu_torch.*"]),
     package_data={"qasr_tpu.native": ["*.cpp", "*.so"],
                   "qasr_tpu": ["assets/*.json"],
-                  "qasr_tpu_torch": ["assets/*.json", "assets/*.npz"],
+                  "qasr_tpu_torch": ["assets/*.json", "assets/*.npz", "native/*.cpp"],
                   "qasr_tpu_torch.kernels": ["csrc/*.cu", "csrc/*.cuh"]},
     python_requires=">=3.10",
     install_requires=["jax", "numpy", "optax", "pyyaml", "scipy"],

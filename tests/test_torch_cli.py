@@ -6,7 +6,8 @@
 (b) JAX's cli.synthesize writes a pickle; JAX's cli.inference and the
     port's (``--device cpu``) give equal hypotheses and WER on it at W6A6
     (calibrated on the pickle, frozen tables), ``--dynamic`` and
-    ``--no_quant``; ``--decoder beam`` raises in the port.
+    ``--no_quant``, and ``--decoder beam`` on a ``.nemo`` the JAX package
+    wrote.
 (c) The port's CLIs run end to end with qasr_tpu made unimportable, and
     neither jax nor qasr_tpu is imported: cli.synthesize writes a pickle
     the JAX package loads, cli.inference reads it.
@@ -28,6 +29,7 @@ from qasr_tpu.data import dataset as jax_dataset
 from qasr_tpu.data import parsers as jax_parsers
 from qasr_tpu.data.audio import write_wav
 from qasr_tpu.models import config as JC
+from qasr_tpu.models.ctc_model import ASRModel as JaxASRModel
 from qasr_tpu_torch.cli import inference as port_inference
 from qasr_tpu_torch.data import dataset as port_dataset
 from qasr_tpu_torch.data import parsers as port_parsers
@@ -155,11 +157,26 @@ def test_cli_inference_matches_jax(corpus, jax_pickle, presets, monkeypatch, mod
                                     "--no_quant": "fp32"}["".join(mode)]
 
 
-def test_cli_beam_decoder_not_ported(corpus, presets):
+def test_cli_beam_decoder_not_ported(corpus, presets, monkeypatch, tmp_path):
+    """(The name predates the port's beam search.)  ``--decoder beam`` on a
+    ``.nemo`` the JAX package wrote, given as ``--asr_model``: the JAX
+    CLI's hypotheses and WER."""
     _, manifest = corpus
-    with pytest.raises(NotImplementedError, match="item 10"):
-        port_inference.run(["--asr_model", PRESET, "--dataset", manifest, "--decoder", "beam",
-                            "--allow_random_weights", "--device", "cpu", "--dynamic"])
+    nemo = str(tmp_path / "tiny.nemo")
+    JaxASRModel.from_config(tiny_cfg(JC), seed=3).save_to(nemo)
+    argv = ["--asr_model", nemo, "--dataset", manifest, "--decoder", "beam", "--beam_width",
+            "8", "--batch_size", "2", "--dynamic", "--weight_bit", "6", "--act_bit", "6"]
+    seen = {}
+    wer_fn = jax_ctc.word_error_rate
+
+    def spy(hypotheses, references, **kw):
+        seen.update(hyps=list(hypotheses), refs=list(references))
+        return wer_fn(hypotheses=hypotheses, references=references, **kw)
+    monkeypatch.setattr(jax_ctc, "word_error_rate", spy)
+    want = jax_inference.main(argv)
+    wer, hyps, refs, model = port_inference.run(argv + ["--device", "cpu"])
+    assert hyps == seen["hyps"] and refs == seen["refs"] and wer == want
+    assert any(hyps) and model.resolve_mode() == "quant"
 
 
 def test_port_clis_without_jax(corpus, tmp_path):

@@ -13,7 +13,9 @@
     lengths, ids equal wherever the frontend flips no first-site code.
 (d) The full-width flagship (16 x 256) built without jax from the
     committed ranges matches the committed golden record on the CPU, on
-    the plain executor and under every plan.
+    the plain executor and under every plan; under the fused plans every
+    Kernel 5 launch it records fits its plan (shared memory, TMA
+    alignment, check_launch).
 Log-probs are float: within 1e-5 (same arithmetic, two libraries).
 """
 import dataclasses
@@ -46,6 +48,7 @@ from qasr_tpu_torch.models.conformer_ctc import ConformerCTC, make_conformer_fro
 from qasr_tpu_torch.quantize import conformer_freeze as port_cf
 from qasr_tpu_torch.quantize.conformer_ptq import ConformerQuantConfig
 from qasr_tpu_torch.quantize.freeze import tables_digest
+from test_torch_gemm_plan import _assert_tma_aligned, _blocks_per_sm
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LABELS = tuple(" abcdefghijklmnopqrstuvwxyz'")
@@ -238,14 +241,17 @@ def test_serving_from_pcm_matches_jax(request, which):
             jm.transcribe_greedy(pcm_f, lens)
 
 
-def _count_kernel_calls(monkeypatch):
+def _count_kernel_calls(monkeypatch, lin_args=None):
     """Count the encoder's calls of the four kernel wrappers (on CPU
-    tensors each runs its plain version)."""
+    tensors each runs its plain version); ``lin_args`` (a list) records
+    each lin_epilogue call's (args, kwargs)."""
     calls = {"int_attention": 0, "conv_block": 0, "ffn_ln": 0, "lin_epilogue": 0}
 
     def counting(name, fn):
         def wrapper(*a, **kw):
             calls[name] += 1
+            if name == "lin_epilogue" and lin_args is not None:
+                lin_args.append((a, kw))
             return fn(*a, **kw)
         return wrapper
     for name, mod in (("int_attention", port_int_attention), ("conv_block", port_conv_block),
@@ -254,12 +260,48 @@ def _count_kernel_calls(monkeypatch):
     return calls
 
 
+def _assert_lin_epilogue_plans(lin_args, plan):
+    """Every Kernel 5 launch of the flagship's serving path under a fused
+    ``plan`` (recorded on the CPU) fits a block's shared memory with 3
+    blocks an SM, meets TMA's alignment and passes check_launch; the pre
+    projection, the q_u / q_v / k / v / pos projections, and under
+    ("conv", True) the FFN halves' l1 (swish) and l2 (join) GEMMs."""
+    shapes = set()
+    for (x8, lin), kw in lin_args:
+        d, k = lin["wt"].shape
+        n = x8.numel() // k
+        p = port_lin_epilogue.check_launch(n, k, d)
+        assert p == port_lin_epilogue.plan(n, k, d)
+        assert p["smem"] <= port_lin_epilogue.SMEM_LIMIT
+        assert _blocks_per_sm(p["smem"]) >= 3, (n, k, d, p)
+        _assert_tma_aligned(p, [k])
+        mode = "join" if kw.get("stream8") is not None else (
+            "swish" if kw.get("swish") is not None else "rq")
+        shapes.add((k, d, mode))
+    assert (4864, 256, "rq") in shapes and (256, 256, "rq") in shapes
+    if plan == ("conv", True):
+        assert {(256, 1024, "swish"), (1024, 256, "join")} <= shapes
+
+
+@pytest.fixture
+def one_torch_thread():
+    """The full-width flagship on one intra-op thread: with several test
+    workers on the same cores, torch's default thread pool makes it ~100x
+    slower; its integer stack does not depend on the thread count (the float
+    subsampler's x8 is held to the golden record within its tolerance)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def flagship():
     model = golden.conformer16x256_w8a8()
     return model, model.freeze(device="cpu")
 
 
+@pytest.mark.usefixtures("one_torch_thread")
 def test_flagship_golden_cpu(flagship, monkeypatch):
     """Full-width 16 x 256 Conformer-CTC built without jax (seed-0 init,
     the committed ranges, freeze) against the committed JAX record, on
@@ -269,23 +311,29 @@ def test_flagship_golden_cpu(flagship, monkeypatch):
     model, tables = flagship
     res = golden.check_conformer_golden(model, tables, kernels=False)
     assert res["bad"] == [], res
-    calls = _count_kernel_calls(monkeypatch)
+    lin_args = []
+    calls = _count_kernel_calls(monkeypatch, lin_args)
     res = golden.check_conformer_golden(model, tables, kernels=True)
     assert res["bad"] == [], res
     assert calls == port_cf.kernel_launches(model.ccfg) == {
         "int_attention": 16, "conv_block": 16, "ffn_ln": 32, "lin_epilogue": 81}
+    _assert_lin_epilogue_plans(lin_args, ("1", True))
 
 
+@pytest.mark.usefixtures("one_torch_thread")
 @pytest.mark.parametrize("plan", [("conv", True), ("conv", False), ("1", False)])
 def test_flagship_golden_cpu_other_plans(flagship, monkeypatch, plan):
     """The committed record holds under every plan (each is bit-identical
     to the XLA composition), with the launches its plan predicts."""
     model, tables = flagship
-    calls = _count_kernel_calls(monkeypatch)
+    lin_args = []
+    calls = _count_kernel_calls(monkeypatch, lin_args)
     res = golden.check_conformer_golden(model, tables, kernels=True,
                                         plan=port_cf.ConformerPlan(*plan))
     assert res["bad"] == [], res
     assert calls == port_cf.kernel_launches(model.ccfg, port_cf.ConformerPlan(*plan))
+    if plan[1]:
+        _assert_lin_epilogue_plans(lin_args, plan)
 
 
 @pytest.mark.slow

@@ -4,11 +4,12 @@
 
 Each wrapper's ``plan`` states the tiles, the stages and the dynamic shared
 memory its .cu uses, and ``check_launch`` is the wrapper's shape check on a
-CUDA launch.  The serving paths run here on the CPU (the wrappers take their
-plain versions) with every launch recorded: every launch of QuartzNet15x5 in
-both dyadic modes (94, the C3 and decoder prologues on int32 inputs among
-them) and of the Conformer-CTC 16x256 under both fused plans must fit a
-block's shared memory, meet TMA's alignment and pass the shape check.
+CUDA launch.  QuartzNet15x5's serving path runs here on the CPU (the
+wrappers take their plain versions) with every launch recorded: every
+launch in both dyadic modes (94, the C3 and decoder prologues on int32
+inputs among them) must fit a block's shared memory, meet TMA's alignment
+and pass the shape check.  (The Conformer-CTC 16x256's Kernel 5 launches
+are held to the same inside test_torch_conformer's golden forwards.)
 """
 from __future__ import annotations
 
@@ -19,12 +20,21 @@ from qasr_tpu_torch import golden
 from qasr_tpu_torch.kernels import lin_epilogue as port_lin
 from qasr_tpu_torch.kernels import pw_gemm as port_pw
 from qasr_tpu_torch.models.ctc_model import frozen_executor
-from qasr_tpu_torch.quantize import conformer_freeze as port_cf
 from qasr_tpu_torch.quantize import freeze as port_freeze
-from qasr_tpu_torch.quantize.conformer_freeze import ConformerPlan
 
 SM_SMEM = 233472      # shared memory of one H100 SM (228 KB)
 BLOCK_RESERVED = 1024  # the system's share of it per resident block
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: with several test workers on the same cores,
+    torch's default thread pool makes the flagship's integer walk ~70x slower;
+    its integer results do not depend on the thread count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _blocks_per_sm(smem: int) -> int:
@@ -85,38 +95,6 @@ def test_pw_gemm_plan_takes_every_quartznet_launch(quartznet, monkeypatch, dyadi
         assert (1024, 29, True, torch.int32) in sites
         assert any(pro and dt == torch.int8 for _, _, pro, dt in sites)
     assert {cin for cin, _, _, _ in sites} == {64, 256, 512, 1024}
-
-
-@pytest.fixture(scope="module")
-def conformer():
-    model = golden.conformer16x256_w8a8()
-    return model, model.freeze(device="cpu")
-
-
-@pytest.mark.parametrize("plan", [("1", True), ("conv", True)])
-def test_lin_epilogue_plan_takes_every_conformer_launch(conformer, monkeypatch, plan):
-    model, tables = conformer
-    calls = _record(monkeypatch, port_cf, "lin_epilogue")
-    res = golden.check_conformer_golden(model, tables, kernels=True, plan=ConformerPlan(*plan))
-    assert res["bad"] == [], res
-    assert len(calls) == port_cf.kernel_launches(model.ccfg, ConformerPlan(*plan))["lin_epilogue"]
-    shapes = set()
-    for (x8, lin), kw in calls:
-        d, k = lin["wt"].shape
-        n = x8.numel() // k
-        p = port_lin.check_launch(n, k, d)
-        assert p == port_lin.plan(n, k, d)
-        assert p["smem"] <= port_lin.SMEM_LIMIT
-        assert _blocks_per_sm(p["smem"]) >= 3, (n, k, d, p)
-        _assert_tma_aligned(p, [k])
-        mode = "join" if kw.get("stream8") is not None else (
-            "swish" if kw.get("swish") is not None else "rq")
-        shapes.add((k, d, mode))
-    # the pre projection, the q_u/q_v/k/v/pos projections, and under
-    # ("conv", True) the FFN halves' l1 (swish) and l2 (join) GEMMs
-    assert (4864, 256, "rq") in shapes and (256, 256, "rq") in shapes
-    if plan == ("conv", True):
-        assert {(256, 1024, "swish"), (1024, 256, "join")} <= shapes
 
 
 def test_pw_gemm_plan_layout():

@@ -157,12 +157,16 @@ def test_slice_from_pcm_within_frontend_tolerance(models, monkeypatch, capsys):
 
 
 def test_port_imports_no_jax():
-    """With ``qasr_tpu`` made unimportable, import every module of the
-    port, build and serve a tiny QuartzNet and a tiny Conformer-CTC on the
-    CPU: neither jax nor any part of qasr_tpu is imported."""
+    """With ``qasr_tpu``, PyYAML and HF ``tokenizers`` made unimportable
+    (the GPU machine has none of them), import every module of the port,
+    build and serve a tiny QuartzNet and a tiny Conformer-CTC on the CPU,
+    save and restore both (.nemo, .qasr) and beam-decode: neither jax nor
+    any part of qasr_tpu is imported."""
     code = """
-import importlib, pkgutil, sys
+import importlib, pkgutil, sys, tempfile, os
 sys.modules["qasr_tpu"] = None   # any import of the JAX package now fails
+sys.modules["yaml"] = None
+sys.modules["tokenizers"] = None
 import numpy as np, torch
 import qasr_tpu_torch
 for mod in pkgutil.walk_packages(qasr_tpu_torch.__path__, "qasr_tpu_torch."):
@@ -170,7 +174,9 @@ for mod in pkgutil.walk_packages(qasr_tpu_torch.__path__, "qasr_tpu_torch."):
 for name in ("cli.inference", "cli.synthesize", "quantize.synth", "compat.pickle_io",
              "data.dataset", "data.parsers", "ops.stats", "quantize.conformer_ptq",
              "quantize.conformer_synth", "quantize.ranges", "models.conformer",
-             "models.conformer_ctc"):
+             "models.conformer_ctc", "utils.yaml_io", "utils.checkpoint", "utils.cloud",
+             "compat.nemo_loader", "data.tokenizers", "data.vocabs", "models.ctc_bpe_model",
+             "models.lstm_decoder", "decode.beam_search", "cli.conformer_infer"):
     assert "qasr_tpu_torch." + name in sys.modules, name
 from qasr_tpu_torch.models.config import BlockConfig, DecoderConfig, EncoderConfig, ModelConfig
 from qasr_tpu_torch.models.conformer import ConformerConfig
@@ -217,6 +223,17 @@ c2.quantize_encoder_synthetic(num_batch=1, batch_size=2, seqlen=24, train_iter=2
                                   "integer_activations", "static_attention")})
 assert c2.mode() == "ptq" and len(c2.transcribe_greedy(pcm, np.asarray([8000, 6000]),
                                                        device="cpu")) == 2
+# checkpoints without PyYAML, and the native beam search
+td = tempfile.mkdtemp()
+m.save_to(os.path.join(td, "q.qasr"))
+assert ASRModel.restore_from(os.path.join(td, "q.qasr")).folded
+m2 = ASRModel.from_config(cfg)
+m2.save_to(os.path.join(td, "q.nemo"))
+assert ASRModel.from_pretrained(os.path.join(td, "q.nemo")).cfg == cfg
+c2.save_to(os.path.join(td, "c.qasr"))
+c3 = ConformerCTC.restore_from(os.path.join(td, "c.qasr"))
+assert c3.mode() == "ptq" and len(c3.transcribe_beam(pcm, np.asarray([8000, 6000]),
+                                                     beam_width=4, device="cpu")) == 2
 assert "jax" not in sys.modules, sorted(k for k in sys.modules if k.startswith("jax"))
 bad = sorted(k for k, v in sys.modules.items()
              if (k == "qasr_tpu" or k.startswith("qasr_tpu.")) and v is not None)
@@ -231,9 +248,9 @@ print("no-jax ok")
 
 
 def test_port_sources_import_nothing_of_qasr_tpu():
-    """No module of the port, and not chip_smoke.py, imports qasr_tpu (at
-    top level or inside a function)."""
-    pat = re.compile(r"^\s*(from|import)\s+qasr_tpu(\.|\s|$)")
+    """No module of the port, and not chip_smoke.py, imports qasr_tpu, jax,
+    PyYAML or HF tokenizers (at top level or inside a function)."""
+    pat = re.compile(r"^\s*(from|import)\s+(qasr_tpu|jax|yaml|tokenizers)(\.|\s|$)")
     files = glob.glob(os.path.join(ROOT, "qasr_tpu_torch", "**", "*.py"), recursive=True)
     files.append(os.path.join(ROOT, "chip_smoke.py"))
     assert len(files) > 20
@@ -303,6 +320,18 @@ def test_port_host_copies_match_jax(tmp_path):
         np.testing.assert_array_equal(read_audio_pcm16(path), jax_read(path))
 
 
+@pytest.fixture
+def one_torch_thread():
+    """The full-width flagship on one intra-op thread: with several test
+    workers on the same cores, torch's default thread pool makes it ~100x
+    slower; its integer results do not depend on the thread count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.usefixtures("one_torch_thread")
 def test_flagship_port_cpu_matches_golden(monkeypatch):
     """Full-width QuartzNet15x5 W6A6 built without jax (init, fold, committed
     ranges, static_e freeze) equals the JAX golden record on the CPU, with

@@ -166,6 +166,18 @@ def test_transcribe_per_channel_matches_jax(models, tmp_path, monkeypatch):
     assert any(want), "empty transcripts"
 
 
+@pytest.fixture
+def one_torch_thread():
+    """The full-width flagship on one intra-op thread: with several test
+    workers on the same cores, torch's default thread pool makes it ~100x
+    slower; its integer results do not depend on the thread count."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.usefixtures("one_torch_thread")
 def test_flagship_goldens_on_kernel_executors(monkeypatch):
     model = golden.quartznet15x5_w6a6()
     feats, lens = golden.golden_features()
