@@ -8,7 +8,8 @@ in its dyadic modes (static_e and static_e16 on FrozenExecFused,
 every requant in a prologue or epilogue of Kernels 1-2; per_channel on
 FrozenExecKernels, convs in Kernels 1-2, the requants next to a depthwise
 conv in Kernel 1's prologue and epilogue with per-channel exponents, the
-rest in Kernel 7) and
+rest in Kernel 7), the same at W8A8 (uint8 codes at the +1-bit sites) and
+Jasper10x5Dr at W6A6 and W8A8 (its dense convs in Kernel 8), and
 the frozen W8A8 Conformer-CTC (16 x 256), and QuartzNet15x5's zero-shot
 workflow (synthesis, calibration, the dynamic forward, the CLIs) and the
 Conformer-CTC's (synthesis, calibration, freeze and serve, dynamic), and
@@ -172,6 +173,32 @@ phase exits non-zero before the result line.  Phases:
    encoder: its log-probs on the card within LSTM_ATOL of the CPU's on the
    same encodings, equal greedy ids; phase 9's seconds.
 
+10. W8A8 and Jasper10x5Dr: (a) Kernels 1, 2 and 7 in their uint8 forms
+   against their plain versions at phase 3's shapes and modes (a uint8
+   input, uint8 prologue codes from int8 / int32 producers with 31- and
+   16-bit, one-value and per-channel mantissas and exponents, a uint8
+   epilogue, Kernel 1's stride-2 site and one-channel-a-thread staging,
+   Kernel 2 at every (Cin, Cout) and N in {609, 1, 37}, Kernel 7 to and from
+   uint8), and Kernel 8 at every distinct Jasper10x5Dr site in its serving
+   forms and, at (K 13, 256 -> 384) and (K 29, 768 -> 896, d 2), in every
+   prologue and epilogue mode with int8 and uint8 inputs at N in {609, 1,
+   37} with ragged lengths, exact; (b) full-width QuartzNet15x5 W8A8
+   reproduces its static_e and per_channel golden records and Jasper10x5Dr
+   its W6A6 and W8A8 ones on the kernel executors and the plain path; (c)
+   4 seeded requests through transcribe on QuartzNet W8A8 (static_e,
+   per_channel) and Jasper10x5Dr W6A6 / W8A8 (static_e) and W8A8
+   per_channel: the launches kernel_launches predicts and the plain
+   executor's ids; (d) calibrate (8 x 500 frames of seeded noise features)
+   at W8A8 QuartzNet and W6A6 Jasper: the ranges equal the plain
+   QuantExec's bit for bit; (e) cli.inference at its default bit widths on
+   4 seeded wavs (QuartzNet greedy, Jasper10x5Dr greedy and beam): WER:
+   and the plain frozen executor's hypotheses; (f) the frozen steps at
+   B=64 x 15 s (QuartzNet W6A6 and W8A8 static_e, W8A8 per_channel; Jasper
+   W6A6 and W8A8 static_e), median of 10 in turns, the uint8 forms at
+   QuartzNet's shapes and Kernel 8 at each Jasper site (B=64, T'=768)
+   against its plain version, its operation bound and float64 conv1d (one
+   call, exact here); phase 10's seconds.
+
 Prints the card line, a {"kernels": [...]} line (each kernel's "ms" and
 "library_ms" are device times at the site "shape" names, "call_ms" and
 "library_call_ms" the per-call event times), then as the last line
@@ -217,12 +244,12 @@ PW_BT = ((3, 203), (1, 1), (1, 37))
 # the H100 SXM's published peaks (NVIDIA data sheet, dense, 700 W)
 HBM_BYTES_PER_S, INT8_OPS_PER_S = 3.35e12, 1979e12
 KERNELS = ("dw_conv", "pw_gemm", "requant", "int_attention", "conv_block", "lin_epilogue",
-           "ffn_ln")
+           "ffn_ln", "dense_conv")
 # the device kernels each wrapper launches (a substring of their names)
 KERNEL_SYMBOLS = {"dw_conv": "dw_conv_kernel", "pw_gemm": "pw_gemm_kernel",
                   "requant": "requant_kernel", "int_attention": "int_attention",
                   "conv_block": "conv_block_stage", "lin_epilogue": "lin_epilogue_kernel",
-                  "ffn_ln": "ffn_ln_kernel"}
+                  "ffn_ln": "ffn_ln_kernel", "dense_conv": "dense_conv_kernel"}
 
 
 def log(msg: str) -> None:
@@ -316,6 +343,7 @@ def bound(nbytes: float, int8_ops: float):
 
 def wrappers():
     from qasr_tpu_torch.kernels.conv_block import conv_block
+    from qasr_tpu_torch.kernels.dense_conv import dense_conv
     from qasr_tpu_torch.kernels.dw_conv import dw_conv
     from qasr_tpu_torch.kernels.ffn_ln import ffn_ln
     from qasr_tpu_torch.kernels.int_attention import int_attention
@@ -325,7 +353,7 @@ def wrappers():
 
     return {"dw_conv": dw_conv, "pw_gemm": pw_gemm, "requant": requant,
             "int_attention": int_attention, "conv_block": conv_block,
-            "lin_epilogue": lin_epilogue, "ffn_ln": ffn_ln}
+            "lin_epilogue": lin_epilogue, "ffn_ln": ffn_ln, "dense_conv": dense_conv}
 
 
 def planned(counts):
@@ -2559,6 +2587,584 @@ def phase_checkpoints(chk, dev, card, report, qn_model, qn_tables, conf_model, c
     return r_pre
 
 
+# ---------------------------------------------------------------------------
+# phase 10: W8A8 and Jasper10x5Dr (uint8 codes in Kernels 1, 2 and 7; Kernel
+# 8, the dense int8 conv)
+# ---------------------------------------------------------------------------
+
+# the (model, bits, dyadic mode) paths phase 10 serves: every new golden
+# record's, and Jasper's per_channel path (Kernel 8 beside Kernel 7)
+W8A8_SERVED = (("quartznet15x5", 8, "static_e"), ("quartznet15x5", 8, "per_channel"),
+               ("jasper10x5dr", 6, "static_e"), ("jasper10x5dr", 8, "static_e"),
+               ("jasper10x5dr", 8, "per_channel"))
+# Kernel 8's mode checks: (K, Cin, Cout, stride, dilation), at N = B * T in
+# {609, 1, 37} (PW_BT)
+DENSE_MODE_SITES = ((13, 256, 384, 1, 1), (29, 768, 896, 1, 2))
+# phase 10f's serving batch (B x 15 s)
+W8A8_STEP_BATCH = 64
+
+
+def dense_serving_sites(plan):
+    """(K, Cin, Cout, stride, dilation) of every dense conv of a plan, once
+    each, in walk order."""
+    from qasr_tpu_torch.models.jasper import is_dense
+
+    sites = []
+    for bp in plan.blocks:
+        for spec in bp.convs:
+            key = (spec.kernel, spec.in_ch, spec.out_ch, spec.stride, spec.dilation)
+            if is_dense(spec) and key not in sites:
+                sites.append(key)
+    return sites
+
+
+def spread_e(n_terms, x_rms, w_rms, target=48.0):
+    """An exponent that maps a sum of n_terms products of x_rms x w_rms onto
+    about +-target with a mantissa near 2^30 (values for the checks that
+    spread over the clamp instead of saturating it)."""
+    return 30 + int(round(math.log2(math.sqrt(n_terms) * x_rms * w_rms / target)))
+
+
+def phase_u8_kernels(chk, dev):
+    """10a: Kernels 1, 2 and 7 in their uint8 forms at phase 3's shapes and
+    modes, and Kernel 8 at every Jasper10x5Dr site and in every mode."""
+    import numpy as np
+    import torch
+
+    from qasr_tpu_torch.kernels.dense_conv import dense_conv, dense_conv_plain
+    from qasr_tpu_torch.kernels.dw_conv import dw_conv, dw_conv_plain
+    from qasr_tpu_torch.kernels.pw_gemm import pw_gemm, pw_gemm_plain
+    from qasr_tpu_torch.kernels.requant import requant, requant_plain
+    from qasr_tpu_torch.models.config import jasper10x5dr
+    from qasr_tpu_torch.models.jasper import build_encoder_plan, get_same_padding, out_frames
+
+    rng = np.random.default_rng(10)
+    n0 = chk.n
+
+    def t(lo, hi, shape, dtype):
+        return torch.from_numpy(rng.integers(lo, hi, shape).astype(dtype)).to(dev)
+
+    def vec(c, lo, hi):
+        return t(lo, hi, c, np.int32)
+
+    # Kernel 1: a uint8 input, uint8 prologue codes (in_relu, bits1 9), a
+    # uint8 epilogue (relu, bits 9), per-channel exponents, every site
+    for c, k, s, d in DW_SITES:
+        b, t_in = 3, 300 * s + 7
+        pad = get_same_padding(k, s, d)
+        xu = t(0, 256, (b, t_in, c), np.uint8)
+        w = t(-31, 32, (k, c), np.int8)
+        bias = vec(c, -3000, 3000)
+        t_out = out_frames(t_in, k, s, pad, d)
+        lens = vec(b, 1, t_out + 1)
+        in_len = vec(b, 1, t_in + 1)
+        conv = dict(stride=s, padding=pad, dilation=d)
+        m, e = _tables(rng, c, False, dev)
+        m_v, e_v = _vector_tables(rng, c, 10, dev)
+        modes = {
+            "u8 in, int32": ({}, xu),
+            "u8 in, int32+bias+relu": (dict(bias=bias, relu=True), xu),
+            "u8 in, int8 out": (dict(out_len=lens, m=m, e=e + 2, bits=8), xu),
+            "u8 in, u8 out (relu, bits 9)": (
+                dict(bias=bias, relu=True, out_len=lens, m=m, e=e + 1, bits=9), xu),
+            "u8 in, int8 out e[c]+bias+relu": (
+                dict(bias=bias, relu=True, out_len=lens, m=m_v, e=e_v, bits=8), xu),
+        }
+        n_pro = 0
+        for x32 in (False, True):
+            xi = t(-2**20, 2**20, (b, t_in, c), np.int32) if x32 else t(-64, 64, (b, t_in, c),
+                                                                         np.int8)
+            hb = 2**18 if x32 else 64
+            for m16 in (False, True):
+                m1, e1 = _tables(rng, c, m16, dev)
+                if n_pro % 2:
+                    m1 = np.asarray(m1[0].item(), np.int32)
+                pro = dict(in_len=in_len, m1=m1, e1=e1 + (6 if x32 else -8), bits1=9,
+                           in_relu=True, in_bias=vec(c, -hb, hb))
+                epi = dict(bias=bias, relu=True, out_len=lens, m=m, e=e + 2, bits=8) \
+                    if n_pro % 2 else {}
+                modes[f"prologue {'int32' if x32 else 'int8'} -> u8 m{16 if m16 else 31}"
+                      f"{' scalar' if n_pro % 2 else ''}, epilogue={bool(epi)}"] = (
+                    dict(pro, **epi), xi)
+                n_pro += 1
+            modes[f"prologue {'int32' if x32 else 'int8'} e1[c] -> u8, epilogue e[c] "
+                  f"(the per_channel form)"] = (dict(
+                      _vector_prologue(rng, c, 16 if x32 else 0, dev), in_relu=True,
+                      in_len=in_len, bits1=9, bias=bias, relu=True, out_len=lens, m=m_v,
+                      e=e_v, bits=8), xi)
+        for name, (kw, xi) in modes.items():
+            chk.equal("dw_conv", f"dw_conv C={c} K={k} s={s} d={d} {name}",
+                      dw_conv(xi, w, **conv, **kw), dw_conv_plain(xi, w, **conv, **kw))
+    for c, x32, view in ((30, False, False), (30, True, False), (256, False, True)):
+        b, t_in, k = 2, 203, 33
+        n = b * t_in * c
+        flat = (t(-2**20, 2**20, n + 1, np.int32) if x32 else t(0, 256, n + 1, np.uint8))
+        x = (flat[1:] if view else flat[:n]).view(b, t_in, c)
+        w = t(-31, 32, (k, c), np.int8)
+        m, e = _vector_tables(rng, c, 10, dev)
+        kw = dict(padding=16, out_len=torch.tensor([t_in, 150], dtype=torch.int32, device=dev),
+                  m=m, e=e, bits=8)
+        if x32:
+            kw.update(_vector_prologue(rng, c, 16, dev), in_relu=True, bits1=9,
+                      in_len=torch.tensor([t_in, 101], dtype=torch.int32, device=dev))
+        chk.equal("dw_conv", f"dw_conv C={c} {'int32 prologue -> u8' if x32 else 'u8 in'} "
+                  f"{'misaligned view' if view else ''} (one channel a thread)",
+                  dw_conv(x, w, **kw), dw_conv_plain(x, w, **kw))
+    n_dw = chk.n - n0
+
+    # Kernel 2: a uint8 A (from memory or the prologue), a uint8 output
+    n1 = chk.n
+    for (b, tt), cin, cout in ((bt, ci, co) for bt in PW_BT for ci in PW_CIN for co in PW_COUT):
+        xu = t(0, 256, (b, tt, cin), np.uint8)
+        wt = t(-31, 32, (cout, cin), np.int8)
+        bias = vec(cout, -3000, 3000)
+        lens = vec(b, 1, tt + 1)
+        res = t(-2**20, 2**20, (b, tt, cout), np.int32)
+        m, e = _tables(rng, cout, False, dev)
+        m_r, e_r = _tables(rng, cout, True, dev)
+        modes = {"none": dict(bias=bias), "none+relu": dict(bias=bias, relu=True),
+                 "requant int8": dict(bias=bias, lens=lens, m=m, e=e + 2, bits=8),
+                 "requant+relu u8": dict(bias=bias, relu=True, lens=lens, m=m, e=e + 2, bits=9),
+                 "join": dict(bias=bias, m=m, e=e + 2, bits=8, res=res, m_r=m_r, e_r=e_r + 3)}
+        for name, kw in modes.items():
+            chk.equal("pw_gemm", f"pw_gemm N={b * tt} {cin}->{cout} u8 in, {name}",
+                      pw_gemm(xu, wt, **kw), pw_gemm_plain(xu, wt, **kw))
+        for i, (x32, mode) in enumerate(((False, "none"), (True, "requant+relu u8"),
+                                         (True, "join"))):
+            xi = t(-2**20, 2**20, (b, tt, cin), np.int32) if x32 else t(-64, 64, (b, tt, cin),
+                                                                         np.int8)
+            m1, e1 = _tables(rng, cin, i == 1, dev)
+            if i == 2:
+                m1 = np.asarray(m1[0].item(), np.int32)
+            hb = 2**18 if x32 else 64
+            pro = dict(m1=m1, e1=e1 + (6 if x32 else -8), bits1=9, in_relu=True,
+                       in_bias=vec(cin, -hb, hb), in_len=None if mode == "none" else lens)
+            chk.equal("pw_gemm", f"pw_gemm N={b * tt} {cin}->{cout} prologue "
+                      f"{'int32' if x32 else 'int8'} -> u8, {mode}",
+                      pw_gemm(xi, wt, **pro, **modes[mode]),
+                      pw_gemm_plain(xi, wt, **pro, **modes[mode]))
+    n_pw = chk.n - n1
+
+    # Kernel 7: a uint8 output (ReLU, bits 9) from int8 / int32 / uint8
+    # inputs, and a uint8 input into int8 and int32 outputs
+    n2 = chk.n
+    b, tt = 3, 203
+    lens = vec(b, 1, tt + 1)
+    for c in RQ_C:
+        e_vec = torch.from_numpy(np.resize(np.asarray([1, 31, 62, 63, 70, 36, 44], np.int32),
+                                           c)[rng.permutation(c)]).to(dev)
+        for xt in ("int8", "int32", "uint8"):
+            z = {"int8": lambda: t(-128, 128, (b, tt, c), np.int8),
+                 "int32": lambda: t(-2**28, 2**28, (b, tt, c), np.int32),
+                 "uint8": lambda: t(0, 256, (b, tt, c), np.uint8)}[xt]()
+            for vector in (False, True):
+                if vector:
+                    m, e = vec(c, 1, 2**31), e_vec
+                else:
+                    m, e = np.asarray(int(rng.integers(2**29, 2**31)), np.int32), \
+                        51 if xt == "int32" else 30
+                for mask in (False, True):
+                    kw = dict(lens=lens if mask else None, relu=True)
+                    chk.equal("requant", f"requant C={c} {xt} in, u8 out "
+                              f"{'vector' if vector else 'scalar'} m/e mask={mask}",
+                              requant(z, m, e, 9, **kw), requant_plain(z, m, e, 9, **kw))
+            if xt == "uint8":
+                for bits, kw in ((8, dict(identity=t(-2**24, 2**24, (b, tt, c), np.int32),
+                                          m_r=2**30 + 3, e_r=40)), (10, {})):
+                    chk.equal("requant", f"requant C={c} u8 in bits={bits}",
+                              requant(z, m, e, bits, **kw), requant_plain(z, m, e, bits, **kw))
+    n_rq = chk.n - n2
+
+    # Kernel 8 at every Jasper10x5Dr site, in its serving forms
+    n3 = chk.n
+    sites = dense_serving_sites(build_encoder_plan(jasper10x5dr().encoder))
+    for k, cin, cout, s, d in sites:
+        b, t_in = 2, 150 * s + 11
+        pad = get_same_padding(k, s, d)
+        t_out = out_frames(t_in, k, s, pad, d)
+        first = cin == 64   # the quantized features: int8
+        x = t(-64, 64, (b, t_in, cin), np.int8) if first else t(0, 256, (b, t_in, cin),
+                                                                 np.uint8)
+        w = t(-127, 128, (cout, k, cin), np.int8)
+        bias = vec(cout, -3000, 3000)
+        lens = vec(b, 1, t_out + 1)
+        m = vec(cout, 2**29, 2**31)
+        e = spread_e(k * cin, 40 if first else 147, 73)
+        conv = dict(stride=s, padding=pad, dilation=d)
+        forms = {"none+relu (QuantExec, per_channel)": dict(bias=bias, relu=True),
+                 "requant+relu u8 (W8A8 in-block)": dict(bias=bias, relu=True, lens=lens, m=m,
+                                                         e=e, bits=9),
+                 "requant+relu int8 (W6A6 in-block)": dict(bias=bias, relu=True, lens=lens,
+                                                           m=m, e=e + 2, bits=7)}
+        if not first:
+            forms["join"] = dict(bias=bias, m=m, e=e + 1, bits=8,
+                                 res=t(-2**20, 2**20, (b, t_out, cout), np.int32),
+                                 m_r=vec(cout, 2**29, 2**31), e_r=45)
+        for name, kw in forms.items():
+            chk.equal("dense_conv", f"dense_conv K={k} {cin}->{cout} s={s} d={d} "
+                      f"{'int8' if first else 'u8'} in, {name}",
+                      dense_conv(x, w, **conv, **kw), dense_conv_plain(x, w, **conv, **kw))
+        if not first:
+            # a block's first conv: the prologue on a block end's int32
+            # accumulator (+bias, ReLU) -> uint8 codes, ragged in_len
+            x32 = t(-2**20, 2**20, (b, t_in, cin), np.int32)
+            pro = dict(in_bias=vec(cin, -2**18, 2**18), in_relu=True,
+                       in_len=vec(b, 1, t_in + 1), m1=vec(cin, 2**29, 2**31), e1=42, bits1=9)
+            kw = dict(pro, **forms["requant+relu u8 (W8A8 in-block)"])
+            chk.equal("dense_conv", f"dense_conv K={k} {cin}->{cout} s={s} d={d} prologue "
+                      f"int32 -> u8, requant u8", dense_conv(x32, w, **conv, **kw),
+                      dense_conv_plain(x32, w, **conv, **kw))
+    # ... and in every prologue and epilogue mode at N in {609, 1, 37}
+    for k, cin, cout, s, d in DENSE_MODE_SITES:
+        pad = get_same_padding(k, s, d)
+        for b, tt in PW_BT:
+            w = t(-127, 128, (cout, k, cin), np.int8)
+            bias = vec(cout, -3000, 3000)
+            lens = vec(b, 1, tt + 1)
+            m, m_r = vec(cout, 2**29, 2**31), vec(cout, 2**29, 2**31)
+            conv = dict(stride=s, padding=pad, dilation=d)
+            res = t(-2**20, 2**20, (b, tt, cout), np.int32)
+            for xt in ("int8", "uint8"):
+                x = t(-128, 128, (b, tt, cin), np.int8) if xt == "int8" else \
+                    t(0, 256, (b, tt, cin), np.uint8)
+                e = spread_e(k * cin, 74 if xt == "int8" else 147, 73)
+                modes = {"none": dict(bias=bias), "none+relu": dict(bias=bias, relu=True),
+                         "requant int8": dict(bias=bias, lens=lens, m=m, e=e + 1, bits=7),
+                         "requant+relu u8": dict(bias=bias, relu=True, lens=lens, m=m, e=e,
+                                                 bits=9),
+                         "join": dict(bias=bias, m=m, e=e + 1, bits=8, res=res, m_r=m_r,
+                                      e_r=45)}
+                for name, kw in modes.items():
+                    chk.equal("dense_conv", f"dense_conv K={k} {cin}->{cout} d={d} N={b * tt} "
+                              f"{xt} in, {name}", dense_conv(x, w, **conv, **kw),
+                              dense_conv_plain(x, w, **conv, **kw))
+            for i, (x32, bits1, mode) in enumerate(((False, 7, "none"), (True, 9, "requant+relu u8"),
+                                                    (True, 9, "join"), (False, 9, "requant int8"))):
+                xi = t(-2**20, 2**20, (b, tt, cin), np.int32) if x32 else \
+                    t(-128, 128, (b, tt, cin), np.int8)
+                m1 = vec(cin, 2**29, 2**31) if i != 2 else np.asarray(2**30 + 5, np.int32)
+                pro = dict(m1=m1, e1=42 if x32 else (30 if bits1 == 9 else 33), bits1=bits1,
+                           in_relu=bits1 == 9, in_bias=vec(cin, -500, 500),
+                           in_len=None if i == 0 else vec(b, 1, tt + 1))
+                e = spread_e(k * cin, 147 if bits1 == 9 else 40, 73)
+                epi = {"none": dict(bias=bias, relu=True),
+                       "requant+relu u8": dict(bias=bias, relu=True, lens=lens, m=m, e=e, bits=9),
+                       "join": dict(bias=bias, m=m, e=e + 1, bits=8, res=res, m_r=m_r, e_r=45),
+                       "requant int8": dict(bias=bias, lens=lens, m=m, e=e + 1, bits=7)}[mode]
+                chk.equal("dense_conv", f"dense_conv K={k} {cin}->{cout} d={d} N={b * tt} "
+                          f"prologue {'int32' if x32 else 'int8'} -> bits1 {bits1}"
+                          f"{' scalar m1' if i == 2 else ''}, {mode}",
+                          dense_conv(xi, w, **conv, **pro, **epi),
+                          dense_conv_plain(xi, w, **conv, **pro, **epi))
+    n_dense = chk.n - n3
+    log(f"[10a] uint8 forms == plain: dw_conv {n_dw} cases ({len(DW_SITES)} sites x u8 input, "
+        f"u8 prologue codes from int8 / int32 with m31 / m16 / one m1, per-channel e1 / e, "
+        f"u8 epilogue; one channel a thread); pw_gemm {n_pw} (the {len(PW_CIN) * len(PW_COUT)} "
+        f"(Cin, Cout) pairs x N in {[b * tt for b, tt in PW_BT]} x u8 A in 5 epilogue modes + "
+        f"3 prologue -> u8 modes); requant {n_rq} (u8 out from int8 / int32 / u8, u8 in); "
+        f"dense_conv {n_dense} ({len(sites)} Jasper10x5Dr sites {sites} in their serving "
+        f"forms; {DENSE_MODE_SITES} x N in {[b * tt for b, tt in PW_BT]} x int8 / u8 input x "
+        f"5 epilogue modes + 4 prologue modes); exact")
+
+
+def phase_w8a8_golden(dev):
+    """10b: the W8A8 QuartzNet and the Jasper10x5Dr golden records on the
+    kernel executors and the plain path; returns ({(name, bits): model},
+    {(name, bits, mode): device tables})."""
+    from qasr_tpu_torch import golden
+    from qasr_tpu_torch.quantize.freeze import (
+        FrozenExec, FrozenExecFused, FrozenExecKernels, tables_digest, tables_to_device,
+    )
+
+    models, tables = {}, {}
+    for key in sorted(golden.RECORDS):
+        name, bits, mode = key
+        if (name, bits) == ("quartznet15x5", 6):
+            continue   # phase 4's
+        model = models.setdefault((name, bits), golden.flagship(name, bits))
+        feats, lens = golden.golden_features(model.plan.feat_in, name)
+        host = model.freeze_host(mode)
+        want = golden.load_golden(mode, name, bits)
+        digest = tables_digest(host)
+        if digest != want["tables_sha256"]:
+            raise AssertionError(f"{key}: table digest {digest} != golden "
+                                 f"{want['tables_sha256']}")
+        tables[key] = tables_to_device(host, dev)
+        executors = ((FrozenExecFused, FrozenExecKernels, FrozenExec) if mode != "per_channel"
+                     else (FrozenExecKernels, FrozenExec))
+        for ex in executors:
+            bad = golden.compare_golden(
+                golden.port_record(model, tables[key], feats, lens, executor=ex), want)
+            if bad:
+                raise AssertionError(f"{key} golden mismatch on {ex.__name__} in {bad}")
+        log(f"[10b] golden {name} W{bits}A{bits} {mode}: tables {digest[:16]}, "
+            f"ids/enc_lens/decoder-input/logits hashes equal the JAX record on "
+            f"{[ex.__name__ for ex in executors]} (enc_lens {want['enc_lens']})")
+    for (name, bits), model in models.items():
+        if name == "jasper10x5dr":
+            tables[name, bits, "per_channel"] = model.freeze("per_channel", dev)
+    return models, tables
+
+
+def phase_w8a8_serve(models, tables, dev):
+    """10c: 4 seeded requests through transcribe on each path of
+    W8A8_SERVED; returns {"name WbAb mode": counts}."""
+    import torch
+
+    from qasr_tpu_torch.models.ctc_model import make_frozen_fn
+    from qasr_tpu_torch.quantize.freeze import kernel_launches
+
+    utts, secs = seeded_requests(7)
+    batch, lens = pad_batch(utts)
+    out = {}
+    for name, bits, mode in W8A8_SERVED:
+        model, tab = models[name, bits], tables[name, bits, mode]
+        model.transcribe(utts[:1], device=dev, dyadic_mode=mode)  # builds and caches
+        reset_counts()
+        texts = model.transcribe(utts, batch_size=4, device=dev, dyadic_mode=mode)
+        counts = read_counts()
+        expect = planned(kernel_launches(model.plan, tab))
+        tag = f"{name} W{bits}A{bits} {mode}"
+        if counts != expect:
+            raise AssertionError(f"{tag}: launch counts {counts} != plan {expect}")
+        ids_k, el_k = make_frozen_fn(model, tab, argmax=True)(batch, lens)
+        ids_p, el_p = make_frozen_fn(model, tab, argmax=True, fused=False)(batch, lens)
+        if not (torch.equal(ids_k, ids_p) and torch.equal(el_k, el_p)):
+            raise AssertionError(f"{tag}: kernel path ids differ from the plain executor's")
+        if texts != model.ids_to_text(ids_p, el_p):
+            raise AssertionError(f"{tag}: transcribe() differs from the plain executor's")
+        if len(torch.unique(ids_k)) < 2:
+            raise AssertionError(f"{tag}: degenerate ids")
+        log(f"[10c] {tag} served 4 requests {[f'{s_:g} s' for s_ in secs]} -> "
+            f"{[txt[:24] for txt in texts]}; launches {counts} == plan; ids == plain executor")
+        out[tag] = counts
+    return out
+
+
+def phase_w8a8_calibrate(chk, dev):
+    """10d: calibrate (kernels) against the plain QuantExec, bit for bit:
+    W8A8 QuartzNet15x5 and W6A6 Jasper10x5Dr on B=8 x 500 frames of seeded
+    noise features."""
+    import numpy as np
+    import torch
+
+    from qasr_tpu_torch import golden
+    from qasr_tpu_torch.models.jasper import init_qstate
+    from qasr_tpu_torch.quantize.freeze import kernel_launches
+
+    for name, bits in (("quartznet15x5", 8), ("jasper10x5dr", 6)):
+        model = golden.flagship(name, bits, ranges=False)
+        feats = torch.from_numpy(np.random.default_rng(3).normal(
+            size=(8, 500, model.plan.feat_in)).astype(np.float32)).to(dev)
+        per_fwd = {k: v for k, v in kernel_launches(model.plan).items() if k != "requant"}
+        model.qstate = init_qstate(model.plan)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.calibrate([feats], device=dev)
+        counts = read_counts()
+        t_k = time.perf_counter() - t0
+        if counts != planned(per_fwd):
+            raise AssertionError(f"{name} W{bits}A{bits} calibration launches {counts} != "
+                                 f"{per_fwd}")
+        q_kernel = model.qstate
+        model.qstate = init_qstate(model.plan)
+        model.calibrate([feats], device=dev, kernels=False)
+        a, b = qstate_sites(q_kernel), qstate_sites(model.qstate)
+        bad = sum(x != y for x, y in zip(a, b))
+        if bad or len(a) != len(b) or sum(v[2] != 0 for v in a) < len(a) // 2:
+            raise AssertionError(f"{name} W{bits}A{bits} calibration: {bad} of {len(a)} sites' "
+                                 f"ranges differ from the plain QuantExec's (or are empty)")
+        log(f"[10d] calibrate {name} W{bits}A{bits} on 8 x 500 frames: the {len(a)} sites' "
+            f"ranges equal the plain QuantExec's bit for bit; launches {counts} "
+            f"({t_k:.2f} s with the kernels, first call)")
+
+
+def phase_w8a8_cli(dev, report):
+    """10e: cli.inference at its default bit widths (W8A8) on 4 seeded
+    wavs: QuartzNet15x5 greedy, Jasper10x5Dr greedy and beam; each prints
+    WER: and the plain frozen executor's hypotheses."""
+    import tempfile
+
+    import numpy as np
+
+    from qasr_tpu_torch.cli import inference as cli_inference
+    from qasr_tpu_torch.data.dataset import AudioToCharDataset, DataLoader
+    from qasr_tpu_torch.decode.beam_search import BeamSearchDecoderWithLM
+    from qasr_tpu_torch.models.ctc_model import make_frozen_fn
+
+    out = report.setdefault("w8a8_cli", {})
+    with tempfile.TemporaryDirectory() as tmp:
+        manifest = write_manifest(tmp, np.random.default_rng(5))
+        for name, decoder in (("QuartzNet15x5Base-En", "greedy"), ("Jasper10x5Dr", "greedy"),
+                              ("Jasper10x5Dr", "beam")):
+            (wer, hyps, _, cal), line = run_cli(cli_inference.run, [
+                "--asr_model", name, "--dataset", manifest, "--calib_manifest", manifest,
+                "--allow_random_weights", "--decoder", decoder, "--beam_width", "16",
+                "--batch_size", "4", "--device", str(dev)])
+            if (cal.qcfg.weight_bit, cal.qcfg.act_bit) != (8, 8) or not math.isfinite(wer):
+                raise AssertionError(f"cli.inference {name}: bits {cal.qcfg}, WER {wer}")
+            ds = AudioToCharDataset(manifest, labels=list(cal.vocabulary))
+            plain_fn = make_frozen_fn(cal, cal.freeze("static_e", dev), fused=False)
+            beam = BeamSearchDecoderWithLM(list(cal.vocabulary), beam_width=16)
+            want = []
+            for audio_b, alens_b, _, _ in DataLoader(ds, batch_size=4):
+                lp, el = plain_fn(audio_b, alens_b)
+                want += (cal.ids_to_text(lp.argmax(-1), el) if decoder == "greedy"
+                         else [c[0][1] if c else "" for c in beam(lp, el)])
+            if hyps != want:
+                raise AssertionError(f"cli.inference {name} --decoder {decoder}: {hyps} != "
+                                     f"plain frozen {want}")
+            log(f"[10e] cli.inference --asr_model {name} (default W8A8) --decoder {decoder}: "
+                f"{line}; hypotheses == the plain frozen executor's: {[h[:24] for h in hyps]}")
+            out[f"{name} {decoder}"] = {"wer": wer, "hypotheses": hyps}
+
+
+def phase_w8a8_time(chk, models, tables, qn6, dev, card, report):
+    """10f: the frozen steps at B x 15 s and each kernel's uint8 form and
+    Kernel 8's sites against their plain versions, bounds and yardsticks;
+    returns the kernels line's rows."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from qasr_tpu_torch.kernels.dense_conv import dense_conv, dense_conv_plain
+    from qasr_tpu_torch.kernels.dw_conv import dw_conv, dw_conv_plain
+    from qasr_tpu_torch.kernels.pw_gemm import pw_gemm, pw_gemm_plain
+    from qasr_tpu_torch.kernels.requant import requant, requant_plain
+    from qasr_tpu_torch.models.ctc_model import make_frozen_fn
+    from qasr_tpu_torch.models.jasper import get_same_padding, out_frames
+
+    batch, seconds = W8A8_STEP_BATCH, 15.0
+    audio, lens = noise_batch(batch, seconds, dev)
+    qn8 = models["quartznet15x5", 8]
+    fns = {"QuartzNet W6A6 static_e": make_frozen_fn(qn6[0], qn6[1], argmax=True),
+           "QuartzNet W8A8 static_e": make_frozen_fn(
+               qn8, tables["quartznet15x5", 8, "static_e"], argmax=True),
+           "QuartzNet W8A8 per_channel": make_frozen_fn(
+               qn8, tables["quartznet15x5", 8, "per_channel"], argmax=True)}
+    for bits in (6, 8):
+        fns[f"Jasper10x5Dr W{bits}A{bits} static_e"] = make_frozen_fn(
+            models["jasper10x5dr", bits], tables["jasper10x5dr", bits, "static_e"], argmax=True)
+    step = step_times(fns, (audio, lens), card, "W8A8", batch, seconds, report)
+    del audio
+
+    rng = np.random.default_rng(11)
+    rows = []
+    t_enc = 768
+
+    def t(lo, hi, shape, dtype):
+        return torch.from_numpy(rng.integers(lo, hi, shape).astype(dtype)).to(dev)
+
+    def vec(c, lo, hi):
+        return t(lo, hi, c, np.int32)
+
+    full = torch.full((batch,), t_enc, dtype=torch.int32, device=dev)
+    # Kernel 1: a uint8 input (W8A8's in-block depthwise conv) and the
+    # uint8 prologue on a block end's int32 accumulator
+    c, k = 512, 75
+    xu = t(0, 256, (batch, t_enc, c), np.uint8)
+    w = t(-31, 32, (k, c), np.int8)
+    m, e = _tables(rng, c, False, dev)
+    kw = dict(padding=37, bias=vec(c, -3000, 3000), relu=True, out_len=full, m=m, e=e + 2,
+              bits=8)
+    r = timed_pair(chk, "dw_conv", f"dw_conv B={batch} T={t_enc} C={c} K={k} u8 in, int8 out",
+                   lambda: dw_conv(xu, w, **kw), lambda: dw_conv_plain(xu, w, **kw), card, rows)
+    r["bound"] = bound(xu.numel() + w.numel() + 12 * c + 4 * batch + xu.numel(),
+                       2 * xu.numel() * k)
+    x32 = t(-2**20, 2**20, (batch, t_enc, c), np.int32)
+    kwp = dict(kw, in_bias=vec(c, -2**18, 2**18), in_relu=True, in_len=full,
+               m1=vec(c, 2**29, 2**31), e1=43, bits1=9)
+    r = timed_pair(chk, "dw_conv", f"dw_conv prologue B={batch} T={t_enc} C={c} K={k} "
+                   f"int32+bias+relu in -> u8 codes, int8 out", lambda: dw_conv(x32, w, **kwp),
+                   lambda: dw_conv_plain(x32, w, **kwp), card, rows)
+    r["bound"] = bound(4 * x32.numel() + w.numel() + 24 * c + 8 * batch + xu.numel(),
+                       2 * xu.numel() * k)
+    # Kernel 2: a uint8 A, and a uint8 output (the next depthwise input)
+    n_rows = batch * t_enc
+    for cin, cout, mode in ((512, 512, "u8 in, requant int8"), (512, 512, "requant u8 out")):
+        x = t(0, 256, (batch, t_enc, cin), np.uint8) if "u8 in" in mode else \
+            t(-64, 64, (batch, t_enc, cin), np.int8)
+        wt = t(-31, 32, (cout, cin), np.int8)
+        kw = dict(bias=vec(cout, -3000, 3000), relu=True, lens=full,
+                  m=vec(cout, 2**29, 2**31 - 1), e=39, bits=8 if "int8" in mode else 9)
+        xf, wf = x.reshape(-1, cin).to(torch.float64), wt.t().to(torch.float64)
+        x8 = x.reshape(-1, cin) if x.dtype == torch.int8 else None
+        lib = ((lambda x8=x8, w_=wt.t(): torch._int_mm(x8, w_)) if x8 is not None else
+               (lambda xf=xf, wf=wf: xf @ wf))
+        r = timed_pair(chk, "pw_gemm", f"pw_gemm N={n_rows} {cin}->{cout} {mode}"
+                       f"{' (library: float64 matmul)' if x8 is None else ''}",
+                       lambda x=x, wt=wt, kw=kw: pw_gemm(x, wt, **kw),
+                       lambda x=x, wt=wt, kw=kw: pw_gemm_plain(x, wt, **kw), card, rows, lib)
+        r["bound"] = bound(x.numel() + wt.numel() + 8 * cout + 4 * batch + n_rows * cout,
+                           2 * n_rows * cin * cout)
+        del xf, wf
+    # Kernel 7: a block end's int32 accumulator -> uint8 codes (per_channel)
+    for c in (256, 512):
+        z = t(-2**28, 2**28, (batch, t_enc, c), np.int32)
+        m, ev = vec(c, 2**29, 2**31), vec(c, 36, 44)
+        r = timed_pair(chk, "requant", f"requant N={n_rows} C={c} int32 per-channel -> u8",
+                       lambda z=z, m=m, ev=ev: requant(z, m, ev, 9, relu=True, lens=full),
+                       lambda z=z, m=m, ev=ev: requant_plain(z, m, ev, 9, relu=True, lens=full),
+                       card, rows)
+        r["bound"] = bound(5 * z.numel() + 8 * c + 4 * batch, 0)
+
+    # Kernel 8 at each Jasper10x5Dr site, the W8A8 in-block form (uint8 in,
+    # requant + ReLU -> uint8 out), beside float64 conv1d (exact here)
+    jas = models["jasper10x5dr", 8]
+    for k, cin, cout, s, d in dense_serving_sites(jas.plan):
+        pad = get_same_padding(k, s, d)
+        t_in = t_enc * s
+        t_out = out_frames(t_in, k, s, pad, d)
+        first = cin == jas.plan.feat_in
+        x = t(-64, 64, (batch, t_in, cin), np.int8) if first else \
+            t(0, 256, (batch, t_in, cin), np.uint8)
+        w = t(-127, 128, (cout, k, cin), np.int8)
+        kw = dict(stride=s, padding=pad, dilation=d, bias=vec(cout, -3000, 3000), relu=True,
+                  lens=full, m=vec(cout, 2**29, 2**31),
+                  e=spread_e(k * cin, 40 if first else 147, 73), bits=9)
+        xf = x.to(torch.float64).transpose(1, 2).contiguous()
+        wf = w.to(torch.float64).permute(0, 2, 1).contiguous()
+        label = (f"dense_conv B={batch} T={t_out} K={k} {cin}->{cout} s={s} d={d} "
+                 f"{'int8' if first else 'u8'} in, requant+relu u8 out")
+        chk.equal("dense_conv", label, dense_conv(x, w, **kw), dense_conv_plain(x, w, **kw))
+        pk = statistics.median(cuda_ms(lambda: dense_conv_plain(x, w, **kw), reps=2, warmup=1))
+        kk = statistics.median(cuda_ms(lambda: dense_conv(x, w, **kw), reps=10))
+        kd, kd_by = device_ms(lambda: dense_conv(x, w, **kw), KERNEL_SYMBOLS["dense_conv"])
+        lib = statistics.median(cuda_ms(lambda: F.conv1d(xf, wf, None, s, pad, d), reps=1,
+                                        warmup=1))
+        rows.append({"shape": label, "kernel": "dense_conv", "call_ms": kk, "device_ms": kd,
+                     "device_ms_by": kd_by, "plain_ms": pk, "library_call_ms": lib,
+                     "library_device_ms": lib, "library_device_ms_by": "events"})
+        rows[-1]["bound"] = bound(x.numel() + w.numel() + 4 * 2 * cout + 4 * batch
+                                  + batch * t_out * cout, 2 * batch * t_out * k * cin * cout)
+        log(f"[10f] {label}: kernel {kd:.4f} ms device ({kd_by}; {kk:.4f} ms call), plain "
+            f"{pk:.3f} ms, float64 conv1d {lib:.3f} ms (events, one call), bound "
+            f"{rows[-1]['bound'][0]:.4f} ms ({rows[-1]['bound'][1]}), equal [{card}]")
+        del x, w, xf, wf
+    report["w8a8_per_kernel"] = rows
+    dense = [r for r in rows if r["kernel"] == "dense_conv"]
+    log(f"[10f] Kernel 8 over Jasper10x5Dr's distinct sites: {sum(r['device_ms'] for r in dense):.3f} "
+        f"ms device against {sum(r['bound'][0] for r in dense):.3f} ms of bound, one call each "
+        f"[{card}]")
+    return step, rows
+
+
+def phase_w8a8(chk, dev, card, report, qn6):
+    """Phase 10; returns (kernels line rows, {path: launch counts})."""
+    t_phase = time.perf_counter()
+    phase_u8_kernels(chk, dev)
+    models, tables = phase_w8a8_golden(dev)
+    counts = phase_w8a8_serve(models, tables, dev)
+    phase_w8a8_calibrate(chk, dev)
+    phase_w8a8_cli(dev, report)
+    _, rows = phase_w8a8_time(chk, models, tables, qn6, dev, card, report)
+    report["w8a8_launches"] = counts
+    report["w8a8_seconds"] = time.perf_counter() - t_phase
+    log(f"[10] phase 10 took {report['w8a8_seconds']:.1f} s")
+    return rows, counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="PyTorch port smoke test on one GPU")
     ap.add_argument("--report", help="also write a JSON report of every number here")
@@ -2626,6 +3232,7 @@ def main() -> int:
     phase_workflow(chk, dev, card, report)
     phase_conformer_workflow(chk, dev, card, report)
     vgg_pre = phase_checkpoints(chk, dev, card, report, model, tables, conf_model, conf_tables)
+    w8a8_rows, w8a8_counts = phase_w8a8(chk, dev, card, report, (model, tables["static_e"]))
 
     rows = report["quartznet_per_kernel"] + report["conformer_per_kernel"]
     kernels = []
@@ -2656,6 +3263,22 @@ def main() -> int:
     # Kernel 5 at the vggnet subsampler's pre projection (launches: phase 9c's path)
     kernels.append(kernel_row("lin_epilogue", "qasr_tpu/kernels/gemm_fused.py:159", vgg_pre,
                               vgg_pre["launches"]))
+    # phase 10: the uint8 forms of Kernels 1, 2 and 7 (launches: W8A8
+    # QuartzNet's static_e and per_channel paths) and Kernel 8 at Jasper's
+    # widest site (launches: W8A8 Jasper10x5Dr's static_e path)
+    qn8 = w8a8_counts["quartznet15x5 W8A8 static_e"]
+    for kind, replaces, label, launches in [
+            ("dw_conv", "qasr_tpu/kernels/cm_fused.py:248 (#1), with uint8 codes",
+             "C=512 K=75 u8 in", qn8["dw_conv"]),
+            ("pw_gemm", "qasr_tpu/kernels/cm_fused.py:131 (#4), with uint8 codes",
+             "512->512 requant u8 out", qn8["pw_gemm"]),
+            ("requant", "qasr_tpu/kernels/requant.py:65,74 (#10), with uint8 codes",
+             "C=512 int32 per-channel -> u8",
+             w8a8_counts["quartznet15x5 W8A8 per_channel"]["requant"]),
+            ("dense_conv", "none: XLA's integer conv, qasr_tpu/models/jasper.py:332 (conv_nwc)",
+             "K=29 768->896", w8a8_counts["jasper10x5dr W8A8 static_e"]["dense_conv"])]:
+        r = next(r for r in w8a8_rows if label in r["shape"])
+        kernels.append(kernel_row(kind, replaces, r, launches))
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     log(f"[6] whole smoke run {report['seconds']:.1f} s")

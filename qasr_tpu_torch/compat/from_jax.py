@@ -4,9 +4,12 @@ The JAX package keeps params, range state and frozen tables as numpy
 pytrees on the host (or arrays convertible with ``np.asarray``); the port
 takes the same host structures and puts frozen tables on a torch device
 (``quantize.freeze.tables_to_numpy`` goes back).  This holds for both
-model families: QuartzNet (``tables_from_jax``) and the Conformer
-(``conformer_tables_from_jax``; its params and range state carry over
-through ``state_from_jax`` too).  Nothing here imports jax.
+model families: QuartzNet and Jasper (``tables_from_jax``: Jasper's dense
+weights (K, Cin, Cout) gain Kernel 8's (Cout, K, Cin) layout, and a dense
+residual block's panes stay a list, one requant entry and join a pane)
+and the Conformer (``conformer_tables_from_jax``; its params and range
+state carry over through ``state_from_jax`` too).  Nothing here imports
+jax.
 """
 from __future__ import annotations
 

@@ -1,16 +1,18 @@
 """The flagship models and the golden checks of the port's frozen paths.
 
-QuartzNet.  The golden records hold what the JAX package's FrozenExec
-computes for full-width QuartzNet15x5 at W6A6 (random weights from seed
-0, the committed noise-calibrated ranges) on seeded float features: a
-digest of the tables, the ids and encoder lengths, and SHA-256s of the
-decoder's int8 input and int32 logits; one record per dyadic mode,
-``assets/quartznet15x5_w6a6_s0_golden.json`` for ``static_e`` and
-``assets/quartznet15x5_w6a6_per_channel_s0_golden.json`` for
-``per_channel`` (vector exponents).  ``experiments/torch_golden.py``
-writes them with the JAX package; the port is held to them without
-importing jax.  Starting from features keeps float frontend differences
-out of an exact check.
+QuartzNet and Jasper.  The golden records hold what the JAX package's
+FrozenExec computes for a full-width model (random weights from seed 0,
+ranges from the JAX package's seed-0 noise recipe) on seeded float
+features: a digest of the tables, the ids and encoder lengths, and
+SHA-256s of the decoder's int8 input and int32 logits.  ``RECORDS`` names
+them by (model, bits, dyadic mode): QuartzNet15x5 at W6A6 and W8A8 in
+``static_e`` and ``per_channel`` (vector exponents), Jasper10x5Dr at W6A6
+and W8A8 in ``static_e`` (its features shorter: a Jasper forward is ~25
+times QuartzNet's work); ``QSTATES`` names the ranges (W6A6 QuartzNet's
+is a byte-for-byte copy of the JAX package's asset).
+``experiments/torch_golden.py`` writes them with the JAX package; the
+port is held to them without importing jax.  Starting from features
+keeps float frontend differences out of an exact check.
 
 Conformer-CTC.  ``assets/conformer16x256_noise_qstate_w8a8_s0.json`` holds
 the quantization config and ranges of the flagship (16 x 256, 4 heads,
@@ -37,7 +39,13 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
-from qasr_tpu_torch.models.config import DecoderConfig, EncoderConfig, ModelConfig, quartznet15x5
+from qasr_tpu_torch.models.config import (
+    DecoderConfig,
+    EncoderConfig,
+    ModelConfig,
+    jasper10x5dr,
+    quartznet15x5,
+)
 from qasr_tpu_torch.models.conformer import ConformerConfig
 from qasr_tpu_torch.models.conformer_ctc import ConformerCTC
 from qasr_tpu_torch.models.ctc_model import ASRModel, frozen_forward
@@ -57,33 +65,60 @@ from qasr_tpu_torch.quantize.freeze import (
 )
 
 ASSETS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets")
-GOLDEN_PATHS = {
-    "static_e": os.path.join(ASSETS, "quartznet15x5_w6a6_s0_golden.json"),
-    "per_channel": os.path.join(ASSETS, "quartznet15x5_w6a6_per_channel_s0_golden.json"),
+# the flagship CTC models: name -> (preset factory, JAX package model card)
+FLAGSHIPS = {"quartznet15x5": (quartznet15x5, "QuartzNet15x5Base-En"),
+             "jasper10x5dr": (jasper10x5dr, "Jasper10x5Dr-En")}
+# golden records by (model, weight and act bits, dyadic mode)
+RECORDS = {
+    ("quartznet15x5", 6, "static_e"): "quartznet15x5_w6a6_s0_golden.json",
+    ("quartznet15x5", 6, "per_channel"): "quartznet15x5_w6a6_per_channel_s0_golden.json",
+    ("quartznet15x5", 8, "static_e"): "quartznet15x5_w8a8_s0_golden.json",
+    ("quartznet15x5", 8, "per_channel"): "quartznet15x5_w8a8_per_channel_s0_golden.json",
+    ("jasper10x5dr", 6, "static_e"): "jasper10x5dr_w6a6_s0_golden.json",
+    ("jasper10x5dr", 8, "static_e"): "jasper10x5dr_w8a8_s0_golden.json",
 }
-# a byte-for-byte copy of the JAX package's committed noise-calibrated ranges
-QSTATE_PATH = os.path.join(ASSETS, "quartznet15x5_noise_qstate_w6a6_s0.json")
-# seeded float features: B=2, T a multiple of 64, unequal lengths
+# ranges by (model, bits): calibrate_on_noise(2, 2, 4 s, seed 0) in the JAX
+# package; W6A6 QuartzNet's is a byte-for-byte copy of its committed asset
+QSTATES = {("quartznet15x5", 6): "quartznet15x5_noise_qstate_w6a6_s0.json",
+           ("quartznet15x5", 8): "quartznet15x5_noise_qstate_w8a8_s0.json",
+           ("jasper10x5dr", 6): "jasper10x5dr_noise_qstate_w6a6_s0.json",
+           ("jasper10x5dr", 8): "jasper10x5dr_noise_qstate_w8a8_s0.json"}
+QSTATE_PATH = os.path.join(ASSETS, QSTATES["quartznet15x5", 6])
+# seeded float features: B=2, unequal lengths; QuartzNet's T a multiple of
+# 64, Jasper's padded to one
 FEATURE_SEED, FEATURE_T, FEATURE_LENS = 1234, 320, (320, 251)
+JASPER_FEATURE_T, JASPER_FEATURE_LENS = 160, (160, 121)
+
+
+def flagship(name: str = "quartznet15x5", bits: int = 6, seed: int = 0,
+             ranges: bool = True) -> ASRModel:
+    """A flagship CTC model at full width, W<bits>A<bits>, BN-folded, with
+    its committed noise-calibrated ranges (``ranges``)."""
+    model = ASRModel.from_config(FLAGSHIPS[name][0](), seed=seed)
+    model.set_quant_bit(bits, "weight")
+    model.set_quant_bit(bits, "act")
+    model.bn_folding()
+    if ranges:
+        with open(os.path.join(ASSETS, QSTATES[name, bits])) as f:
+            model.qstate_from_json(f.read())
+    return model
 
 
 def quartznet15x5_w6a6(seed: int = 0) -> ASRModel:
     """QuartzNet15x5 at full width, W6A6, BN-folded, with the committed
     noise-calibrated ranges: the model bench.py and entry() serve."""
-    model = ASRModel.from_config(quartznet15x5(), seed=seed)
-    model.set_quant_bit(6, "weight")
-    model.set_quant_bit(6, "act")
-    model.bn_folding()
-    with open(QSTATE_PATH) as f:
-        model.qstate_from_json(f.read())
-    return model
+    return flagship("quartznet15x5", 6, seed)
 
 
-def golden_features(feat_in: int = 64) -> Tuple[np.ndarray, np.ndarray]:
-    """(features (2, 320, feat_in) float32, lengths (2,) int32)."""
+def golden_features(feat_in: int = 64, name: str = "quartznet15x5"
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+    """(features (2, T, feat_in) float32, lengths (2,) int32): T 320 for
+    QuartzNet, 160 for Jasper."""
+    t, lens = ((JASPER_FEATURE_T, JASPER_FEATURE_LENS) if name == "jasper10x5dr"
+               else (FEATURE_T, FEATURE_LENS))
     rng = np.random.default_rng(FEATURE_SEED)
-    feats = rng.normal(size=(len(FEATURE_LENS), FEATURE_T, feat_in)).astype(np.float32)
-    return feats, np.asarray(FEATURE_LENS, np.int32)
+    feats = rng.normal(size=(len(lens), t, feat_in)).astype(np.float32)
+    return feats, np.asarray(lens, np.int32)
 
 
 def array_sha256(a: np.ndarray) -> str:
@@ -127,12 +162,14 @@ def port_record(model: ASRModel, tables, feats, lens, fused: bool = True,
     return golden_record(tables_digest(tables_to_numpy(tables)), *outs)
 
 
-def load_golden(dyadic_mode: str = "static_e") -> Dict[str, Any]:
-    """The committed QuartzNet golden record of this dyadic mode."""
-    if dyadic_mode not in GOLDEN_PATHS:
-        raise ValueError(f"no QuartzNet golden record for dyadic_mode {dyadic_mode!r} "
-                         f"(have {sorted(GOLDEN_PATHS)})")
-    with open(GOLDEN_PATHS[dyadic_mode]) as f:
+def load_golden(dyadic_mode: str = "static_e", name: str = "quartznet15x5",
+                bits: int = 6) -> Dict[str, Any]:
+    """The committed golden record of this model, bit width and dyadic
+    mode (by default W6A6 QuartzNet15x5's)."""
+    key = (name, bits, dyadic_mode)
+    if key not in RECORDS:
+        raise ValueError(f"no golden record for {key} (have {sorted(RECORDS)})")
+    with open(os.path.join(ASSETS, RECORDS[key])) as f:
         return json.load(f)
 
 

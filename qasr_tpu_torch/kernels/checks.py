@@ -2,13 +2,16 @@
 pointers, so every device, dtype, shape and contiguity it relies on is
 verified in Python first and anything else raises.  Also the host's proof
 that a per-column requant site may run on the FP64 pipe (``f64_fits``),
-which Kernel 4 applies per layer and Kernel 6 per site."""
+which Kernel 4 applies per layer and Kernel 6 per site, and the storage
+rule of an activation code (``act_dtype``): int8, or uint8 for the
+non-negative 9-bit codes of W8A8's post-ReLU sites."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
 
+from qasr_tpu_torch.ops.quant_prims import code_dtype
 
 def check_x(name: str, x: torch.Tensor, ndim: int) -> None:
     if x.dtype != torch.int8 or x.dim() != ndim or not x.is_contiguous():
@@ -31,6 +34,35 @@ def check_vec(name: str, arg: str, t: Optional[torch.Tensor], dtype,
                          f"{tuple(t.shape)} on {t.device}")
 
 
+def act_dtype(name: str, bits, nonneg: bool, device) -> torch.dtype:
+    """The storage rule of an activation code of ``bits`` bits (a requant's
+    output, a conv's operand): int8 for a signed code of 2-8 bits; uint8
+    for a 9-bit code whose value is non-negative (the +1-bit asymmetric
+    sites of W8A8 read a post-ReLU input, and the dyadic requant of a value
+    >= 0 is >= 0, so the clamp [-256, 255] reads [0, 255]: one byte, which
+    Hopper multiplies as u8 x s8).  Anything else, a signed 9-bit code,
+    10 bits and more, is int32 on the CPU, where the plain versions run,
+    and raises NotImplementedError on CUDA, whose kernels store bytes."""
+    if not isinstance(bits, int) or bits < 2:
+        raise ValueError(f"{name}: bits must be an int >= 2, got {bits!r}")
+    dtype = code_dtype(bits, nonneg)
+    if dtype == torch.int32 and torch.device(device).type == "cuda":
+        what = "a signed 9-bit" if bits == 9 else f"a {bits}-bit"
+        raise NotImplementedError(
+            f"{name}: {what} activation code has no kernel storage on CUDA (the kernels "
+            f"store int8 codes of <= 8 bits and uint8 for non-negative 9-bit ones)")
+    return dtype
+
+
+def act_clamp(name: str, bits, nonneg: bool = False) -> Tuple[int, int]:
+    """(lo, hi) of a kernel's requant output stored as ``act_dtype`` gives
+    it on CUDA: [-2^(bits-1), 2^(bits-1)-1] for int8, [0, 255] for uint8
+    (the 9-bit clamp [-256, 255] on a non-negative value)."""
+    if act_dtype(name, bits, nonneg, "cuda") == torch.uint8:
+        return 0, 255
+    return int8_clamp(name, bits)
+
+
 def int8_clamp(name: str, bits) -> Tuple[int, int]:
     """(lo, hi) of a requant that writes int8: [-2^(bits-1), 2^(bits-1)-1]."""
     if not isinstance(bits, int) or not 2 <= bits <= 8:
@@ -39,12 +71,13 @@ def int8_clamp(name: str, bits) -> Tuple[int, int]:
     return -n - 1, n
 
 
-def epilogue_bounds(name: str, e, bits) -> Tuple[int, int, int]:
-    """(lo, hi, e) of the requant epilogue: a static exponent and an int8
-    output clamp [-2^(bits-1), 2^(bits-1)-1]."""
+def epilogue_bounds(name: str, e, bits, nonneg: bool = False) -> Tuple[int, int, int]:
+    """(lo, hi, e) of the requant epilogue: a static exponent and the
+    output clamp, int8 [-2^(bits-1), 2^(bits-1)-1] or, for a non-negative
+    value (``nonneg``), ``act_clamp``'s."""
     if not isinstance(e, int) or e < 1:
         raise ValueError(f"{name}: epilogue needs a static int exponent >= 1, got {e!r}")
-    return (*int8_clamp(name, bits), e)
+    return (*(act_clamp(name, bits, True) if nonneg else int8_clamp(name, bits)), e)
 
 
 def static_pair(name: str, arg: str, pair) -> Tuple[int, int]:
@@ -57,11 +90,21 @@ def static_pair(name: str, arg: str, pair) -> Tuple[int, int]:
     return m, e
 
 
-def check_act(name: str, x: torch.Tensor, ndim: int) -> None:
+def check_act(name: str, x: torch.Tensor, ndim: int, u8: bool = False) -> None:
     """An activation a prologue or the requant kernel reads: contiguous,
-    int8 or int32."""
-    if x.dtype not in (torch.int8, torch.int32) or x.dim() != ndim or not x.is_contiguous():
-        raise ValueError(f"{name}: x must be a contiguous {ndim}-D int8 or int32 tensor, "
+    int8 or int32 (or uint8 where ``u8``)."""
+    ok = (torch.int8, torch.int32) + ((torch.uint8,) if u8 else ())
+    if x.dtype not in ok or x.dim() != ndim or not x.is_contiguous():
+        raise ValueError(f"{name}: x must be a contiguous {ndim}-D tensor of "
+                         f"{' / '.join(str(d) for d in ok)}, got {x.dtype} {tuple(x.shape)} "
+                         f"contiguous={x.is_contiguous()}")
+
+
+def check_bytes(name: str, x: torch.Tensor, ndim: int) -> None:
+    """An activation a kernel reads as it is: contiguous int8 or uint8 (a
+    non-negative 9-bit code)."""
+    if x.dtype not in (torch.int8, torch.uint8) or x.dim() != ndim or not x.is_contiguous():
+        raise ValueError(f"{name}: x must be a contiguous {ndim}-D int8 or uint8 tensor, "
                          f"got {x.dtype} {tuple(x.shape)} contiguous={x.is_contiguous()}")
 
 

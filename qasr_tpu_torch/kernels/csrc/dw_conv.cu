@@ -7,14 +7,20 @@
 // (_dw_call, and _dw_pad_call under QASR_DW_INKERNEL_PAD) and
 // depthwise_fused_requant (_dw_fused_call).
 //
-//   prologue off: xq = x (int8)
+//   prologue off: xq = x (int8, or uint8: a non-negative 9-bit code)
 //   prologue on:  xq[b,t,c] = clamp(requant(mask_{t<in_len[b]}(relu?(x[b,t,c]
-//                             + in_bias[c])), m1[c], e1[c]), -2^(bits1-1),
-//                             2^(bits1-1)-1),   x int8 or int32
+//                             + in_bias[c])), m1[c], e1[c]), lo1, hi1),
+//                             x int8 or int32
 //   y[b,t,c] = sum_k xq[b, t*s + k*d - pad, c] * w[k,c]    (zero padding)
 //   epilogue off: out int32 = relu?(y + bias)
 //   epilogue on:  out int8  = clamp(requant(mask_{t<len[b]}(relu?(y + bias)),
-//                                           m[c], e[c]), -2^(bits-1), 2^(bits-1)-1)
+//                                           m[c], e[c]), lo, hi)
+//
+// Each clamp is [-2^(bits-1), 2^(bits-1)-1] with an int8 result, or [0,
+// 255] with a uint8 one: W8A8's 9-bit codes of a post-ReLU value (the
+// wrapper's act_clamp), whose clamp [-256, 255] reads [0, 255] there.  The
+// staged operand xq is then unsigned, and the products take the mixed-sign
+// dp4a (kU8: PTX dp4a.u32.s32, u8 activations against s8 taps).
 //
 // Each of m, e, m1, e1 is a (C,) device vector or, when its pointer is NULL,
 // the scalar passed by value; an exponent below 1 counts as 1 and one above
@@ -61,8 +67,9 @@
 //
 // A thread then owns one channel and 16 consecutive outputs u = 4a + j (a
 // in 4 quads), and for each tap group g issues 16 x __dp4a(X[a + g], Wj[g])
-// (signed s8 . s8): the window of output 4a + j at group g is exactly word
-// a + g against taps shifted by j, so no byte shuffles are needed.  The 4
+// (s8 . s8, or u8 . s8 for uint8 codes): the window of output 4a + j at
+// group g is exactly word a + g against taps shifted by j, so no byte
+// shuffles are needed.  The 4
 // input words slide in registers, renamed in rotation over 4 groups at a
 // time (one shared-memory load a group, no moves), and the 4 shifted taps
 // come in one 16-byte load: 16 dp4a and 2 loads for 64 multiply-adds.  The
@@ -89,19 +96,34 @@ __device__ __forceinline__ unsigned pack_byte(unsigned word, int v, int i) {
   return word | (static_cast<unsigned>(v & 0xff) << (8 * i));
 }
 
+// c + the four byte products of x and w: s8 . s8, or (kU8) u8 . s8 with
+// x's bytes unsigned (PTX dp4a.u32.s32)
+template <bool kU8>
+__device__ __forceinline__ int dp4(int x, int w, int c) {
+  if constexpr (kU8) {
+    int d;
+    asm("dp4a.u32.s32 %0, %1, %2, %3;" : "=r"(d) : "r"(x), "r"(w), "r"(c));
+    return d;
+  } else {
+    return __dp4a(x, w, c);
+  }
+}
+
 // one tap group: output quad a (window word xa) against the 4 shifted taps
+template <bool kU8>
 __device__ __forceinline__ void dp4a_group(int (&acc)[kPer], int x0, int x1, int x2, int x3,
                                            const int4 wt) {
   const int win[4] = {x0, x1, x2, x3};
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
-    acc[4 * a] = __dp4a(win[a], wt.x, acc[4 * a]);
-    acc[4 * a + 1] = __dp4a(win[a], wt.y, acc[4 * a + 1]);
-    acc[4 * a + 2] = __dp4a(win[a], wt.z, acc[4 * a + 2]);
-    acc[4 * a + 3] = __dp4a(win[a], wt.w, acc[4 * a + 3]);
+    acc[4 * a] = dp4<kU8>(win[a], wt.x, acc[4 * a]);
+    acc[4 * a + 1] = dp4<kU8>(win[a], wt.y, acc[4 * a + 1]);
+    acc[4 * a + 2] = dp4<kU8>(win[a], wt.z, acc[4 * a + 2]);
+    acc[4 * a + 3] = dp4<kU8>(win[a], wt.w, acc[4 * a + 3]);
   }
 }
 
+template <bool kU8>
 __global__ void __launch_bounds__(kCB * kMaxNT, 3)
 dw_conv_kernel(const void* __restrict__ x, const int8_t* __restrict__ w,
                const int32_t* __restrict__ bias, const int32_t* __restrict__ m, int ms,
@@ -292,17 +314,17 @@ dw_conv_kernel(const void* __restrict__ x, const int8_t* __restrict__ w,
     // (the word a group has used takes the next one), so nothing is moved
     int g = 0;
     for (; g + 4 <= ng; g += 4) {
-      dp4a_group(acc, x0, x1, x2, x3, wr[g * kCB]);
+      dp4a_group<kU8>(acc, x0, x1, x2, x3, wr[g * kCB]);
       x0 = xr[g + 4];
-      dp4a_group(acc, x1, x2, x3, x0, wr[(g + 1) * kCB]);
+      dp4a_group<kU8>(acc, x1, x2, x3, x0, wr[(g + 1) * kCB]);
       x1 = xr[g + 5];
-      dp4a_group(acc, x2, x3, x0, x1, wr[(g + 2) * kCB]);
+      dp4a_group<kU8>(acc, x2, x3, x0, x1, wr[(g + 2) * kCB]);
       x2 = xr[g + 6];
-      dp4a_group(acc, x3, x0, x1, x2, wr[(g + 3) * kCB]);
+      dp4a_group<kU8>(acc, x3, x0, x1, x2, wr[(g + 3) * kCB]);
       x3 = xr[g + 7];   // at the last group one word past the plane: unused
     }
     for (; g < ng; ++g) {
-      dp4a_group(acc, x0, x1, x2, x3, wr[g * kCB]);
+      dp4a_group<kU8>(acc, x0, x1, x2, x3, wr[g * kCB]);
       x0 = x1;
       x1 = x2;
       x2 = x3;
@@ -338,8 +360,31 @@ dw_conv_kernel(const void* __restrict__ x, const int8_t* __restrict__ w,
 
 }  // namespace
 
+template <bool kU8>
+cudaError_t launch(dim3 grid, dim3 block, size_t shm, cudaStream_t stream, const void* x,
+                   const int8_t* w, const int32_t* bias, const int32_t* m, int ms,
+                   const int32_t* ev, int es, const int32_t* out_len, void* out, int t_in,
+                   int c_total, int t_out, int k_size, int stride, int pad, int dil, int relu,
+                   int epi, int lo, int hi, int pro, int x32, const int32_t* in_bias,
+                   int in_relu, const int32_t* in_len, const int32_t* m1, int m1s,
+                   const int32_t* e1v, int e1s, int lo1, int hi1, int groups, int tiles,
+                   int vec) {
+  if (shm > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        dw_conv_kernel<kU8>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(shm));
+    if (err != cudaSuccess) return err;
+  }
+  dw_conv_kernel<kU8><<<grid, block, shm, stream>>>(
+      x, w, bias, m, ms, ev, es, out_len, out, t_in, c_total, t_out, k_size, stride, pad, dil,
+      relu, epi, lo, hi, pro, x32, in_bias, in_relu, in_len, m1, m1s, e1v, e1s, lo1, hi1,
+      groups, tiles, vec);
+  return cudaGetLastError();
+}
+
 // nt, groups, tiles: the wrapper's plan (thread rows, tap groups of 4 per
 // sub-plane, time tiles per output phase); shared memory follows from them.
+// u8: the staged operand is unsigned (a uint8 x, or a prologue that writes
+// uint8 codes).
 extern "C" int qasr_dw_conv(const void* x, const int8_t* w, const int32_t* bias,
                             const int32_t* m, int ms, const int32_t* ev, int es,
                             const int32_t* out_len, void* out, int batch, int t_in,
@@ -347,7 +392,7 @@ extern "C" int qasr_dw_conv(const void* x, const int8_t* w, const int32_t* bias,
                             int relu, int epi, int lo, int hi, int pro, int x32,
                             const int32_t* in_bias, int in_relu, const int32_t* in_len,
                             const int32_t* m1, int m1s, const int32_t* e1v, int e1s, int lo1,
-                            int hi1, int nt, int groups, int tiles, void* stream) {
+                            int hi1, int nt, int groups, int tiles, int u8, void* stream) {
   if (nt < 1 || nt > kMaxNT || groups < 1 || tiles < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const int phases = dil < t_out ? dil : t_out;
@@ -358,16 +403,14 @@ extern "C" int qasr_dw_conv(const void* x, const int8_t* w, const int32_t* bias,
   const int pitch = (4 * nt + groups + 1) | 1;
   const size_t shm = 16ull * stride * (groups + 1) * kCB + 4ull * stride * (groups + 2) * kCB
                      + 4ull * stride * kCB * pitch;
-  if (shm > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        dw_conv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(shm));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
   const dim3 grid(phases * tiles, (c_total + kCB - 1) / kCB, batch);
   const dim3 block(kCB, nt);
-  dw_conv_kernel<<<grid, block, shm, static_cast<cudaStream_t>(stream)>>>(
-      x, w, bias, m, ms, ev, es, out_len, out, t_in, c_total, t_out, k_size, stride, pad, dil,
-      relu, epi, lo, hi, pro, x32, in_bias, in_relu, in_len, m1, m1s, e1v, e1s, lo1, hi1,
-      groups, tiles, vec);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t rc =
+      (u8 ? launch<true> : launch<false>)(grid, block, shm, st, x, w, bias, m, ms, ev, es,
+                                          out_len, out, t_in, c_total, t_out, k_size, stride,
+                                          pad, dil, relu, epi, lo, hi, pro, x32, in_bias,
+                                          in_relu, in_len, m1, m1s, e1v, e1s, lo1, hi1, groups,
+                                          tiles, vec);
+  return static_cast<int>(rc);
 }

@@ -1,8 +1,8 @@
 // gemm_s8.cuh: the int8 GEMM mainloop that Kernel 2 (pw_gemm.cu) and
 // Kernel 5 (lin_epilogue.cu) share, for Hopper (sm_90a).
 //
-//   acc[n, o] = sum_k a[n, k] * b[o, k],   a (N, K) and b (Cout, K) int8,
-//   K-major both, int32 accumulators in registers.
+//   acc[n, o] = sum_k a[n, k] * b[o, k],   a (N, K) int8 or uint8 and b
+//   (Cout, K) int8, K-major both, int32 accumulators in registers.
 //
 // Shared-memory layout.  K is cut into 128-byte chunks.  A chunk of R rows
 // is R x 128 bytes, laid out as TMA's SWIZZLE_128B writes it: row r's
@@ -11,7 +11,8 @@
 // tensor's edge arrive as zeros (TMA's out-of-bounds fill), so a ragged K
 // (Cin = 64), N or Cout needs no special path in the mainloop.
 //
-// Products.  wgmma.mma_async m64nNk32 .s32.s8.s8 with both operands read
+// Products.  wgmma.mma_async m64nNk32 .s32.s8.s8 (.s32.u8.s8 for a uint8
+// A: Kernel 2 at W8A8's post-ReLU sites) with both operands read
 // from shared memory through descriptors (128B swizzle, 1024 bytes between
 // 8-row groups); a chunk is four k32 steps, each 32 bytes further along the
 // row.  One consumer warpgroup owns 64 rows of the block.  Integer sums are
@@ -129,74 +130,95 @@ __device__ __forceinline__ void fence_regs(int (&d)[R]) {
 }
 
 // d (64 x N, int32, the warpgroup's accumulator fragment) += a (64 x 32) *
-// b (N x 32)^T, both s8 in shared memory
-template <int N>
+// b (N x 32)^T, both in shared memory, b s8 and a s8 or, with kU8, u8
+// (W8A8's non-negative 9-bit codes: .s32.u8.s8).  QASR_WGMMA writes the
+// instruction for a width N, its A type, the accumulator registers' list
+// (REGS) and operands (DOPS), and the descriptors' operand numbers.
+#define QASR_WGMMA(N, ATYPE, REGS, DOPS, IA, IB, IP)                                     \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" IP ", 0;\n"                        \
+               "wgmma.mma_async.sync.aligned.m64n" N "k32.s32." ATYPE ".s8 {" REGS      \
+               "}, %" IA ", %" IB ", p;\n}\n"                                          \
+               : DOPS                                                                   \
+               : "l"(da), "l"(db), "r"(1))
+#define QASR_REGS16 \
+    "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+#define QASR_DOPS16 \
+    "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), \
+    "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+#define QASR_REGS32 \
+    "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+    "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+#define QASR_DOPS32 \
+    "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), \
+    "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), \
+    "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), \
+    "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+#define QASR_REGS64 \
+    "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+    "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+    "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+    "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+#define QASR_DOPS64 \
+    "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), \
+    "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), \
+    "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), \
+    "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), \
+    "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), \
+    "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), \
+    "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]), \
+    "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+
+template <int N, bool kU8 = false>
 struct Wgmma;
 
-template <>
-struct Wgmma<32> {
+template <bool kU8>
+struct Wgmma<32, kU8> {
   __device__ __forceinline__ static void mma(int (&d)[16], uint64_t da, uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-        "}, %16, %17, p;\n}\n"
-        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
-          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
-        : "l"(da), "l"(db), "r"(1));
+    if constexpr (kU8)
+      QASR_WGMMA("32", "u8", QASR_REGS16, QASR_DOPS16, "16", "17", "18");
+    else
+      QASR_WGMMA("32", "s8", QASR_REGS16, QASR_DOPS16, "16", "17", "18");
   }
 };
 
-template <>
-struct Wgmma<64> {
+template <bool kU8>
+struct Wgmma<64, kU8> {
   __device__ __forceinline__ static void mma(int (&d)[32], uint64_t da, uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-        "}, %32, %33, p;\n}\n"
-        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
-          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
-          "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
-        : "l"(da), "l"(db), "r"(1));
+    if constexpr (kU8)
+      QASR_WGMMA("64", "u8", QASR_REGS32, QASR_DOPS32, "32", "33", "34");
+    else
+      QASR_WGMMA("64", "s8", QASR_REGS32, QASR_DOPS32, "32", "33", "34");
   }
 };
 
-template <>
-struct Wgmma<128> {
+template <bool kU8>
+struct Wgmma<128, kU8> {
   __device__ __forceinline__ static void mma(int (&d)[64], uint64_t da, uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-        "}, %64, %65, p;\n}\n"
-        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
-          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
-          "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
-          "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
-          "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
-          "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
-          "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
-        : "l"(da), "l"(db), "r"(1));
+    if constexpr (kU8)
+      QASR_WGMMA("128", "u8", QASR_REGS64, QASR_DOPS64, "64", "65", "66");
+    else
+      QASR_WGMMA("128", "s8", QASR_REGS64, QASR_DOPS64, "64", "65", "66");
   }
 };
 
-// acc += the warpgroup's 64 rows at `a` times the N rows at `b` over one K
-// chunk (four k32 steps); returns when the products are done, so the
-// caller may release b's stage and read acc.
-template <int N>
+#undef QASR_WGMMA
+#undef QASR_REGS16
+#undef QASR_DOPS16
+#undef QASR_REGS32
+#undef QASR_DOPS32
+#undef QASR_REGS64
+#undef QASR_DOPS64
+
+// acc += the warpgroup's 64 rows at `a` (s8, or u8 with kU8) times the N
+// rows at `b` over one K chunk (four k32 steps); returns when the products
+// are done, so the caller may release b's stage and read acc.
+template <int N, bool kU8 = false>
 __device__ __forceinline__ void mma_chunk(int (&acc)[N / 2], const uint8_t* a, const uint8_t* b) {
   const uint64_t da = sw128_desc(a), db = sw128_desc(b);
   fence_regs(acc);
   asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 #pragma unroll
-  for (int k = 0; k < kChunk / 32; ++k) Wgmma<N>::mma(acc, da + 2 * k, db + 2 * k);
+  for (int k = 0; k < kChunk / 32; ++k) Wgmma<N, kU8>::mma(acc, da + 2 * k, db + 2 * k);
   asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
   asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
   fence_regs(acc);

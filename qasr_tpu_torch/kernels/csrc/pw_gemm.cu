@@ -5,18 +5,22 @@
 // fused_pw_join_cm (_pw3_join_call) and qasr_tpu/kernels/pw_matmul.py::
 // requant_pointwise_matmul (_call).
 //
-//   prologue off: a = x int8
+//   prologue off: a = x int8, or uint8 (a non-negative 9-bit code)
 //   prologue on:  a[n,i] = clamp(requant(mask_{n%T < in_len[n/T]}(relu?(x[n,i]
-//                          + in_bias[i])), m1[i], e1), -2^(bits1-1),
-//                          2^(bits1-1)-1),   x int8 or int32, m1 a (Cin,)
-//                          vector or (NULL) the scalar m1s
+//                          + in_bias[i])), m1[i], e1), lo1, hi1),
+//                          x int8 or int32, m1 a (Cin,) vector or (NULL)
+//                          the scalar m1s
 //   acc[n,o] = sum_i a[n,i] * wt[o,i]     x (N=B*T, Cin), wt (Cout, Cin) int8
 //   mode 0 (none):    out int32 = relu?(acc + bias)
 //   mode 1 (requant): out int8  = clamp(requant(mask_{n%T < len[n/T]}(
-//                                       relu?(acc + bias)), m[o], e))
+//                                       relu?(acc + bias)), m[o], e), lo, hi)
 //   mode 2 (join):    out int8  = clamp(requant(acc + bias, m[o], e)
-//                                       + requant(res[n,o], m_r[o], e_r))
-//   clamp is [-2^(bits-1), 2^(bits-1)-1].
+//                                       + requant(res[n,o], m_r[o], e_r), lo, hi)
+//   a clamp is [-2^(bits-1), 2^(bits-1)-1] with an int8 result, or [0,
+//   255] with a uint8 one: W8A8's 9-bit codes of a ReLU'd value, whose
+//   clamp [-256, 255] reads [0, 255] (the wrapper's act_clamp), stored in
+//   the same bytes.  With a uint8 A (kU8) the products are wgmma's
+//   .s32.u8.s8 form.
 //
 // What bounds it on an H100, at the slice's largest sites (N = 64*768 =
 // 49152 rows): at 512 -> 512, 12.9 G multiply-adds (13 us at 1,979 TOP/s)
@@ -229,7 +233,7 @@ __device__ __forceinline__ void epilogue(const PwParams& p, const uint8_t* stage
   }
 }
 
-template <int kBN>
+template <int kBN, bool kU8>
 __global__ void __launch_bounds__(kThreads, 2)
 pw_gemm_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_w,
                const PwParams p) {
@@ -300,7 +304,7 @@ pw_gemm_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant_
     for (int kc = 0; kc < p.nk; ++kc, ++step) {
       const int s = step % kStages;
       mbar_wait(full + s, (step / kStages) & 1);
-      mma_chunk<kBN>(acc, a_tile + kc * kBM * kChunk, ring + s * kBN * kChunk);
+      mma_chunk<kBN, kU8>(acc, a_tile + kc * kBM * kChunk, ring + s * kBN * kChunk);
       if (lane == 0) mbar_arrive(empty + s);
     }
     stage_acc<kBN>(acc, stage, warp, lane);
@@ -310,13 +314,14 @@ pw_gemm_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant_
   }
 }
 
-template <int kBN>
+template <int kBN, bool kU8>
 cudaError_t launch(const CUtensorMap& mx, const CUtensorMap& mw, const PwParams& p, int smem,
                    cudaStream_t stream) {
   static const cudaError_t attr = cudaFuncSetAttribute(
-      pw_gemm_kernel<kBN>, cudaFuncAttributeMaxDynamicSharedMemorySize, gemm_s8::kSmemLimit);
+      pw_gemm_kernel<kBN, kU8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      gemm_s8::kSmemLimit);
   if (attr != cudaSuccess) return attr;
-  pw_gemm_kernel<kBN><<<(p.n_rows + kBM - 1) / kBM, kThreads, smem, stream>>>(mx, mw, p);
+  pw_gemm_kernel<kBN, kU8><<<(p.n_rows + kBM - 1) / kBM, kThreads, smem, stream>>>(mx, mw, p);
   return cudaGetLastError();
 }
 
@@ -330,7 +335,7 @@ extern "C" int qasr_pw_gemm(const void* x, const int8_t* wt,
                             int e, int e_r, int lo, int hi, int pro, int x32,
                             const int32_t* in_bias, int in_relu,
                             const int32_t* in_len, const int32_t* m1, int m1s,
-                            int e1, int lo1, int hi1, void* stream) {
+                            int e1, int lo1, int hi1, int u8, void* stream) {
   // the tile plan (kernels/pw_gemm.py::plan computes the same)
   const int bn = cout <= 32 ? 32 : 64;
   const int nk = (cin + kChunk - 1) / kChunk;
@@ -346,6 +351,8 @@ extern "C" int qasr_pw_gemm(const void* x, const int8_t* wt,
                    relu, e, e_r, lo, hi, pro, x32, in_bias, in_relu, in_len, m1, m1s, e1, lo1,
                    hi1, nk};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t rc = bn == 32 ? launch<32>(mx, mw, p, smem, st) : launch<64>(mx, mw, p, smem, st);
+  // u8: A is unsigned (a uint8 x, or a prologue that writes uint8 codes)
+  const cudaError_t rc = bn == 32 ? (u8 ? launch<32, true> : launch<32, false>)(mx, mw, p, smem, st)
+                                  : (u8 ? launch<64, true> : launch<64, false>)(mx, mw, p, smem, st);
   return static_cast<int>(rc);
 }

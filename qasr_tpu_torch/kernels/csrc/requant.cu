@@ -7,7 +7,13 @@
 //
 //   v   = mask_{t < lens[b]}(relu?(z[n, c]))
 //   s   = requant(v, m[c], e[c]) [+ requant(mask(id[n, c]), m_r[c], e_r[c])]
-//   out = clamp(s, -2^(bits-1), 2^(bits-1) - 1)      int8 when bits <= 8
+//   out = clamp(s, lo, hi)
+//
+// z is int8, int32 or uint8 (a non-negative 9-bit code).  The output is
+// int8 with [lo, hi] = [-2^(bits-1), 2^(bits-1) - 1] when bits <= 8; uint8
+// with [0, 255] for a 9-bit requant of a non-negative value (ReLU on, or a
+// uint8 z, and no identity: the clamp [-256, 255] reads [0, 255] there),
+// the same low-byte store; int32 for any other (the wrapper's out_dtype).
 //
 // with requant the shared device function of requant.cuh (exponents below
 // 1 count as 1, above 62 give 0, as the plain torch version and the JAX
@@ -44,8 +50,8 @@
 namespace {
 
 struct Side {
-  const void* z;      // int8 or int32 (B*T, C)
-  int z32;            // 1: z is int32
+  const void* z;      // int8, int32 or uint8 (B*T, C)
+  int zt;             // z's type: 0 int8, 1 int32, 2 uint8
   const int32_t* m;   // (C,) or NULL -> ms
   const int32_t* e;   // (C,) or NULL -> es
   int ms, es;
@@ -56,16 +62,18 @@ struct Side {
 template <int V>
 __device__ __forceinline__ void load_vals(const Side& s, size_t idx, int (&v)[V]) {
   if constexpr (V == 1) {
-    v[0] = s.z32 ? __ldg(static_cast<const int32_t*>(s.z) + idx)
-                 : static_cast<int>(__ldg(static_cast<const int8_t*>(s.z) + idx));
-  } else if (s.z32) {
+    v[0] = s.zt == 1 ? __ldg(static_cast<const int32_t*>(s.z) + idx)
+         : s.zt == 2 ? static_cast<int>(__ldg(static_cast<const uint8_t*>(s.z) + idx))
+                     : static_cast<int>(__ldg(static_cast<const int8_t*>(s.z) + idx));
+  } else if (s.zt == 1) {
     const int4 q = __ldg(reinterpret_cast<const int4*>(static_cast<const int32_t*>(s.z) + idx));
     v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
   } else {
     const unsigned q = __ldg(reinterpret_cast<const unsigned*>(
         static_cast<const int8_t*>(s.z) + idx));
 #pragma unroll
-    for (int i = 0; i < 4; ++i) v[i] = static_cast<int8_t>(q >> (8 * i));
+    for (int i = 0; i < 4; ++i)
+      v[i] = s.zt == 2 ? static_cast<int>((q >> (8 * i)) & 0xffu) : static_cast<int8_t>(q >> (8 * i));
   }
 }
 
@@ -152,12 +160,12 @@ int launch(const Side& a, const Side& r, int has_r, const int32_t* lens, void* o
 
 }  // namespace
 
-extern "C" int qasr_requant_rows(const void* z, int z32, const int32_t* m, const int32_t* e,
+extern "C" int qasr_requant_rows(const void* z, int zt, const int32_t* m, const int32_t* e,
                                  int ms, int es, const void* id, int id32,
                                  const int32_t* m_r, const int32_t* e_r, int ms_r, int es_r,
                                  const int32_t* lens, void* out, int out32, int n_rows, int C,
                                  int rows_per_batch, int relu, int lo, int hi, void* stream) {
-  const Side a{z, z32, m, e, ms, es};
+  const Side a{z, zt, m, e, ms, es};
   const Side r{id, id32, m_r, e_r, ms_r, es_r};
   if (n_rows == 0 || C == 0) return 0;
   const int batch = n_rows / rows_per_batch;

@@ -1,0 +1,187 @@
+"""Kernel 8: dense integer 1-D conv with Kernel 2's input-requant prologue
+and its none / requant / join epilogues (kernels/csrc/dense_conv.cu): an
+implicit GEMM over (tap, Cin chunk) on mma.sync, the input rows of an
+output tile and their halo resident in shared memory, no im2col in device
+memory.
+
+Replaces no Pallas kernel: the JAX package computes these convs with
+XLA's integer conv (qasr_tpu/models/jasper.py:332, ``conv_nwc`` with
+``preferred_element_type=int32``).  Jasper10x5Dr's convs (K 11 to 29,
+stride 2, dilation 2) run here.  ``dense_conv`` launches the CUDA kernel
+for CUDA tensors and runs ``dense_conv_plain`` for CPU tensors; it never
+falls back from one to the other.  ``plan`` states the kernel's tiles and
+shared memory, ``check_launch`` the shapes it takes.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from qasr_tpu_torch.kernels import _build
+from qasr_tpu_torch.kernels.checks import check_vec
+from qasr_tpu_torch.kernels.dw_conv import check_prologue, prologue_args, prologue_plain
+from qasr_tpu_torch.kernels.pw_gemm import (
+    MODE_JOIN,
+    _mode,
+    check_epilogue,
+    epilogue_plain,
+    int_matmul,
+    pad_k,
+)
+from qasr_tpu_torch.models.jasper import out_frames
+
+BM, BN = 128, 128    # output frames x output channels of a block's tile
+KC = 128             # bytes of Cin a K step takes
+WP = KC + 16         # the weight ring's row pitch (bytes)
+STAGES = 4           # the weight ring's stages
+SMEM_LIMIT = 232448  # dynamic shared memory one block may use on an H100
+SMS = 132            # the H100 SXM's streaming multiprocessors
+GRID_YZ = 65535      # the grid's y (batch) and z limits
+
+
+def plan(b: int, t_out: int, cin: int, cout: int, k_size: int, stride: int,
+         dilation: int) -> dict:
+    """Kernel 8's tiles for one launch (csrc/dense_conv.cu takes ``ct_per``
+    from here and computes the same shared memory).
+
+    A block owns BM output frames of one batch element: ``rows`` = (BM - 1)
+    * stride + (K - 1) * dilation + 1 input rows resident at ``pitch`` bytes
+    (Cin padded to ``nc`` chunks of KC, plus 16 so that eight rows fall on
+    distinct banks), and walks ``ct_per`` Cout tiles of BN, the weights
+    streaming through STAGES slots of BN x WP bytes.  Grid z splits Cout
+    into slices where the (frame tile, batch) blocks alone would not give
+    the card two blocks an SM."""
+    nc = -(-cin // KC)
+    rows = (BM - 1) * stride + (k_size - 1) * dilation + 1
+    pitch = nc * KC + 16
+    smem = rows * pitch + STAGES * BN * WP
+    n_ct = -(-cout // BN)
+    base = -(-t_out // BM) * b
+    splits = min(n_ct, max(1, -(-2 * SMS // base)))
+    ct_per = -(-n_ct // splits)
+    return {"nc": nc, "rows": rows, "pitch": pitch, "smem": smem, "ct_per": ct_per,
+            "grid": (-(-t_out // BM), b, -(-n_ct // ct_per)), "block": 256}
+
+
+def check_launch(b: int, t_in: int, cin: int, cout: int, k_size: int, stride: int,
+                 padding: int, dilation: int, pro: bool, x_dtype: torch.dtype) -> dict:
+    """The launch's plan, or ValueError for a shape the kernel does not take:
+    an empty output, Cin not a positive multiple of 16 (the 16-byte
+    granules the tiles are copied in), an int32 input without the
+    prologue, frame indices beyond int32, a batch beyond the grid's y
+    limit, or resident rows that outgrow a block's shared memory."""
+    if stride < 1 or dilation < 1 or padding < 0 or k_size < 1:
+        raise ValueError("dense_conv: stride/dilation/K must be >= 1, padding >= 0")
+    t_out = out_frames(t_in, k_size, stride, padding, dilation)
+    if b < 1 or cout < 1 or t_out <= 0:
+        raise ValueError(f"dense_conv: empty output (B={b}, Cout={cout}, T_out={t_out})")
+    if cin < 16 or cin % 16:
+        raise ValueError(f"dense_conv: Cin must be a positive multiple of 16, got {cin}")
+    if not pro and x_dtype not in (torch.int8, torch.uint8):
+        raise ValueError(f"dense_conv: without the prologue x must be int8 or uint8, "
+                         f"got {x_dtype}")
+    if b * (t_in + t_out) * max(cin, cout) >= 2 ** 31 or b > GRID_YZ:
+        raise ValueError("dense_conv: B * T * C must stay below 2^31 and B below 65536")
+    p = plan(b, t_out, cin, cout, k_size, stride, dilation)
+    if p["smem"] > SMEM_LIMIT:
+        raise ValueError(f"dense_conv: K={k_size} stride={stride} dilation={dilation} "
+                         f"Cin={cin} needs {p['smem']} bytes of shared memory, above "
+                         f"{SMEM_LIMIT}")
+    return p
+
+
+def dense_conv_plain(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
+                     padding: int = 0, dilation: int = 1,
+                     bias: Optional[torch.Tensor] = None, relu: bool = False,
+                     lens: Optional[torch.Tensor] = None, m=None,
+                     e: Optional[int] = None, bits: Optional[int] = None,
+                     res: Optional[torch.Tensor] = None, m_r=None,
+                     e_r: Optional[int] = None, in_bias: Optional[torch.Tensor] = None,
+                     in_relu: bool = False, in_len: Optional[torch.Tensor] = None,
+                     m1=None, e1: Optional[int] = None,
+                     bits1: Optional[int] = None) -> torch.Tensor:
+    """Plain torch version: the prologue on the whole input, then a loop
+    over taps of exact integer products (``int_matmul``: int32 on the
+    CPU, torch._int_mm or float64 on the card) of the strided, shifted
+    frames, then the epilogue.  Same arguments and result as
+    ``dense_conv``."""
+    if m1 is not None:
+        x = prologue_plain(x, in_bias=in_bias, in_relu=in_relu, in_len=in_len, m1=m1,
+                           e1=e1, bits1=bits1)
+    b, t_in, cin = x.shape
+    cout, k_size, _ = w.shape
+    t_out = out_frames(t_in, k_size, stride, padding, dilation)
+    xp = F.pad(x, (0, 0, padding, padding))
+    acc = torch.zeros((b * t_out, cout), dtype=torch.int32, device=x.device)
+    for k in range(k_size):
+        start = k * dilation
+        xs = xp[:, start:start + (t_out - 1) * stride + 1:stride].reshape(b * t_out, cin)
+        acc += int_matmul(xs, w[:, k].contiguous())
+    return epilogue_plain(acc.reshape(b, t_out, cout), bias=bias, relu=relu, lens=lens,
+                          m=m, e=e, bits=bits, res=res, m_r=m_r, e_r=e_r)
+
+
+def dense_conv(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1, padding: int = 0,
+               dilation: int = 1, bias: Optional[torch.Tensor] = None, relu: bool = False,
+               lens: Optional[torch.Tensor] = None, m=None,
+               e: Optional[int] = None, bits: Optional[int] = None,
+               res: Optional[torch.Tensor] = None, m_r=None,
+               e_r: Optional[int] = None, in_bias: Optional[torch.Tensor] = None,
+               in_relu: bool = False, in_len: Optional[torch.Tensor] = None,
+               m1=None, e1: Optional[int] = None,
+               bits1: Optional[int] = None) -> torch.Tensor:
+    """Dense conv of x (B, T, Cin) with w (Cout, K, Cin) int8:
+    y[b, t, o] = sum_k sum_c x[b, t*stride + k*dilation - padding, c] * w[o, k, c],
+    frames outside [0, T) reading 0.
+
+    Cin need not be a multiple of 16: the wrapper zero-pads it.  Prologue
+    and epilogues are Kernel 2's (``pw_gemm``): prologue off, x is int8 or
+    uint8 (a non-negative 9-bit code); on, x is int8 or int32 and each
+    frame is first ``clamp(requant(mask(relu?(x + in_bias)), m1, e1),
+    bits1)`` (frames t >= in_len[b] zeroed).  none: int32 ``relu?(y +
+    bias)``; requant: int8 (uint8 for 9 bits with relu) ``clamp(requant(
+    mask(relu?(y + bias)), m, e), bits)``, frames t >= lens[b] zeroed;
+    join: int8 ``clamp(requant(y + bias, m, e) + requant(res, m_r, e_r),
+    bits)``, res (B, T_out, Cout) int32."""
+    mode = _mode(m, res)
+    if mode == MODE_JOIN and (relu or m is None):
+        raise ValueError("dense_conv: join takes m and no relu")
+    prologue_args("dense_conv", in_bias, in_relu, in_len, m1)
+    kw = dict(stride=stride, padding=padding, dilation=dilation, bias=bias, relu=relu,
+              lens=lens, m=m, e=e, bits=bits, res=res, m_r=m_r, e_r=e_r, in_bias=in_bias,
+              in_relu=in_relu, in_len=in_len, m1=m1, e1=e1, bits1=bits1)
+    if x.device.type == "cpu":
+        return dense_conv_plain(x, w, **kw)
+    if x.device.type != "cuda":
+        raise ValueError(f"dense_conv: unsupported device {x.device}")
+    if x.dim() != 3 or w.dim() != 3:
+        raise ValueError(f"dense_conv: x must be (B, T, Cin) and w (Cout, K, Cin), got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    if x.shape[2] % 16:
+        x, w, in_bias, m1 = pad_k(x, w, in_bias, m1)
+    b, t_in, cin = x.shape
+    cout, k_size = w.shape[:2]
+    pro, m1v, m1s, _, ee1, lo1, hi1, u8 = check_prologue("dense_conv", x, in_bias, in_len, m1,
+                                                         e1, bits1, cin, b, in_relu=in_relu)
+    if x.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError("dense_conv: x and w must be 16-byte aligned")
+    p = check_launch(b, t_in, cin, cout, k_size, stride, padding, dilation, bool(pro), x.dtype)
+    dev = x.device
+    check_vec("dense_conv", "w", w, torch.int8, (cout, k_size, cin), dev)
+    t_out = out_frames(t_in, k_size, stride, padding, dilation)
+    lo, hi, ee, ee_r, lens, out = check_epilogue("dense_conv", mode, (b, t_out, cout), dev,
+                                                 bias, relu, lens, m, e, bits, res, m_r, e_r)
+    rc = _build.library().qasr_dense_conv(
+        _build.ptr(x), _build.ptr(w), _build.ptr(bias), _build.ptr(m), _build.ptr(lens),
+        _build.ptr(res), _build.ptr(m_r), _build.ptr(out), b, t_in, cin, t_out, cout, k_size,
+        stride, padding, dilation, mode, int(relu), ee, ee_r, lo, hi, pro,
+        int(x.dtype == torch.int32), _build.ptr(in_bias), int(in_relu), _build.ptr(in_len),
+        _build.ptr(m1v), m1s, ee1, lo1, hi1, int(u8), p["ct_per"], _build.stream_of(x))
+    _build.check(rc, "dense_conv")
+    dense_conv.launches += 1
+    return out
+
+
+dense_conv.launches = 0

@@ -16,11 +16,12 @@ import torch
 
 from qasr_tpu_torch.kernels import _build
 from qasr_tpu_torch.kernels.checks import (
+    act_clamp,
+    act_dtype,
     check_act,
+    check_bytes,
     check_vec,
-    check_x,
     epilogue_bounds,
-    int8_clamp,
     requant_operand,
 )
 from qasr_tpu_torch.models.jasper import depthwise_conv_int, out_frames
@@ -74,8 +75,9 @@ def check_launch(b: int, t_in: int, c: int, k_size: int, stride: int, padding: i
     t_out = out_frames(t_in, k_size, stride, padding, dilation)
     if b < 1 or c < 1 or t_out <= 0:
         raise ValueError(f"dw_conv: empty output (B={b}, C={c}, T_out={t_out})")
-    if not pro and x_dtype != torch.int8:
-        raise ValueError(f"dw_conv: without the prologue x must be int8, got {x_dtype}")
+    if not pro and x_dtype not in (torch.int8, torch.uint8):
+        raise ValueError(f"dw_conv: without the prologue x must be int8 or uint8, "
+                         f"got {x_dtype}")
     if t_in + t_out * stride + 2 * padding + dilation * k_size >= 2 ** 31:
         raise ValueError("dw_conv: frame indices must stay below 2^31")
     p = plan(b, t_out, c, k_size, stride, dilation)
@@ -90,10 +92,11 @@ def check_launch(b: int, t_in: int, c: int, k_size: int, stride: int, padding: i
 def prologue_plain(x: torch.Tensor, *, in_bias=None, in_relu: bool = False,
                    in_len: Optional[torch.Tensor] = None, m1, e1,
                    bits1: int) -> torch.Tensor:
-    """The input-requant prologue of Kernels 1 and 2 on a whole (B, T, C)
-    int8 or int32 tensor: bias -> ReLU -> zero frames t >= in_len[b] ->
+    """The input-requant prologue of Kernels 1, 2 and 8 on a whole (B, T,
+    C) int8 or int32 tensor: bias -> ReLU -> zero frames t >= in_len[b] ->
     dyadic requant (a static exponent, or per-channel exponents) -> clamp ->
-    int8 (the producer's epilogue, run by its consumer)."""
+    int8, or uint8 for a 9-bit code of a ReLU'd value (the producer's
+    epilogue, run by its consumer)."""
     return requant_epilogue(x, bias=in_bias, relu=in_relu, lens=in_len, m=m1, e=e1,
                             bits=bits1)
 
@@ -105,26 +108,29 @@ def prologue_args(name: str, in_bias, in_relu, in_len, m1) -> None:
         raise ValueError(f"{name}: in_bias / in_relu / in_len need the prologue (m1)")
 
 
-def check_prologue(name, x, in_bias, in_len, m1, e1, bits1, c, b, vector_e=False):
+def check_prologue(name, x, in_bias, in_len, m1, e1, bits1, c, b, vector_e=False,
+                   in_relu=False):
     """The prologue's arguments on a CUDA x (B, T, C): (pro, m1 vector or
-    None, m1 scalar, e1 vector or None, e1 scalar, lo1, hi1).  m1 is a (C,)
-    int32 tensor or a scalar (a 0-d array: a site whose producer has one
-    scale, such as a residual join), taken by value; so is e1 where the
+    None, m1 scalar, e1 vector or None, e1 scalar, lo1, hi1, u8).  m1 is a
+    (C,) int32 tensor or a scalar (a 0-d array: a site whose producer has
+    one scale, such as a residual join), taken by value; so is e1 where the
     kernel takes per-channel exponents (``vector_e``), else it is a static
-    int."""
+    int.  ``u8``: the operand the kernel multiplies is unsigned, a uint8 x
+    without the prologue or the uint8 codes of a 9-bit prologue on a
+    ReLU'd input (``act_dtype``)."""
     if m1 is None:
-        check_x(name, x, 3)
-        return 0, None, 0, None, 0, 0, 0
+        check_bytes(name, x, 3)
+        return 0, None, 0, None, 0, 0, 0, x.dtype == torch.uint8
     check_act(name, x, 3)
     check_vec(name, "in_bias", in_bias, torch.int32, (c,), x.device)
     check_vec(name, "in_len", in_len, torch.int32, (b,), x.device)
     m1v, m1s = requant_operand(name, "m1", m1, c, x.device, exponent=False)
     if vector_e:
         e1v, e1s = requant_operand(name, "e1", e1, c, x.device, exponent=True)
-        lo1, hi1 = int8_clamp(name, bits1)
+        lo1, hi1 = act_clamp(name, bits1, in_relu)
     else:
-        e1v, (lo1, hi1, e1s) = None, epilogue_bounds(name, e1, bits1)
-    return 1, m1v, m1s, e1v, e1s, lo1, hi1
+        e1v, (lo1, hi1, e1s) = None, epilogue_bounds(name, e1, bits1, in_relu)
+    return 1, m1v, m1s, e1v, e1s, lo1, hi1, hi1 == 255 and lo1 == 0
 
 
 def dw_conv_plain(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
@@ -162,7 +168,8 @@ def dw_conv(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
             ) -> torch.Tensor:
     """Depthwise conv of x (B, T, C) with taps w (K, C) int8.
 
-    Prologue off (``m1`` None): x is int8 and is convolved as it is.
+    Prologue off (``m1`` None): x is int8, or uint8 (a non-negative 9-bit
+    code), and is convolved as it is.
     Prologue on: x is int8 or int32 and each input frame is first
     ``clamp(requant(mask(relu?(x + in_bias)), m1, e1), bits1)`` with the
     mask zeroing frames t >= in_len[b] (in_len None: no mask); the conv's
@@ -170,6 +177,9 @@ def dw_conv(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
     Epilogue off (``m`` None): returns (B, T_out, C) int32 ``relu?(conv +
     bias)``.  Epilogue on: returns int8 ``clamp(requant(mask(relu?(conv +
     bias)), m, e), bits)``, where the mask zeroes frames t >= out_len[b].
+    A 9-bit code of a ReLU'd value (W8A8's post-ReLU sites) is stored
+    uint8, in the prologue as in the epilogue (``act_dtype``); the products
+    then read it unsigned.
     Each of m, e, m1, e1 is a (C,) int32 tensor (per channel: the
     per_channel tables' mantissas and exponents) or a scalar (a Python int
     or a 0-d array, taken by value); an exponent below 1 counts as 1 and
@@ -186,8 +196,8 @@ def dw_conv(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
     if x.dim() != 3:
         raise ValueError(f"dw_conv: x must be (B, T, C), got {tuple(x.shape)}")
     b, t_in, c = x.shape
-    pro, m1v, m1s, e1v, e1s, lo1, hi1 = check_prologue("dw_conv", x, in_bias, in_len, m1, e1,
-                                                       bits1, c, b, vector_e=True)
+    pro, m1v, m1s, e1v, e1s, lo1, hi1, u8 = check_prologue(
+        "dw_conv", x, in_bias, in_len, m1, e1, bits1, c, b, vector_e=True, in_relu=in_relu)
     k_size = w.shape[0]
     check_vec("dw_conv", "w", w, torch.int8, (k_size, c), x.device)
     check_vec("dw_conv", "bias", bias, torch.int32, (c,), x.device)
@@ -200,16 +210,17 @@ def dw_conv(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
         mv, ms = requant_operand("dw_conv", "m", m, c, x.device, exponent=False)
         ev, es = requant_operand("dw_conv", "e", e, c, x.device, exponent=True)
         check_vec("dw_conv", "out_len", out_len, torch.int32, (b,), x.device)
-        lo, hi = int8_clamp("dw_conv", bits)
-    out = torch.empty((b, t_out, c), dtype=torch.int8 if epi else torch.int32,
-                      device=x.device)
+        lo, hi = act_clamp("dw_conv", bits, relu)
+    out = torch.empty((b, t_out, c), device=x.device,
+                      dtype=act_dtype("dw_conv", bits, relu, x.device) if epi else torch.int32)
     lib = _build.library()
     rc = lib.qasr_dw_conv(
         _build.ptr(x), _build.ptr(w), _build.ptr(bias), _build.ptr(mv), ms, _build.ptr(ev), es,
         _build.ptr(out_len), _build.ptr(out), b, t_in, c, t_out, k_size, stride, padding,
         dilation, int(relu), int(epi), lo, hi, pro, int(x.dtype == torch.int32),
         _build.ptr(in_bias), int(in_relu), _build.ptr(in_len), _build.ptr(m1v), m1s,
-        _build.ptr(e1v), e1s, lo1, hi1, p["nt"], p["groups"], p["tiles"], _build.stream_of(x))
+        _build.ptr(e1v), e1s, lo1, hi1, p["nt"], p["groups"], p["tiles"], int(u8),
+        _build.stream_of(x))
     _build.check(rc, "dw_conv")
     dw_conv.launches += 1
     return out

@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from qasr_tpu_torch.kernels import _build
-from qasr_tpu_torch.kernels.checks import check_vec, epilogue_bounds
+from qasr_tpu_torch.kernels.checks import act_dtype, check_vec, epilogue_bounds
 from qasr_tpu_torch.kernels.dw_conv import check_prologue, prologue_args, prologue_plain
 from qasr_tpu_torch.ops.quant_prims import (
     dyadic_requant_static,
@@ -49,16 +49,17 @@ def plan(cin: int, cout: int) -> dict:
 
 def check_launch(n_rows: int, cin: int, cout: int, pro: bool, x_dtype: torch.dtype) -> dict:
     """The launch's plan, or ValueError for a shape the kernel does not take:
-    TMA needs a row pitch of Cin bytes that is a multiple of 16 (x int8
-    without the prologue, wt always), and the plan's shared memory must fit
-    a block."""
+    TMA needs a row pitch of Cin bytes that is a multiple of 16 (x int8 or
+    uint8 without the prologue, wt always), and the plan's shared memory
+    must fit a block."""
     if n_rows < 1 or cout < 1:
         raise ValueError(f"pw_gemm: empty input or output (N={n_rows}, Cout={cout})")
     if cin < 16 or cin % 16:
         raise ValueError(f"pw_gemm: Cin must be a positive multiple of 16 (TMA row pitch), "
                          f"got {cin}")
-    if not pro and x_dtype != torch.int8:
-        raise ValueError(f"pw_gemm: without the prologue x must be int8, got {x_dtype}")
+    if not pro and x_dtype not in (torch.int8, torch.uint8):
+        raise ValueError(f"pw_gemm: without the prologue x must be int8 or uint8, "
+                         f"got {x_dtype}")
     p = plan(cin, cout)
     if p["smem"] > SMEM_LIMIT:
         raise ValueError(f"pw_gemm: Cin={cin} Cout={cout} needs {p['smem']} bytes of shared "
@@ -83,15 +84,17 @@ def k_pieces(cin: int, cout: int) -> List[Tuple[int, int]]:
 
 
 def int_matmul(x2: torch.Tensor, wt: torch.Tensor) -> torch.Tensor:
-    """Exact x2 (N, Cin) int8 @ wt (Cout, Cin)^T -> int32, never through a
-    float32 GEMM (exact only below 2^24).  CPU: int32 matmul.  CUDA:
-    torch._int_mm where its shape rules allow, else float64 (exact: freeze
-    bounds every accumulator below 2^31 < 2^53)."""
+    """Exact x2 (N, Cin) int8 or uint8 @ wt (Cout, Cin)^T -> int32, never
+    through a float32 GEMM (exact only below 2^24).  CPU: int32 matmul.
+    CUDA: torch._int_mm for int8 x2 where its shape rules allow, else
+    float64 (exact: freeze bounds every accumulator below 2^31 < 2^53;
+    _int_mm takes no uint8)."""
     if x2.device.type == "cpu":
         return x2.to(torch.int32) @ wt.to(torch.int32).t()
     n, k = x2.shape
     cout = wt.shape[0]
-    if n > 16 and k >= 16 and k % 8 == 0 and cout >= 16 and cout % 8 == 0:
+    if (x2.dtype == torch.int8 and n > 16 and k >= 16 and k % 8 == 0 and cout >= 16
+            and cout % 8 == 0):
         return torch._int_mm(x2, wt.t())
     return (x2.to(torch.float64) @ wt.to(torch.float64).t()).to(torch.int32)
 
@@ -131,6 +134,14 @@ def pw_gemm_plain(x: torch.Tensor, wt: torch.Tensor, *,
                            e1=e1, bits1=bits1)
     b, t, cin = x.shape
     acc = int_matmul(x.reshape(b * t, cin), wt).reshape(b, t, wt.shape[0])
+    return epilogue_plain(acc, bias=bias, relu=relu, lens=lens, m=m, e=e, bits=bits,
+                          res=res, m_r=m_r, e_r=e_r)
+
+
+def epilogue_plain(acc: torch.Tensor, *, bias=None, relu: bool = False, lens=None, m=None,
+                   e=None, bits=None, res=None, m_r=None, e_r=None) -> torch.Tensor:
+    """The epilogue of Kernels 2 and 8 on an int32 (B, T, Cout)
+    accumulator, in its mode: none, requant or join (``pw_gemm``)."""
     mode = _mode(m, res)
     if mode == MODE_NONE:
         if bias is not None:
@@ -143,6 +154,33 @@ def pw_gemm_plain(x: torch.Tensor, wt: torch.Tensor, *,
         acc = acc + bias
     q = dyadic_requant_static(acc, m, e) + dyadic_requant_static(res, m_r, e_r)
     return requant_clamp(q, bits).to(torch.int8)
+
+
+def check_epilogue(name: str, mode: int, shape, dev, bias, relu, lens, m, e, bits, res, m_r,
+                   e_r):
+    """The epilogue's arguments of Kernels 2 and 8 on CUDA, output (B, T,
+    Cout) ``shape``: (lo, hi, e, e_r, lens, the empty output).  The
+    requant epilogue writes int8, or uint8 for a 9-bit code of a ReLU'd
+    value (``act_dtype``); the join writes int8; only the requant epilogue
+    masks rows (``lens`` None otherwise)."""
+    b, t, cout = shape
+    check_vec(name, "bias", bias, torch.int32, (cout,), dev)
+    lo = hi = ee = ee_r = 0
+    nonneg = mode == MODE_REQUANT and relu
+    if mode != MODE_NONE:
+        check_vec(name, "m", m, torch.int32, (cout,), dev)
+        lo, hi, ee = epilogue_bounds(name, e, bits, nonneg)
+    if mode == MODE_REQUANT:
+        check_vec(name, "lens", lens, torch.int32, (b,), dev)
+    else:
+        lens = None
+    if mode == MODE_JOIN:
+        check_vec(name, "res", res, torch.int32, (b, t, cout), dev)
+        check_vec(name, "m_r", m_r, torch.int32, (cout,), dev)
+        _, _, ee_r = epilogue_bounds(name, e_r, bits)
+    out = torch.empty(shape, device=dev, dtype=torch.int32 if mode == MODE_NONE
+                      else act_dtype(name, bits, nonneg, dev))
+    return lo, hi, ee, ee_r, lens, out
 
 
 def pw_gemm(x: torch.Tensor, wt: torch.Tensor, *,
@@ -159,14 +197,18 @@ def pw_gemm(x: torch.Tensor, wt: torch.Tensor, *,
     Cin need not be a multiple of 16: the wrapper zero-pads it (``pad_k``);
     without prologue and epilogue a Cin above what a block's shared memory
     holds runs as ``k_pieces`` launches whose int32 products are added.
-    Prologue off (``m1`` None): x is int8.  Prologue on: x is int8 or int32
-    and its rows are first ``clamp(requant(mask(relu?(x + in_bias)), m1,
-    e1), bits1)``, m1 a (Cin,) int32 vector or a scalar, the mask zeroing frames
-    t >= in_len[b] (in_len None: no mask), before they reach the GEMM.
+    Prologue off (``m1`` None): x is int8, or uint8 (a non-negative 9-bit
+    code).  Prologue on: x is int8 or int32 and its rows are first
+    ``clamp(requant(mask(relu?(x + in_bias)), m1, e1), bits1)``, m1 a (Cin,)
+    int32 vector or a scalar, the mask zeroing frames t >= in_len[b]
+    (in_len None: no mask), before they reach the GEMM; a 9-bit code of a
+    ReLU'd value is uint8 (``act_dtype``), and the GEMM then multiplies
+    u8 by s8.
 
     none    (m None, res None): (B, T, Cout) int32 ``relu?(x @ wt.T + bias)``;
     requant (m given):          int8 ``clamp(requant(mask(relu?(acc + bias)),
                                 m, e), bits)``, mask: frame t >= lens[b];
+                                uint8 for 9 bits with relu;
     join    (res given):        int8 ``clamp(requant(acc + bias, m, e) +
                                 requant(res, m_r, e_r), bits)``, res
                                 (B, T, Cout) int32; no ReLU, no mask.
@@ -186,8 +228,8 @@ def pw_gemm(x: torch.Tensor, wt: torch.Tensor, *,
     if x.shape[2] % 16:
         x, wt, in_bias, m1 = pad_k(x, wt, in_bias, m1)
     b, t, cin = x.shape
-    pro, m1v, m1s, _, ee1, lo1, hi1 = check_prologue("pw_gemm", x, in_bias, in_len, m1, e1,
-                                                  bits1, cin, b)
+    pro, m1v, m1s, _, ee1, lo1, hi1, u8 = check_prologue("pw_gemm", x, in_bias, in_len, m1,
+                                                         e1, bits1, cin, b, in_relu=in_relu)
     cout = wt.shape[0]
     pieces = k_pieces(cin, cout) if mode == MODE_NONE and not pro else [(0, cin)]
     if len(pieces) > 1:
@@ -201,29 +243,15 @@ def pw_gemm(x: torch.Tensor, wt: torch.Tensor, *,
     check_launch(b * t, cin, cout, bool(pro), x.dtype)
     dev = x.device
     check_vec("pw_gemm", "wt", wt, torch.int8, (cout, cin), dev)
-    check_vec("pw_gemm", "bias", bias, torch.int32, (cout,), dev)
-    lo = hi = ee = ee_r = 0
-    if mode != MODE_NONE:
-        check_vec("pw_gemm", "m", m, torch.int32, (cout,), dev)
-        lo, hi, ee = epilogue_bounds("pw_gemm", e, bits)
-    if mode == MODE_REQUANT:
-        check_vec("pw_gemm", "lens", lens, torch.int32, (b,), dev)
-    else:
-        lens = None  # only the requant epilogue masks rows
-    if mode == MODE_JOIN:
-        check_vec("pw_gemm", "res", res, torch.int32, (b, t, cout), dev)
-        check_vec("pw_gemm", "m_r", m_r, torch.int32, (cout,), dev)
-        _, _, ee_r = epilogue_bounds("pw_gemm", e_r, bits)
-    out = torch.empty((b, t, cout),
-                      dtype=torch.int32 if mode == MODE_NONE else torch.int8,
-                      device=dev)
+    lo, hi, ee, ee_r, lens, out = check_epilogue("pw_gemm", mode, (b, t, cout), dev, bias,
+                                                 relu, lens, m, e, bits, res, m_r, e_r)
     lib = _build.library()
     rc = lib.qasr_pw_gemm(
         _build.ptr(x), _build.ptr(wt), _build.ptr(bias), _build.ptr(m),
         _build.ptr(lens), _build.ptr(res), _build.ptr(m_r), _build.ptr(out),
         b * t, cin, cout, t, mode, int(relu), ee, ee_r, lo, hi, pro,
         int(x.dtype == torch.int32), _build.ptr(in_bias), int(in_relu), _build.ptr(in_len),
-        _build.ptr(m1v), m1s, ee1, lo1, hi1, _build.stream_of(x))
+        _build.ptr(m1v), m1s, ee1, lo1, hi1, int(u8), _build.stream_of(x))
     _build.check(rc, "pw_gemm")
     pw_gemm.launches += 1
     return out

@@ -16,7 +16,7 @@ import torch
 from qasr_tpu_torch.kernels import _build
 from qasr_tpu_torch.kernels.checks import check_act, check_vec, requant_operand
 from qasr_tpu_torch.models.jasper import mask_values
-from qasr_tpu_torch.ops.quant_prims import dyadic_requant_any, requant_clamp
+from qasr_tpu_torch.ops.quant_prims import code_dtype, dyadic_requant_any, requant_clamp
 
 INT_FNS = {"i_exp": 0, "i_sigmoid_grid": 1, "isqrt": 2, "floor_div": 3, "i_sigmoid_tab": 4,
            "div": 5, "isqrt_f": 6, "i_exp_tab": 7}
@@ -106,10 +106,18 @@ def requant_plain(z: torch.Tensor, m, e, bits: int, *, relu: bool = False,
     if identity is not None:
         i = identity if lens is None else mask_values(identity, lens)
         q = q + dyadic_requant_any(i, m_r, e_r)
-    q = requant_clamp(q, bits)
-    return q.to(torch.int8) if bits <= 8 else q.to(torch.int32)
+    return requant_clamp(q, bits).to(out_dtype(z, bits, relu, identity))
 
 
+def out_dtype(z: torch.Tensor, bits: int, relu: bool, identity) -> torch.dtype:
+    """Kernel 7's output storage: int8 up to 8 bits; uint8 for a 9-bit
+    requant of a non-negative value (``relu`` set, or a uint8 ``z``, and no
+    identity, which may be negative); int32 for any other (``code_dtype``)."""
+    return code_dtype(bits, (relu or z.dtype == torch.uint8) and identity is None)
+
+
+# the C entry's input types: int8, int32, uint8 (a non-negative 9-bit code)
+XTYPE = {torch.int8: 0, torch.int32: 1, torch.uint8: 2}
 THREADS = 256     # threads per block
 GRID_YZ = 65535   # the grid's y (channel-vector blocks) and z (batch) limits
 
@@ -154,8 +162,11 @@ def requant(z: torch.Tensor, m, e, bits: int, *, relu: bool = False,
 
     m, e, m_r, e_r are (C,) int32 tensors (per-channel mantissas and
     exponents) or scalars (a Python int or a 0-d array, taken by value);
-    the mask zeroes frames t >= lens[b].  Returns int8 when bits <= 8, else
-    int32.  Replaces qasr_tpu/kernels/requant.py::requant_pallas."""
+    the mask zeroes frames t >= lens[b].  z is int8, int32 or uint8 (a
+    non-negative 9-bit code).  Returns int8 when bits <= 8, uint8 for a
+    9-bit requant of a non-negative value (``relu`` or a uint8 z, no
+    identity: the clamp [-256, 255] reads [0, 255]), else int32
+    (``out_dtype``).  Replaces qasr_tpu/kernels/requant.py::requant_pallas."""
     if identity is not None and (m_r is None or e_r is None):
         raise ValueError("requant: identity needs m_r and e_r")
     if z.device.type == "cpu":
@@ -163,11 +174,13 @@ def requant(z: torch.Tensor, m, e, bits: int, *, relu: bool = False,
                              m_r=m_r, e_r=e_r)
     if z.device.type != "cuda":
         raise ValueError(f"requant: unsupported device {z.device}")
-    check_act("requant", z, 3)
+    check_act("requant", z, 3, u8=True)
     b, t, c = z.shape
     dev = z.device
     check_launch(b, t, c, bits)
+    dtype = out_dtype(z, bits, relu, identity)
     n = 2 ** (bits - 1) - 1
+    lo, hi = (0, 255) if dtype == torch.uint8 else (-n - 1, n)
     mv, ms = requant_operand("requant", "m", m, c, dev, exponent=False)
     ev, es = requant_operand("requant", "e", e, c, dev, exponent=True)
     mrv = erv = None
@@ -179,14 +192,13 @@ def requant(z: torch.Tensor, m, e, bits: int, *, relu: bool = False,
         mrv, ms_r = requant_operand("requant", "m_r", m_r, c, dev, exponent=False)
         erv, es_r = requant_operand("requant", "e_r", e_r, c, dev, exponent=True)
     check_vec("requant", "lens", lens, torch.int32, (b,), dev)
-    out = torch.empty((b, t, c), dtype=torch.int8 if bits <= 8 else torch.int32,
-                      device=dev)
+    out = torch.empty((b, t, c), dtype=dtype, device=dev)
     rc = _build.library().qasr_requant_rows(
-        _build.ptr(z), int(z.dtype == torch.int32), _build.ptr(mv), _build.ptr(ev), ms, es,
+        _build.ptr(z), XTYPE[z.dtype], _build.ptr(mv), _build.ptr(ev), ms, es,
         _build.ptr(identity),
         int(identity is not None and identity.dtype == torch.int32),
         _build.ptr(mrv), _build.ptr(erv), ms_r, es_r, _build.ptr(lens), _build.ptr(out),
-        int(bits > 8), b * t, c, t, int(relu), -n - 1, n, _build.stream_of(z))
+        int(dtype == torch.int32), b * t, c, t, int(relu), lo, hi, _build.stream_of(z))
     _build.check(rc, "requant")
     requant.launches += 1
     return out

@@ -5,7 +5,7 @@ quantization workflow and the frozen serving path.
 activation-range state, the quantization knobs).  Its workflow is the
 reference's: ``set_quant_bit`` / ``set_percentile`` / ``set_quant_mode``,
 ``bn_folding``, ``calibrate`` (on synthetic features, audio or noise:
-QuantExec with range updates, its convs in Kernels 1 and 2), ``freeze``
+QuantExec with range updates, its convs in Kernels 1, 2 and 8), ``freeze``
 into integer tables, and ``forward`` / ``transcribe`` in the model's mode:
 fp32 (FloatExec), quant (QuantExec on static or, with ``set_dynamic``,
 per-batch ranges) or frozen.  ``make_frozen_fn`` is the serving function:
@@ -37,7 +37,6 @@ from qasr_tpu_torch.decode.ctc import ctc_collapse
 from qasr_tpu_torch.device import as_device
 from qasr_tpu_torch.models.config import PRESETS, ModelConfig, QuantConfig, config_to_dict
 from qasr_tpu_torch.models.jasper import (
-    WIDE_OPERANDS,
     EncoderPlan,
     FloatExec,
     QuantExec,
@@ -413,16 +412,13 @@ class ASRModel:
             enc_lens, ex.new_qstate
 
     def _frozen_fn(self, dyadic_mode: str, dev: torch.device, argmax: bool):
-        """The cached serving function for the current tables.  Activations
-        wider than 8 bits (W8A8) run the plain FrozenExec on the CPU and
-        raise on CUDA, where the kernels take int8."""
+        """The cached serving function for the current tables, on the
+        kernel executor ``frozen_executor`` picks for them (W8A8's 9-bit
+        codes of post-ReLU values ride the kernels as uint8)."""
         key = ("frozen", dyadic_mode, str(dev), self.qcfg, argmax)
         if key not in self._fn_cache:
-            wide = self.qcfg.act_bit + 1 > 8
-            if wide and dev.type == "cuda":
-                raise NotImplementedError(WIDE_OPERANDS)
             self._fn_cache[key] = make_frozen_fn(self, self.freeze(dyadic_mode, dev),
-                                                 argmax=argmax, fused=not wide)
+                                                 argmax=argmax)
         return self._fn_cache[key]
 
     def resolve_mode(self, mode: Optional[str] = None) -> str:

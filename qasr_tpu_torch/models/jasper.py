@@ -12,9 +12,10 @@ Executors of the walk besides the frozen ones (quantize/freeze.py):
   * ``QuantExec``  integer convs with in-graph scales: calibration (the
                    running ranges of every activation site) and dynamic
                    quantization (per-batch ranges).  Depthwise convs run in
-                   Kernel 1 and pointwise convs in Kernel 2, both without
-                   their requant epilogue; on CPU tensors the wrappers run
-                   their plain versions.
+                   Kernel 1, pointwise convs in Kernel 2 and dense convs
+                   (Jasper's) in Kernel 8, all without their requant
+                   epilogue; on CPU tensors the wrappers run their plain
+                   versions.
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from qasr_tpu_torch.device import no_tf32
+from qasr_tpu_torch.kernels.checks import act_dtype
 from qasr_tpu_torch.models.config import DecoderConfig, EncoderConfig, QuantConfig
 from qasr_tpu_torch.ops.quant_prims import (
     QTensor,
@@ -163,6 +165,12 @@ def is_depthwise(spec: ConvSpec) -> bool:
 def is_pointwise(spec: ConvSpec) -> bool:
     return (spec.kernel == 1 and spec.groups == 1 and spec.stride == 1
             and spec.dilation == 1 and spec.padding == 0 and spec.heads == -1)
+
+
+def is_dense(spec: ConvSpec) -> bool:
+    """A dense (ungrouped) conv that is not pointwise: Jasper's K 11-29,
+    stride 2 or dilation 2 convs (Kernel 8)."""
+    return spec.groups == 1 and spec.heads == -1 and not is_pointwise(spec)
 
 
 # ---------------------------------------------------------------------------
@@ -436,33 +444,39 @@ class FloatExec:
 # The calibrating / dynamic integer executor
 # ---------------------------------------------------------------------------
 
-# W8A8's asymmetric sites store 9-bit activations, which Kernels 1 and 2 do
-# not take; the ROADMAP item that widens them
-WIDE_OPERANDS = ("W8A8 QuartzNet on the card needs int16 operands and outputs in "
-                 "Kernels 1, 2 and 7 (ROADMAP queue C)")
+def operand_dtype(device, act_bits: int, weight_bit: int, nonneg: bool) -> torch.dtype:
+    """The storage of a conv's activation operand (kernels/checks.py::
+    act_dtype): int8 for signed codes of <= 8 bits, uint8 for an asymmetric
+    site's 9-bit codes of a post-ReLU value (``nonneg``), int32 for any
+    other on the CPU; on CUDA anything wider raises NotImplementedError, as
+    do weights of more than 8 bits (the kernels multiply int8 weights)."""
+    if weight_bit > 8 and torch.device(device).type == "cuda":
+        raise NotImplementedError(f"weight_bit {weight_bit}: the kernels multiply int8 "
+                                  f"weights (weight_bit <= 8) on CUDA")
+    return act_dtype("conv operand", act_bits, nonneg, device)
 
 
-def check_operand_bits(device: torch.device, act_bits: int, weight_bit: int) -> bool:
-    """Whether a conv's operands are wider than int8; raises
-    NotImplementedError for such operands on CUDA, where Kernels 1 and 2
-    take int8 only."""
-    wide = act_bits > 8 or weight_bit > 8
-    if wide and device.type == "cuda":
-        raise NotImplementedError(WIDE_OPERANDS)
-    return wide
+def kernel_weight(w):
+    """A conv's weights (K, Cin/groups, Cout) in its kernel's layout:
+    depthwise (K, C), pointwise (Cout, Cin), dense (Cout, K, Cin).  None
+    for other convs (grouped)."""
+    k, cin_g, cout = w.shape
+    if k > 1 and cin_g == 1:
+        return w[:, 0, :].contiguous()
+    if k == 1:
+        return w[0].t().contiguous()
+    return w.permute(2, 0, 1).contiguous()
 
 
 def quantize_weights(p, weight_bit: int) -> Dict[str, Any]:
     """A conv's per-output-channel symmetric weights: ``scale`` (Cout,) and
-    ``wk`` the integers in the kernels' layout (depthwise (K, C),
-    pointwise (Cout, Cin)), int8 where they fit."""
+    ``wk`` the integers in the kernels' layout (``kernel_weight``), int8
+    where they fit."""
     w = p["w"]
     scale = symmetric_scale(w.amin(dim=(0, 1)), w.amax(dim=(0, 1)), weight_bit)
     w_int = quantize(w, scale, weight_bit)
     narrow = w_int.to(torch.int8) if weight_bit <= 8 else w_int
-    k, cin_g, _ = w.shape
-    wk = narrow[:, 0, :].contiguous() if cin_g == 1 and k > 1 else narrow[0].t().contiguous()
-    return {"scale": scale, "wk": wk, "b": p.get("b")}
+    return {"scale": scale, "wk": kernel_weight(narrow), "b": p.get("b")}
 
 
 class QuantExec:
@@ -477,11 +491,14 @@ class QuantExec:
     0-d tensors on their device (``qstate_to_device``).
 
     Convs: depthwise in Kernel 1 (``dw_conv``, epilogue off), pointwise
-    (the decoder's too) in Kernel 2 (``pw_gemm``, no epilogue), int8
-    operands, int32 out; ``kernels=False`` runs their plain versions, the
-    oracle.  Operands wider than 8 bits (W8A8's asymmetric sites) run the
-    plain versions on the CPU and raise NotImplementedError on CUDA.
-    ``weights`` caches each site's quantized weights across batches."""
+    (the decoder's too) in Kernel 2 (``pw_gemm``, no epilogue), dense in
+    Kernel 8 (``dense_conv``, no epilogue), int32 out; ``kernels=False``
+    runs their plain versions, the oracle.  Activation operands are int8,
+    or uint8 for W8A8's 9-bit codes of a post-ReLU value
+    (``operand_dtype``); wider ones (a signed 9-bit site, weight_bit > 8)
+    run the plain versions on the CPU and raise NotImplementedError on
+    CUDA.  ``weights`` caches each site's quantized weights across
+    batches."""
 
     def __init__(self, params, qstate, qcfg: QuantConfig, *, activation: str,
                  update_ranges: bool, kernels: bool = True,
@@ -492,10 +509,14 @@ class QuantExec:
                     raise ValueError("quant path requires BN-folded params; call "
                                      "fold_bn_encoder first")
         # imported here: the kernel wrappers import this module
+        from qasr_tpu_torch.kernels.dense_conv import dense_conv, dense_conv_plain
         from qasr_tpu_torch.kernels.dw_conv import dw_conv, dw_conv_plain
         from qasr_tpu_torch.kernels.pw_gemm import pw_gemm, pw_gemm_plain
 
-        self._dw, self._pw = (dw_conv, pw_gemm) if kernels else (dw_conv_plain, pw_gemm_plain)
+        self._dw, self._pw, self._dense = ((dw_conv, pw_gemm, dense_conv) if kernels else
+                                           (dw_conv_plain, pw_gemm_plain, dense_conv_plain))
+        # ReLU and hardtanh leave every post-activation value >= 0
+        self._nonneg_acts = activation in ("relu", "hardtanh")
         self.params = params
         self.qcfg = qcfg
         self.activation_kind = activation
@@ -530,7 +551,8 @@ class QuantExec:
 
     # -- conv ---------------------------------------------------------------
 
-    def _qconv(self, key, p, spec: ConvSpec, x: QTensor, bits: int) -> QTensor:
+    def _qconv(self, key, p, spec: ConvSpec, x: QTensor, bits: int,
+               nonneg: bool = False) -> QTensor:
         if key not in self.weights:
             self.weights[key] = quantize_weights(p, self.qcfg.weight_bit)
         wq = self.weights[key]
@@ -538,15 +560,17 @@ class QuantExec:
         b_int = None
         if wq["b"] is not None:
             b_int = torch.round(torch.reciprocal(out_scale) * wq["b"]).to(torch.int32)
-        wide = check_operand_bits(x.values.device, bits, self.qcfg.weight_bit)
-        xv = x.values.to(torch.int32 if wide else torch.int8)
+        xv = x.values.to(operand_dtype(x.values.device, bits, self.qcfg.weight_bit, nonneg))
         if is_depthwise(spec):
             y = self._dw(xv, wq["wk"], stride=spec.stride, padding=spec.padding,
                          dilation=spec.dilation, bias=b_int)
         elif is_pointwise(spec):
             y = self._pw(xv, wq["wk"], bias=b_int)
+        elif is_dense(spec):
+            y = self._dense(xv, wq["wk"], stride=spec.stride, padding=spec.padding,
+                            dilation=spec.dilation, bias=b_int)
         else:
-            raise NotImplementedError(f"conv {spec} is neither depthwise nor pointwise")
+            raise NotImplementedError(f"grouped conv {spec} is not ported")
         return QTensor(y, out_scale)
 
     def _act_storage_bits(self, spec: ConvSpec) -> int:
@@ -559,8 +583,11 @@ class QuantExec:
         else:
             x = mask_values(x, lens)
         bits = self._act_storage_bits(spec)
+        # an asymmetric site reads a post-activation value (>= 0 after a
+        # ReLU), except where the float features reach it directly
+        nonneg = spec.asymmetric and isinstance(x, QTensor) and self._nonneg_acts
         xq = self.act_quantize(("blocks", bi, kind, i), x, bits)
-        y = self._qconv(site, self.params["blocks"][bi][kind][i], spec, xq, bits)
+        y = self._qconv(site, self.params["blocks"][bi][kind][i], spec, xq, bits, nonneg)
         return y, conv_out_len(lens, spec)
 
     def residual_add(self, block_idx: int, pane: int, out: QTensor, res_out: QTensor,

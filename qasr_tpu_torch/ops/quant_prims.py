@@ -194,6 +194,16 @@ def requant_clamp(q: torch.Tensor, bits: int) -> torch.Tensor:
     return q.clamp(-n - 1, n)
 
 
+def code_dtype(bits: int, nonneg: bool) -> torch.dtype:
+    """The storage of a requantized activation code of ``bits`` bits: int8
+    up to 8 bits; uint8 for a 9-bit code of a non-negative value (W8A8's
+    post-ReLU asymmetric sites: the requant of a value >= 0 is >= 0, so
+    the clamp [-256, 255] reads [0, 255]); int32 for any other."""
+    if bits <= 8:
+        return torch.int8
+    return torch.uint8 if bits == 9 and nonneg else torch.int32
+
+
 def dyadic_requant_any(z: torch.Tensor, m, e) -> torch.Tensor:
     """requant(z, m, e): dyadic_requant_static for a static Python-int
     exponent, dyadic_requant for per-channel / 0-d exponents (clamped to
@@ -208,16 +218,18 @@ def requant_epilogue(acc: torch.Tensor, *, bias=None, relu: bool = False,
                      bits: int) -> torch.Tensor:
     """The kernels' consumer epilogue on an int32 (B, T, C) accumulator:
     bias -> ReLU -> length mask -> dyadic requant (``dyadic_requant_any``:
-    a static or per-channel exponent) -> clamp -> int8.  Same op order as the JAX
-    FrozenExec walk (conv + bias, activation, then the consumer's mask and
-    input requant)."""
+    a static or per-channel exponent) -> clamp -> int8, or uint8 for a
+    9-bit code of a ReLU'd value (``code_dtype``).  Same op order as the
+    JAX FrozenExec walk (conv + bias, activation, then the consumer's mask
+    and input requant)."""
+    dtype = code_dtype(bits, relu)
     if bias is not None:
         acc = acc + bias
     if relu:
         acc = acc.clamp_min(0)
     if lens is not None:
         acc = mask_values(acc, lens)
-    return requant_clamp(dyadic_requant_any(acc, m, e), bits).to(torch.int8)
+    return requant_clamp(dyadic_requant_any(acc, m, e), bits).to(dtype)
 
 
 def requantize(x: QTensor, out_scale: torch.Tensor, bits: int, *,

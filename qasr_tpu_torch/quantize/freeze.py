@@ -12,16 +12,21 @@ Executors, over (B, T, C):
                           port's oracle.
   * ``FrozenExecFused``   static exponents: the pending-conv design of the
                           JAX FrozenExecCMF; every conv of the walk runs
-                          through Kernel 1 (dw_conv) or Kernel 2 (pw_gemm),
-                          each conv's epilogue carrying the consumer's
-                          requant and its prologue the requant of a
-                          materialized input.
+                          through Kernel 1 (dw_conv), Kernel 2 (pw_gemm)
+                          or Kernel 8 (dense_conv), each conv's epilogue
+                          carrying the consumer's requant and its prologue
+                          the requant of a materialized input.
   * ``FrozenExecKernels`` any tables, vector exponents included: convs in
-                          Kernels 1/2, the requants next to a depthwise
+                          Kernels 1/2/8, the requants next to a depthwise
                           conv in Kernel 1's prologue and epilogue with
                           per-channel exponents, the rest in Kernel 7
                           (requant), as the JAX FrozenExec with
                           use_pallas=True.
+
+Storage (kernels/checks.py::act_dtype): the kernel executors keep
+activation codes of <= 8 bits in int8 and W8A8's 9-bit codes of a
+post-ReLU value (the asymmetric sites) in uint8; the plain FrozenExec keeps
+9-bit codes in int32, as the JAX package does.
 """
 from __future__ import annotations
 
@@ -32,6 +37,7 @@ from typing import Any, Dict, Optional, Union
 import numpy as np
 import torch
 
+from qasr_tpu_torch.kernels.dense_conv import dense_conv, dense_conv_plain
 from qasr_tpu_torch.kernels.dw_conv import dw_conv, dw_conv_plain, prologue_plain
 from qasr_tpu_torch.kernels.pw_gemm import pw_gemm, pw_gemm_plain
 from qasr_tpu_torch.kernels.requant import requant
@@ -41,8 +47,10 @@ from qasr_tpu_torch.models.jasper import (
     EncoderPlan,
     conv_out_len,
     encoder_forward,
+    is_dense,
     is_depthwise,
     is_pointwise,
+    kernel_weight,
     mask_values,
 )
 from qasr_tpu_torch.ops.quant_prims import (
@@ -294,17 +302,6 @@ def tables_all_static_e(tables) -> bool:
 # ---------------------------------------------------------------------------
 
 
-def _kernel_weight(w: torch.Tensor) -> Optional[torch.Tensor]:
-    """The kernels' weight layout: depthwise (K, 1, C) -> (K, C); pointwise
-    (1, Cin, Cout) -> (Cout, Cin).  None for other convs."""
-    k, cin_g, _ = w.shape
-    if k > 1 and cin_g == 1:
-        return w[:, 0, :].contiguous()
-    if k == 1:
-        return w[0].t().contiguous()
-    return None
-
-
 def tables_to_device(tables, device) -> Dict[str, Any]:
     """numpy tables -> torch tensors on ``device``; Python ints, bools and
     0-d scale arrays (host constants) stay as they are.  Conv entries gain
@@ -313,9 +310,7 @@ def tables_to_device(tables, device) -> Dict[str, Any]:
         if isinstance(t, dict):
             out = {k: conv(v) for k, v in t.items()}
             if "w" in out and isinstance(out["w"], torch.Tensor):
-                wk = _kernel_weight(out["w"])
-                if wk is not None:
-                    out["wk"] = wk
+                out["wk"] = kernel_weight(out["w"])
             return out
         if isinstance(t, list):
             return [conv(v) for v in t]
@@ -432,8 +427,11 @@ class FrozenExec:
                               bias=b)
         elif is_pointwise(spec):
             y = pw_gemm_plain(xq, entry["wk"], bias=b)
+        elif is_dense(spec):
+            y = dense_conv_plain(xq, entry["wk"], stride=spec.stride, padding=spec.padding,
+                                 dilation=spec.dilation, bias=b)
         else:
-            raise NotImplementedError(f"conv {spec} is neither depthwise nor pointwise")
+            raise NotImplementedError(f"grouped conv {spec} is not ported")
         return QTensor(y, entry["out_scale"]), conv_out_len(lens, spec)
 
     def residual_add(self, block_idx: int, pane: int, out: QTensor,
@@ -476,10 +474,10 @@ def log_probs(logits_int: torch.Tensor, out_scale: torch.Tensor) -> torch.Tensor
 
 
 class _PendingConv:
-    """A conv whose kernel has not run yet: its input (int8 and already
-    requantized, or a materialized producer output with ``pro``, the
-    prologue that requantizes it inside the kernel), its table entry and
-    spec, and a staged ReLU.  The next site flushes it through a kernel
+    """A conv whose kernel has not run yet: its input (int8 or uint8 and
+    already requantized, or a materialized producer output with ``pro``,
+    the prologue that requantizes it inside the kernel), its table entry
+    and spec, and a staged ReLU.  The next site flushes it through a kernel
     whose epilogue applies that site's requant (or with the epilogue off)."""
 
     __slots__ = ("xq", "entry", "spec", "relu", "pro")
@@ -494,6 +492,18 @@ class _PendingConv:
     @property
     def depthwise(self) -> bool:
         return is_depthwise(self.spec)
+
+    def run(self, **kw) -> torch.Tensor:
+        """The conv in its kernel (Kernel 1, 2 or 8) with its prologue and
+        these epilogue arguments."""
+        s = self.spec
+        if self.depthwise:
+            return dw_conv(self.xq, self.entry["wk"], stride=s.stride, padding=s.padding,
+                           dilation=s.dilation, **self.pro, **kw)
+        if is_pointwise(s):
+            return pw_gemm(self.xq, self.entry["wk"], **self.pro, **kw)
+        return dense_conv(self.xq, self.entry["wk"], stride=s.stride, padding=s.padding,
+                          dilation=s.dilation, **self.pro, **kw)
 
 
 class _Held:
@@ -542,29 +552,28 @@ def kernel_launches(plan: EncoderPlan, tables=None) -> Dict[str, int]:
     """Kernel launches of one forward on the kernel path that
     ``make_frozen_fn`` picks for ``tables`` (None: static-exponent tables).
     Every conv of the walk runs exactly once, depthwise in dw_conv,
-    pointwise (in-block, residual, and the decoder) in pw_gemm.  With
+    pointwise (in-block, residual, and the decoder) in pw_gemm, dense
+    (Jasper's) in dense_conv (a key only where the plan has some).  With
     static exponents (FrozenExecFused) the requants ride in those kernels'
     prologues and epilogues, except a residual join that no pending
-    pointwise conv can take (a depthwise block tail, a dense block's later
-    panes), which runs in the requant kernel; with vector exponents
-    (FrozenExecKernels) the requants next to a depthwise conv ride in
-    Kernel 1 and the rest run in the requant kernel (``_requant_sites``)."""
+    pointwise or dense conv can take (a depthwise block tail, a dense
+    block's later panes), which runs in the requant kernel; with vector
+    exponents (FrozenExecKernels) the requants next to a depthwise conv
+    ride in Kernel 1 and the rest run in the requant kernel
+    (``_requant_sites``)."""
     specs = [s for bp in plan.blocks for s in bp.convs + bp.res]
     counts = {"dw_conv": sum(map(is_depthwise, specs)),
               "pw_gemm": sum(map(is_pointwise, specs)) + 1}
+    if any(map(is_dense, specs)):
+        counts["dense_conv"] = sum(map(is_dense, specs))
     if tables is not None and not tables_all_static_e(tables):
         counts["requant"] = _requant_sites(plan, tables)
         return counts
-    joins = sum(pi > 0 or not is_pointwise(bp.convs[-1])
+    joins = sum(pi > 0 or is_depthwise(bp.convs[-1])
                 for bp in plan.blocks if bp.residual for pi in range(len(bp.res)))
     if joins:
         counts["requant"] = joins
     return counts
-
-
-def _check_int8_acts(name: str, qcfg: QuantConfig) -> None:
-    if qcfg.act_bit + 1 > 8:
-        raise ValueError(f"{name} needs int8 activations (act_bit <= 7)")
 
 
 class FrozenExecFused(FrozenExec):
@@ -573,11 +582,12 @@ class FrozenExecFused(FrozenExec):
     pointwise and join fusion always on).  ``masked_conv`` returns a
     _PendingConv; the next site flushes it:
 
-      * into a conv site: Kernel 1/2 with the epilogue bias -> ReLU -> mask
-        -> the consumer's requant -> clamp -> int8;
-      * into a residual join: a pending block-tail pointwise conv goes
-        through Kernel 2's join epilogue, the residual branch's conv is
-        flushed to int32 first;
+      * into a conv site: Kernel 1/2/8 with the epilogue bias -> ReLU ->
+        mask -> the consumer's requant -> clamp -> int8 (uint8 for W8A8's
+        9-bit codes of a ReLU'd value);
+      * into a residual join: a pending block-tail pointwise or dense conv
+        goes through Kernel 2's or 8's join epilogue, the residual branch's
+        conv is flushed to int32 first;
       * at a block end: the raw int32 accumulator (no bias, no ReLU) is
         materialized as a _Held, since a block output feeds several
         consumers, each with its own input requant.
@@ -587,26 +597,22 @@ class FrozenExecFused(FrozenExec):
     prologue: bias -> ReLU -> mask -> requant -> clamp, in shared memory
     (Kernel 1 at a block's first depthwise conv, Kernel 2 at a residual
     pointwise conv, a non-separable block's conv and the decoder, whose
-    input is not masked, as in the JAX package).  Outside a kernel remain
-    only the first site's quantization of the float features and the
-    decoder's float log-softmax.  Needs static exponents (freeze
-    dyadic_mode 'static_e' or 'static_e16') and int8 activations."""
+    input is not masked, as in the JAX package; Kernel 8 at a dense block's
+    first conv).  Outside a kernel remain only the first site's
+    quantization of the float features and the decoder's float
+    log-softmax.  Needs static exponents (freeze dyadic_mode 'static_e' or
+    'static_e16')."""
 
     def __init__(self, tables, qcfg: QuantConfig, *, activation: str):
         super().__init__(tables, qcfg, activation=activation)
         if not tables_all_static_e(tables):
             raise ValueError("FrozenExecFused needs static-exponent tables "
                              "(dyadic_mode 'static_e' or 'static_e16')")
-        _check_int8_acts("FrozenExecFused", qcfg)
 
     def _conv(self, p: _PendingConv, lens=None, **kw) -> torch.Tensor:
         """Run a pending conv in its kernel with these epilogue arguments
         (``lens``: the epilogue's output mask)."""
-        if p.depthwise:
-            s = p.spec
-            return dw_conv(p.xq, p.entry["wk"], stride=s.stride, padding=s.padding,
-                           dilation=s.dilation, out_len=lens, **p.pro, **kw)
-        return pw_gemm(p.xq, p.entry["wk"], lens=lens, **p.pro, **kw)
+        return p.run(**{"out_len" if p.depthwise else "lens": lens}, **kw)
 
     def _flush_int8(self, p: _PendingConv, lens, entry, bits: int) -> torch.Tensor:
         return self._conv(p, lens, bias=p.entry.get("b"), relu=p.relu, m=entry["act_m"],
@@ -618,8 +624,8 @@ class FrozenExecFused(FrozenExec):
     def masked_conv(self, site, spec: ConvSpec, x, lens):
         bi, kind, i = site
         entry = self.t["blocks"][bi][kind][i]
-        if not (is_depthwise(spec) or is_pointwise(spec)):
-            raise NotImplementedError(f"conv {spec} is neither depthwise nor pointwise")
+        if not (is_depthwise(spec) or is_pointwise(spec) or is_dense(spec)):
+            raise NotImplementedError(f"grouped conv {spec} is not ported")
         bits = self._act_bits(spec)
         if isinstance(x, _PendingConv):
             p = _PendingConv(self._flush_int8(x, lens, entry, bits), entry, spec)
@@ -646,6 +652,7 @@ class FrozenExecFused(FrozenExec):
         res = self._flush_int32(res_out)
         bits = self.qcfg.act_bit
         if isinstance(out, _PendingConv) and not out.depthwise and not out.relu:
+            # a pointwise or dense block tail: the join in its epilogue
             q8 = self._conv(out, bias=out.entry.get("b"), m=e["m"], e=e["e"], res=res,
                             m_r=e["m_r"], e_r=e["e_r"], bits=bits)
             return _Held(q8, e["scale"])
@@ -680,7 +687,7 @@ class FrozenExecFused(FrozenExec):
 class FrozenExecKernels(FrozenExec):
     """Any tables, vector exponents included (freeze dyadic_mode
     'per_channel'): the port's counterpart of the JAX FrozenExec with
-    use_pallas=True.  Every conv runs in Kernel 1 or 2 (a _PendingConv,
+    use_pallas=True.  Every conv runs in Kernel 1, 2 or 8 (a _PendingConv,
     with its staged ReLU), and the requants next to a depthwise conv ride
     in Kernel 1 with per-channel mantissas and exponents:
 
@@ -692,39 +699,32 @@ class FrozenExecKernels(FrozenExec):
 
     Every other conv is flushed with the epilogue off (int32 out with its
     bias, a _Held), and the remaining requants run in the requant kernel: a
-    residual branch's pointwise input, a non-separable block's input (C3),
-    every residual join and the decoder's input (unmasked).  Outside a
-    kernel remain only the first site's quantization of the float features
-    and the decoder's float log-softmax.  Needs int8 activations."""
-
-    def __init__(self, tables, qcfg: QuantConfig, *, activation: str):
-        super().__init__(tables, qcfg, activation=activation)
-        _check_int8_acts("FrozenExecKernels", qcfg)
-
-    def _dw(self, p: _PendingConv, **kw) -> torch.Tensor:
-        s = p.spec
-        return dw_conv(p.xq, p.entry["wk"], stride=s.stride, padding=s.padding,
-                       dilation=s.dilation, bias=p.entry.get("b"), relu=p.relu, **p.pro, **kw)
+    residual branch's pointwise input, a non-separable block's input (C3,
+    and each conv of a dense block), every residual join and the decoder's
+    input (unmasked).  Outside a kernel remain only the first site's
+    quantization of the float features and the decoder's float
+    log-softmax."""
 
     def _flush(self, x):
-        """A pending conv through its kernel, epilogue off -> _Held int32."""
+        """A pending conv through its kernel, epilogue off -> _Held int32
+        (its ReLU applied, and kept as the _Held's flag: every consumer's
+        requant then knows the value is >= 0, W8A8's uint8 rule; a second
+        ReLU changes nothing)."""
         if not isinstance(x, _PendingConv):
             return x
-        if x.depthwise:
-            y = self._dw(x)
-        else:
-            y = pw_gemm(x.xq, x.entry["wk"], bias=x.entry.get("b"), relu=x.relu)
-        return _Held(y, x.entry["out_scale"])
+        y = x.run(bias=x.entry.get("b"), relu=x.relu)
+        return _Held(y, x.entry["out_scale"], relu=x.relu)
 
     def masked_conv(self, site, spec: ConvSpec, x, lens):
         bi, kind, i = site
         entry = self.t["blocks"][bi][kind][i]
-        if not (is_depthwise(spec) or is_pointwise(spec)):
-            raise NotImplementedError(f"conv {spec} is neither depthwise nor pointwise")
+        if not (is_depthwise(spec) or is_pointwise(spec) or is_dense(spec)):
+            raise NotImplementedError(f"grouped conv {spec} is not ported")
         bits = self._act_bits(spec)
         out_len = conv_out_len(lens, spec)
         if isinstance(x, _PendingConv) and x.depthwise and is_pointwise(spec):
-            xq = self._dw(x, out_len=lens, m=entry["act_m"], e=entry["act_e"], bits=bits)
+            xq = x.run(bias=x.entry.get("b"), relu=x.relu, out_len=lens, m=entry["act_m"],
+                       e=entry["act_e"], bits=bits)
             return _PendingConv(xq, entry, spec), out_len
         x = self._flush(x)
         if isinstance(x, _Held) and is_depthwise(spec):

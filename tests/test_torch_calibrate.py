@@ -210,17 +210,32 @@ def test_dynamic_forward_matches_jax():
     assert len(np.unique(jlp.argmax(-1))) > 1
 
 
-def test_wide_operands_raise_on_cuda():
-    """W8A8's 9-bit sites: the plain versions on the CPU, NotImplementedError
-    for CUDA (checked before anything reaches the card)."""
-    cuda = torch.device("cuda")
-    assert PJ.check_operand_bits(torch.device("cpu"), 9, 8)
-    assert not PJ.check_operand_bits(cuda, 7, 6)
-    with pytest.raises(NotImplementedError, match="int16 operands"):
-        PJ.check_operand_bits(cuda, 9, 8)
+def test_operand_storage_rule():
+    """W8A8's storage rule (kernels/checks.py::act_dtype): int8 for signed
+    codes of <= 8 bits, uint8 for an asymmetric site's 9-bit codes of a
+    post-ReLU value, int32 for anything wider on the CPU; on CUDA a signed
+    9-bit site, 10 bits and weight_bit 9 raise NotImplementedError before
+    anything reaches the card.  ``_frozen_fn`` at W8A8 no longer raises
+    before the card: here it gets as far as moving the tables there."""
+    cpu, cuda = torch.device("cpu"), torch.device("cuda")
+    assert PJ.operand_dtype(cuda, 7, 6, nonneg=False) == torch.int8
+    assert PJ.operand_dtype(cuda, 8, 8, nonneg=True) == torch.int8
+    assert PJ.operand_dtype(cuda, 9, 8, nonneg=True) == torch.uint8
+    assert PJ.operand_dtype(cpu, 9, 8, nonneg=False) == torch.int32
+    assert PJ.operand_dtype(cpu, 8, 9, nonneg=False) == torch.int8
+    with pytest.raises(NotImplementedError, match="signed 9-bit"):
+        PJ.operand_dtype(cuda, 9, 8, nonneg=False)
+    with pytest.raises(NotImplementedError, match="10-bit"):
+        PJ.operand_dtype(cuda, 10, 8, nonneg=True)
+    with pytest.raises(NotImplementedError, match="weight_bit 9"):
+        PJ.operand_dtype(cuda, 8, 9, nonneg=True)
     _, pm = tiny_models(wb=8, ab=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    try:
         pm._frozen_fn("static_e", cuda, argmax=False)
+    except NotImplementedError as err:
+        raise AssertionError(f"W8A8 raised before the card: {err}")
+    except (AssertionError, RuntimeError) as err:   # this CPU-only torch has no CUDA
+        assert "CUDA" in str(err)
 
 
 @pytest.fixture(scope="module")

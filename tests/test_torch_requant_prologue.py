@@ -184,7 +184,8 @@ def test_requant_matches_requant_pallas(identity):
 def test_requant_plain_mask_relu_scalar(x32):
     """Kernel 7's mask and ReLU are the walk's (relu, then zero frames past
     the length, then requant); 0-d mantissas and exponents act as scalars;
-    above 8 bits the result is int32."""
+    a 9-bit requant of a ReLU'd value is stored uint8 (its clamp [-256,
+    255] reads [0, 255]); without the ReLU it is int32."""
     rng = np.random.default_rng(20 + x32)
     b, t, c = 2, 33, 29
     z = _t(rng.integers(-2**20, 2**20, (b, t, c)).astype(np.int32) if x32
@@ -198,8 +199,9 @@ def test_requant_plain_mask_relu_scalar(x32):
     rem = p - q * 2 ** int(e0)
     half = 2 ** (int(e0) - 1)
     q = q + ((rem > half) | ((rem == half) & (q % 2 == 1))).to(torch.int64)
-    assert got.dtype == torch.int32
+    assert got.dtype == torch.uint8
     np.testing.assert_array_equal(got.numpy(), q.clamp(-256, 255).numpy())
+    assert requant(z, m0, e0, 9, lens=lens).dtype == torch.int32
     assert torch.equal(requant(z, m0, e0, 9, relu=True, lens=lens),
                        requant_plain(z, int(m0), int(e0), 9, relu=True, lens=lens))
 
