@@ -182,7 +182,10 @@ phase exits non-zero before the result line.  Phases:
    uint8), and Kernel 8 at every distinct Jasper10x5Dr site in its serving
    forms and, at (K 13, 256 -> 384) and (K 29, 768 -> 896, d 2), in every
    prologue and epilogue mode with int8 and uint8 inputs at N in {609, 1,
-   37} with ragged lengths, exact; (b) full-width QuartzNet15x5 W8A8
+   37} with ragged lengths, and at the edges of its wgmma tiling (Couts no
+   tile width divides, B=1 with T_out=1, T_out one past 128 and 256, Cin
+   48 / 64 / 144, stride 2 with the prologue, a block walking four Cout
+   tiles) in five forms each, exact; (b) full-width QuartzNet15x5 W8A8
    reproduces its static_e and per_channel golden records and Jasper10x5Dr
    its W6A6 and W8A8 ones on the kernel executors and the plain path; (c)
    4 seeded requests through transcribe on QuartzNet W8A8 (static_e,
@@ -2600,6 +2603,17 @@ W8A8_SERVED = (("quartznet15x5", 8, "static_e"), ("quartznet15x5", 8, "per_chann
 # Kernel 8's mode checks: (K, Cin, Cout, stride, dilation), at N = B * T in
 # {609, 1, 37} (PW_BT)
 DENSE_MODE_SITES = ((13, 256, 384, 1, 1), (29, 768, 896, 1, 2))
+# Kernel 8 at the edges of its wgmma tiling: (K, Cin, Cout, stride,
+# dilation, B, T_out) -- Couts that no tile width divides (203 not even 8),
+# one frame of one utterance, T_out one past a multiple of its 128-frame
+# tile, Cin 64 / 48 / 144 (the weight map's zero fill past Cin inside a
+# 128-byte box), stride 2 (with the prologue too), the widest site's ring,
+# and a block that walks four Cout tiles (B=33: no grid-z split)
+DENSE_EDGE_CASES = ((11, 256, 200, 1, 1, 2, 150), (13, 384, 203, 1, 1, 2, 129),
+                    (11, 64, 200, 2, 1, 1, 1), (29, 768, 896, 1, 2, 1, 1),
+                    (25, 768, 768, 1, 1, 3, 257), (11, 48, 40, 1, 1, 2, 77),
+                    (7, 144, 384, 2, 1, 2, 129), (11, 256, 256, 2, 1, 2, 129),
+                    (5, 128, 640, 1, 1, 33, 512))
 # phase 10f's serving batch (B x 15 s)
 W8A8_STEP_BATCH = 64
 
@@ -2856,6 +2870,42 @@ def phase_u8_kernels(chk, dev):
                           f"{' scalar m1' if i == 2 else ''}, {mode}",
                           dense_conv(xi, w, **conv, **pro, **epi),
                           dense_conv_plain(xi, w, **conv, **pro, **epi))
+    # ... and at the edges of its tiling, each in five forms: u8 in with no
+    # epilogue and with the u8 requant, int8 in with the join, the
+    # prologue from int32 to u8 codes with the int8 requant, and from int8
+    # to 7-bit codes with no epilogue
+    n_edge = chk.n
+    for k, cin, cout, s, d, b, t_want in DENSE_EDGE_CASES:
+        pad = get_same_padding(k, s, d)
+        t_in = next(ti for ti in range(1, 2 * s * t_want + 2 * k * d)
+                    if out_frames(ti, k, s, pad, d) == t_want)
+        conv = dict(stride=s, padding=pad, dilation=d)
+        w = t(-127, 128, (cout, k, cin), np.int8)
+        bias = vec(cout, -3000, 3000)
+        lens = vec(b, 1, t_want + 1)
+        m, m_r = vec(cout, 2**29, 2**31), vec(cout, 2**29, 2**31)
+        res = t(-2**20, 2**20, (b, t_want, cout), np.int32)
+        xu = t(0, 256, (b, t_in, cin), np.uint8)
+        x8 = t(-128, 128, (b, t_in, cin), np.int8)
+        x32 = t(-2**20, 2**20, (b, t_in, cin), np.int32)
+        e_u, e_8 = spread_e(k * cin, 147, 73), spread_e(k * cin, 74, 73)
+        pro9 = dict(in_bias=vec(cin, -2**18, 2**18), in_relu=True, in_len=vec(b, 1, t_in + 1),
+                    m1=vec(cin, 2**29, 2**31), e1=42, bits1=9)
+        pro7 = dict(in_bias=vec(cin, -500, 500), in_len=vec(b, 1, t_in + 1),
+                    m1=np.asarray(2**30 + 5, np.int32), e1=33, bits1=7)
+        forms = {"u8 in, none+relu": (xu, dict(bias=bias, relu=True)),
+                 "u8 in, requant+relu u8": (xu, dict(bias=bias, relu=True, lens=lens, m=m,
+                                                     e=e_u, bits=9)),
+                 "int8 in, join": (x8, dict(bias=bias, m=m, e=e_8 + 1, bits=8, res=res,
+                                            m_r=m_r, e_r=45)),
+                 "prologue int32 -> u8, requant int8": (
+                     x32, dict(pro9, bias=bias, lens=lens, m=m, e=e_u + 1, bits=7)),
+                 "prologue int8 -> 7-bit codes (scalar m1), none": (x8, dict(pro7, bias=bias))}
+        for name, (xi, kw) in forms.items():
+            chk.equal("dense_conv", f"dense_conv edge K={k} {cin}->{cout} s={s} d={d} B={b} "
+                      f"T_out={t_want}: {name}", dense_conv(xi, w, **conv, **kw),
+                      dense_conv_plain(xi, w, **conv, **kw))
+    n_edge = chk.n - n_edge
     n_dense = chk.n - n3
     log(f"[10a] uint8 forms == plain: dw_conv {n_dw} cases ({len(DW_SITES)} sites x u8 input, "
         f"u8 prologue codes from int8 / int32 with m31 / m16 / one m1, per-channel e1 / e, "
@@ -2864,7 +2914,8 @@ def phase_u8_kernels(chk, dev):
         f"3 prologue -> u8 modes); requant {n_rq} (u8 out from int8 / int32 / u8, u8 in); "
         f"dense_conv {n_dense} ({len(sites)} Jasper10x5Dr sites {sites} in their serving "
         f"forms; {DENSE_MODE_SITES} x N in {[b * tt for b, tt in PW_BT]} x int8 / u8 input x "
-        f"5 epilogue modes + 4 prologue modes); exact")
+        f"5 epilogue modes + 4 prologue modes; {n_edge} at the tiling's edges "
+        f"{DENSE_EDGE_CASES}); exact")
 
 
 def phase_w8a8_golden(dev):

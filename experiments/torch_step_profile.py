@@ -37,6 +37,8 @@ def group_of(name: str) -> str:
         return "pw_gemm kernel"
     if "requant_kernel" in n:
         return "requant kernel"
+    if "dense_conv_kernel" in n:
+        return "dense_conv kernel"
     if "fft" in n or "reflection_pad" in n or "gemm" in n or "sgemm" in n \
             or "cutlass" in n or "ampere" in n or "sm90" in n or "reduce" in n:
         return "frontend float (fft, mel matmul, reductions)"

@@ -1,8 +1,8 @@
 """Kernel 8: dense integer 1-D conv with Kernel 2's input-requant prologue
 and its none / requant / join epilogues (kernels/csrc/dense_conv.cu): an
-implicit GEMM over (tap, Cin chunk) on mma.sync, the input rows of an
-output tile and their halo resident in shared memory, no im2col in device
-memory.
+implicit GEMM over (tap, Cin chunk) on wgmma, the input rows of an output
+tile and their halo resident in shared memory (A from registers), the
+weights by TMA through an mbarrier ring, no im2col in device memory.
 
 Replaces no Pallas kernel: the JAX package computes these convs with
 XLA's integer conv (qasr_tpu/models/jasper.py:332, ``conv_nwc`` with
@@ -32,46 +32,66 @@ from qasr_tpu_torch.kernels.pw_gemm import (
 )
 from qasr_tpu_torch.models.jasper import out_frames
 
-BM, BN = 128, 128    # output frames x output channels of a block's tile
-KC = 128             # bytes of Cin a K step takes
-WP = KC + 16         # the weight ring's row pitch (bytes)
-STAGES = 4           # the weight ring's stages
+BM = 128             # output frames of a block's tile (two warpgroups of 64)
+KC = 128             # bytes of Cin a K step takes (a TMA box's row, the 128B swizzle's)
+WIDTHS = (128, 160, 192)  # the Cout tiles (wgmma N) the kernel is built for
+MAX_STAGES = 8       # the weight ring's deepest
+THREADS = 384        # two consumer warpgroups and a producer warpgroup
+ALIGN = 1024         # slack to align the shared-memory base to the swizzle's repeat
 SMEM_LIMIT = 232448  # dynamic shared memory one block may use on an H100
 SMS = 132            # the H100 SXM's streaming multiprocessors
 GRID_YZ = 65535      # the grid's y (batch) and z limits
 
 
+def tile_n(cout: int) -> int:
+    """The Cout tile: of the WIDTHS, the one that covers Cout with the
+    fewest padded columns, then the fewest tiles (768 -> 192, 896 -> 128,
+    640 -> 160, 384 -> 192, 200 -> 128).  Wider tiles need more than the
+    168 registers a thread of a 384-thread block has."""
+    return min(WIDTHS, key=lambda bn: (-(-cout // bn) * bn, -(-cout // bn)))
+
+
 def plan(b: int, t_out: int, cin: int, cout: int, k_size: int, stride: int,
          dilation: int) -> dict:
-    """Kernel 8's tiles for one launch (csrc/dense_conv.cu takes ``ct_per``
-    from here and computes the same shared memory).
+    """Kernel 8's tiles for one launch (csrc/dense_conv.cu takes ``bn``,
+    ``stages`` and ``ct_per`` from here and computes the same shared
+    memory).
 
     A block owns BM output frames of one batch element: ``rows`` = (BM - 1)
     * stride + (K - 1) * dilation + 1 input rows resident at ``pitch`` bytes
     (Cin padded to ``nc`` chunks of KC, plus 16 so that eight rows fall on
-    distinct banks), and walks ``ct_per`` Cout tiles of BN, the weights
-    streaming through STAGES slots of BN x WP bytes.  Grid z splits Cout
-    into slices where the (frame tile, batch) blocks alone would not give
-    the card two blocks an SM."""
+    distinct banks), and walks ``ct_per`` Cout tiles of ``bn`` (``tile_n``),
+    the weights arriving as TMA boxes of ``box`` = (KC bytes of Cin, 1 tap,
+    bn channels) through a ring of ``stages``, as many as fit beside the
+    rows (``smem``: ring, rows, two mbarriers a stage and the alignment
+    slack; fewer than 2 do not run).  Grid z splits Cout into the fewest
+    slices of ``ct_per`` tiles that give every SM a block where the (frame
+    tile, batch) blocks alone would leave some idle (one block an SM: its
+    registers)."""
     nc = -(-cin // KC)
     rows = (BM - 1) * stride + (k_size - 1) * dilation + 1
     pitch = nc * KC + 16
-    smem = rows * pitch + STAGES * BN * WP
-    n_ct = -(-cout // BN)
+    bn = tile_n(cout)
+    stage = bn * KC
+    stages = min(MAX_STAGES, (SMEM_LIMIT - ALIGN - rows * pitch) // (stage + 16))
+    smem = stages * stage + rows * pitch + 16 * stages + ALIGN
+    n_ct = -(-cout // bn)
     base = -(-t_out // BM) * b
-    splits = min(n_ct, max(1, -(-2 * SMS // base)))
-    ct_per = -(-n_ct // splits)
-    return {"nc": nc, "rows": rows, "pitch": pitch, "smem": smem, "ct_per": ct_per,
-            "grid": (-(-t_out // BM), b, -(-n_ct // ct_per)), "block": 256}
+    ct_per = next(c for c in range(n_ct, 0, -1)
+                  if base * -(-n_ct // c) >= min(SMS, base * n_ct))
+    return {"nc": nc, "rows": rows, "pitch": pitch, "bn": bn, "stages": stages,
+            "smem": smem, "ct_per": ct_per, "box": (KC, 1, bn),
+            "grid": (-(-t_out // BM), b, -(-n_ct // ct_per)), "block": THREADS}
 
 
 def check_launch(b: int, t_in: int, cin: int, cout: int, k_size: int, stride: int,
                  padding: int, dilation: int, pro: bool, x_dtype: torch.dtype) -> dict:
     """The launch's plan, or ValueError for a shape the kernel does not take:
     an empty output, Cin not a positive multiple of 16 (the 16-byte
-    granules the tiles are copied in), an int32 input without the
-    prologue, frame indices beyond int32, a batch beyond the grid's y
-    limit, or resident rows that outgrow a block's shared memory."""
+    granules the rows are copied in, the weight map's row pitch), an int32
+    input without the prologue, frame indices beyond int32, a batch beyond
+    the grid's y limit, or resident rows that leave no room for a ring of
+    two weight stages in a block's shared memory."""
     if stride < 1 or dilation < 1 or padding < 0 or k_size < 1:
         raise ValueError("dense_conv: stride/dilation/K must be >= 1, padding >= 0")
     t_out = out_frames(t_in, k_size, stride, padding, dilation)
@@ -85,10 +105,11 @@ def check_launch(b: int, t_in: int, cin: int, cout: int, k_size: int, stride: in
     if b * (t_in + t_out) * max(cin, cout) >= 2 ** 31 or b > GRID_YZ:
         raise ValueError("dense_conv: B * T * C must stay below 2^31 and B below 65536")
     p = plan(b, t_out, cin, cout, k_size, stride, dilation)
-    if p["smem"] > SMEM_LIMIT:
+    if p["stages"] < 2:
         raise ValueError(f"dense_conv: K={k_size} stride={stride} dilation={dilation} "
-                         f"Cin={cin} needs {p['smem']} bytes of shared memory, above "
-                         f"{SMEM_LIMIT}")
+                         f"Cin={cin} keeps {p['rows'] * p['pitch']} bytes of rows resident, "
+                         f"leaving no room for two {p['bn']}-channel weight stages in "
+                         f"{SMEM_LIMIT} bytes of shared memory")
     return p
 
 
@@ -178,7 +199,8 @@ def dense_conv(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1, padding: in
         _build.ptr(res), _build.ptr(m_r), _build.ptr(out), b, t_in, cin, t_out, cout, k_size,
         stride, padding, dilation, mode, int(relu), ee, ee_r, lo, hi, pro,
         int(x.dtype == torch.int32), _build.ptr(in_bias), int(in_relu), _build.ptr(in_len),
-        _build.ptr(m1v), m1s, ee1, lo1, hi1, int(u8), p["ct_per"], _build.stream_of(x))
+        _build.ptr(m1v), m1s, ee1, lo1, hi1, int(u8), p["bn"], p["stages"],
+        p["ct_per"], _build.stream_of(x))
     _build.check(rc, "dense_conv")
     dense_conv.launches += 1
     return out

@@ -204,13 +204,16 @@ def test_dense_conv_plain_matches_xla_int_conv(k, stride, dilation, u8):
 @pytest.mark.parametrize("batch", [1, 4, 64])
 def test_dense_conv_plan_covers_every_jasper_site(batch):
     """Kernel 8's plan at every Jasper10x5Dr site (15 s: 1,536 frames in):
-    its resident rows and weight ring fit a block's shared memory, the grid
-    covers every frame tile, batch element and Cout tile once, and
-    check_launch refuses what the kernel does not take."""
+    its Cout tile is a width of wgmma's int8 m64nNk32 that splits Jasper's
+    Couts without padding, its resident rows, weight ring (two stages or
+    more) and alignment slack fit a block's shared memory, its weight box
+    is (128 bytes, 1 tap, BN), and the grid covers every frame tile, batch
+    element and Cout tile once."""
     from qasr_tpu_torch.kernels import dense_conv as dc
     from qasr_tpu_torch.models.config import jasper10x5dr
     from qasr_tpu_torch.models.jasper import build_encoder_plan, is_dense, out_frames
 
+    legal = {8, 16, 24} | set(range(32, 257, 16))   # m64nNk32's N for .s8 / .u8
     plan = build_encoder_plan(jasper10x5dr().encoder)
     specs = [s for bp in plan.blocks for s in bp.convs if is_dense(s)]
     assert len(specs) == 52
@@ -220,19 +223,45 @@ def test_dense_conv_plan_covers_every_jasper_site(batch):
         p = dc.check_launch(batch, t_in, s.in_ch, s.out_ch, s.kernel, s.stride, s.padding,
                             s.dilation, False, torch.uint8)
         assert p == dc.plan(batch, t_out, s.in_ch, s.out_ch, s.kernel, s.stride, s.dilation)
-        assert p["smem"] <= dc.SMEM_LIMIT and p["rows"] == (dc.BM - 1) * s.stride + \
-            (s.kernel - 1) * s.dilation + 1
+        bn = p["bn"]
+        assert bn in legal and bn in dc.WIDTHS and s.out_ch % bn == 0
+        assert p["box"] == (dc.KC, 1, bn)
+        assert p["rows"] == (dc.BM - 1) * s.stride + (s.kernel - 1) * s.dilation + 1
+        assert p["pitch"] == p["nc"] * dc.KC + 16 and p["nc"] * dc.KC >= s.in_ch
+        assert 2 <= p["stages"] <= dc.MAX_STAGES
+        assert p["smem"] == (p["stages"] * (bn * dc.KC + 16) + p["rows"] * p["pitch"]
+                             + dc.ALIGN) <= dc.SMEM_LIMIT
         gx, gy, gz = p["grid"]
-        n_ct = -(-s.out_ch // dc.BN)
+        n_ct = s.out_ch // bn
         assert (gx - 1) * dc.BM < t_out <= gx * dc.BM and gy == batch
         assert (gz - 1) * p["ct_per"] < n_ct <= gz * p["ct_per"]
-        assert gx * gy * gz >= min(2 * dc.SMS, gx * gy * n_ct)
-    with pytest.raises(ValueError, match="multiple of 16"):
-        dc.check_launch(2, 100, 24, 32, 5, 1, 2, 1, False, torch.int8)
-    with pytest.raises(ValueError, match="int8 or uint8"):
-        dc.check_launch(2, 100, 32, 32, 5, 1, 2, 1, False, torch.int32)
-    with pytest.raises(ValueError, match="shared memory"):
-        dc.check_launch(2, 400, 768, 896, 101, 1, 100, 2, True, torch.int32)
+        owned = [(x, z * p["ct_per"] + i) for x in range(gx) for z in range(gz)
+                 for i in range(p["ct_per"]) if z * p["ct_per"] + i < n_ct]
+        assert sorted(owned) == [(x, c) for x in range(gx) for c in range(n_ct)]
+        assert gx * gy * gz >= min(dc.SMS, gx * gy * n_ct)
+    assert {s.out_ch: dc.tile_n(s.out_ch) for s in specs} == {
+        256: 128, 384: 192, 512: 128, 640: 160, 768: 192, 896: 128}
+
+
+@pytest.mark.parametrize("args,match", [
+    ((2, 100, 24, 32, 5, 1, 2, 1, False, torch.int8), "multiple of 16"),
+    ((2, 100, 32, 32, 5, 1, 2, 1, False, torch.int32), "int8 or uint8"),
+    ((2, 4, 16, 16, 11, 1, 0, 1, False, torch.int8), "empty output"),
+    ((65536, 8, 16, 16, 1, 1, 0, 1, False, torch.int8), "B below 65536"),
+    ((2, 400, 768, 896, 101, 1, 100, 2, True, torch.int32), "two 128-channel weight stages"),
+    ((2, 400, 768, 768, 54, 1, 53, 2, False, torch.uint8), "two 192-channel weight stages"),
+])
+def test_dense_conv_check_launch_refuses(args, match):
+    """check_launch refuses what Kernel 8 does not take, the ring's limit
+    included: at K=54 d=2 Cin=768 the 234 resident rows leave room for two
+    stages of Cout 896's 128-channel tile but not of Cout 768's 192."""
+    from qasr_tpu_torch.kernels import dense_conv as dc
+
+    with pytest.raises(ValueError, match=match):
+        dc.check_launch(*args)
+    if "192-channel" in match:
+        p = dc.check_launch(2, 400, 768, 896, 54, 1, 53, 2, False, torch.uint8)
+        assert (p["bn"], p["stages"], p["rows"]) == (128, 2, 234)
 
 
 def _jax_chain_prologue(x, in_bias, lens, m1, e1, bits1):
