@@ -9,7 +9,9 @@ every requant in a prologue or epilogue of Kernels 1-2; per_channel on
 FrozenExecKernels, convs in Kernels 1-2, the requants next to a depthwise
 conv in Kernel 1's prologue and epilogue with per-channel exponents, the
 rest in Kernel 7), the same at W8A8 (uint8 codes at the +1-bit sites) and
-Jasper10x5Dr at W6A6 and W8A8 (its dense convs in Kernel 8), and
+Jasper10x5Dr at W6A6 and W8A8 (its dense convs in Kernel 8), the
+grouped and hardtanh QuartzNet15x5 variants and a grouped Jasper-width
+block (the grouped forms of Kernels 2 and 8), MatchboxNet VAD, and
 the frozen W8A8 Conformer-CTC (16 x 256), and QuartzNet15x5's zero-shot
 workflow (synthesis, calibration, the dynamic forward, the CLIs) and the
 Conformer-CTC's (synthesis, calibration, freeze and serve, dynamic), and
@@ -201,6 +203,30 @@ phase exits non-zero before the result line.  Phases:
    QuartzNet's shapes and Kernel 8 at each Jasper site (B=64, T'=768)
    against its plain version, its operation bound and float64 conv1d (one
    call, exact here); phase 10's seconds.
+
+11. The rest of the Jasper family and VAD: (a) Kernels 2 and 8 in their
+   grouped forms (groups 2 / 4 / 8 at QuartzNet15x5-g4's and Jasper's
+   widths, Cout/g 64 to 192, with and without the prologue, every
+   epilogue mode, GroupShuffle in the store or not, int8 and uint8
+   operands) and hardtanh's ceiling (per channel and scalar, prologue and
+   epilogue) in Kernels 1, 2, 7 and 8 against their plain versions,
+   exact, and the group widths they refuse; (b) QuartzNet15x5-g4 W6A6
+   (static_e, per_channel) and QuartzNet15x5 with hardtanh (static_e)
+   reproduce their JAX golden records on the kernel executors and the
+   plain path, and the Jasper-width grouped block (C 768, K 25, 4 groups,
+   residual) calibrates on the card with ranges equal to the plain
+   QuantExec's; (c) 4 seeded requests through transcribe on each: the
+   planned launches, no call of a plain version, the plain executor's
+   ids; (d) QuartzNet15x5-g4 and hardtanh calibration against the plain
+   QuantExec; (e) their B=64 x 15 s steps beside QuartzNet15x5 W6A6
+   static_e's, and the grouped Kernel 2 (beside torch._int_mm per group)
+   and Kernel 8 (beside float64 conv1d(groups=4)) at their serving sites
+   with their bounds; (f) cli.vad_infer (MatchboxNet-3x1x64) on the card:
+   frames within 1e-4 of a CPU run, windows per second; (g) QuartzNet15x5
+   with selu and with swish at W6A6 calibrated and served on the card (the
+   planned launches, no plain call, the plain executor's ids), and their
+   W8A8 raising NotImplementedError (signed 9-bit codes); phase 11's
+   seconds.
 
 Prints the card line, a {"kernels": [...]} line (each kernel's "ms" and
 "library_ms" are device times at the site "shape" names, "call_ms" and
@@ -2930,8 +2956,8 @@ def phase_w8a8_golden(dev):
     models, tables = {}, {}
     for key in sorted(golden.RECORDS):
         name, bits, mode = key
-        if (name, bits) == ("quartznet15x5", 6):
-            continue   # phase 4's
+        if (name, bits) == ("quartznet15x5", 6) or name not in ("quartznet15x5", "jasper10x5dr"):
+            continue   # phase 4's, and phase 11's
         model = models.setdefault((name, bits), golden.flagship(name, bits))
         feats, lens = golden.golden_features(model.plan.feat_in, name)
         host = model.freeze_host(mode)
@@ -3216,6 +3242,671 @@ def phase_w8a8(chk, dev, card, report, qn6):
     return rows, counts
 
 
+# ---------------------------------------------------------------------------
+# phase 11: grouped convs with GroupShuffle (the grouped forms of Kernels 2
+# and 8), hardtanh's ceiling in Kernels 1, 2, 7 and 8, and the rest of the
+# Jasper family and MatchboxNet VAD on the card
+# ---------------------------------------------------------------------------
+
+# Kernel 2's grouped checks: (Cin, Cout, groups) at N = B * T in {609, 1, 37}
+# (PW_BT): QuartzNet15x5-g4's 256 / 512 sites, groups 2 and 8, 16 input
+# channels a group (the narrowest the kernel takes) and Cout/g 32 (BN 32)
+GROUPED_PW = ((256, 256, 2), (256, 256, 4), (512, 512, 4), (256, 512, 4), (512, 512, 8),
+              (128, 256, 8), (1024, 512, 8))
+# Kernel 8's grouped checks: (K, Cin, Cout, stride, dilation, groups) -- the
+# Jasper-width block's site (768, K 25, 4 groups: Cout/g 192), Cout/g 64 (the
+# narrow tile) at 4 and 8 groups, 2 groups at Cout/g 192, stride 2, dilation 2
+GROUPED_DENSE = ((25, 768, 768, 1, 1, 4), (5, 256, 256, 1, 1, 4), (11, 512, 512, 1, 1, 8),
+                 (13, 256, 384, 1, 1, 2), (7, 128, 256, 2, 1, 2), (9, 512, 512, 1, 2, 2))
+
+
+def phase_grouped_kernels(chk, dev):
+    """11a: Kernels 2 and 8 grouped (groups 2 / 4 / 8, with and without the
+    prologue, every epilogue mode, GroupShuffle on store or not, int8 and
+    uint8 operands) and hardtanh's ceiling (per channel and scalar, in the
+    prologue and the epilogue) in Kernels 1, 2, 7 and 8, each against its
+    plain version, exact; and the group widths the grouped kernels refuse."""
+    import numpy as np
+    import torch
+
+    from qasr_tpu_torch.kernels.dense_conv import dense_conv, dense_conv_plain
+    from qasr_tpu_torch.kernels.dw_conv import dw_conv, dw_conv_plain
+    from qasr_tpu_torch.kernels.pw_gemm import pw_gemm, pw_gemm_plain
+    from qasr_tpu_torch.kernels.requant import requant, requant_plain
+    from qasr_tpu_torch.models.jasper import get_same_padding, out_frames
+
+    rng = np.random.default_rng(11)
+    n0 = chk.n
+
+    def t(lo, hi, shape, dtype):
+        return torch.from_numpy(rng.integers(lo, hi, shape).astype(dtype)).to(dev)
+
+    def vec(c, lo, hi):
+        return t(lo, hi, c, np.int32)
+
+    def modes_for(cout, b, tt, acc_rms, groups):
+        """The epilogue modes of Kernels 2 and 8 at this output: none,
+        ReLU, hardtanh (vector and scalar ceilings), requant (int8, and
+        uint8 with a ReLU or hardtanh at 9 bits) and join, with and
+        without GroupShuffle."""
+        bias = vec(cout, -3000, 3000)
+        lens = vec(b, 1, tt + 1)
+        res = t(-2**20, 2**20, (b, tt, cout), np.int32)
+        e = spread_e(1, acc_rms, 1.0)
+        m = vec(cout, 2**29, 2**31 - 1)
+        m_r = vec(cout, 2**29, 2**31 - 1)
+        cap = vec(cout, 0, int(acc_rms) + 1)
+        cap_s = int(acc_rms // 2)
+        sh = groups > 1
+        return {
+            "none": dict(bias=bias),
+            "none+relu shuffle": dict(bias=bias, relu=True, shuffle=sh),
+            "none+hardtanh[c] shuffle": dict(bias=bias, relu=True, hcap=cap, shuffle=sh),
+            "none+hardtanh scalar": dict(bias=bias, relu=True, hcap=cap_s),
+            "requant shuffle": dict(bias=bias, lens=lens, m=m, e=e, bits=7, shuffle=sh),
+            "requant+hardtanh[c] u8 shuffle": dict(bias=bias, relu=True, hcap=cap, lens=lens,
+                                                   m=m, e=e - 1, bits=9, shuffle=sh),
+            "requant+relu": dict(bias=bias, relu=True, lens=lens, m=m, e=e, bits=6),
+            "join shuffle": dict(bias=bias, m=m, e=e, bits=6, res=res, m_r=m_r, e_r=e + 14,
+                                 shuffle=sh),
+            "join": dict(bias=bias, m=m, e=e, bits=8, res=res, m_r=m_r, e_r=e + 14),
+        }
+
+    def prologues(cin, b, t_in):
+        """Prologue forms: int8 and int32 producers, a vector or a scalar
+        ceiling (hardtanh), ragged lengths, uint8 codes at 9 bits."""
+        in_len = vec(b, 1, t_in + 1)
+        out = {}
+        for x32 in (False, True):
+            hb = 2**18 if x32 else 64
+            x = t(-2**20, 2**20, (b, t_in, cin), np.int32) if x32 else \
+                t(-64, 64, (b, t_in, cin), np.int8)
+            m1, e1 = _tables(rng, cin, False, dev)
+            e1 = e1 + (7 if x32 else -6)   # codes of about +-64
+            tag = "int32" if x32 else "int8"
+            out[f"prologue {tag} hardtanh[c]"] = (x, dict(
+                m1=m1, e1=e1, bits1=7, in_bias=vec(cin, -hb, hb), in_relu=True,
+                in_hcap=vec(cin, 0, hb), in_len=in_len))
+            out[f"prologue {tag} hardtanh scalar -> u8"] = (x, dict(
+                m1=np.asarray(int(m1[0].item()), np.int32), e1=e1 - 1, bits1=9,
+                in_relu=True, in_hcap=hb // 2, in_len=in_len))
+            out[f"prologue {tag} relu"] = (x, dict(m1=m1, e1=e1, bits1=8, in_relu=True))
+        return out
+
+    # Kernel 2, grouped
+    for (b, tt), (cin, cout, g) in ((bt, s) for bt in PW_BT for s in GROUPED_PW):
+        wt = t(-31, 32, (cout, cin // g), np.int8)
+        acc_rms = math.sqrt(cin // g) * 40 * 18
+        modes = modes_for(cout, b, tt, acc_rms, g)
+        inputs = {"int8 in": t(-64, 64, (b, tt, cin), np.int8),
+                  "u8 in": t(0, 256, (b, tt, cin), np.uint8)}
+        for (iname, x), (name, kw) in ((i, md) for i in inputs.items() for md in modes.items()):
+            if iname == "u8 in" and "join" in name:
+                continue
+            what = f"pw_gemm N={b * tt} {cin}->{cout} g={g} {iname}, {name}"
+            chk.equal("pw_gemm", what, pw_gemm(x, wt, groups=g, **kw),
+                      pw_gemm_plain(x, wt, groups=g, **kw))
+        for i, (pname, (x, pro)) in enumerate(prologues(cin, b, tt).items()):
+            mode = ("requant+hardtanh[c] u8 shuffle", "join shuffle", "none+relu shuffle")[i % 3]
+            kw = dict(pro, **modes[mode])
+            chk.equal("pw_gemm", f"pw_gemm N={b * tt} {cin}->{cout} g={g} {pname}, {mode}",
+                      pw_gemm(x, wt, groups=g, **kw), pw_gemm_plain(x, wt, groups=g, **kw))
+    n_pw = chk.n - n0
+
+    # Kernel 8, grouped
+    n1 = chk.n
+    for k, cin, cout, s, d, g in GROUPED_DENSE:
+        for b, t_out in ((2, 300), (1, 1), (3, 129)):
+            pad = get_same_padding(k, s, d)
+            t_in = t_out * s
+            conv = dict(stride=s, padding=pad, dilation=d, groups=g)
+            w = t(-31, 32, (cout, k, cin // g), np.int8)
+            t_o = out_frames(t_in, k, s, pad, d)
+            modes = modes_for(cout, b, t_o, math.sqrt(k * cin // g) * 40 * 18, g)
+            x = t(-64, 64, (b, t_in, cin), np.int8)
+            xu = t(0, 256, (b, t_in, cin), np.uint8)
+            for name, kw in modes.items():
+                chk.equal("dense_conv", f"dense_conv K={k} {cin}->{cout} s={s} d={d} g={g} "
+                          f"B={b} T'={t_o} int8 in, {name}", dense_conv(x, w, **conv, **kw),
+                          dense_conv_plain(x, w, **conv, **kw))
+            for name in ("requant+hardtanh[c] u8 shuffle", "none+relu shuffle"):
+                kw = modes[name]
+                chk.equal("dense_conv", f"dense_conv K={k} {cin}->{cout} s={s} d={d} g={g} "
+                          f"B={b} u8 in, {name}", dense_conv(xu, w, **conv, **kw),
+                          dense_conv_plain(xu, w, **conv, **kw))
+            for i, (pname, (xp, pro)) in enumerate(prologues(cin, b, t_in).items()):
+                mode = ("requant+hardtanh[c] u8 shuffle", "join shuffle",
+                        "none+hardtanh[c] shuffle")[i % 3]
+                kw = dict(pro, **modes[mode])
+                chk.equal("dense_conv", f"dense_conv K={k} {cin}->{cout} g={g} B={b} {pname}, "
+                          f"{mode}", dense_conv(xp, w, **conv, **kw),
+                          dense_conv_plain(xp, w, **conv, **kw))
+    n_dense = chk.n - n1
+
+    # hardtanh's ceiling ungrouped: Kernel 2 and 8 at QuartzNet / Jasper
+    # widths, Kernel 1 in its epilogue and prologue at every depthwise site,
+    # Kernel 7 per channel and scalar
+    n2 = chk.n
+    for (b, tt), (cin, cout) in ((bt, s) for bt in PW_BT for s in ((512, 512), (40, 256))):
+        wt = t(-31, 32, (cout, cin), np.int8)
+        modes = modes_for(cout, b, tt, math.sqrt(cin) * 40 * 18, 1)
+        x = t(-64, 64, (b, tt, cin), np.int8)
+        for name in ("none+hardtanh[c] shuffle", "none+hardtanh scalar",
+                     "requant+hardtanh[c] u8 shuffle"):
+            kw = modes[name]
+            chk.equal("pw_gemm", f"pw_gemm N={b * tt} {cin}->{cout} {name} (ungrouped)",
+                      pw_gemm(x, wt, **kw), pw_gemm_plain(x, wt, **kw))
+        for pname, (xp, pro) in prologues(cin, b, tt).items():
+            kw = dict(pro, **modes["requant+relu"])
+            chk.equal("pw_gemm", f"pw_gemm N={b * tt} {cin}->{cout} {pname} (ungrouped)",
+                      pw_gemm(xp, wt, **kw), pw_gemm_plain(xp, wt, **kw))
+    for k, cin, cout in ((13, 256, 384), (25, 768, 768)):
+        b, t_in = 2, 300
+        w = t(-31, 32, (cout, k, cin), np.int8)
+        conv = dict(padding=k // 2)
+        modes = modes_for(cout, b, t_in, math.sqrt(k * cin) * 40 * 18, 1)
+        x = t(-64, 64, (b, t_in, cin), np.int8)
+        for name in ("none+hardtanh[c] shuffle", "requant+hardtanh[c] u8 shuffle"):
+            chk.equal("dense_conv", f"dense_conv K={k} {cin}->{cout} {name} (ungrouped)",
+                      dense_conv(x, w, **conv, **modes[name]),
+                      dense_conv_plain(x, w, **conv, **modes[name]))
+        for pname, (xp, pro) in prologues(cin, b, t_in).items():
+            kw = dict(pro, **modes["requant+relu"])
+            chk.equal("dense_conv", f"dense_conv K={k} {cin}->{cout} {pname} (ungrouped)",
+                      dense_conv(xp, w, **conv, **kw), dense_conv_plain(xp, w, **conv, **kw))
+    n_cap28 = chk.n - n2
+    n3 = chk.n
+    for c, k, s, d in DW_SITES + [(30, 33, 1, 1)]:
+        b, t_in = 3, 200 * s + 7
+        pad = get_same_padding(k, s, d)
+        w = t(-31, 32, (k, c), np.int8)
+        t_o = out_frames(t_in, k, s, pad, d)
+        acc_rms = math.sqrt(k) * 40 * 18
+        bias = vec(c, -3000, 3000)
+        lens = vec(b, 1, t_o + 1)
+        m, _ = _tables(rng, c, False, dev)
+        e = 30 + int(round(math.log2(acc_rms / 24)))   # codes of about +-24
+        conv = dict(stride=s, padding=pad, dilation=d)
+        x = t(-64, 64, (b, t_in, c), np.int8)
+        cases = {
+            "int32 out hardtanh[c]": (x, dict(bias=bias, relu=True, hcap=vec(c, 0, int(acc_rms)))),
+            "int32 out hardtanh scalar": (x, dict(bias=bias, relu=True, hcap=int(acc_rms) // 3)),
+            "int8 out hardtanh[c]": (x, dict(bias=bias, relu=True, hcap=vec(c, 0, int(acc_rms)),
+                                             out_len=lens, m=m, e=e, bits=8)),
+            "u8 out hardtanh scalar": (x, dict(bias=bias, relu=True, hcap=int(acc_rms) // 2,
+                                               out_len=lens, m=m, e=e - 1, bits=9)),
+        }
+        for pname, (xp, pro) in prologues(c, b, t_in).items():
+            cases[pname + ", int8 out hardtanh[c]"] = (xp, dict(
+                pro, bias=bias, relu=True, hcap=vec(c, 0, int(acc_rms)), out_len=lens, m=m,
+                e=e, bits=8))
+        for name, (xi, kw) in cases.items():
+            chk.equal("dw_conv", f"dw_conv C={c} K={k} s={s} d={d} {name}",
+                      dw_conv(xi, w, **conv, **kw), dw_conv_plain(xi, w, **conv, **kw))
+    n_cap1 = chk.n - n3
+    n4 = chk.n
+    for c in RQ_C:
+        b, tt = 3, 203
+        lens = vec(b, 1, tt + 1)
+        for x32 in (False, True):
+            z = t(-2**20, 2**20, (b, tt, c), np.int32) if x32 else t(-128, 128, (b, tt, c),
+                                                                     np.int8)
+            hb = 2**19 if x32 else 100
+            m = vec(c, 2**29, 2**31 - 1)
+            e = 51 if x32 else 37
+            for cname, cap in (("[c]", vec(c, 0, hb)), (" scalar", hb // 3)):
+                for bits in (7, 9):
+                    kw = dict(relu=True, hcap=cap, lens=lens)
+                    chk.equal("requant", f"requant C={c} {'int32' if x32 else 'int8'} "
+                              f"hardtanh{cname} bits={bits}", requant(z, m, e - (bits == 9), bits,
+                                                                      **kw),
+                              requant_plain(z, m, e - (bits == 9), bits, **kw))
+    n_cap7 = chk.n - n4
+    # the group widths the grouped kernels refuse on CUDA
+    refused = 0
+    if dev.type == "cuda":
+        for fn, args in ((pw_gemm, (t(-8, 8, (1, 5, 64), np.int8), t(-8, 8, (64, 8), np.int8))),
+                         (dense_conv, (t(-8, 8, (1, 5, 64), np.int8),
+                                       t(-8, 8, (64, 3, 8), np.int8)))):
+            try:
+                fn(*args, groups=8)
+            except NotImplementedError:
+                refused += 1
+            else:
+                raise AssertionError(f"{fn.__name__}: 8 input channels a group was taken")
+    log(f"[11a] exact: pw_gemm grouped {n_pw} (groups 2/4/8 at {len(GROUPED_PW)} shapes x N in "
+        f"{[b * t for b, t in PW_BT]}, 9 epilogue modes incl. GroupShuffle and hardtanh, "
+        f"int8 / uint8 A, 6 prologue forms), dense_conv grouped {n_dense} "
+        f"({len(GROUPED_DENSE)} sites x 3 shapes), hardtanh ceilings in Kernels 2 + 8 "
+        f"{n_cap28}, Kernel 1 {n_cap1}, Kernel 7 {n_cap7}; {refused} narrow groups refused "
+        f"(NotImplementedError)")
+    return {"pw_grouped": n_pw, "dense_grouped": n_dense, "cap_2_8": n_cap28,
+            "cap_1": n_cap1, "cap_7": n_cap7, "refused": refused}
+
+
+# the full-width paths phase 11 serves: (golden record name or the Jasper-width
+# grouped block, bits, dyadic mode)
+GROUPED_SERVED = (("quartznet15x5_g4", 6, "static_e"), ("quartznet15x5_g4", 6, "per_channel"),
+                  ("quartznet15x5_hardtanh", 6, "static_e"),
+                  ("jasper_grouped_block", 6, "static_e"))
+# the wavs phase 11f's vad_infer reads: seconds each (0.63 s windows, 0.01 s apart)
+VAD_SECONDS = (4.0, 6.5, 3.2)
+
+
+class PlainCalls:
+    """Counts the calls of every kernel's plain version (the ``*_plain``
+    functions of the kernel modules and the frozen executors' module)
+    while it is active: a kernel path on CUDA makes none."""
+
+    def __init__(self):
+        self.n = 0
+        self.saved = []
+
+    def __enter__(self):
+        from qasr_tpu_torch.kernels import dense_conv, dw_conv, pw_gemm, requant
+        from qasr_tpu_torch.quantize import freeze
+
+        def counting(fn):
+            def wrapper(*a, **kw):
+                self.n += 1
+                return fn(*a, **kw)
+            return wrapper
+        for mod in (dense_conv, dw_conv, pw_gemm, requant, freeze):
+            for name in dir(mod):
+                if name.endswith("_plain") and callable(getattr(mod, name)):
+                    self.saved.append((mod, name, getattr(mod, name)))
+                    setattr(mod, name, counting(getattr(mod, name)))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+        return False
+
+
+def grouped_block_model(dev):
+    """The Jasper-width grouped block (config.jasper_grouped_block) at W6A6,
+    BN-folded, calibrated on the card (kernels) on the log-mel features of
+    2 x 4 x 4 s of seeded noise (0.1 sigma, seed 0); its ranges also from
+    the plain QuantExec, which must be equal."""
+    import numpy as np
+    import torch
+
+    from qasr_tpu_torch.models.config import jasper_grouped_block
+    from qasr_tpu_torch.models.ctc_model import ASRModel
+    from qasr_tpu_torch.models.jasper import init_qstate
+
+    model = ASRModel.from_config(jasper_grouped_block(), seed=0)
+    model.set_quant_bit(6, "all")
+    model.bn_folding()
+    rng = np.random.default_rng(0)
+    n = int(16000 * 4.0)
+    batches = []
+    for _ in range(2):
+        audio = torch.from_numpy(rng.normal(size=(4, n)).astype(np.float32) * 0.1).to(dev)
+        batches.append(model.frontend(audio, torch.full((4,), n, dtype=torch.int32,
+                                                        device=dev), dither=0.0))
+    model.calibrate(batches, device=dev, kernels=False)
+    plain = model.qstate
+    model.qstate = init_qstate(model.plan)
+    model.calibrate(batches, device=dev)
+    a, b = qstate_sites(model.qstate), qstate_sites(plain)
+    bad = sum(x != y for x, y in zip(a, b))
+    if bad or len(a) != len(b) or sum(v[2] != 0 for v in a) < len(a) // 2:
+        raise AssertionError(f"jasper_grouped_block calibration: {bad} of {len(a)} sites' "
+                             f"ranges differ from the plain QuantExec's (or are empty)")
+    log(f"[11b] jasper_grouped_block W6A6 calibrated on the card on its noise recipe "
+        f"(Kernels 2 and 8 grouped, no epilogue): the {len(a)} sites' ranges equal the plain "
+        f"QuantExec's bit for bit")
+    return model
+
+
+def phase_grouped_golden(dev):
+    """11b: QuartzNet15x5-g4 (static_e, per_channel) and QuartzNet15x5 with
+    hardtanh (static_e) against their JAX golden records on the kernel
+    executors and the plain one, and the Jasper-width grouped block
+    calibrated and frozen; returns ({name: model}, {(name, bits, mode):
+    device tables})."""
+    from qasr_tpu_torch import golden
+    from qasr_tpu_torch.quantize.freeze import (
+        FrozenExec, FrozenExecFused, FrozenExecKernels, tables_digest, tables_to_device,
+    )
+
+    models, tables = {}, {}
+    for name, bits, mode in GROUPED_SERVED[:3]:
+        model = models.setdefault(name, golden.flagship(name, bits))
+        feats, lens = golden.golden_features(model.plan.feat_in, name)
+        host = model.freeze_host(mode)
+        want = golden.load_golden(mode, name, bits)
+        digest = tables_digest(host)
+        if digest != want["tables_sha256"]:
+            raise AssertionError(f"{name} {mode}: table digest {digest} != golden "
+                                 f"{want['tables_sha256']}")
+        tables[name, bits, mode] = tables_to_device(host, dev)
+        executors = ((FrozenExecFused, FrozenExecKernels, FrozenExec) if mode != "per_channel"
+                     else (FrozenExecKernels, FrozenExec))
+        for ex in executors:
+            bad = golden.compare_golden(golden.port_record(
+                model, tables[name, bits, mode], feats, lens, executor=ex), want)
+            if bad:
+                raise AssertionError(f"{name} {mode} golden mismatch on {ex.__name__} in {bad}")
+        log(f"[11b] golden {name} W{bits}A{bits} {mode}: tables {digest[:16]}, "
+            f"ids/enc_lens/decoder-input/logits hashes equal the JAX record on "
+            f"{[ex.__name__ for ex in executors]} (enc_lens {want['enc_lens']})")
+    jb = models["jasper_grouped_block"] = grouped_block_model(dev)
+    tables["jasper_grouped_block", 6, "static_e"] = jb.freeze("static_e", dev)
+    return models, tables
+
+
+def phase_grouped_serve(models, tables, dev):
+    """11c: 4 seeded requests through transcribe on each path of
+    GROUPED_SERVED: the launches kernel_launches plans, no call of a
+    plain version, and the plain executor's ids; returns {path: counts}."""
+    import torch
+
+    from qasr_tpu_torch.models.ctc_model import make_frozen_fn
+    from qasr_tpu_torch.quantize.freeze import kernel_launches
+
+    utts, secs = seeded_requests(7)
+    batch, lens = pad_batch(utts)
+    out = {}
+    for name, bits, mode in GROUPED_SERVED:
+        model, tab = models[name], tables[name, bits, mode]
+        model.transcribe(utts[:1], device=dev, dyadic_mode=mode)  # builds and caches
+        reset_counts()
+        with PlainCalls() as plain:
+            texts = model.transcribe(utts, batch_size=4, device=dev, dyadic_mode=mode)
+            counts = read_counts()
+        expect = planned(kernel_launches(model.plan, tab))
+        tag = f"{name} W{bits}A{bits} {mode}"
+        if counts != expect or plain.n:
+            raise AssertionError(f"{tag}: launch counts {counts} (plan {expect}), "
+                                 f"{plain.n} plain-version calls")
+        ids_k, el_k = make_frozen_fn(model, tab, argmax=True)(batch, lens)
+        ids_p, el_p = make_frozen_fn(model, tab, argmax=True, fused=False)(batch, lens)
+        if not (torch.equal(ids_k, ids_p) and torch.equal(el_k, el_p)):
+            raise AssertionError(f"{tag}: kernel path ids differ from the plain executor's")
+        if texts != model.ids_to_text(ids_p, el_p):
+            raise AssertionError(f"{tag}: transcribe() differs from the plain executor's")
+        if len(torch.unique(ids_k)) < 2:
+            raise AssertionError(f"{tag}: degenerate ids")
+        log(f"[11c] {tag} served 4 requests {[f'{s_:g} s' for s_ in secs]} -> "
+            f"{[txt[:24] for txt in texts]}; launches {counts} == plan, 0 plain-version "
+            f"calls; ids == plain executor")
+        out[tag] = counts
+    return out
+
+
+def phase_grouped_calibrate(models, dev):
+    """11d: QuartzNet15x5-g4 and hardtanh calibrating (kernels: the grouped
+    Kernel 2 without epilogue, GroupShuffle and hardtanh in float glue)
+    against the plain QuantExec, bit for bit, on 8 x 500 frames of seeded
+    noise features, with the planned launches and no plain-version call."""
+    import numpy as np
+    import torch
+
+    from qasr_tpu_torch import golden
+    from qasr_tpu_torch.models.jasper import init_qstate
+    from qasr_tpu_torch.quantize.freeze import kernel_launches
+
+    for name in ("quartznet15x5_g4", "quartznet15x5_hardtanh"):
+        model = golden.flagship(name, 6, ranges=False)
+        feats = torch.from_numpy(np.random.default_rng(3).normal(
+            size=(8, 500, model.plan.feat_in)).astype(np.float32)).to(dev)
+        per_fwd = {k: v for k, v in kernel_launches(model.plan).items() if k != "requant"}
+        model.qstate = init_qstate(model.plan)
+        reset_counts()
+        with PlainCalls() as plain:
+            model.calibrate([feats], device=dev)
+            counts = read_counts()
+        if counts != planned(per_fwd) or plain.n:
+            raise AssertionError(f"{name} calibration launches {counts} != {per_fwd}, "
+                                 f"{plain.n} plain-version calls")
+        q_kernel = model.qstate
+        model.qstate = init_qstate(model.plan)
+        model.calibrate([feats], device=dev, kernels=False)
+        a, b = qstate_sites(q_kernel), qstate_sites(model.qstate)
+        bad = sum(x != y for x, y in zip(a, b))
+        if bad or len(a) != len(b) or sum(v[2] != 0 for v in a) < len(a) // 2:
+            raise AssertionError(f"{name} calibration: {bad} of {len(a)} sites' ranges differ "
+                                 f"from the plain QuantExec's (or are empty)")
+        log(f"[11d] calibrate {name} W6A6 on 8 x 500 frames: the {len(a)} sites' ranges equal "
+            f"the plain QuantExec's bit for bit; launches {counts}, 0 plain-version calls")
+
+
+def time_grouped_sites(chk, dev, card, batch=64, t_enc=768):
+    """11e: Kernel 2 grouped at QuartzNet15x5-g4's grouped pointwise sites
+    (B=64 x 15 s: the in-block form, int8 from the depthwise conv's
+    epilogue, requant + ReLU + GroupShuffle -> int8) beside torch._int_mm
+    per group, and Kernel 8 grouped at the Jasper-width block's K 25 site
+    (int8 in, requant + ReLU + GroupShuffle -> int8) beside float64
+    conv1d(groups=4); each against its plain version (exact) and its
+    bound.  Returns the rows."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from qasr_tpu_torch.kernels.dense_conv import dense_conv, dense_conv_plain
+    from qasr_tpu_torch.kernels.pw_gemm import pw_gemm, pw_gemm_plain
+
+    rng = np.random.default_rng(14)
+    rows = []
+    g = 4
+    full = torch.full((batch,), t_enc, dtype=torch.int32, device=dev)
+
+    def t(lo, hi, shape, dtype):
+        return torch.from_numpy(rng.integers(lo, hi, shape).astype(dtype)).to(dev)
+
+    n_rows = batch * t_enc
+    for cin, cout in ((256, 256), (256, 512), (512, 512)):
+        x = t(-32, 32, (batch, t_enc, cin), np.int8)
+        wt = t(-31, 32, (cout, cin // g), np.int8)
+        kw = dict(bias=t(-3000, 3000, cout, np.int32), relu=True, lens=full,
+                  m=t(2**29, 2**31 - 1, cout, np.int32), e=spread_e(cin // g, 18, 18),
+                  bits=6, groups=g, shuffle=True)
+        x2 = x.reshape(-1, cin)
+        parts = [(x2[:, i * (cin // g):(i + 1) * (cin // g)].contiguous(),
+                  wt[i * (cout // g):(i + 1) * (cout // g)].t()) for i in range(g)]
+        r = timed_pair(chk, "pw_gemm", f"pw_gemm grouped g={g} N={n_rows} {cin}->{cout} "
+                       f"requant+relu+shuffle (library: torch._int_mm per group)",
+                       lambda x=x, wt=wt, kw=kw: pw_gemm(x, wt, **kw),
+                       lambda x=x, wt=wt, kw=kw: pw_gemm_plain(x, wt, **kw), card, rows,
+                       lambda parts=parts: [torch._int_mm(a, b) for a, b in parts])
+        r["bound"] = bound(x.numel() + wt.numel() + 8 * cout + 4 * batch + n_rows * cout,
+                           2 * n_rows * (cin // g) * cout)
+        log(f"[11e]   bound {r['bound'][0]:.4f} ms ({r['bound'][1]}) [{card}]")
+        del x, parts
+    k, c = 25, 768
+    x = t(-32, 32, (batch, t_enc, c), np.int8)
+    w = t(-31, 32, (c, k, c // g), np.int8)
+    kw = dict(padding=k // 2, bias=t(-3000, 3000, c, np.int32), relu=True, lens=full,
+              m=t(2**29, 2**31 - 1, c, np.int32), e=spread_e(k * c // g, 18, 18), bits=6,
+              groups=g, shuffle=True)
+    label = f"dense_conv grouped g={g} B={batch} T={t_enc} K={k} {c}->{c} requant+relu+shuffle"
+    chk.equal("dense_conv", label, dense_conv(x, w, **kw), dense_conv_plain(x, w, **kw))
+    xf = x.to(torch.float64).transpose(1, 2).contiguous()
+    wf = w.to(torch.float64).permute(0, 2, 1).contiguous()
+    pk = statistics.median(cuda_ms(lambda: dense_conv_plain(x, w, **kw), reps=2, warmup=1))
+    kk = statistics.median(cuda_ms(lambda: dense_conv(x, w, **kw), reps=10))
+    kd, kd_by = device_ms(lambda: dense_conv(x, w, **kw), KERNEL_SYMBOLS["dense_conv"])
+    lib = statistics.median(cuda_ms(lambda: F.conv1d(xf, wf, None, 1, k // 2, 1, g), reps=1,
+                                    warmup=1))
+    rows.append({"shape": label, "kernel": "dense_conv", "call_ms": kk, "device_ms": kd,
+                 "device_ms_by": kd_by, "plain_ms": pk, "library_call_ms": lib,
+                 "library_device_ms": lib, "library_device_ms_by": "events"})
+    rows[-1]["bound"] = bound(x.numel() + w.numel() + 4 * 2 * c + 4 * batch + x.numel(),
+                              2 * batch * t_enc * k * (c // g) * c)
+    log(f"[11e] {label}: kernel {kd:.4f} ms device ({kd_by}; {kk:.4f} ms call), plain "
+        f"{pk:.3f} ms, float64 conv1d(groups={g}) {lib:.3f} ms (events, one call), bound "
+        f"{rows[-1]['bound'][0]:.4f} ms ({rows[-1]['bound'][1]}), equal [{card}]")
+    return rows
+
+
+def phase_grouped_steps(models, tables, qn6, dev, card, report):
+    """11e: the frozen steps at B=64 x 15 s of the grouped and hardtanh
+    paths beside plain QuartzNet15x5's (W6A6 static_e), in turns."""
+    from qasr_tpu_torch.models.ctc_model import make_frozen_fn
+
+    audio, lens = noise_batch(W8A8_STEP_BATCH, 15.0, dev)
+    fns = {"QuartzNet15x5 W6A6 static_e": make_frozen_fn(qn6[0], qn6[1], argmax=True)}
+    for name, bits, mode in GROUPED_SERVED:
+        fns[f"{name} W{bits}A{bits} {mode}"] = make_frozen_fn(
+            models[name], tables[name, bits, mode], argmax=True)
+    return step_times(fns, (audio, lens), card, "grouped", W8A8_STEP_BATCH, 15.0, report)
+
+
+def write_vad_manifest(root):
+    """Seeded wavs of VAD_SECONDS (a louder stretch in each) and their label
+    manifest with dummy labels."""
+    import numpy as np
+
+    from qasr_tpu_torch.data.audio import write_wav
+
+    rng = np.random.default_rng(21)
+    rows = []
+    for i, seconds in enumerate(VAD_SECONDS):
+        n = int(16000 * seconds)
+        x = rng.normal(size=n) * 0.05
+        x[n // 4: n // 2] *= 6.0
+        path = os.path.join(root, f"vad{i}.wav")
+        write_wav(path, x.astype(np.float32))
+        rows.append({"audio_filepath": path, "duration": seconds, "label": "infer"})
+    manifest = os.path.join(root, "vad_manifest.json")
+    with open(manifest, "w") as f:
+        f.write("".join(json.dumps(r) + "\n" for r in rows))
+    return manifest
+
+
+def phase_vad(dev, card, report):
+    """11f: cli.vad_infer (MatchboxNet-3x1x64, random weights from seed 0,
+    64 windows a batch) on the card and on the CPU over the same seeded
+    wavs: frame files within 1e-4, and the card's windows per second
+    (a second run, the first having built and warmed up)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from qasr_tpu_torch.cli import vad_infer
+
+    with tempfile.TemporaryDirectory() as tmp:
+        manifest = write_vad_manifest(tmp)
+        cpu = vad_infer.main(["--dataset", manifest, "--out_dir", os.path.join(tmp, "cpu"),
+                              "--device", "cpu"])
+        vad_infer.main(["--dataset", manifest, "--out_dir", os.path.join(tmp, "warm"),
+                        "--device", str(dev)])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gpu = vad_infer.main(["--dataset", manifest, "--out_dir", os.path.join(tmp, "gpu"),
+                              "--device", str(dev)])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        worst, windows = 0.0, 0
+        for a, b in zip(gpu, cpu):
+            fa, fb = np.loadtxt(a, ndmin=2), np.loadtxt(b, ndmin=2)
+            if fa.shape != fb.shape or fa.shape[1] != 2:
+                raise AssertionError(f"vad_infer frames {fa.shape} vs CPU {fb.shape}")
+            worst = max(worst, float(np.abs(fa - fb).max()))
+            windows += fa.shape[0]
+        if worst > 1e-4 + 1e-9 or len(gpu) != len(VAD_SECONDS):
+            raise AssertionError(f"vad_infer on the card: frames {worst} from the CPU's")
+    out = {"windows": windows, "seconds": secs, "windows_per_s": windows / secs,
+           "max_abs_diff_vs_cpu": worst}
+    report["vad"] = out
+    log(f"[11f] cli.vad_infer --device {dev}: {windows} windows of 0.63 s over "
+        f"{len(VAD_SECONDS)} wavs ({sum(VAD_SECONDS):g} s) in {secs:.3f} s = "
+        f"{out['windows_per_s']:.1f} windows/s (host clock, whole CLI: wav reads, windows, "
+        f"frontend, MatchboxNet, files); frames within {worst:.1e} of the CPU run's [{card}]")
+    return out
+
+
+def phase_selu_swish(dev):
+    """11g: QuartzNet15x5 with selu and with swish at W6A6: calibrated on
+    the card on 8 x 500 frames of seeded noise features, frozen
+    (static_e), 4 seeded requests on the kernel path (selu / swish as float
+    glue on each flushed accumulator) with the planned launches, no plain
+    call and the plain executor's ids; at W8A8 the signed 9-bit codes of
+    their asymmetric sites raise NotImplementedError on the card, in
+    calibration and in the frozen path (ranges from W6A6's)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from qasr_tpu_torch.models.config import quartznet15x5
+    from qasr_tpu_torch.models.ctc_model import ASRModel, make_frozen_fn
+    from qasr_tpu_torch.quantize.freeze import kernel_launches
+
+    utts, _ = seeded_requests(7)
+    batch, lens = pad_batch(utts)
+    feats = torch.from_numpy(np.random.default_rng(3).normal(size=(8, 500, 64)).astype(
+        np.float32)).to(dev)
+    out = {}
+    for act in ("selu", "swish"):
+        cfg = quartznet15x5()
+        cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(cfg.encoder, activation=act))
+        models = {}
+        for bits in (6, 8):
+            models[bits] = ASRModel.from_config(cfg, seed=0)
+            models[bits].set_quant_bit(bits, "all")
+            models[bits].bn_folding()
+        model = models[6]
+        model.calibrate([feats], device=dev)
+        tables = model.freeze("static_e", dev)
+        fn = make_frozen_fn(model, tables, argmax=True)
+        fn(batch, lens)   # builds and warms
+        reset_counts()
+        with PlainCalls() as plain:
+            ids_k, el_k = fn(batch, lens)
+            counts = read_counts()
+        expect = planned(kernel_launches(model.plan, tables))
+        if counts != expect or plain.n:
+            raise AssertionError(f"{act} W6A6: launch counts {counts} (plan {expect}), "
+                                 f"{plain.n} plain-version calls")
+        ids_p, el_p = make_frozen_fn(model, tables, argmax=True, fused=False)(batch, lens)
+        if not (torch.equal(ids_k, ids_p) and torch.equal(el_k, el_p)) or \
+                len(torch.unique(ids_k)) < 2:
+            raise AssertionError(f"{act} W6A6: kernel path ids differ from the plain "
+                                 f"executor's (or are degenerate)")
+        raised = []
+        m8 = models[8]
+        try:
+            m8.calibrate([feats], device=dev)
+        except NotImplementedError as e:
+            raised.append(str(e)[:60])
+        m8.qstate = model.qstate
+        try:
+            make_frozen_fn(m8, m8.freeze("static_e", dev), argmax=True)(batch, lens)
+        except NotImplementedError as e:
+            raised.append(str(e)[:60])
+        if len(raised) != 2:
+            raise AssertionError(f"{act} W8A8 on CUDA: {len(raised)} of calibration and the "
+                                 f"frozen path raised NotImplementedError")
+        log(f"[11g] QuartzNet15x5 {act} W6A6 static_e calibrated and served on the card: "
+            f"launches {counts} == plan, 0 plain-version calls, ids == plain executor; W8A8 "
+            f"raises NotImplementedError in calibration and serving ({raised[0]}...)")
+        out[act] = counts
+    return out
+
+
+def phase_grouped(chk, dev, card, report, qn6):
+    """Phase 11; returns (kernels line rows, {path: launch counts})."""
+    t_phase = time.perf_counter()
+    report["grouped_kernel_checks"] = phase_grouped_kernels(chk, dev)
+    models, tables = phase_grouped_golden(dev)
+    counts = phase_grouped_serve(models, tables, dev)
+    phase_grouped_calibrate(models, dev)
+    phase_grouped_steps(models, tables, qn6, dev, card, report)
+    rows = time_grouped_sites(chk, dev, card)
+    report["grouped_per_kernel"] = rows
+    phase_vad(dev, card, report)
+    counts.update(phase_selu_swish(dev))
+    report["grouped_launches"] = counts
+    report["grouped_seconds"] = time.perf_counter() - t_phase
+    log(f"[11] phase 11 took {report['grouped_seconds']:.1f} s")
+    return rows, counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="PyTorch port smoke test on one GPU")
     ap.add_argument("--report", help="also write a JSON report of every number here")
@@ -3284,6 +3975,7 @@ def main() -> int:
     phase_conformer_workflow(chk, dev, card, report)
     vgg_pre = phase_checkpoints(chk, dev, card, report, model, tables, conf_model, conf_tables)
     w8a8_rows, w8a8_counts = phase_w8a8(chk, dev, card, report, (model, tables["static_e"]))
+    g_rows, g_counts = phase_grouped(chk, dev, card, report, (model, tables["static_e"]))
 
     rows = report["quartznet_per_kernel"] + report["conformer_per_kernel"]
     kernels = []
@@ -3329,6 +4021,18 @@ def main() -> int:
             ("dense_conv", "none: XLA's integer conv, qasr_tpu/models/jasper.py:332 (conv_nwc)",
              "K=29 768->896", w8a8_counts["jasper10x5dr W8A8 static_e"]["dense_conv"])]:
         r = next(r for r in w8a8_rows if label in r["shape"])
+        kernels.append(kernel_row(kind, replaces, r, launches))
+    # phase 11: the grouped forms of Kernels 2 and 8 (launches: QuartzNet15x5-g4's
+    # static_e path; the Jasper-width grouped block's)
+    for kind, replaces, label, launches in [
+            ("pw_gemm", "qasr_tpu/kernels/cm_fused.py:131 (#4), grouped with GroupShuffle",
+             "pw_gemm grouped g=4 N=49152 512->512",
+             g_counts["quartznet15x5_g4 W6A6 static_e"]["pw_gemm"]),
+            ("dense_conv", "none: XLA's grouped integer conv, qasr_tpu/ops/grouped_conv.py "
+             "(conv_nwc, qasr_tpu/models/jasper.py:332), with GroupShuffle",
+             "dense_conv grouped g=4",
+             g_counts["jasper_grouped_block W6A6 static_e"]["dense_conv"])]:
+        r = next(r for r in g_rows if label in r["shape"])
         kernels.append(kernel_row(kind, replaces, r, launches))
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start

@@ -1,8 +1,10 @@
 """Write the golden records that hold the PyTorch port's frozen QuartzNet
 and Jasper paths to the JAX package, bit for bit.
 
-Builds a full-width flagship (QuartzNet15x5 or Jasper10x5Dr; random weights
-from seed 0, as bench.py and entry() build QuartzNet) at W<bits>A<bits>,
+Builds a full-width flagship (QuartzNet15x5 or Jasper10x5Dr, or the
+QuartzNet15x5-g4 / hardtanh variants, which the JAX package builds from
+the port's config; random weights from seed 0, as bench.py and entry()
+build QuartzNet) at W<bits>A<bits>,
 BN-folded, with the ranges of ``qasr_tpu_torch.golden.QSTATES``: read
 from the asset, or, where the asset is missing, calibrated by the JAX
 package on its seed-0 noise recipe (``calibrate_on_noise(2, 2, 4 s,
@@ -18,6 +20,7 @@ records without it.
     JAX_PLATFORMS=cpu python experiments/torch_golden.py                        # W6A6 QuartzNet static_e
     JAX_PLATFORMS=cpu python experiments/torch_golden.py --dyadic per_channel --bits 8
     JAX_PLATFORMS=cpu python experiments/torch_golden.py --model jasper10x5dr --bits 8
+    JAX_PLATFORMS=cpu python experiments/torch_golden.py --model quartznet15x5_g4 --dyadic per_channel
     JAX_PLATFORMS=cpu python experiments/torch_golden.py --check                # compare every record
 """
 from __future__ import annotations
@@ -40,10 +43,16 @@ def jax_flagship(name: str, bits: int):
     import jax
 
     jax.config.update("jax_platforms", "cpu")
+    from qasr_tpu.models.config import ModelConfig
     from qasr_tpu.models.ctc_model import ASRModel
     from qasr_tpu_torch.golden import ASSETS, FLAGSHIPS, QSTATES
+    from qasr_tpu_torch.models.config import config_to_dict
 
-    model = ASRModel.from_pretrained(FLAGSHIPS[name][1], seed=0, allow_random_weights=True)
+    factory, card = FLAGSHIPS[name]
+    if card is None:
+        model = ASRModel.from_config(ModelConfig.from_dict(config_to_dict(factory())), seed=0)
+    else:
+        model = ASRModel.from_pretrained(card, seed=0, allow_random_weights=True)
     model.set_quant_bit(bits, "weight")
     model.set_quant_bit(bits, "act")
     model.bn_folding()
@@ -99,7 +108,8 @@ def jax_golden(name: str = "quartznet15x5", bits: int = 6, dyadic_mode: str = "s
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--model", choices=("quartznet15x5", "jasper10x5dr"),
+    ap.add_argument("--model", choices=("quartznet15x5", "jasper10x5dr", "quartznet15x5_g4",
+                                        "quartznet15x5_hardtanh"),
                     default="quartznet15x5")
     ap.add_argument("--bits", type=int, choices=(6, 8), default=6,
                     help="weight and activation bits")

@@ -8,8 +8,11 @@ model families: QuartzNet and Jasper (``tables_from_jax``: Jasper's dense
 weights (K, Cin, Cout) gain Kernel 8's (Cout, K, Cin) layout, and a dense
 residual block's panes stay a list, one requant entry and join a pane)
 and the Conformer (``conformer_tables_from_jax``; its params and range
-state carry over through ``state_from_jax`` too).  Nothing here imports
-jax.
+state carry over through ``state_from_jax`` too).  ``model_from_jax``
+rebuilds a JAX package CTC, classification or speaker model as the port's,
+its params whole: SqueezeExcite's fc1 / fc2, the classification head's
+linear, the speaker head's embedding layers (linear + BN) and final layer.
+Nothing here imports jax.
 """
 from __future__ import annotations
 
@@ -45,3 +48,39 @@ def conformer_tables_from_jax(tables: Any, device=None) -> Any:
     """JAX frozen Conformer tables (``freeze_conformer``) -> the port's
     device tables on ``device`` (None: the CUDA device)."""
     return conformer_tables_to_device(state_from_jax(tables), as_device(device))
+
+
+def model_from_jax(jm: Any):
+    """A JAX package model (``ASRModel``, ``EncDecClassificationModel`` or
+    ``EncDecSpeakerLabelModel``) as the port's: the same config (through
+    the YAML-shaped dict both packages read), its params (every leaf,
+    numpy) and, for a CTC model, its range state, quantization knobs and
+    folded flag."""
+    import dataclasses
+
+    from qasr_tpu_torch.models.classification import (
+        EncDecClassificationModel,
+        EncDecSpeakerLabelModel,
+    )
+    from qasr_tpu_torch.models.config import ModelConfig, QuantConfig, config_to_dict
+    from qasr_tpu_torch.models.ctc_model import ASRModel
+
+    cfg = ModelConfig.from_dict(config_to_dict(jm.cfg))
+    kind = type(jm).__name__
+    if kind == "EncDecClassificationModel":
+        pm = EncDecClassificationModel.from_config(cfg, num_classes=jm.num_classes,
+                                                   pooling=jm.pooling, labels=jm.labels)
+    elif kind == "EncDecSpeakerLabelModel":
+        sizes = tuple(int(np.shape(lp["linear"]["w"])[-1])
+                      for lp in jm.params["decoder"]["emb_layers"])
+        pm = EncDecSpeakerLabelModel.from_config(cfg, num_speakers=jm.num_speakers,
+                                                 emb_sizes=sizes, pool_mode=jm.pool_mode,
+                                                 angular=jm.angular)
+    else:
+        pm = ASRModel.from_config(cfg)
+        pm.qstate = state_from_jax(jm.qstate)
+        pm.qcfg = QuantConfig(**{f.name: getattr(jm.qcfg, f.name)
+                                 for f in dataclasses.fields(QuantConfig)})
+        pm.folded = bool(getattr(jm, "folded", False))
+    pm.params = state_from_jax(jm.params)
+    return pm

@@ -63,16 +63,37 @@ def resample(x: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
     return resample_poly(x, target_sr // g, orig_sr // g).astype(np.float32)
 
 
+def trim_silence(x: np.ndarray, top_db: float = 60.0, frame: int = 2048,
+                 hop: int = 512) -> np.ndarray:
+    """Energy trim (librosa.effects.trim's rule): keep from the first to the
+    last frame whose RMS is within ``top_db`` of the loudest frame's."""
+    if len(x) < frame:
+        return x
+    n = 1 + (len(x) - frame) // hop
+    idx = np.arange(n)[:, None] * hop + np.arange(frame)[None, :]
+    rms = np.sqrt(np.mean(x[idx] ** 2, axis=1))
+    ref = rms.max()
+    if ref <= 0:
+        return x
+    db = 20.0 * np.log10(np.maximum(rms, 1e-10) / ref)
+    keep = np.nonzero(db > -top_db)[0]
+    if len(keep) == 0:
+        return x
+    return x[keep[0] * hop:min(len(x), keep[-1] * hop + frame)]
+
+
 def read_audio(path: str, target_sr: int = 16000, offset: float = 0.0,
-               duration: Optional[float] = None) -> np.ndarray:
+               duration: Optional[float] = None, trim: bool = False) -> np.ndarray:
     """A WAV file as float32 samples at ``target_sr``, from ``offset``
-    seconds for ``duration`` seconds (None: to the end)."""
+    seconds for ``duration`` seconds (None: to the end), its leading and
+    trailing silence trimmed with ``trim`` (``trim_silence``)."""
     x, sr = read_wav(path)
     if offset:
         x = x[int(offset * sr):]
     if duration:
         x = x[: int(duration * sr)]
-    return resample(x, sr, target_sr)
+    x = resample(x, sr, target_sr)
+    return trim_silence(x) if trim else x
 
 
 def read_audio_pcm16(path: str, target_sr: int = 16000) -> np.ndarray:

@@ -8,8 +8,10 @@ SHA-256s of the decoder's int8 input and int32 logits.  ``RECORDS`` names
 them by (model, bits, dyadic mode): QuartzNet15x5 at W6A6 and W8A8 in
 ``static_e`` and ``per_channel`` (vector exponents), Jasper10x5Dr at W6A6
 and W8A8 in ``static_e`` (its features shorter: a Jasper forward is ~25
-times QuartzNet's work); ``QSTATES`` names the ranges (W6A6 QuartzNet's
-is a byte-for-byte copy of the JAX package's asset).
+times QuartzNet's work), QuartzNet15x5-g4 (groups 4 on B1-B15, GroupShuffle
+after each grouped conv) at W6A6 in both modes and QuartzNet15x5 with
+hardtanh at W6A6 ``static_e``; ``QSTATES`` names the ranges (W6A6
+QuartzNet's is a byte-for-byte copy of the JAX package's asset).
 ``experiments/torch_golden.py`` writes them with the JAX package; the
 port is held to them without importing jax.  Starting from features
 keeps float frontend differences out of an exact check.
@@ -45,6 +47,8 @@ from qasr_tpu_torch.models.config import (
     ModelConfig,
     jasper10x5dr,
     quartznet15x5,
+    quartznet15x5_g4,
+    quartznet15x5_hardtanh,
 )
 from qasr_tpu_torch.models.conformer import ConformerConfig
 from qasr_tpu_torch.models.conformer_ctc import ConformerCTC
@@ -65,9 +69,12 @@ from qasr_tpu_torch.quantize.freeze import (
 )
 
 ASSETS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets")
-# the flagship CTC models: name -> (preset factory, JAX package model card)
+# the flagship CTC models: name -> (config factory, JAX package model card;
+# None: a variant the JAX package builds from the same config)
 FLAGSHIPS = {"quartznet15x5": (quartznet15x5, "QuartzNet15x5Base-En"),
-             "jasper10x5dr": (jasper10x5dr, "Jasper10x5Dr-En")}
+             "jasper10x5dr": (jasper10x5dr, "Jasper10x5Dr-En"),
+             "quartznet15x5_g4": (quartznet15x5_g4, None),
+             "quartznet15x5_hardtanh": (quartznet15x5_hardtanh, None)}
 # golden records by (model, weight and act bits, dyadic mode)
 RECORDS = {
     ("quartznet15x5", 6, "static_e"): "quartznet15x5_w6a6_s0_golden.json",
@@ -76,13 +83,18 @@ RECORDS = {
     ("quartznet15x5", 8, "per_channel"): "quartznet15x5_w8a8_per_channel_s0_golden.json",
     ("jasper10x5dr", 6, "static_e"): "jasper10x5dr_w6a6_s0_golden.json",
     ("jasper10x5dr", 8, "static_e"): "jasper10x5dr_w8a8_s0_golden.json",
+    ("quartznet15x5_g4", 6, "static_e"): "quartznet15x5_g4_w6a6_s0_golden.json",
+    ("quartznet15x5_g4", 6, "per_channel"): "quartznet15x5_g4_w6a6_per_channel_s0_golden.json",
+    ("quartznet15x5_hardtanh", 6, "static_e"): "quartznet15x5_hardtanh_w6a6_s0_golden.json",
 }
 # ranges by (model, bits): calibrate_on_noise(2, 2, 4 s, seed 0) in the JAX
 # package; W6A6 QuartzNet's is a byte-for-byte copy of its committed asset
 QSTATES = {("quartznet15x5", 6): "quartznet15x5_noise_qstate_w6a6_s0.json",
            ("quartznet15x5", 8): "quartznet15x5_noise_qstate_w8a8_s0.json",
            ("jasper10x5dr", 6): "jasper10x5dr_noise_qstate_w6a6_s0.json",
-           ("jasper10x5dr", 8): "jasper10x5dr_noise_qstate_w8a8_s0.json"}
+           ("jasper10x5dr", 8): "jasper10x5dr_noise_qstate_w8a8_s0.json",
+           ("quartznet15x5_g4", 6): "quartznet15x5_g4_noise_qstate_w6a6_s0.json",
+           ("quartznet15x5_hardtanh", 6): "quartznet15x5_hardtanh_noise_qstate_w6a6_s0.json"}
 QSTATE_PATH = os.path.join(ASSETS, QSTATES["quartznet15x5", 6])
 # seeded float features: B=2, unequal lengths; QuartzNet's T a multiple of
 # 64, Jasper's padded to one

@@ -29,12 +29,13 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # C prototypes of the entries in csrc/*.cu (pointers and the stream as void*)
 _SIGNATURES = {
     "qasr_dw_conv": [_P, _P, _P, _P, _I, _P, _I, _P, _P] + [_I] * 14 + [_P, _I, _P, _P, _I, _P]
-                    + [_I] * 7 + [_P],
-    "qasr_pw_gemm": [_P] * 8 + [_I] * 12 + [_P, _I, _P, _P] + [_I] * 5 + [_P],
-    "qasr_dense_conv": [_P] * 8 + [_I] * 17 + [_P, _I, _P, _P] + [_I] * 8 + [_P],
+                    + [_I] * 7 + [_P, _I, _P, _I, _P],
+    "qasr_pw_gemm": [_P] * 8 + [_I] * 12 + [_P, _I, _P, _P] + [_I] * 7 + [_P, _I, _P, _I, _P],
+    "qasr_dense_conv": [_P] * 8 + [_I] * 17 + [_P, _I, _P, _P] + [_I] * 10
+                       + [_P, _I, _P, _I, _P],
     "qasr_requant_check": [_P] * 4 + [_I, _I, _P],
-    "qasr_requant_rows": [_P, _I, _P, _P, _I, _I, _P, _I, _P, _P, _I, _I, _P, _P] + [_I] * 7
-                         + [_P],
+    "qasr_requant_rows": [_P, _I, _P, _P, _I, _I, _P, _I, _P, _P, _I, _I, _P, _P] + [_I] * 5
+                         + [_P] + [_I] * 3 + [_P],
     "qasr_int_attention": [_P] * 7 + [_I] * 14 + [_P],
     "qasr_conv_block": [_P] * 14 + [_I] * 6 + [_P],
     "qasr_int_fn_check": [_I] + [_P] * 3 + [_I, _P],

@@ -126,6 +126,42 @@ def requant_operand(name: str, arg: str, v, c: int, device, exponent: bool):
     return None, s
 
 
+INT_MAX = 2 ** 31 - 1   # the kernels' "no ceiling"
+
+
+def cap_operand(name: str, arg: str, cap, c: int, device, relu: bool):
+    """hardtanh's ceiling as a kernel takes it: (a (C,) int32 device
+    tensor, 0) or (None, the scalar); None is no ceiling (INT_MAX).  A
+    ceiling is the upper end of a clip to [0, H], so it needs the ReLU
+    flag beside it and a scalar is >= 0."""
+    if cap is None:
+        return None, INT_MAX
+    if not relu:
+        raise ValueError(f"{name}: {arg} (hardtanh's ceiling) needs the ReLU flag")
+    if isinstance(cap, torch.Tensor) and cap.dim() > 0:
+        check_vec(name, arg, cap, torch.int32, (c,), device)
+        return cap, 0
+    v = int(cap)
+    if v < 0:
+        raise ValueError(f"{name}: scalar ceiling {arg} must be >= 0, got {v}")
+    return None, min(v, INT_MAX)
+
+
+def group_width(name: str, cin: int, cout: int, groups: int) -> int:
+    """Cin / groups of a grouped conv on CUDA, which Kernels 2 and 8 load
+    at a column offset of a TMA map with a Cin / groups byte pitch: it must
+    be a positive multiple of 16.  A narrower group raises
+    NotImplementedError (the plain version takes it on the CPU)."""
+    if not isinstance(groups, int) or groups < 1 or cin % groups or cout % groups:
+        raise ValueError(f"{name}: groups {groups!r} must divide Cin {cin} and Cout {cout}")
+    cg = cin // groups
+    if groups > 1 and cg % 16:
+        raise NotImplementedError(
+            f"{name}: a group of {cg} input channels (Cin {cin} / {groups} groups) is not a "
+            f"multiple of 16 bytes, the TMA pitch the grouped kernel loads its groups at")
+    return cg
+
+
 def weight_zmax(lin) -> torch.Tensor:
     """(dout,) int64 bound on |z| = |x . W[o] + b[o]| of a linear site over
     every int8 input x: 128 times the row's L1 norm plus |b|."""

@@ -15,11 +15,22 @@
 //                            the scalar m1s
 //   acc[b,t,o] = sum_k sum_i a[b, t*s + k*d - pad, i] * w[o, k, i]
 //                (frames outside [0, t_in) read 0)
-//   mode 0 (none):    out int32 = relu?(acc + bias)
+//   mode 0 (none):    out int32 = act(acc + bias)
 //   mode 1 (requant): out int8  = clamp(requant(mask_{t < len[b]}(
-//                                       relu?(acc + bias)), m[o], e), lo, hi)
+//                                       act(acc + bias)), m[o], e), lo, hi)
 //   mode 2 (join):    out int8  = clamp(requant(acc + bias, m[o], e)
 //                                       + requant(res[b,t,o], m_r[o], e_r), lo, hi)
+//   act(v) = min(relu?(v), cap[o]): ReLU, or hardtanh's clip to [0, H[o]]
+//   with a ceiling (cap a (Cout,) vector or the scalar hs; INT_MAX: none);
+//   the prologue's relu?() is min(relu?(), in_cap[i]) the same way.
+//
+// Grouped form (groups > 1, w (Cout, K, Cin/g)): a block owns one group's
+// Cin/g channels of its halo rows and that group's Cout/g channels, the
+// group the outer part of grid z; its weight boxes start at row g *
+// Cout/g, its rows at channel g * Cin/g (Cin/g a multiple of 16).  Cout/g
+// picks the tile as Cout does (64 too: C = 256 in 4 groups); with
+// `shuffle` the epilogue writes channel o to GroupShuffle's position (o %
+// (Cout/g)) * g + o / (Cout/g) and reads m, m_r and res there.
 //   a clamp is [-2^(bits-1), 2^(bits-1)-1] with an int8 result, or [0, 255]
 //   with a uint8 one (W8A8's 9-bit codes of a ReLU'd value, the wrapper's
 //   act_clamp).  With a uint8 operand (kU8) the products are wgmma's
@@ -107,7 +118,7 @@ struct DcParams {
   const int32_t* res;
   const int32_t* m_r;
   void* out;
-  int t_in, cin, t_out, cout, k_size, stride, pad, dil;
+  int t_in, cin, t_out, cout, k_size, stride, pad, dil;  // cin, cout: the tensors' widths
   int mode, relu, e, e_r, lo, hi;
   int pro, x32;
   const int32_t* in_bias;
@@ -120,6 +131,11 @@ struct DcParams {
   int pitch;     // resident row pitch, nc * kChunk + 16
   int stages;    // the weight ring's stages
   int ct_per;    // Cout tiles per grid-z slice
+  int groups, cg, cog, shuffle;  // groups, Cin and Cout a group, GroupShuffle on store
+  const int32_t* hcap;           // (Cout,) ceiling, or NULL -> hs
+  int hs;
+  const int32_t* in_hcap;        // (Cin,) prologue ceiling, or NULL -> in_hs
+  int in_hs;
 };
 
 // A block's shared memory (byte offsets from the 1024-aligned base): the
@@ -156,6 +172,14 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
                "}, {" A "}, %" IB ", p;\n}\n"                                          \
                : DOPS                                                                   \
                : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale))
+#define QASR_RS_REGS32 \
+    "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+    "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+#define QASR_RS_DOPS32 \
+    "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), \
+    "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), \
+    "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), \
+    "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
 #define QASR_RS_REGS64 \
     "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
     "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
@@ -212,6 +236,17 @@ template <int N, bool kU8>
 struct WgmmaRs;
 
 template <bool kU8>
+struct WgmmaRs<64, kU8> {
+  __device__ __forceinline__ static void mma(int (&d)[32], const int (&a)[4], uint64_t db,
+                                             int scale) {
+    if constexpr (kU8)
+      QASR_WGMMA_RS("64", "u8", QASR_RS_REGS32, QASR_RS_DOPS32, "%32, %33, %34, %35", "36", "37");
+    else
+      QASR_WGMMA_RS("64", "s8", QASR_RS_REGS32, QASR_RS_DOPS32, "%32, %33, %34, %35", "36", "37");
+  }
+};
+
+template <bool kU8>
 struct WgmmaRs<128, kU8> {
   __device__ __forceinline__ static void mma(int (&d)[64], const int (&a)[4], uint64_t db,
                                              int scale) {
@@ -244,6 +279,8 @@ struct WgmmaRs<192, kU8> {
   }
 };
 
+#undef QASR_RS_REGS32
+#undef QASR_RS_DOPS32
 #undef QASR_RS_REGS64
 #undef QASR_RS_DOPS64
 #undef QASR_RS_REGS80
@@ -268,11 +305,13 @@ __device__ __forceinline__ void load_a(int (&f)[4][4], const uint8_t* a) {
 }
 
 // The block's resident rows: halo row h is input frame base + h of batch
-// b, 16 channels (one granule) an item; zero outside [0, t_in), past
-// in_len with the prologue, and past Cin.  All kThreads threads.
-__device__ void fill_a(const DcParams& p, uint8_t* a_tile, int b, int base) {
+// b, 16 channels (one granule) an item from channel c_in0 (the group's
+// first); zero outside [0, t_in), past in_len with the prologue, and past
+// the group's Cin.  All kThreads threads.  kExt: with hardtanh's ceiling.
+template <bool kExt>
+__device__ void fill_a(const DcParams& p, uint8_t* a_tile, int b, int base, int c_in0) {
   const int gpr = p.nc * (kChunk / 16);  // granules a row, Cin padded to the chunk
-  const int cg = p.cin / 16;             // granules that hold channels
+  const int cg = p.cg / 16;              // granules that hold channels
   const int ilen = p.in_len ? p.in_len[b] : INT_MAX;
   const size_t xrow = static_cast<size_t>(b) * p.t_in;
   for (int it = threadIdx.x; it < p.rows_h * gpr; it += kThreads) {
@@ -280,7 +319,7 @@ __device__ void fill_a(const DcParams& p, uint8_t* a_tile, int b, int base) {
     const int t = base + h;
     uint8_t* dst = a_tile + h * p.pitch + 16 * g;
     const bool live = g < cg && t >= 0 && t < p.t_in && (!p.pro || t < ilen);
-    const size_t off = (xrow + (live ? t : 0)) * p.cin + 16 * (live ? g : 0);
+    const size_t off = (xrow + (live ? t : 0)) * p.cin + c_in0 + 16 * (live ? g : 0);
     if (!p.pro) {
       qasr_cp16(dst, static_cast<const int8_t*>(p.x) + off, live ? 16 : 0);
       continue;
@@ -304,9 +343,10 @@ __device__ void fill_a(const DcParams& p, uint8_t* a_tile, int b, int base) {
       unsigned wd[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
       for (int k = 0; k < 16; ++k) {
-        const int c = 16 * g + k;
+        const int c = c_in0 + 16 * g + k;
         int z = v[k] + (p.in_bias ? p.in_bias[c] : 0);
         if (p.in_relu) z = z > 0 ? z : 0;
+        if (kExt) z = min(z, p.in_hcap ? p.in_hcap[c] : p.in_hs);
         const int r = qasr_clamp(qasr_requant(z, p.m1 ? p.m1[c] : p.m1s, p.e1), p.lo1, p.hi1);
         wd[k / 4] |= (static_cast<unsigned>(r) & 0xffu) << (8 * (k % 4));
       }
@@ -331,60 +371,69 @@ __device__ __forceinline__ void next_step(const DcParams& p, int& ct, int& tap, 
 
 // The epilogue of one Cout tile from a warp's accumulator registers: this
 // thread holds frames t_row and t_row + 8 and, for each j < kBN / 8,
-// columns o_lane + 8j and o_lane + 8j + 1 (acc[4j + 2h + q]).
-template <int kBN, int kMode>
+// columns o_lane + 8j and o_lane + 8j + 1 (acc[4j + 2h + q]), up to lim
+// (the end of the conv group).  Channel o is stored at position pos (o's
+// GroupShuffle position with `shuffle`, else o), where m, m_r and res are
+// read too.  Without kExt (no shuffle, no ceiling) pos is o and no ceiling
+// is read: the ungrouped kernel's code.
+template <int kBN, int kMode, bool kExt>
 __device__ __forceinline__ void epilogue(const DcParams& p, const int (&acc)[kBN / 2], int b,
-                                         int t_row, int o_lane, int len) {
-  const bool even = (p.cout & 1) == 0;   // pairs of columns are 2- and 8-byte aligned
+                                         int t_row, int o_lane, int lim, int len) {
+  const bool sh = kExt && p.shuffle != 0;
+  // pairs of adjacent columns are 2- and 8-byte aligned
+  const bool even = (p.cout & 1) == 0 && (p.cog & 1) == 0 && !sh;
 #pragma unroll
   for (int j = 0; j < kBN / 8; ++j) {
     const int o = o_lane + 8 * j;
-    if (o >= p.cout) break;
-    const bool two = o + 1 < p.cout;
-    int bo[2], mo[2], mro[2];
+    if (o >= lim) break;
+    const bool two = o + 1 < lim;
+    int bo[2], mo[2], mro[2], co[2], pos[2];
 #pragma unroll
     for (int q = 0; q < 2; ++q) {
       const bool on = q == 0 || two;
+      pos[q] = sh ? ((o + q) % p.cog) * p.groups + (o + q) / p.cog : o + q;
       bo[q] = on && p.bias ? p.bias[o + q] : 0;
-      mo[q] = on && kMode != 0 ? p.m[o + q] : 0;
-      mro[q] = on && kMode == 2 ? p.m_r[o + q] : 0;
+      co[q] = !kExt ? INT_MAX : on && p.hcap ? p.hcap[o + q] : p.hs;
+      mo[q] = on && kMode != 0 ? p.m[pos[q]] : 0;
+      mro[q] = on && kMode == 2 ? p.m_r[pos[q]] : 0;
     }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int t = t_row + 8 * h;
       if (t >= p.t_out) continue;
-      const size_t idx = (static_cast<size_t>(b) * p.t_out + t) * p.cout + o;
+      const size_t row = (static_cast<size_t>(b) * p.t_out + t) * p.cout;
       int y[2];
 #pragma unroll
       for (int q = 0; q < 2; ++q) {
         int v = acc[4 * j + 2 * h + q] + bo[q];
         if constexpr (kMode == 0) {
-          y[q] = p.relu && v < 0 ? 0 : v;
+          y[q] = min(p.relu && v < 0 ? 0 : v, co[q]);
         } else if constexpr (kMode == 1) {
           if (p.relu) v = v > 0 ? v : 0;
+          v = min(v, co[q]);
           if (t >= len) v = 0;
           y[q] = qasr_clamp(qasr_requant(v, mo[q], p.e), p.lo, p.hi);
         } else {
-          const int r = (q == 0 || two) ? p.res[idx + q] : 0;
+          const int r = (q == 0 || two) ? p.res[row + pos[q]] : 0;
           y[q] = qasr_clamp(qasr_requant(v, mo[q], p.e) + qasr_requant(r, mro[q], p.e_r), p.lo,
                             p.hi);
         }
       }
       if constexpr (kMode == 0) {
-        int32_t* dst = static_cast<int32_t*>(p.out) + idx;
+        int32_t* dst = static_cast<int32_t*>(p.out) + row;
         if (two && even) {
-          *reinterpret_cast<int2*>(dst) = make_int2(y[0], y[1]);
+          *reinterpret_cast<int2*>(dst + o) = make_int2(y[0], y[1]);
         } else {
-          dst[0] = y[0];
-          if (two) dst[1] = y[1];
+          dst[pos[0]] = y[0];
+          if (two) dst[pos[1]] = y[1];
         }
       } else {
-        int8_t* dst = static_cast<int8_t*>(p.out) + idx;
+        int8_t* dst = static_cast<int8_t*>(p.out) + row;
         if (two && even) {
-          *reinterpret_cast<short*>(dst) = qasr_pack2(y[0], y[1]);
+          *reinterpret_cast<short*>(dst + o) = qasr_pack2(y[0], y[1]);
         } else {
-          dst[0] = static_cast<int8_t>(y[0]);
-          if (two) dst[1] = static_cast<int8_t>(y[1]);
+          dst[pos[0]] = static_cast<int8_t>(y[0]);
+          if (two) dst[pos[1]] = static_cast<int8_t>(y[1]);
         }
       }
     }
@@ -394,7 +443,7 @@ __device__ __forceinline__ void epilogue(const DcParams& p, const int (&acc)[kBN
 // The producer thread's next weight load: its number, (Cout tile, tap,
 // chunk), ring stage, and the parity of the "empty" phase it waits for.
 struct Producer {
-  int issued, ct, tap, c, s, ph;
+  int issued, ct, tap, c, s, ph, c_out0;   // c_out0: the group's first output channel
 };
 
 // The next K step's weight box into its ring stage by TMA, once the
@@ -408,7 +457,7 @@ __device__ __forceinline__ void load_w(const DcParams& p, const CUtensorMap* map
   if (wait) mbar_wait(empty + pr.s, pr.ph ^ 1);
   mbar_expect_tx(full + pr.s, kBN * kChunk);
   tma_load_3d(ring + pr.s * (kBN * kChunk), map, full + pr.s, pr.c * kChunk, pr.tap,
-              pr.ct * kBN);
+              pr.c_out0 + pr.ct * kBN);
   next_step(p, pr.ct, pr.tap, pr.c);
   ++pr.issued;
   if (++pr.s == p.stages) {
@@ -469,7 +518,8 @@ __device__ __forceinline__ void consume(const DcParams& p, const Consumer& cs, P
   if (more) load_a(nxt, cs.a_lane + q.tap * cs.tap_step + q.c * kChunk);
 }
 
-template <int kBN, bool kU8>
+// kExt: GroupShuffle's store or a hardtanh ceiling (prologue or epilogue)
+template <int kBN, bool kU8, bool kExt>
 __global__ void __launch_bounds__(kThreads, 1)
 dense_conv_kernel(const __grid_constant__ CUtensorMap map_w, const DcParams p) {
   using namespace gemm_s8;
@@ -482,8 +532,11 @@ dense_conv_kernel(const __grid_constant__ CUtensorMap map_w, const DcParams p) {
   uint64_t* empty = full + p.stages;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int b = blockIdx.y, t0 = blockIdx.x * kBM;
-  const int n_ct = (p.cout + kBN - 1) / kBN;
-  const int ct0 = blockIdx.z * p.ct_per;
+  const int n_ct = (p.cog + kBN - 1) / kBN;
+  const int slices = (n_ct + p.ct_per - 1) / p.ct_per;
+  const int grp = blockIdx.z / slices;           // the conv group
+  const int c_in0 = grp * p.cg, c_out0 = grp * p.cog;
+  const int ct0 = (blockIdx.z - grp * slices) * p.ct_per;
   const int ct1 = min(n_ct, ct0 + p.ct_per);
   if (ct0 >= ct1) return;
   const int n = p.k_size * p.nc;       // K steps a Cout tile
@@ -499,11 +552,12 @@ dense_conv_kernel(const __grid_constant__ CUtensorMap map_w, const DcParams p) {
 
   // the producer thread starts the ring's first loads, then all threads
   // fill the rows
-  Producer pr{0, ct0, 0, 0, 0, 0};
+  Producer pr{0, ct0, 0, 0, 0, 0, c_out0};
   if (tid == kConsumers)
     for (int s = 0; s < min(p.stages, steps); ++s)
       load_w<kBN>(p, &map_w, ring, full, empty, pr, false);
-  fill_a(p, a_tile, b, t0 * p.stride - p.pad);   // one cp.async group (empty with the prologue)
+  // one cp.async group (empty with the prologue)
+  fill_a<kExt>(p, a_tile, b, t0 * p.stride - p.pad, c_in0);
   qasr_cp_wait<0>();
   __syncthreads();
 
@@ -549,32 +603,36 @@ dense_conv_kernel(const __grid_constant__ CUtensorMap map_w, const DcParams p) {
 #pragma unroll
         for (int r = 0; r < 4; ++r) af0[k][r] = af1[k][r];
     }
-    const int o_lane = ct * kBN + 2 * (lane & 3);
+    const int o_lane = c_out0 + ct * kBN + 2 * (lane & 3), lim = c_out0 + p.cog;
     if (p.mode == 0)
-      epilogue<kBN, 0>(p, acc, b, t_row, o_lane, len);
+      epilogue<kBN, 0, kExt>(p, acc, b, t_row, o_lane, lim, len);
     else if (p.mode == 1)
-      epilogue<kBN, 1>(p, acc, b, t_row, o_lane, len);
+      epilogue<kBN, 1, kExt>(p, acc, b, t_row, o_lane, lim, len);
     else
-      epilogue<kBN, 2>(p, acc, b, t_row, o_lane, len);
+      epilogue<kBN, 2, kExt>(p, acc, b, t_row, o_lane, lim, len);
   }
 }
 
-template <int kBN, bool kU8>
+template <int kBN, bool kU8, bool kExt>
 cudaError_t launch(const CUtensorMap& map, const DcParams& p, dim3 grid, int smem,
                    cudaStream_t stream) {
   static const cudaError_t attr = cudaFuncSetAttribute(
-      dense_conv_kernel<kBN, kU8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dense_conv_kernel<kBN, kU8, kExt>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       gemm_s8::kSmemLimit);
   if (attr != cudaSuccess) return attr;
-  dense_conv_kernel<kBN, kU8><<<grid, kThreads, smem, stream>>>(map, p);
+  dense_conv_kernel<kBN, kU8, kExt><<<grid, kThreads, smem, stream>>>(map, p);
   return cudaGetLastError();
 }
 
 template <int kBN>
 cudaError_t launch_bn(bool u8, const CUtensorMap& map, const DcParams& p, dim3 grid, int smem,
                       cudaStream_t stream) {
-  return u8 ? launch<kBN, true>(map, p, grid, smem, stream)
-            : launch<kBN, false>(map, p, grid, smem, stream);
+  const bool ext = p.shuffle || p.hcap || p.hs != INT_MAX || p.in_hcap || p.in_hs != INT_MAX;
+  if (ext)
+    return u8 ? launch<kBN, true, true>(map, p, grid, smem, stream)
+              : launch<kBN, false, true>(map, p, grid, smem, stream);
+  return u8 ? launch<kBN, true, false>(map, p, grid, smem, stream)
+            : launch<kBN, false, false>(map, p, grid, smem, stream);
 }
 
 // w (Cout, K, Cin) int8 as a 3-D tensor map over (Cin, K, Cout), boxes of
@@ -599,7 +657,8 @@ bool make_w_map(CUtensorMap* map, const int8_t* w, int cout, int k_size, int cin
 // Cout tile, the ring's stages, the Cout tiles a grid-z slice owns); the
 // entry computes the shared memory they need and refuses what does not
 // fit.  u8: the operand the products read is unsigned (a uint8 x, or a
-// prologue that writes uint8 codes).
+// prologue that writes uint8 codes).  groups, shuffle: the grouped form and
+// GroupShuffle on store; hcap / hs, in_hcap / in_hs: hardtanh's ceilings.
 extern "C" int qasr_dense_conv(const void* x, const int8_t* w, const int32_t* bias,
                                const int32_t* m, const int32_t* lens, const int32_t* res,
                                const int32_t* m_r, void* out, int batch, int t_in, int cin,
@@ -608,28 +667,36 @@ extern "C" int qasr_dense_conv(const void* x, const int8_t* w, const int32_t* bi
                                int x32, const int32_t* in_bias, int in_relu,
                                const int32_t* in_len, const int32_t* m1, int m1s, int e1,
                                int lo1, int hi1, int u8, int bn, int stages, int ct_per,
-                               void* stream) {
-  if (batch < 1 || t_out < 1 || cout < 1 || cin < 16 || cin % 16 != 0 || k_size < 1 ||
+                               int groups, int shuffle, const int32_t* hcap, int hs,
+                               const int32_t* in_hcap, int in_hs, void* stream) {
+  if (groups < 1 || cin % groups != 0 || cout % groups != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int cg = cin / groups, cog = cout / groups;
+  if (batch < 1 || t_out < 1 || cout < 1 || cg < 16 || cg % 16 != 0 || k_size < 1 ||
       stride < 1 || dil < 1 || mode < 0 || mode > 2 || ct_per < 1 || stages < 2 ||
       stages > kMaxStages || (!pro && x32) || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(w) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   DcParams p{x, bias, m, lens, res, m_r, out, t_in, cin, t_out, cout, k_size, stride, pad,
              dil, mode, relu, e, e_r, lo, hi, pro, x32, in_bias, in_relu, in_len, m1, m1s, e1,
-             lo1, hi1, 0, 0, 0, stages, ct_per};
-  p.nc = (cin + kChunk - 1) / kChunk;
+             lo1, hi1, 0, 0, 0, stages, ct_per, groups, cg, cog, shuffle, hcap, hs, in_hcap,
+             in_hs};
+  p.nc = (cg + kChunk - 1) / kChunk;
   p.rows_h = (kBM - 1) * stride + (k_size - 1) * dil + 1;
   p.pitch = p.nc * kChunk + 16;
   const int smem = DcLayout(bn, stages, p.rows_h, p.pitch).bytes;
   if (smem > gemm_s8::kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap map{};
-  if (!make_w_map(&map, w, cout, k_size, cin, bn)) return static_cast<int>(cudaErrorInvalidValue);
-  const int n_ct = (cout + bn - 1) / bn;
-  const dim3 grid((t_out + kBM - 1) / kBM, batch, (n_ct + ct_per - 1) / ct_per);
+  if (!make_w_map(&map, w, cout, k_size, cg, bn)) return static_cast<int>(cudaErrorInvalidValue);
+  const int n_ct = (cog + bn - 1) / bn;
+  const int z = groups * ((n_ct + ct_per - 1) / ct_per);
+  if (z > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((t_out + kBM - 1) / kBM, batch, z);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool uu = u8 != 0;
   cudaError_t rc;
   switch (bn) {
+    case 64: rc = launch_bn<64>(uu, map, p, grid, smem, st); break;
     case 128: rc = launch_bn<128>(uu, map, p, grid, smem, st); break;
     case 160: rc = launch_bn<160>(uu, map, p, grid, smem, st); break;
     case 192: rc = launch_bn<192>(uu, map, p, grid, smem, st); break;

@@ -15,6 +15,9 @@
 //   epilogue off: out int32 = relu?(y + bias)
 //   epilogue on:  out int8  = clamp(requant(mask_{t<len[b]}(relu?(y + bias)),
 //                                           m[c], e[c]), lo, hi)
+//   relu?(v) reads min(relu?(v), cap[c]) with a ceiling: hardtanh's clip to
+//   [0, H[c]] (cap a (C,) vector or the scalar hs; INT_MAX: none), and the
+//   prologue's relu?() min(relu?(), in_cap[c]) the same way.
 //
 // Each clamp is [-2^(bits-1), 2^(bits-1)-1] with an int8 result, or [0,
 // 255] with a uint8 one: W8A8's 9-bit codes of a post-ReLU value (the
@@ -123,7 +126,8 @@ __device__ __forceinline__ void dp4a_group(int (&acc)[kPer], int x0, int x1, int
   }
 }
 
-template <bool kU8>
+// kExt: a hardtanh ceiling in the prologue or the epilogue
+template <bool kU8, bool kExt>
 __global__ void __launch_bounds__(kCB * kMaxNT, 3)
 dw_conv_kernel(const void* __restrict__ x, const int8_t* __restrict__ w,
                const int32_t* __restrict__ bias, const int32_t* __restrict__ m, int ms,
@@ -133,7 +137,8 @@ dw_conv_kernel(const void* __restrict__ x, const int8_t* __restrict__ w,
                int x32, const int32_t* __restrict__ in_bias, int in_relu,
                const int32_t* __restrict__ in_len, const int32_t* __restrict__ m1, int m1s,
                const int32_t* __restrict__ e1v, int e1s, int lo1, int hi1, int groups,
-               int tiles, int vec) {
+               int tiles, int vec, const int32_t* __restrict__ hcap, int hs,
+               const int32_t* __restrict__ in_hcap, int in_hs) {
   extern __shared__ int4 smem4[];
   const int nt = blockDim.y;
   const int tx = threadIdx.x, ty = threadIdx.y;
@@ -174,12 +179,13 @@ dw_conv_kernel(const void* __restrict__ x, const int8_t* __restrict__ w,
         // thread stages one or two), so that they do not hold registers
         // through the mainloop
         QasrRq rq[4];
-        int ib[4];
+        int ib[4], ih[4];
         if (pro) {
 #pragma unroll
           for (int k = 0; k < 4; ++k) {
             const int ck = g_ok ? cs + k : 0;
             ib[k] = in_bias ? in_bias[ck] : 0;
+            ih[k] = kExt && in_hcap ? in_hcap[ck] : in_hs;
             rq[k] = qasr_rq_make(m1 ? m1[ck] : m1s, qasr_exponent(e1v, e1s, ck));
           }
         }
@@ -207,6 +213,7 @@ dw_conv_kernel(const void* __restrict__ x, const int8_t* __restrict__ w,
           for (int k = 0; k < 4; ++k) {
             int u = v[k] + ib[k];
             if (in_relu) u = u > 0 ? u : 0;
+            if (kExt) u = min(u, ih[k]);
             a[i] = pack_byte(a[i], qasr_clamp(qasr_rq(u, rq[k]), lo1, hi1), k);
           }
         }
@@ -225,6 +232,7 @@ dw_conv_kernel(const void* __restrict__ x, const int8_t* __restrict__ w,
     // one channel a thread (C not a multiple of 4, or x off a 16-byte
     // boundary): byte or word loads, packed four frames a word
     const int ib = (pro && c_ok && in_bias) ? in_bias[c] : 0;
+    const int ih = (kExt && pro && c_ok && in_hcap) ? in_hcap[c] : in_hs;
     const QasrRq rq = qasr_rq_make(m1 ? m1[c_ok ? c : 0] : m1s,
                                    qasr_exponent(e1v, e1s, c_ok ? c : 0));
     const int8_t* xb = static_cast<const int8_t*>(x) + xrow + c;
@@ -243,6 +251,7 @@ dw_conv_kernel(const void* __restrict__ x, const int8_t* __restrict__ w,
           }
           int u = (x32 ? xw[o] : static_cast<int>(xb[o])) + ib;
           if (in_relu) u = u > 0 ? u : 0;
+          if (kExt) u = min(u, ih);
           word = pack_byte(word, qasr_clamp(qasr_rq(u, rq), lo1, hi1), i);
         }
         xs[(r * kCB + tx) * pitch + n] = static_cast<int>(word);
@@ -333,6 +342,7 @@ dw_conv_kernel(const void* __restrict__ x, const int8_t* __restrict__ w,
   }
 
   const int bc = bias ? bias[c] : 0;
+  const int hc = kExt && hcap ? hcap[c] : hs;
   const QasrRq rq = qasr_rq_make(epi ? (m ? m[c] : ms) : 0, epi ? qasr_exponent(ev, es, c) : 1);
   const int len = out_len ? out_len[b] : INT_MAX;
   const int t0 = q + dil * (u0 + kPer * ty);
@@ -347,6 +357,7 @@ dw_conv_kernel(const void* __restrict__ x, const int8_t* __restrict__ w,
     if (t >= t_out) break;
     int v = acc[j] + bc;
     if (relu) v = v > 0 ? v : 0;
+    if (kExt) v = min(v, hc);
     if (epi) {
       if (t >= len) v = 0;
       *out8 = static_cast<int8_t>(qasr_clamp(qasr_rq(v, rq), lo, hi));
@@ -360,7 +371,7 @@ dw_conv_kernel(const void* __restrict__ x, const int8_t* __restrict__ w,
 
 }  // namespace
 
-template <bool kU8>
+template <bool kU8, bool kExt>
 cudaError_t launch(dim3 grid, dim3 block, size_t shm, cudaStream_t stream, const void* x,
                    const int8_t* w, const int32_t* bias, const int32_t* m, int ms,
                    const int32_t* ev, int es, const int32_t* out_len, void* out, int t_in,
@@ -368,23 +379,24 @@ cudaError_t launch(dim3 grid, dim3 block, size_t shm, cudaStream_t stream, const
                    int epi, int lo, int hi, int pro, int x32, const int32_t* in_bias,
                    int in_relu, const int32_t* in_len, const int32_t* m1, int m1s,
                    const int32_t* e1v, int e1s, int lo1, int hi1, int groups, int tiles,
-                   int vec) {
+                   int vec, const int32_t* hcap, int hs, const int32_t* in_hcap, int in_hs) {
   if (shm > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        dw_conv_kernel<kU8>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(shm));
+        dw_conv_kernel<kU8, kExt>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(shm));
     if (err != cudaSuccess) return err;
   }
-  dw_conv_kernel<kU8><<<grid, block, shm, stream>>>(
+  dw_conv_kernel<kU8, kExt><<<grid, block, shm, stream>>>(
       x, w, bias, m, ms, ev, es, out_len, out, t_in, c_total, t_out, k_size, stride, pad, dil,
       relu, epi, lo, hi, pro, x32, in_bias, in_relu, in_len, m1, m1s, e1v, e1s, lo1, hi1,
-      groups, tiles, vec);
+      groups, tiles, vec, hcap, hs, in_hcap, in_hs);
   return cudaGetLastError();
 }
 
 // nt, groups, tiles: the wrapper's plan (thread rows, tap groups of 4 per
 // sub-plane, time tiles per output phase); shared memory follows from them.
 // u8: the staged operand is unsigned (a uint8 x, or a prologue that writes
-// uint8 codes).
+// uint8 codes).  hcap / hs, in_hcap / in_hs: hardtanh's ceilings.
 extern "C" int qasr_dw_conv(const void* x, const int8_t* w, const int32_t* bias,
                             const int32_t* m, int ms, const int32_t* ev, int es,
                             const int32_t* out_len, void* out, int batch, int t_in,
@@ -392,7 +404,8 @@ extern "C" int qasr_dw_conv(const void* x, const int8_t* w, const int32_t* bias,
                             int relu, int epi, int lo, int hi, int pro, int x32,
                             const int32_t* in_bias, int in_relu, const int32_t* in_len,
                             const int32_t* m1, int m1s, const int32_t* e1v, int e1s, int lo1,
-                            int hi1, int nt, int groups, int tiles, int u8, void* stream) {
+                            int hi1, int nt, int groups, int tiles, int u8, const int32_t* hcap,
+                            int hs, const int32_t* in_hcap, int in_hs, void* stream) {
   if (nt < 1 || nt > kMaxNT || groups < 1 || tiles < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const int phases = dil < t_out ? dil : t_out;
@@ -406,11 +419,12 @@ extern "C" int qasr_dw_conv(const void* x, const int8_t* w, const int32_t* bias,
   const dim3 grid(phases * tiles, (c_total + kCB - 1) / kCB, batch);
   const dim3 block(kCB, nt);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t rc =
-      (u8 ? launch<true> : launch<false>)(grid, block, shm, st, x, w, bias, m, ms, ev, es,
-                                          out_len, out, t_in, c_total, t_out, k_size, stride,
-                                          pad, dil, relu, epi, lo, hi, pro, x32, in_bias,
-                                          in_relu, in_len, m1, m1s, e1v, e1s, lo1, hi1, groups,
-                                          tiles, vec);
+  const bool ext = hcap || hs != INT_MAX || in_hcap || in_hs != INT_MAX;
+  const auto run = u8 ? (ext ? launch<true, true> : launch<true, false>)
+                       : (ext ? launch<false, true> : launch<false, false>);
+  const cudaError_t rc = run(grid, block, shm, st, x, w, bias, m, ms, ev, es, out_len, out, t_in,
+                             c_total, t_out, k_size, stride, pad, dil, relu, epi, lo, hi, pro,
+                             x32, in_bias, in_relu, in_len, m1, m1s, e1v, e1s, lo1, hi1, groups,
+                             tiles, vec, hcap, hs, in_hcap, in_hs);
   return static_cast<int>(rc);
 }

@@ -11,11 +11,25 @@
 //                          x int8 or int32, m1 a (Cin,) vector or (NULL)
 //                          the scalar m1s
 //   acc[n,o] = sum_i a[n,i] * wt[o,i]     x (N=B*T, Cin), wt (Cout, Cin) int8
-//   mode 0 (none):    out int32 = relu?(acc + bias)
+//   mode 0 (none):    out int32 = act(acc + bias)
 //   mode 1 (requant): out int8  = clamp(requant(mask_{n%T < len[n/T]}(
-//                                       relu?(acc + bias)), m[o], e), lo, hi)
+//                                       act(acc + bias)), m[o], e), lo, hi)
 //   mode 2 (join):    out int8  = clamp(requant(acc + bias, m[o], e)
 //                                       + requant(res[n,o], m_r[o], e_r), lo, hi)
+//   act(v) = min(relu?(v), cap[o]): ReLU, or with a ceiling hardtanh's clip
+//   to [0, H[o]] (cap a (Cout,) vector, or the scalar hs; INT_MAX: none);
+//   the prologue's relu?() is min(relu?(), in_cap[i]) the same way.
+//
+// Grouped form (groups > 1): group g multiplies its own Cin/g input columns
+// by its own (Cout/g x Cin/g) weights, wt (Cout, Cin/g): the group the
+// fastest index of the grid (a row tile's groups run side by side), each
+// block one group's rows, its A box starting at column g *
+// Cin/g (Cin/g a multiple of 16; columns of the next group that a 128-byte
+// box takes meet the weight map's zero fill past Cin/g), its weight boxes
+// at row g * Cout/g.  The block-diagonal weight matrix is never formed.
+// With `shuffle` the epilogue writes channel o to GroupShuffle's position
+// (o % (Cout/g)) * g + o / (Cout/g), and reads m, m_r and res there (the
+// freeze's tables are in the shuffled order; bias and cap in the conv's).
 //   a clamp is [-2^(bits-1), 2^(bits-1)-1] with an int8 result, or [0,
 //   255] with a uint8 one: W8A8's 9-bit codes of a ReLU'd value, whose
 //   clamp [-256, 255] reads [0, 255] (the wrapper's act_clamp), stored in
@@ -52,6 +66,7 @@
 // accumulators in flight across the epilogue's per-thread loop.)  BN = 32
 // for Cout <= 32 (the decoder's 29), else 64 (the wrapper's
 // kernels/pw_gemm.py::plan computes the same).
+#include <climits>
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -82,7 +97,12 @@ struct PwParams {
   const int32_t* in_len;
   const int32_t* m1;
   int m1s, e1, lo1, hi1;
-  int nk;  // K chunks (Cin rounded up to kChunk)
+  int nk;  // K chunks (Cin / groups rounded up to kChunk)
+  int groups, cg, cog, shuffle;  // groups, Cin and Cout a group, GroupShuffle on store
+  const int32_t* hcap;           // (Cout,) ceiling, or NULL -> hs
+  int hs;
+  const int32_t* in_hcap;        // (Cin,) prologue ceiling, or NULL -> in_hs
+  int in_hs;
 };
 
 // A block's shared memory (byte offsets from the 1024-aligned base): the
@@ -101,12 +121,21 @@ struct PwLayout {
   }
 };
 
-// The prologue on channels c0..c0+15 of one row (v): 16 int8 values packed.
+// The prologue on channels c0..c0+15 of one row (v): 16 int8 values packed;
+// kExt: with hardtanh's ceiling.
+template <bool kExt>
 __device__ __forceinline__ int4 prologue16(const int (&v)[16], int c0, const PwParams& p) {
-  int b0[8], b1[8], m0[8], m1[8];
+  int b0[8], b1[8], m0[8], m1[8], h0[8], h1[8];
   const int nb = p.in_bias ? 8 : 0;
   gemm_s8::gload8(p.in_bias + c0, nb, b0);
   gemm_s8::gload8(p.in_bias + c0 + 8, nb, b1);
+  if (kExt && p.in_hcap) {
+    gemm_s8::gload8(p.in_hcap + c0, 8, h0);
+    gemm_s8::gload8(p.in_hcap + c0 + 8, 8, h1);
+  } else {
+#pragma unroll
+    for (int q = 0; q < 8; ++q) h0[q] = h1[q] = p.in_hs;
+  }
   if (p.m1) {
     gemm_s8::gload8(p.m1 + c0, 8, m0);
     gemm_s8::gload8(p.m1 + c0 + 8, 8, m1);
@@ -119,6 +148,7 @@ __device__ __forceinline__ int4 prologue16(const int (&v)[16], int c0, const PwP
   for (int q = 0; q < 16; ++q) {
     int z = v[q] + (q < 8 ? b0[q] : b1[q - 8]);
     if (p.in_relu) z = z > 0 ? z : 0;
+    if (kExt) z = min(z, q < 8 ? h0[q] : h1[q - 8]);
     const int r = qasr_clamp(qasr_requant(z, q < 8 ? m0[q] : m1[q - 8], p.e1), p.lo1, p.hi1);
     w[q / 4] |= (static_cast<unsigned>(r) & 0xffu) << (8 * (q % 4));
   }
@@ -126,13 +156,14 @@ __device__ __forceinline__ int4 prologue16(const int (&v)[16], int c0, const PwP
                    static_cast<int>(w[3]));
 }
 
-// The raw input of granule i (16 channels of one of the block's rows), or
-// false where it is past Cin or its row is masked.
+// The raw input of granule i (16 channels of one of the block's rows, from
+// channel c_in0, the group's first), or false where it is past the group's
+// Cin or its row is masked.
 __device__ __forceinline__ bool prologue_load(const PwParams& p, int n0, const uint8_t* row_ok,
-                                              int g_row, int i, int4 (&raw)[4]) {
+                                              int g_row, int i, int c_in0, int4 (&raw)[4]) {
   const int r = i / g_row, c0 = (i - r * g_row) * 16;
-  if (i >= kBM * g_row || c0 >= p.cin || !row_ok[r]) return false;
-  const size_t off = static_cast<size_t>(n0 + r) * p.cin + c0;
+  if (i >= kBM * g_row || c0 >= p.cg || !row_ok[r]) return false;
+  const size_t off = static_cast<size_t>(n0 + r) * p.cin + c_in0 + c0;
   if (p.x32) {
     const int4* s = reinterpret_cast<const int4*>(static_cast<const int32_t*>(p.x) + off);
 #pragma unroll
@@ -146,15 +177,16 @@ __device__ __forceinline__ bool prologue_load(const PwParams& p, int n0, const u
 // The block's A tile through the prologue, by its 128 consumer threads
 // (t), each 16-byte granule of K once, the next granule's load in flight
 // while this one is requantized.
+template <bool kExt>
 __device__ __forceinline__ void prologue_fill(const PwParams& p, uint8_t* a_tile, int n0,
-                                              const uint8_t* row_ok, int t) {
+                                              const uint8_t* row_ok, int c_in0, int t) {
   constexpr int kN = 128;
   const int g_row = p.nk * (kChunk / 16);  // granules per row, K padded to the chunk
   int4 cur[4], nxt[4];
-  bool live = prologue_load(p, n0, row_ok, g_row, t, cur);
+  bool live = prologue_load(p, n0, row_ok, g_row, t, c_in0, cur);
 #pragma unroll 1
   for (int i = t; i < kBM * g_row; i += kN) {
-    const bool live_next = prologue_load(p, n0, row_ok, g_row, i + kN, nxt);
+    const bool live_next = prologue_load(p, n0, row_ok, g_row, i + kN, c_in0, nxt);
     int4 word = make_int4(0, 0, 0, 0);
     if (live) {
       int v[16];
@@ -169,7 +201,7 @@ __device__ __forceinline__ void prologue_fill(const PwParams& p, uint8_t* a_tile
 #pragma unroll
         for (int q = 0; q < 16; ++q) v[q] = static_cast<int8_t>(w4[q / 4] >> (8 * (q % 4)));
       }
-      word = prologue16(v, (i % g_row) * 16, p);
+      word = prologue16<kExt>(v, c_in0 + (i % g_row) * 16, p);
     }
     const int row = i / g_row, g = i % g_row;
     const int chunk = g / (kChunk / 16), gg = g % (kChunk / 16);
@@ -182,20 +214,31 @@ __device__ __forceinline__ void prologue_fill(const PwParams& p, uint8_t* a_tile
 }
 
 // One column tile's epilogue on the warpgroup's staged accumulators: rows r
-// of the tile, 8 columns (group g) a thread, per-column operands loaded once.
-template <int kBN>
+// of the tile, 8 columns (group g) a thread, per-column operands loaded
+// once.  o0 is the tile's first channel, lim the end of its conv group.
+// kCap: hardtanh's ceiling after the ReLU (cap a (Cout,) vector or the
+// scalar hs), the kernel's kExt form; without it, no ceiling is read.
+template <int kBN, bool kCap>
 __device__ __forceinline__ void epilogue(const PwParams& p, const uint8_t* stage,
                                          const uint8_t* epi_ok, int n_base, int rows, int o0,
-                                         int t) {
+                                         int lim, int t) {
   using namespace gemm_s8;
   constexpr int kG = kBN / 8, kStep = 128 / kG, kLd = stage_ld(kBN);
   const int g = t % kG, o = o0 + 8 * g;
-  const int nv = min(8, p.cout - o);
+  const int nv = min(8, lim - o);
   if (nv <= 0) return;
-  int bq[8], mq[8], mrq[8];
+  int bq[8], mq[8], mrq[8], cq[8];
   gload8(p.bias ? p.bias + o : nullptr, p.bias ? nv : 0, bq);
   gload8(p.mode != 0 ? p.m + o : nullptr, p.mode != 0 ? nv : 0, mq);
   gload8(p.mode == 2 ? p.m_r + o : nullptr, p.mode == 2 ? nv : 0, mrq);
+  if constexpr (kCap) {
+    if (p.hcap) {
+      gload8(p.hcap + o, nv, cq);
+    } else {
+#pragma unroll
+      for (int q = 0; q < 8; ++q) cq[q] = p.hs;
+    }
+  }
   int a[8], y[8];
 #pragma unroll 1
   for (int r = t / kG; r < rows; r += kStep) {
@@ -217,6 +260,7 @@ __device__ __forceinline__ void epilogue(const PwParams& p, const uint8_t* stage
       for (int q = 0; q < 8; ++q) {
         int v = a[q] + bq[q];
         if (p.relu) v = v > 0 ? v : 0;
+        if constexpr (kCap) v = min(v, cq[q]);
         if (!ok) v = 0;
         y[q] = qasr_clamp(qasr_requant(v, mq[q], p.e), p.lo, p.hi);
       }
@@ -227,13 +271,52 @@ __device__ __forceinline__ void epilogue(const PwParams& p, const uint8_t* stage
       for (int q = 0; q < 8; ++q) {
         const int v = a[q] + bq[q];
         y[q] = p.relu && v < 0 ? 0 : v;
+        if constexpr (kCap) y[q] = min(y[q], cq[q]);
       }
       store8_s32(static_cast<int32_t*>(p.out) + idx, nv, y);
     }
   }
 }
 
-template <int kBN, bool kU8>
+// The epilogue with GroupShuffle's store: channel o goes to position (o %
+// Cout/g) * g + o / (Cout/g), where m, m_r and res are read too (bias and
+// the ceiling in the conv's order).  One column a thread: a warp's 32 lanes
+// take consecutive channels of a row, whose positions lie g apart, so a
+// store instruction touches 4 sectors of int8 codes (16 of int32) where 8
+// columns a thread would touch 32; the per-column operands are loaded once.
+template <int kBN>
+__device__ __forceinline__ void epilogue_shuffled(const PwParams& p, const uint8_t* stage,
+                                                  const uint8_t* epi_ok, int n_base, int rows,
+                                                  int o0, int lim, int t) {
+  constexpr int kStep = 128 / kBN, kLd = gemm_s8::stage_ld(kBN);
+  const int c = t % kBN, o = o0 + c;
+  if (o >= lim) return;
+  const int pos = (o % p.cog) * p.groups + o / p.cog;
+  const int b = p.bias ? p.bias[o] : 0;
+  const int cap = p.hcap ? p.hcap[o] : p.hs;
+  const int m = p.mode != 0 ? p.m[pos] : 0;
+  const int m_r = p.mode == 2 ? p.m_r[pos] : 0;
+#pragma unroll 4
+  for (int r = t / kBN; r < rows; r += kStep) {
+    const size_t at = static_cast<size_t>(n_base + r) * p.cout + pos;
+    const int v = reinterpret_cast<const int*>(stage + r * kLd)[c] + b;
+    if (p.mode == 2) {
+      static_cast<int8_t*>(p.out)[at] = static_cast<int8_t>(qasr_clamp(
+          qasr_requant(v, m, p.e) + qasr_requant(p.res[at], m_r, p.e_r), p.lo, p.hi));
+    } else if (p.mode == 1) {
+      const int u = epi_ok[r] ? min(p.relu && v < 0 ? 0 : v, cap) : 0;
+      static_cast<int8_t*>(p.out)[at] =
+          static_cast<int8_t>(qasr_clamp(qasr_requant(u, m, p.e), p.lo, p.hi));
+    } else {
+      static_cast<int32_t*>(p.out)[at] = min(p.relu && v < 0 ? 0 : v, cap);
+    }
+  }
+}
+
+// kExt: the grouped conv's GroupShuffle store or a hardtanh ceiling (in the
+// prologue or the epilogue); without them the kernel is the ungrouped one's
+// code (a grouped conv without either takes it too).
+template <int kBN, bool kU8, bool kExt>
 __global__ void __launch_bounds__(kThreads, 2)
 pw_gemm_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_w,
                const PwParams p) {
@@ -250,8 +333,12 @@ pw_gemm_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant_
   uint8_t* row_ok = smem + L.mask;         // the prologue's input mask, by block row
   uint8_t* epi_ok = row_ok + kBM;          // the requant epilogue's output mask
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int n0 = blockIdx.x * kBM;
-  const int n_ct = (p.cout + kBN - 1) / kBN;
+  // groups fastest: a row tile's groups run side by side, so the sectors a
+  // shuffled store interleaves are completed together in L2
+  const int grp = blockIdx.x % p.groups;        // the conv group
+  const int n0 = (blockIdx.x / p.groups) * kBM;
+  const int c_in0 = grp * p.cg, c_out0 = grp * p.cog;
+  const int n_ct = (p.cog + kBN - 1) / kBN;
   if (tid == 0) {
     for (int s = 0; s < kStages; ++s) {
       mbar_init(full + s, 1);
@@ -267,14 +354,14 @@ pw_gemm_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant_
       if (!p.pro) {
         mbar_expect_tx(a_full, kBM * kChunk * p.nk);
         for (int kc = 0; kc < p.nk; ++kc)
-          tma_load_2d(a_tile + kc * kBM * kChunk, &map_x, a_full, kc * kChunk, n0);
+          tma_load_2d(a_tile + kc * kBM * kChunk, &map_x, a_full, c_in0 + kc * kChunk, n0);
       }
       for (int step = 0; step < n_ct * p.nk; ++step) {
         const int s = step % kStages;
         mbar_wait(empty + s, ((step / kStages) & 1) ^ 1);
         mbar_expect_tx(full + s, kBN * kChunk);
         tma_load_2d(ring + s * kBN * kChunk, &map_w, full + s, (step % p.nk) * kChunk,
-                    (step / p.nk) * kBN);
+                    c_out0 + (step / p.nk) * kBN);
       }
     }
     return;
@@ -288,7 +375,7 @@ pw_gemm_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant_
   }
   bar_sync(1, 128);
   if (p.pro) {
-    prologue_fill(p, a_tile, n0, row_ok, tid);
+    prologue_fill<kExt>(p, a_tile, n0, row_ok, c_in0, tid);
     fence_proxy_async();
     bar_sync(1, 128);
   } else {
@@ -309,20 +396,32 @@ pw_gemm_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant_
     }
     stage_acc<kBN>(acc, stage, warp, lane);
     bar_sync(1, 128);
-    epilogue<kBN>(p, stage, epi_ok, n0, rows, ct * kBN, tid);
+    const int o0 = c_out0 + ct * kBN, lim = c_out0 + p.cog;
+    if (kExt && p.shuffle)
+      epilogue_shuffled<kBN>(p, stage, epi_ok, n0, rows, o0, lim, tid);
+    else
+      epilogue<kBN, kExt>(p, stage, epi_ok, n0, rows, o0, lim, tid);
     bar_sync(1, 128);  // the staging tile is free for the next column tile
   }
 }
 
-template <int kBN, bool kU8>
+template <int kBN, bool kU8, bool kExt>
 cudaError_t launch(const CUtensorMap& mx, const CUtensorMap& mw, const PwParams& p, int smem,
                    cudaStream_t stream) {
   static const cudaError_t attr = cudaFuncSetAttribute(
-      pw_gemm_kernel<kBN, kU8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      pw_gemm_kernel<kBN, kU8, kExt>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       gemm_s8::kSmemLimit);
   if (attr != cudaSuccess) return attr;
-  pw_gemm_kernel<kBN, kU8><<<(p.n_rows + kBM - 1) / kBM, kThreads, smem, stream>>>(mx, mw, p);
+  const int tiles = (p.n_rows + kBM - 1) / kBM;
+  pw_gemm_kernel<kBN, kU8, kExt><<<tiles * p.groups, kThreads, smem, stream>>>(mx, mw, p);
   return cudaGetLastError();
+}
+
+template <int kBN, bool kU8>
+cudaError_t launch_ext(bool ext, const CUtensorMap& mx, const CUtensorMap& mw, const PwParams& p,
+                       int smem, cudaStream_t stream) {
+  return ext ? launch<kBN, kU8, true>(mx, mw, p, smem, stream)
+             : launch<kBN, kU8, false>(mx, mw, p, smem, stream);
 }
 
 }  // namespace
@@ -335,24 +434,32 @@ extern "C" int qasr_pw_gemm(const void* x, const int8_t* wt,
                             int e, int e_r, int lo, int hi, int pro, int x32,
                             const int32_t* in_bias, int in_relu,
                             const int32_t* in_len, const int32_t* m1, int m1s,
-                            int e1, int lo1, int hi1, int u8, void* stream) {
+                            int e1, int lo1, int hi1, int u8, int groups, int shuffle,
+                            const int32_t* hcap, int hs, const int32_t* in_hcap, int in_hs,
+                            void* stream) {
+  if (groups < 1 || cin % groups != 0 || cout % groups != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int cg = cin / groups, cog = cout / groups;
   // the tile plan (kernels/pw_gemm.py::plan computes the same)
-  const int bn = cout <= 32 ? 32 : 64;
-  const int nk = (cin + kChunk - 1) / kChunk;
+  const int bn = cog <= 32 ? 32 : 64;
+  const int nk = (cg + kChunk - 1) / kChunk;
   const int smem = PwLayout(bn, nk).bytes;
-  if (n_rows < 1 || cin < 16 || cin % 16 != 0 || cout < 1 || mode < 0 || mode > 2 ||
-      smem > gemm_s8::kSmemLimit || (!pro && x32))
+  if (n_rows < 1 || cg < 16 || cg % 16 != 0 || cout < 1 || mode < 0 || mode > 2 ||
+      smem > gemm_s8::kSmemLimit || (!pro && x32) ||
+      static_cast<long long>((n_rows + kBM - 1) / kBM) * groups > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap mx{}, mw{};
   if ((!pro && !gemm_s8::make_map(&mx, x, n_rows, cin, kBM)) ||
-      !gemm_s8::make_map(&mw, wt, cout, cin, bn))
+      !gemm_s8::make_map(&mw, wt, cout, cg, bn))
     return static_cast<int>(cudaErrorInvalidValue);
   const PwParams p{x, bias, m, lens, res, m_r, out, n_rows, cin, cout, rows_per_batch, mode,
                    relu, e, e_r, lo, hi, pro, x32, in_bias, in_relu, in_len, m1, m1s, e1, lo1,
-                   hi1, nk};
+                   hi1, nk, groups, cg, cog, shuffle, hcap, hs, in_hcap, in_hs};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   // u8: A is unsigned (a uint8 x, or a prologue that writes uint8 codes)
-  const cudaError_t rc = bn == 32 ? (u8 ? launch<32, true> : launch<32, false>)(mx, mw, p, smem, st)
-                                  : (u8 ? launch<64, true> : launch<64, false>)(mx, mw, p, smem, st);
+  const bool ext = shuffle || hcap || hs != INT_MAX || in_hcap || in_hs != INT_MAX;
+  const cudaError_t rc =
+      bn == 32 ? (u8 ? launch_ext<32, true> : launch_ext<32, false>)(ext, mx, mw, p, smem, st)
+               : (u8 ? launch_ext<64, true> : launch_ext<64, false>)(ext, mx, mw, p, smem, st);
   return static_cast<int>(rc);
 }

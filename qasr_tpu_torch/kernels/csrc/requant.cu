@@ -5,10 +5,13 @@
 // Replaces qasr_tpu/kernels/requant.py::requant_pallas (pl.pallas_call at
 // requant.py:65 and :74).  For row n = b * T + t and channel c:
 //
-//   v   = mask_{t < lens[b]}(relu?(z[n, c]))
+//   v   = mask_{t < lens[b]}(min(relu?(z[n, c]), cap[c]))
 //   s   = requant(v, m[c], e[c]) [+ requant(mask(id[n, c]), m_r[c], e_r[c])]
 //   out = clamp(s, lo, hi)
 //
+// cap is hardtanh's ceiling (the producer's clip to [0, H[c]] before this
+// requant, the JAX FrozenExec's order): a (C,) vector, or the scalar hs
+// when its pointer is NULL (INT_MAX: no ceiling).
 // z is int8, int32 or uint8 (a non-negative 9-bit code).  The output is
 // int8 with [lo, hi] = [-2^(bits-1), 2^(bits-1) - 1] when bits <= 8; uint8
 // with [0, 255] for a 9-bit requant of a non-negative value (ReLU on, or a
@@ -96,17 +99,20 @@ __device__ __forceinline__ void store_vals(void* out, int out32, size_t idx, con
 
 constexpr int kRows = 4;   // rows a thread walks, their loads issued together
 
-template <int V, bool R>
+// kCap: hardtanh's ceiling after the ReLU
+template <int V, bool R, bool kCap>
 __global__ void requant_kernel(Side a, Side r, const int32_t* __restrict__ lens,
                                void* __restrict__ out, int out32, int T, int C, int relu,
-                               int lo, int hi) {
+                               const int32_t* __restrict__ hcap, int hs, int lo, int hi) {
   const int c0 = (blockIdx.y * blockDim.x + threadIdx.x) * V;
   if (c0 >= C) return;
   const int b = blockIdx.z;
   const int len = lens ? __ldg(lens + b) : INT_MAX;
   QasrRq ra[V], rr[V];
+  int cap[V];
 #pragma unroll
   for (int i = 0; i < V; ++i) {
+    cap[i] = kCap && hcap ? __ldg(hcap + c0 + i) : hs;
     ra[i] = qasr_rq_make(a.m ? __ldg(a.m + c0 + i) : a.ms, qasr_exponent(a.e, a.es, c0 + i));
     if constexpr (R) rr[i] = qasr_rq_make(r.m ? __ldg(r.m + c0 + i) : r.ms, qasr_exponent(r.e, r.es, c0 + i));
   }
@@ -132,7 +138,8 @@ __global__ void requant_kernel(Side a, Side r, const int32_t* __restrict__ lens,
     if (t < len) {
 #pragma unroll
       for (int i = 0; i < V; ++i) {
-        s[i] = qasr_rq(relu && va[k][i] < 0 ? 0 : va[k][i], ra[i]);
+        const int v = relu && va[k][i] < 0 ? 0 : va[k][i];
+        s[i] = qasr_rq(kCap ? min(v, cap[i]) : v, ra[i]);
         if constexpr (R) s[i] += qasr_rq(vr[k][i], rr[i]);
         s[i] = qasr_clamp(s[i], lo, hi);
       }
@@ -143,18 +150,17 @@ __global__ void requant_kernel(Side a, Side r, const int32_t* __restrict__ lens,
 
 template <int V>
 int launch(const Side& a, const Side& r, int has_r, const int32_t* lens, void* out, int out32,
-           int batch, int T, int C, int relu, int lo, int hi, cudaStream_t stream) {
+           int batch, int T, int C, int relu, const int32_t* hcap, int hs, int lo, int hi,
+           cudaStream_t stream) {
   const int vecs = (C + V - 1) / V;
   const int tx = vecs < 32 ? vecs : 32;
   const int ty = 256 / tx;
   const int rows = kRows * ty;
   const dim3 grid((T + rows - 1) / rows, (vecs + tx - 1) / tx, batch);
-  if (has_r)
-    requant_kernel<V, true><<<grid, dim3(tx, ty), 0, stream>>>(a, r, lens, out, out32, T, C,
-                                                             relu, lo, hi);
-  else
-    requant_kernel<V, false><<<grid, dim3(tx, ty), 0, stream>>>(a, r, lens, out, out32, T, C,
-                                                              relu, lo, hi);
+  const bool cap = hcap || hs != INT_MAX;
+  const auto kernel = has_r ? (cap ? requant_kernel<V, true, true> : requant_kernel<V, true, false>)
+                            : (cap ? requant_kernel<V, false, true> : requant_kernel<V, false, false>);
+  kernel<<<grid, dim3(tx, ty), 0, stream>>>(a, r, lens, out, out32, T, C, relu, hcap, hs, lo, hi);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -164,7 +170,8 @@ extern "C" int qasr_requant_rows(const void* z, int zt, const int32_t* m, const 
                                  int ms, int es, const void* id, int id32,
                                  const int32_t* m_r, const int32_t* e_r, int ms_r, int es_r,
                                  const int32_t* lens, void* out, int out32, int n_rows, int C,
-                                 int rows_per_batch, int relu, int lo, int hi, void* stream) {
+                                 int rows_per_batch, int relu, const int32_t* hcap, int hs,
+                                 int lo, int hi, void* stream) {
   const Side a{z, zt, m, e, ms, es};
   const Side r{id, id32, m_r, e_r, ms_r, es_r};
   if (n_rows == 0 || C == 0) return 0;
@@ -177,6 +184,8 @@ extern "C" int qasr_requant_rows(const void* z, int zt, const int32_t* m, const 
   const uintptr_t align = reinterpret_cast<uintptr_t>(z) | reinterpret_cast<uintptr_t>(id)
                           | reinterpret_cast<uintptr_t>(out);
   if (C % 4 != 0 || align % 16 != 0)
-    return launch<1>(a, r, has_r, lens, out, out32, batch, rows_per_batch, C, relu, lo, hi, s);
-  return launch<4>(a, r, has_r, lens, out, out32, batch, rows_per_batch, C, relu, lo, hi, s);
+    return launch<1>(a, r, has_r, lens, out, out32, batch, rows_per_batch, C, relu, hcap, hs, lo,
+                     hi, s);
+  return launch<4>(a, r, has_r, lens, out, out32, batch, rows_per_batch, C, relu, hcap, hs, lo, hi,
+                   s);
 }

@@ -10,7 +10,12 @@ XLA's integer conv (qasr_tpu/models/jasper.py:332, ``conv_nwc`` with
 stride 2, dilation 2) run here.  ``dense_conv`` launches the CUDA kernel
 for CUDA tensors and runs ``dense_conv_plain`` for CPU tensors; it never
 falls back from one to the other.  ``plan`` states the kernel's tiles and
-shared memory, ``check_launch`` the shapes it takes.
+shared memory, ``check_launch`` the shapes it takes.  Its grouped form
+(``groups``: each block one group's Cin/g halo rows and Cout/g channels)
+computes the grouped non-separable convs of Jasper-style blocks with
+``groups`` > 1 (XLA's grouped conv in the JAX package,
+qasr_tpu/ops/grouped_conv.py), with GroupShuffle in its store
+(``shuffle``).
 """
 from __future__ import annotations
 
@@ -20,14 +25,14 @@ import torch
 import torch.nn.functional as F
 
 from qasr_tpu_torch.kernels import _build
-from qasr_tpu_torch.kernels.checks import check_vec
+from qasr_tpu_torch.kernels.checks import cap_operand, check_vec, group_width
 from qasr_tpu_torch.kernels.dw_conv import check_prologue, prologue_args, prologue_plain
 from qasr_tpu_torch.kernels.pw_gemm import (
     MODE_JOIN,
     _mode,
     check_epilogue,
     epilogue_plain,
-    int_matmul,
+    grouped_matmul,
     pad_k,
 )
 from qasr_tpu_torch.models.jasper import out_frames
@@ -35,6 +40,7 @@ from qasr_tpu_torch.models.jasper import out_frames
 BM = 128             # output frames of a block's tile (two warpgroups of 64)
 KC = 128             # bytes of Cin a K step takes (a TMA box's row, the 128B swizzle's)
 WIDTHS = (128, 160, 192)  # the Cout tiles (wgmma N) the kernel is built for
+NARROW = 64          # the grouped form's narrow tile (Cout/g = 64: C 256 in 4 groups)
 MAX_STAGES = 8       # the weight ring's deepest
 THREADS = 384        # two consumer warpgroups and a producer warpgroup
 ALIGN = 1024         # slack to align the shared-memory base to the swizzle's repeat
@@ -43,16 +49,18 @@ SMS = 132            # the H100 SXM's streaming multiprocessors
 GRID_YZ = 65535      # the grid's y (batch) and z limits
 
 
-def tile_n(cout: int) -> int:
-    """The Cout tile: of the WIDTHS, the one that covers Cout with the
-    fewest padded columns, then the fewest tiles (768 -> 192, 896 -> 128,
-    640 -> 160, 384 -> 192, 200 -> 128).  Wider tiles need more than the
-    168 registers a thread of a 384-thread block has."""
-    return min(WIDTHS, key=lambda bn: (-(-cout // bn) * bn, -(-cout // bn)))
+def tile_n(cout: int, groups: int = 1) -> int:
+    """The Cout tile of a group's Cout: of the WIDTHS (and NARROW for a
+    grouped conv), the one that covers it with the fewest padded columns,
+    then the fewest tiles (768 -> 192, 896 -> 128, 640 -> 160, 384 -> 192,
+    200 -> 128; grouped 64 -> 64).  Wider tiles need more than the 168
+    registers a thread of a 384-thread block has."""
+    widths = WIDTHS + ((NARROW,) if groups > 1 else ())
+    return min(widths, key=lambda bn: (-(-cout // bn) * bn, -(-cout // bn)))
 
 
 def plan(b: int, t_out: int, cin: int, cout: int, k_size: int, stride: int,
-         dilation: int) -> dict:
+         dilation: int, groups: int = 1) -> dict:
     """Kernel 8's tiles for one launch (csrc/dense_conv.cu takes ``bn``,
     ``stages`` and ``ct_per`` from here and computes the same shared
     memory).
@@ -66,45 +74,53 @@ def plan(b: int, t_out: int, cin: int, cout: int, k_size: int, stride: int,
     rows (``smem``: ring, rows, two mbarriers a stage and the alignment
     slack; fewer than 2 do not run).  Grid z splits Cout into the fewest
     slices of ``ct_per`` tiles that give every SM a block where the (frame
-    tile, batch) blocks alone would leave some idle (one block an SM: its
-    registers)."""
+    tile, batch) blocks alone would leave some idle (one block an SM:
+    its registers).  A grouped conv (``groups`` > 1) plans one group's Cin
+    / groups and Cout / groups, and grid z holds ``groups`` times the
+    slices."""
+    cin, cout = cin // groups, cout // groups
     nc = -(-cin // KC)
     rows = (BM - 1) * stride + (k_size - 1) * dilation + 1
     pitch = nc * KC + 16
-    bn = tile_n(cout)
+    bn = tile_n(cout, groups)
     stage = bn * KC
     stages = min(MAX_STAGES, (SMEM_LIMIT - ALIGN - rows * pitch) // (stage + 16))
     smem = stages * stage + rows * pitch + 16 * stages + ALIGN
     n_ct = -(-cout // bn)
-    base = -(-t_out // BM) * b
+    base = -(-t_out // BM) * b * groups
     ct_per = next(c for c in range(n_ct, 0, -1)
                   if base * -(-n_ct // c) >= min(SMS, base * n_ct))
     return {"nc": nc, "rows": rows, "pitch": pitch, "bn": bn, "stages": stages,
-            "smem": smem, "ct_per": ct_per, "box": (KC, 1, bn),
-            "grid": (-(-t_out // BM), b, -(-n_ct // ct_per)), "block": THREADS}
+            "smem": smem, "ct_per": ct_per, "box": (KC, 1, bn), "groups": groups,
+            "grid": (-(-t_out // BM), b, groups * -(-n_ct // ct_per)), "block": THREADS}
 
 
 def check_launch(b: int, t_in: int, cin: int, cout: int, k_size: int, stride: int,
-                 padding: int, dilation: int, pro: bool, x_dtype: torch.dtype) -> dict:
+                 padding: int, dilation: int, pro: bool, x_dtype: torch.dtype,
+                 groups: int = 1) -> dict:
     """The launch's plan, or ValueError for a shape the kernel does not take:
     an empty output, Cin not a positive multiple of 16 (the 16-byte
     granules the rows are copied in, the weight map's row pitch), an int32
     input without the prologue, frame indices beyond int32, a batch beyond
     the grid's y limit, or resident rows that leave no room for a ring of
-    two weight stages in a block's shared memory."""
+    two weight stages in a block's shared memory.  A grouped conv's Cin /
+    groups that is not a multiple of 16 raises NotImplementedError
+    (``checks.group_width``)."""
     if stride < 1 or dilation < 1 or padding < 0 or k_size < 1:
         raise ValueError("dense_conv: stride/dilation/K must be >= 1, padding >= 0")
     t_out = out_frames(t_in, k_size, stride, padding, dilation)
     if b < 1 or cout < 1 or t_out <= 0:
         raise ValueError(f"dense_conv: empty output (B={b}, Cout={cout}, T_out={t_out})")
-    if cin < 16 or cin % 16:
+    if group_width("dense_conv", cin, cout, groups) < 16 or cin % 16:
         raise ValueError(f"dense_conv: Cin must be a positive multiple of 16, got {cin}")
     if not pro and x_dtype not in (torch.int8, torch.uint8):
         raise ValueError(f"dense_conv: without the prologue x must be int8 or uint8, "
                          f"got {x_dtype}")
     if b * (t_in + t_out) * max(cin, cout) >= 2 ** 31 or b > GRID_YZ:
         raise ValueError("dense_conv: B * T * C must stay below 2^31 and B below 65536")
-    p = plan(b, t_out, cin, cout, k_size, stride, dilation)
+    p = plan(b, t_out, cin, cout, k_size, stride, dilation, groups)
+    if p["grid"][2] > GRID_YZ:
+        raise ValueError(f"dense_conv: grid {p['grid']} beyond the z limit {GRID_YZ}")
     if p["stages"] < 2:
         raise ValueError(f"dense_conv: K={k_size} stride={stride} dilation={dilation} "
                          f"Cin={cin} keeps {p['rows'] * p['pitch']} bytes of rows resident, "
@@ -122,15 +138,16 @@ def dense_conv_plain(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
                      e_r: Optional[int] = None, in_bias: Optional[torch.Tensor] = None,
                      in_relu: bool = False, in_len: Optional[torch.Tensor] = None,
                      m1=None, e1: Optional[int] = None,
-                     bits1: Optional[int] = None) -> torch.Tensor:
+                     bits1: Optional[int] = None, groups: int = 1, shuffle: bool = False,
+                     hcap=None, in_hcap=None) -> torch.Tensor:
     """Plain torch version: the prologue on the whole input, then a loop
     over taps of exact integer products (``int_matmul``: int32 on the
-    CPU, torch._int_mm or float64 on the card) of the strided, shifted
-    frames, then the epilogue.  Same arguments and result as
-    ``dense_conv``."""
+    CPU, torch._int_mm or float64 on the card; per group for a grouped
+    conv) of the strided, shifted frames, then the epilogue.  Same
+    arguments and result as ``dense_conv``."""
     if m1 is not None:
         x = prologue_plain(x, in_bias=in_bias, in_relu=in_relu, in_len=in_len, m1=m1,
-                           e1=e1, bits1=bits1)
+                           e1=e1, bits1=bits1, in_hcap=in_hcap)
     b, t_in, cin = x.shape
     cout, k_size, _ = w.shape
     t_out = out_frames(t_in, k_size, stride, padding, dilation)
@@ -139,9 +156,10 @@ def dense_conv_plain(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
     for k in range(k_size):
         start = k * dilation
         xs = xp[:, start:start + (t_out - 1) * stride + 1:stride].reshape(b * t_out, cin)
-        acc += int_matmul(xs, w[:, k].contiguous())
+        acc += grouped_matmul(xs, w[:, k].contiguous(), groups)
     return epilogue_plain(acc.reshape(b, t_out, cout), bias=bias, relu=relu, lens=lens,
-                          m=m, e=e, bits=bits, res=res, m_r=m_r, e_r=e_r)
+                          m=m, e=e, bits=bits, res=res, m_r=m_r, e_r=e_r, hcap=hcap,
+                          shuffle=groups if shuffle else 1)
 
 
 def dense_conv(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1, padding: int = 0,
@@ -152,7 +170,8 @@ def dense_conv(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1, padding: in
                e_r: Optional[int] = None, in_bias: Optional[torch.Tensor] = None,
                in_relu: bool = False, in_len: Optional[torch.Tensor] = None,
                m1=None, e1: Optional[int] = None,
-               bits1: Optional[int] = None) -> torch.Tensor:
+               bits1: Optional[int] = None, groups: int = 1, shuffle: bool = False,
+               hcap=None, in_hcap=None) -> torch.Tensor:
     """Dense conv of x (B, T, Cin) with w (Cout, K, Cin) int8:
     y[b, t, o] = sum_k sum_c x[b, t*stride + k*dilation - padding, c] * w[o, k, c],
     frames outside [0, T) reading 0.
@@ -165,14 +184,19 @@ def dense_conv(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1, padding: in
     bias)``; requant: int8 (uint8 for 9 bits with relu) ``clamp(requant(
     mask(relu?(y + bias)), m, e), bits)``, frames t >= lens[b] zeroed;
     join: int8 ``clamp(requant(y + bias, m, e) + requant(res, m_r, e_r),
-    bits)``, res (B, T_out, Cout) int32."""
+    bits)``, res (B, T_out, Cout) int32.  ``groups``, ``shuffle``,
+    ``hcap`` and ``in_hcap`` as in ``pw_gemm`` (w (Cout, K, Cin / groups)
+    for a grouped conv)."""
     mode = _mode(m, res)
     if mode == MODE_JOIN and (relu or m is None):
         raise ValueError("dense_conv: join takes m and no relu")
-    prologue_args("dense_conv", in_bias, in_relu, in_len, m1)
+    prologue_args("dense_conv", in_bias, in_relu, in_len, m1, in_hcap)
+    if hcap is not None and not relu:
+        raise ValueError("dense_conv: hcap (hardtanh's ceiling) needs relu")
     kw = dict(stride=stride, padding=padding, dilation=dilation, bias=bias, relu=relu,
               lens=lens, m=m, e=e, bits=bits, res=res, m_r=m_r, e_r=e_r, in_bias=in_bias,
-              in_relu=in_relu, in_len=in_len, m1=m1, e1=e1, bits1=bits1)
+              in_relu=in_relu, in_len=in_len, m1=m1, e1=e1, bits1=bits1, groups=groups,
+              shuffle=shuffle, hcap=hcap, in_hcap=in_hcap)
     if x.device.type == "cpu":
         return dense_conv_plain(x, w, **kw)
     if x.device.type != "cuda":
@@ -180,27 +204,34 @@ def dense_conv(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1, padding: in
     if x.dim() != 3 or w.dim() != 3:
         raise ValueError(f"dense_conv: x must be (B, T, Cin) and w (Cout, K, Cin), got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
-    if x.shape[2] % 16:
+    group_width("dense_conv", x.shape[2], w.shape[0], groups)
+    if x.shape[2] % 16 and groups == 1:
         x, w, in_bias, m1 = pad_k(x, w, in_bias, m1)
+        if isinstance(in_hcap, torch.Tensor):
+            in_hcap = F.pad(in_hcap, (0, (-in_hcap.shape[0]) % 16))
     b, t_in, cin = x.shape
     cout, k_size = w.shape[:2]
     pro, m1v, m1s, _, ee1, lo1, hi1, u8 = check_prologue("dense_conv", x, in_bias, in_len, m1,
                                                          e1, bits1, cin, b, in_relu=in_relu)
     if x.data_ptr() % 16 or w.data_ptr() % 16:
         raise ValueError("dense_conv: x and w must be 16-byte aligned")
-    p = check_launch(b, t_in, cin, cout, k_size, stride, padding, dilation, bool(pro), x.dtype)
+    p = check_launch(b, t_in, cin, cout, k_size, stride, padding, dilation, bool(pro), x.dtype,
+                     groups)
     dev = x.device
-    check_vec("dense_conv", "w", w, torch.int8, (cout, k_size, cin), dev)
+    check_vec("dense_conv", "w", w, torch.int8, (cout, k_size, cin // groups), dev)
     t_out = out_frames(t_in, k_size, stride, padding, dilation)
     lo, hi, ee, ee_r, lens, out = check_epilogue("dense_conv", mode, (b, t_out, cout), dev,
                                                  bias, relu, lens, m, e, bits, res, m_r, e_r)
+    hv, hs = cap_operand("dense_conv", "hcap", hcap, cout, dev, relu)
+    ihv, ihs = cap_operand("dense_conv", "in_hcap", in_hcap, cin, dev, in_relu)
     rc = _build.library().qasr_dense_conv(
         _build.ptr(x), _build.ptr(w), _build.ptr(bias), _build.ptr(m), _build.ptr(lens),
         _build.ptr(res), _build.ptr(m_r), _build.ptr(out), b, t_in, cin, t_out, cout, k_size,
         stride, padding, dilation, mode, int(relu), ee, ee_r, lo, hi, pro,
         int(x.dtype == torch.int32), _build.ptr(in_bias), int(in_relu), _build.ptr(in_len),
         _build.ptr(m1v), m1s, ee1, lo1, hi1, int(u8), p["bn"], p["stages"],
-        p["ct_per"], _build.stream_of(x))
+        p["ct_per"], groups, int(bool(shuffle) and groups > 1), _build.ptr(hv), hs,
+        _build.ptr(ihv), ihs, _build.stream_of(x))
     _build.check(rc, "dense_conv")
     dense_conv.launches += 1
     return out

@@ -18,6 +18,7 @@ from qasr_tpu_torch.kernels import _build
 from qasr_tpu_torch.kernels.checks import (
     act_clamp,
     act_dtype,
+    cap_operand,
     check_act,
     check_bytes,
     check_vec,
@@ -25,7 +26,7 @@ from qasr_tpu_torch.kernels.checks import (
     requant_operand,
 )
 from qasr_tpu_torch.models.jasper import depthwise_conv_int, out_frames
-from qasr_tpu_torch.ops.quant_prims import requant_epilogue
+from qasr_tpu_torch.ops.quant_prims import clip_ceiling, requant_epilogue
 
 CB = 32              # channels per block (threadIdx.x)
 MAX_NT = 16          # thread rows per block
@@ -91,21 +92,27 @@ def check_launch(b: int, t_in: int, c: int, k_size: int, stride: int, padding: i
 
 def prologue_plain(x: torch.Tensor, *, in_bias=None, in_relu: bool = False,
                    in_len: Optional[torch.Tensor] = None, m1, e1,
-                   bits1: int) -> torch.Tensor:
+                   bits1: int, in_hcap=None) -> torch.Tensor:
     """The input-requant prologue of Kernels 1, 2 and 8 on a whole (B, T,
-    C) int8 or int32 tensor: bias -> ReLU -> zero frames t >= in_len[b] ->
-    dyadic requant (a static exponent, or per-channel exponents) -> clamp ->
-    int8, or uint8 for a 9-bit code of a ReLU'd value (the producer's
-    epilogue, run by its consumer)."""
+    C) int8 or int32 tensor: bias -> ReLU (and hardtanh's ceiling
+    ``in_hcap``) -> zero frames t >= in_len[b] -> dyadic requant (a static
+    exponent, or per-channel exponents) -> clamp -> int8, or uint8 for a
+    9-bit code of a ReLU'd value (the producer's epilogue, run by its
+    consumer)."""
     return requant_epilogue(x, bias=in_bias, relu=in_relu, lens=in_len, m=m1, e=e1,
-                            bits=bits1)
+                            bits=bits1, hcap=in_hcap)
 
 
-def prologue_args(name: str, in_bias, in_relu, in_len, m1) -> None:
-    """in_bias / in_relu / in_len belong to the prologue: without m1 they
-    raise on every device."""
-    if m1 is None and (in_bias is not None or in_relu or in_len is not None):
-        raise ValueError(f"{name}: in_bias / in_relu / in_len need the prologue (m1)")
+def prologue_args(name: str, in_bias, in_relu, in_len, m1, in_hcap=None) -> None:
+    """in_bias / in_relu / in_len / in_hcap belong to the prologue:
+    without m1 they raise on every device, as does a ceiling without the
+    ReLU flag."""
+    if m1 is None and (in_bias is not None or in_relu or in_len is not None
+                       or in_hcap is not None):
+        raise ValueError(f"{name}: in_bias / in_relu / in_len / in_hcap need the "
+                         f"prologue (m1)")
+    if in_hcap is not None and not in_relu:
+        raise ValueError(f"{name}: in_hcap (hardtanh's ceiling) needs in_relu")
 
 
 def check_prologue(name, x, in_bias, in_len, m1, e1, bits1, c, b, vector_e=False,
@@ -140,21 +147,21 @@ def dw_conv_plain(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
                   e: Exponent = None, bits: Optional[int] = None,
                   in_bias: Optional[torch.Tensor] = None, in_relu: bool = False,
                   in_len: Optional[torch.Tensor] = None, m1=None,
-                  e1: Exponent = None, bits1: Optional[int] = None
-                  ) -> torch.Tensor:
+                  e1: Exponent = None, bits1: Optional[int] = None,
+                  hcap=None, in_hcap=None) -> torch.Tensor:
     """Plain torch version: the prologue on the whole input, the sum of
     strided slices in int32, then the epilogue.  Same arguments and result
     as ``dw_conv``."""
     if m1 is not None:
         x = prologue_plain(x, in_bias=in_bias, in_relu=in_relu, in_len=in_len, m1=m1,
-                           e1=e1, bits1=bits1)
+                           e1=e1, bits1=bits1, in_hcap=in_hcap)
     acc = depthwise_conv_int(x, w, stride, padding, dilation)
     if m is None:
         if bias is not None:
             acc = acc + bias
-        return acc.clamp_min(0) if relu else acc
+        return clip_ceiling(acc.clamp_min(0), hcap) if relu else acc
     return requant_epilogue(acc, bias=bias, relu=relu, lens=out_len, m=m,
-                            e=e, bits=bits)
+                            e=e, bits=bits, hcap=hcap)
 
 
 def dw_conv(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
@@ -164,8 +171,8 @@ def dw_conv(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
             e: Exponent = None, bits: Optional[int] = None,
             in_bias: Optional[torch.Tensor] = None, in_relu: bool = False,
             in_len: Optional[torch.Tensor] = None, m1=None,
-            e1: Exponent = None, bits1: Optional[int] = None
-            ) -> torch.Tensor:
+            e1: Exponent = None, bits1: Optional[int] = None,
+            hcap=None, in_hcap=None) -> torch.Tensor:
     """Depthwise conv of x (B, T, C) with taps w (K, C) int8.
 
     Prologue off (``m1`` None): x is int8, or uint8 (a non-negative 9-bit
@@ -184,11 +191,16 @@ def dw_conv(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
     per_channel tables' mantissas and exponents) or a scalar (a Python int
     or a 0-d array, taken by value); an exponent below 1 counts as 1 and
     one above 62 gives 0, as dyadic_requant has it.
+    ``hcap`` / ``in_hcap``: hardtanh's ceiling after the epilogue's /
+    prologue's ReLU (a clip to [0, H]): None, a Python int, or a (C,) int32
+    tensor; each needs its ReLU flag.
     """
-    prologue_args("dw_conv", in_bias, in_relu, in_len, m1)
+    prologue_args("dw_conv", in_bias, in_relu, in_len, m1, in_hcap)
+    if hcap is not None and not relu:
+        raise ValueError("dw_conv: hcap (hardtanh's ceiling) needs relu")
     kw = dict(stride=stride, padding=padding, dilation=dilation, bias=bias, relu=relu,
               out_len=out_len, m=m, e=e, bits=bits, in_bias=in_bias, in_relu=in_relu,
-              in_len=in_len, m1=m1, e1=e1, bits1=bits1)
+              in_len=in_len, m1=m1, e1=e1, bits1=bits1, hcap=hcap, in_hcap=in_hcap)
     if x.device.type == "cpu":
         return dw_conv_plain(x, w, **kw)
     if x.device.type != "cuda":
@@ -202,6 +214,8 @@ def dw_conv(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
     check_vec("dw_conv", "w", w, torch.int8, (k_size, c), x.device)
     check_vec("dw_conv", "bias", bias, torch.int32, (c,), x.device)
     p = check_launch(b, t_in, c, k_size, stride, padding, dilation, bool(pro), x.dtype)
+    hv, hs = cap_operand("dw_conv", "hcap", hcap, c, x.device, relu)
+    ihv, ihs = cap_operand("dw_conv", "in_hcap", in_hcap, c, x.device, in_relu)
     t_out = out_frames(t_in, k_size, stride, padding, dilation)
     epi = m is not None
     mv = ev = None
@@ -220,7 +234,7 @@ def dw_conv(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
         dilation, int(relu), int(epi), lo, hi, pro, int(x.dtype == torch.int32),
         _build.ptr(in_bias), int(in_relu), _build.ptr(in_len), _build.ptr(m1v), m1s,
         _build.ptr(e1v), e1s, lo1, hi1, p["nt"], p["groups"], p["tiles"], int(u8),
-        _build.stream_of(x))
+        _build.ptr(hv), hs, _build.ptr(ihv), ihs, _build.stream_of(x))
     _build.check(rc, "dw_conv")
     dw_conv.launches += 1
     return out

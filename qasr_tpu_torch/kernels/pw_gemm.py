@@ -3,7 +3,11 @@ requant, join or no epilogue (kernels/csrc/pw_gemm.cu, on the int8
 wgmma / TMA mainloop of kernels/csrc/gemm_s8.cuh).
 
 Replaces qasr_tpu/kernels/cm_fused.py::fused_pw_cm and fused_pw_join_cm,
-and qasr_tpu/kernels/pw_matmul.py::requant_pointwise_matmul.
+and qasr_tpu/kernels/pw_matmul.py::requant_pointwise_matmul.  Its grouped
+form (``groups``: a group axis in the grid, each group its own Cin/g
+columns and Cout/g x Cin/g weights) computes the grouped pointwise convs
+of QuartzNet-style blocks with ``groups`` > 1, and writes GroupShuffle's
+permutation in its store (``shuffle``).
 ``pw_gemm`` launches the CUDA kernel for CUDA tensors and runs
 ``pw_gemm_plain`` for CPU tensors; it never falls back from one to the
 other.
@@ -16,9 +20,16 @@ import torch
 import torch.nn.functional as F
 
 from qasr_tpu_torch.kernels import _build
-from qasr_tpu_torch.kernels.checks import act_dtype, check_vec, epilogue_bounds
+from qasr_tpu_torch.kernels.checks import (
+    act_dtype,
+    cap_operand,
+    check_vec,
+    epilogue_bounds,
+    group_width,
+)
 from qasr_tpu_torch.kernels.dw_conv import check_prologue, prologue_args, prologue_plain
 from qasr_tpu_torch.ops.quant_prims import (
+    clip_ceiling,
     dyadic_requant_static,
     requant_clamp,
     requant_epilogue,
@@ -32,35 +43,41 @@ STAGES = 2           # the weight ring's stages
 ALIGN = 1024         # slack to align the shared-memory base to the swizzle's repeat
 
 
-def plan(cin: int, cout: int) -> dict:
+def plan(cin: int, cout: int, groups: int = 1) -> dict:
     """Kernel 2's tiles for one launch, as csrc/pw_gemm.cu computes them.
 
     A block (one consumer warpgroup and a producer warp) keeps its ``bm`` =
-    64 rows of A (``nk`` chunks of 128 bytes of K) resident and walks every
-    ``bn``-column tile of Cout, the weights streaming through a ring of
-    ``stages``.  ``smem`` is its dynamic shared memory: the A tile, the
-    ring, the int32 staging tile (rows of 4 * bn + 32 bytes), the
+    64 rows of A (``nk`` chunks of 128 bytes of its group's Cin / groups)
+    resident and walks every ``bn``-column tile of its group's Cout /
+    groups, the weights streaming through a ring of ``stages``; the grid is
+    (row tiles, ``groups``).  ``smem`` is its dynamic shared memory: the A
+    tile, the ring, the int32 staging tile (rows of 4 * bn + 32 bytes), the
     mbarriers, the two row masks and the alignment slack."""
-    bm, bn, nk = 64, (32 if cout <= 32 else 64), -(-cin // CHUNK)
+    cg, cog = cin // groups, cout // groups
+    bm, bn, nk = 64, (32 if cog <= 32 else 64), -(-cg // CHUNK)
     smem = (bm * CHUNK * nk + STAGES * bn * CHUNK + bm * (4 * bn + 32)
             + 8 * (2 * STAGES + 1) + 2 * bm + ALIGN)
-    return {"bm": bm, "bn": bn, "stages": STAGES, "nk": nk, "smem": smem}
+    return {"bm": bm, "bn": bn, "stages": STAGES, "nk": nk, "smem": smem, "groups": groups}
 
 
-def check_launch(n_rows: int, cin: int, cout: int, pro: bool, x_dtype: torch.dtype) -> dict:
+def check_launch(n_rows: int, cin: int, cout: int, pro: bool, x_dtype: torch.dtype,
+                 groups: int = 1) -> dict:
     """The launch's plan, or ValueError for a shape the kernel does not take:
     TMA needs a row pitch of Cin bytes that is a multiple of 16 (x int8 or
     uint8 without the prologue, wt always), and the plan's shared memory
-    must fit a block."""
+    must fit a block.  A grouped launch needs Cin / groups a multiple of 16
+    (the weights' pitch, the offset of a group's A box), else
+    NotImplementedError (``checks.group_width``)."""
     if n_rows < 1 or cout < 1:
         raise ValueError(f"pw_gemm: empty input or output (N={n_rows}, Cout={cout})")
-    if cin < 16 or cin % 16:
+    cg = group_width("pw_gemm", cin, cout, groups)
+    if cin < 16 or cin % 16 or cg < 16:
         raise ValueError(f"pw_gemm: Cin must be a positive multiple of 16 (TMA row pitch), "
                          f"got {cin}")
     if not pro and x_dtype not in (torch.int8, torch.uint8):
         raise ValueError(f"pw_gemm: without the prologue x must be int8 or uint8, "
                          f"got {x_dtype}")
-    p = plan(cin, cout)
+    p = plan(cin, cout, groups)
     if p["smem"] > SMEM_LIMIT:
         raise ValueError(f"pw_gemm: Cin={cin} Cout={cout} needs {p['smem']} bytes of shared "
                          f"memory, above {SMEM_LIMIT}")
@@ -112,6 +129,23 @@ def pad_k(x: torch.Tensor, wt: torch.Tensor, in_bias, m1):
     return F.pad(x, (0, pad)), F.pad(wt, (0, pad)), in_bias, m1
 
 
+def grouped_matmul(x2: torch.Tensor, wt: torch.Tensor, groups: int) -> torch.Tensor:
+    """Exact grouped x2 (N, Cin) @ wt (Cout, Cin/groups)^T -> int32: group
+    g's Cout/g outputs read its Cin/g input columns (``int_matmul`` each)."""
+    if groups == 1:
+        return int_matmul(x2, wt)
+    cg, cog = x2.shape[1] // groups, wt.shape[0] // groups
+    return torch.cat([int_matmul(x2[:, g * cg:(g + 1) * cg].contiguous(),
+                                 wt[g * cog:(g + 1) * cog]) for g in range(groups)], dim=1)
+
+
+def shuffle_channels(x: torch.Tensor, groups: int) -> torch.Tensor:
+    """GroupShuffle over the last axis: channel o of group o // (C/g) moves
+    to (o % (C/g)) * g + o // (C/g)."""
+    *lead, c = x.shape
+    return x.reshape(*lead, groups, c // groups).transpose(-1, -2).reshape(*lead, c)
+
+
 def _mode(m, res) -> int:
     if res is not None:
         return MODE_JOIN
@@ -126,30 +160,42 @@ def pw_gemm_plain(x: torch.Tensor, wt: torch.Tensor, *,
                   e_r: Optional[int] = None, in_bias: Optional[torch.Tensor] = None,
                   in_relu: bool = False, in_len: Optional[torch.Tensor] = None,
                   m1=None, e1: Optional[int] = None,
-                  bits1: Optional[int] = None) -> torch.Tensor:
+                  bits1: Optional[int] = None, groups: int = 1, shuffle: bool = False,
+                  hcap=None, in_hcap=None) -> torch.Tensor:
     """Plain torch version: the prologue on the whole input, integer
     matmul, then the epilogue.  Same arguments and result as ``pw_gemm``."""
     if m1 is not None:
         x = prologue_plain(x, in_bias=in_bias, in_relu=in_relu, in_len=in_len, m1=m1,
-                           e1=e1, bits1=bits1)
+                           e1=e1, bits1=bits1, in_hcap=in_hcap)
     b, t, cin = x.shape
-    acc = int_matmul(x.reshape(b * t, cin), wt).reshape(b, t, wt.shape[0])
+    acc = grouped_matmul(x.reshape(b * t, cin), wt, groups).reshape(b, t, wt.shape[0])
     return epilogue_plain(acc, bias=bias, relu=relu, lens=lens, m=m, e=e, bits=bits,
-                          res=res, m_r=m_r, e_r=e_r)
+                          res=res, m_r=m_r, e_r=e_r, hcap=hcap,
+                          shuffle=groups if shuffle else 1)
 
 
 def epilogue_plain(acc: torch.Tensor, *, bias=None, relu: bool = False, lens=None, m=None,
-                   e=None, bits=None, res=None, m_r=None, e_r=None) -> torch.Tensor:
+                   e=None, bits=None, res=None, m_r=None, e_r=None, hcap=None,
+                   shuffle: int = 1) -> torch.Tensor:
     """The epilogue of Kernels 2 and 8 on an int32 (B, T, Cout)
-    accumulator, in its mode: none, requant or join (``pw_gemm``)."""
+    accumulator, in its mode: none, requant or join (``pw_gemm``).  With
+    ``shuffle`` groups (> 1) the bias, ReLU and ceiling act in the conv's
+    channel order, then GroupShuffle permutes the channels, and the mask,
+    requant and join follow in the shuffled order."""
     mode = _mode(m, res)
+    if shuffle > 1:
+        if bias is not None:
+            acc = acc + bias
+        if relu:
+            acc = clip_ceiling(acc.clamp_min(0), hcap)
+        acc, bias, hcap = shuffle_channels(acc, shuffle), None, None
     if mode == MODE_NONE:
         if bias is not None:
             acc = acc + bias
-        return acc.clamp_min(0) if relu else acc
+        return clip_ceiling(acc.clamp_min(0), hcap) if relu else acc
     if mode == MODE_REQUANT:
         return requant_epilogue(acc, bias=bias, relu=relu, lens=lens, m=m,
-                                e=e, bits=bits)
+                                e=e, bits=bits, hcap=hcap)
     if bias is not None:
         acc = acc + bias
     q = dyadic_requant_static(acc, m, e) + dyadic_requant_static(res, m_r, e_r)
@@ -166,7 +212,7 @@ def check_epilogue(name: str, mode: int, shape, dev, bias, relu, lens, m, e, bit
     b, t, cout = shape
     check_vec(name, "bias", bias, torch.int32, (cout,), dev)
     lo = hi = ee = ee_r = 0
-    nonneg = mode == MODE_REQUANT and relu
+    nonneg = mode == MODE_REQUANT and bool(relu)
     if mode != MODE_NONE:
         check_vec(name, "m", m, torch.int32, (cout,), dev)
         lo, hi, ee = epilogue_bounds(name, e, bits, nonneg)
@@ -191,7 +237,8 @@ def pw_gemm(x: torch.Tensor, wt: torch.Tensor, *,
             e_r: Optional[int] = None, in_bias: Optional[torch.Tensor] = None,
             in_relu: bool = False, in_len: Optional[torch.Tensor] = None,
             m1=None, e1: Optional[int] = None,
-            bits1: Optional[int] = None) -> torch.Tensor:
+            bits1: Optional[int] = None, groups: int = 1, shuffle: bool = False,
+            hcap=None, in_hcap=None) -> torch.Tensor:
     """Pointwise conv of x (B, T, Cin) with wt (Cout, Cin) int8.
 
     Cin need not be a multiple of 16: the wrapper zero-pads it (``pad_k``);
@@ -212,46 +259,65 @@ def pw_gemm(x: torch.Tensor, wt: torch.Tensor, *,
     join    (res given):        int8 ``clamp(requant(acc + bias, m, e) +
                                 requant(res, m_r, e_r), bits)``, res
                                 (B, T, Cout) int32; no ReLU, no mask.
+
+    ``hcap`` / ``in_hcap``: hardtanh's ceiling after the epilogue's /
+    prologue's ReLU (a clip to [0, H], in the conv's channel order): None,
+    a Python int, or a (Cout,) / (Cin,) int32 tensor; each needs its ReLU
+    flag.  ``groups`` > 1: the grouped conv, wt (Cout, Cin / groups), group
+    g's outputs reading its Cin / groups input channels (on CUDA Cin /
+    groups must be a multiple of 16, else NotImplementedError);
+    ``shuffle``: GroupShuffle over ``groups`` on the output, its m, m_r and
+    res read in the shuffled order.
     """
     mode = _mode(m, res)
     if mode == MODE_JOIN and (relu or m is None):
         raise ValueError("pw_gemm: join takes m and no relu")
-    prologue_args("pw_gemm", in_bias, in_relu, in_len, m1)
+    prologue_args("pw_gemm", in_bias, in_relu, in_len, m1, in_hcap)
+    if hcap is not None and not relu:
+        raise ValueError("pw_gemm: hcap (hardtanh's ceiling) needs relu")
     if x.device.type == "cpu":
         return pw_gemm_plain(x, wt, bias=bias, relu=relu, lens=lens, m=m, e=e,
                              bits=bits, res=res, m_r=m_r, e_r=e_r, in_bias=in_bias,
-                             in_relu=in_relu, in_len=in_len, m1=m1, e1=e1, bits1=bits1)
+                             in_relu=in_relu, in_len=in_len, m1=m1, e1=e1, bits1=bits1,
+                             groups=groups, shuffle=shuffle, hcap=hcap, in_hcap=in_hcap)
     if x.device.type != "cuda":
         raise ValueError(f"pw_gemm: unsupported device {x.device}")
     if x.dim() != 3:
         raise ValueError(f"pw_gemm: x must be (B, T, Cin), got {tuple(x.shape)}")
-    if x.shape[2] % 16:
+    group_width("pw_gemm", x.shape[2], wt.shape[0], groups)
+    if x.shape[2] % 16 and groups == 1:
         x, wt, in_bias, m1 = pad_k(x, wt, in_bias, m1)
+        if isinstance(in_hcap, torch.Tensor):
+            in_hcap = F.pad(in_hcap, (0, (-in_hcap.shape[0]) % 16))
     b, t, cin = x.shape
     pro, m1v, m1s, _, ee1, lo1, hi1, u8 = check_prologue("pw_gemm", x, in_bias, in_len, m1,
                                                          e1, bits1, cin, b, in_relu=in_relu)
     cout = wt.shape[0]
-    pieces = k_pieces(cin, cout) if mode == MODE_NONE and not pro else [(0, cin)]
+    pieces = (k_pieces(cin, cout) if mode == MODE_NONE and not pro and groups == 1
+              else [(0, cin)])
     if len(pieces) > 1:
         acc = sum(pw_gemm(x[..., a:z].contiguous(), wt[:, a:z].contiguous())
                   for a, z in pieces)
         if bias is not None:
             acc = acc + bias
-        return acc.clamp_min(0) if relu else acc
+        return clip_ceiling(acc.clamp_min(0), hcap) if relu else acc
     if x.data_ptr() % 16 or wt.data_ptr() % 16:
         raise ValueError("pw_gemm: x and wt must be 16-byte aligned")
-    check_launch(b * t, cin, cout, bool(pro), x.dtype)
+    check_launch(b * t, cin, cout, bool(pro), x.dtype, groups)
     dev = x.device
-    check_vec("pw_gemm", "wt", wt, torch.int8, (cout, cin), dev)
+    check_vec("pw_gemm", "wt", wt, torch.int8, (cout, cin // groups), dev)
     lo, hi, ee, ee_r, lens, out = check_epilogue("pw_gemm", mode, (b, t, cout), dev, bias,
                                                  relu, lens, m, e, bits, res, m_r, e_r)
+    hv, hs = cap_operand("pw_gemm", "hcap", hcap, cout, dev, relu)
+    ihv, ihs = cap_operand("pw_gemm", "in_hcap", in_hcap, cin, dev, in_relu)
     lib = _build.library()
     rc = lib.qasr_pw_gemm(
         _build.ptr(x), _build.ptr(wt), _build.ptr(bias), _build.ptr(m),
         _build.ptr(lens), _build.ptr(res), _build.ptr(m_r), _build.ptr(out),
         b * t, cin, cout, t, mode, int(relu), ee, ee_r, lo, hi, pro,
         int(x.dtype == torch.int32), _build.ptr(in_bias), int(in_relu), _build.ptr(in_len),
-        _build.ptr(m1v), m1s, ee1, lo1, hi1, int(u8), _build.stream_of(x))
+        _build.ptr(m1v), m1s, ee1, lo1, hi1, int(u8), groups, int(bool(shuffle) and groups > 1),
+        _build.ptr(hv), hs, _build.ptr(ihv), ihs, _build.stream_of(x))
     _build.check(rc, "pw_gemm")
     pw_gemm.launches += 1
     return out

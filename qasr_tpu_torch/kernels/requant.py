@@ -14,9 +14,14 @@ from typing import Optional
 import torch
 
 from qasr_tpu_torch.kernels import _build
-from qasr_tpu_torch.kernels.checks import check_act, check_vec, requant_operand
+from qasr_tpu_torch.kernels.checks import cap_operand, check_act, check_vec, requant_operand
 from qasr_tpu_torch.models.jasper import mask_values
-from qasr_tpu_torch.ops.quant_prims import code_dtype, dyadic_requant_any, requant_clamp
+from qasr_tpu_torch.ops.quant_prims import (
+    clip_ceiling,
+    code_dtype,
+    dyadic_requant_any,
+    requant_clamp,
+)
 
 INT_FNS = {"i_exp": 0, "i_sigmoid_grid": 1, "isqrt": 2, "floor_div": 3, "i_sigmoid_tab": 4,
            "div": 5, "isqrt_f": 6, "i_exp_tab": 7}
@@ -95,11 +100,11 @@ def ln_core_device(x: torch.Tensor, div: bool = False) -> torch.Tensor:
 def requant_plain(z: torch.Tensor, m, e, bits: int, *, relu: bool = False,
                   lens: Optional[torch.Tensor] = None,
                   identity: Optional[torch.Tensor] = None, m_r=None,
-                  e_r=None) -> torch.Tensor:
+                  e_r=None, hcap=None) -> torch.Tensor:
     """Plain torch version: the JAX FrozenExec's input requant (mask, then
     requant + clamp) and residual join.  Same arguments and result as
     ``requant``."""
-    v = z.clamp_min(0) if relu else z
+    v = clip_ceiling(z.clamp_min(0), hcap) if relu else z
     if lens is not None:
         v = mask_values(v, lens)
     q = dyadic_requant_any(v, m, e)
@@ -154,11 +159,14 @@ def check_launch(b: int, t: int, c: int, bits: int) -> dict:
 def requant(z: torch.Tensor, m, e, bits: int, *, relu: bool = False,
             lens: Optional[torch.Tensor] = None,
             identity: Optional[torch.Tensor] = None, m_r=None,
-            e_r=None) -> torch.Tensor:
+            e_r=None, hcap=None) -> torch.Tensor:
     """Dyadic requant of z (B, T, C) int8/int32 onto ``bits`` bits:
 
         clamp(requant(mask(relu?(z)), m, e) [+ requant(mask(identity), m_r, e_r)],
               -2^(bits-1), 2^(bits-1)-1)
+
+    ``hcap``: hardtanh's ceiling after the ReLU (relu?(z) reads min(max(z,
+    0), hcap)): None, a Python int or a (C,) int32 tensor; needs ``relu``.
 
     m, e, m_r, e_r are (C,) int32 tensors (per-channel mantissas and
     exponents) or scalars (a Python int or a 0-d array, taken by value);
@@ -169,9 +177,11 @@ def requant(z: torch.Tensor, m, e, bits: int, *, relu: bool = False,
     (``out_dtype``).  Replaces qasr_tpu/kernels/requant.py::requant_pallas."""
     if identity is not None and (m_r is None or e_r is None):
         raise ValueError("requant: identity needs m_r and e_r")
+    if hcap is not None and not relu:
+        raise ValueError("requant: hcap (hardtanh's ceiling) needs relu")
     if z.device.type == "cpu":
         return requant_plain(z, m, e, bits, relu=relu, lens=lens, identity=identity,
-                             m_r=m_r, e_r=e_r)
+                             m_r=m_r, e_r=e_r, hcap=hcap)
     if z.device.type != "cuda":
         raise ValueError(f"requant: unsupported device {z.device}")
     check_act("requant", z, 3, u8=True)
@@ -192,13 +202,15 @@ def requant(z: torch.Tensor, m, e, bits: int, *, relu: bool = False,
         mrv, ms_r = requant_operand("requant", "m_r", m_r, c, dev, exponent=False)
         erv, es_r = requant_operand("requant", "e_r", e_r, c, dev, exponent=True)
     check_vec("requant", "lens", lens, torch.int32, (b,), dev)
+    hv, hs = cap_operand("requant", "hcap", hcap, c, dev, relu)
     out = torch.empty((b, t, c), dtype=dtype, device=dev)
     rc = _build.library().qasr_requant_rows(
         _build.ptr(z), XTYPE[z.dtype], _build.ptr(mv), _build.ptr(ev), ms, es,
         _build.ptr(identity),
         int(identity is not None and identity.dtype == torch.int32),
         _build.ptr(mrv), _build.ptr(erv), ms_r, es_r, _build.ptr(lens), _build.ptr(out),
-        int(dtype == torch.int32), b * t, c, t, int(relu), lo, hi, _build.stream_of(z))
+        int(dtype == torch.int32), b * t, c, t, int(relu), _build.ptr(hv), hs, lo, hi,
+        _build.stream_of(z))
     _build.check(rc, "requant")
     requant.launches += 1
     return out

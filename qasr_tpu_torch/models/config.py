@@ -96,6 +96,18 @@ class DecoderConfig:
         return cls(**_known(cls, d))
 
 
+def preprocessor_config_from_dict(d: dict):
+    """NeMo preprocessor YAML keys -> the port's FeatureConfig
+    (ops/features.py): every key the JAX package's mapper takes (features,
+    sample_rate, window_size / stride, window, normalize, n_fft, preemph,
+    dither, pad_to, pad_value, mag_power, lowfreq / highfreq, log,
+    frame_splicing, max_duration and the log guard's type and value);
+    ``_target_`` and other keys are ignored."""
+    from qasr_tpu_torch.ops.features import preprocessor_config_from_dict as from_dict
+
+    return from_dict(d)
+
+
 def _known(cls, d: dict) -> dict:
     """The entries of ``d`` that name fields of ``cls``."""
     names = {f.name for f in dataclasses.fields(cls)}
@@ -232,6 +244,35 @@ def quartznet15x5() -> ModelConfig:
     blocks += [_qn_block(512, k, 5, True) for k in ks[7:]]
     blocks.append(_qn_block(512, 87, 1, False, dilation=(2,)))
     blocks.append(_qn_block(1024, 1, 1, False, separable=False))
+    return _ctc_config(blocks)
+
+
+def quartznet15x5_g4() -> ModelConfig:
+    """QuartzNet15x5 with ``groups: 4`` on its 15 repeated blocks B1-B15:
+    their pointwise convs grouped, each followed by GroupShuffle; C1, C2
+    and C3 stay ungrouped."""
+    cfg = quartznet15x5()
+    blocks = tuple(dataclasses.replace(b, groups=4) if 1 <= i <= 15 else b
+                   for i, b in enumerate(cfg.encoder.blocks))
+    return dataclasses.replace(cfg, encoder=dataclasses.replace(cfg.encoder, blocks=blocks))
+
+
+def quartznet15x5_hardtanh() -> ModelConfig:
+    """QuartzNet15x5 with NeMo's clipped ReLU (``activation: hardtanh``,
+    a clip to [0, 20])."""
+    cfg = quartznet15x5()
+    return dataclasses.replace(cfg, encoder=dataclasses.replace(cfg.encoder,
+                                                                activation="hardtanh"))
+
+
+def jasper_grouped_block() -> ModelConfig:
+    """A grouped non-separable residual block at Jasper10x5Dr's widths (C
+    768, K 25, 4 groups, 5 repeats) behind an ungrouped K 11 stride-2
+    first conv, and a 1x1 block to 1024: the grouped form of Kernel 8 at
+    the widths Jasper's dense blocks run (no NeMo card has this block)."""
+    blocks = (BlockConfig(filters=768, kernel=(11,), stride=(2,), repeat=1, residual=False),
+              BlockConfig(filters=768, kernel=(25,), repeat=5, residual=True, groups=4),
+              BlockConfig(filters=1024, kernel=(1,), repeat=1, residual=False))
     return _ctc_config(blocks)
 
 

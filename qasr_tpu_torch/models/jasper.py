@@ -11,11 +11,17 @@ Executors of the walk besides the frozen ones (quantize/freeze.py):
                    pre-BN (mean, var) per BN site for data-free synthesis.
   * ``QuantExec``  integer convs with in-graph scales: calibration (the
                    running ranges of every activation site) and dynamic
-                   quantization (per-batch ranges).  Depthwise convs run in
-                   Kernel 1, pointwise convs in Kernel 2 and dense convs
-                   (Jasper's) in Kernel 8, all without their requant
+                   quantization (per-batch ranges).  Depthwise convs (and
+                   ``heads`` convs, their taps tiled over the channels) run
+                   in Kernel 1, pointwise convs in Kernel 2 and dense convs
+                   (Jasper's) in Kernel 8, grouped ones in the grouped
+                   forms of Kernels 2 and 8, all without their requant
                    epilogue; on CPU tensors the wrappers run their plain
                    versions.
+
+Both take grouped convs with GroupShuffle and the non-ReLU activations
+(hardtanh, selu, swish); SqueezeExcite is float-only, as in the JAX package
+and the reference.
 """
 from __future__ import annotations
 
@@ -158,19 +164,33 @@ def build_encoder_plan(cfg: EncoderConfig) -> EncoderPlan:
 
 
 def is_depthwise(spec: ConvSpec) -> bool:
-    return (spec.groups == spec.in_ch and spec.groups > 1 and spec.kernel > 1
-            and spec.heads == -1)
+    """A depthwise conv (one input channel a group, K 1 too, as the JAX
+    package's conv_nwc takes it) or a ``heads`` conv: the same weights on
+    every ``heads``-th channel, a depthwise conv over C whose taps tile
+    (``heads_taps``).  Kernel 1."""
+    return spec.heads != -1 or (spec.groups == spec.in_ch and spec.groups > 1)
 
 
 def is_pointwise(spec: ConvSpec) -> bool:
-    return (spec.kernel == 1 and spec.groups == 1 and spec.stride == 1
-            and spec.dilation == 1 and spec.padding == 0 and spec.heads == -1)
+    """A 1x1 conv, grouped or not (Kernel 2)."""
+    return (spec.kernel == 1 and spec.stride == 1 and spec.dilation == 1
+            and spec.padding == 0 and not is_depthwise(spec))
 
 
 def is_dense(spec: ConvSpec) -> bool:
-    """A dense (ungrouped) conv that is not pointwise: Jasper's K 11-29,
-    stride 2 or dilation 2 convs (Kernel 8)."""
-    return spec.groups == 1 and spec.heads == -1 and not is_pointwise(spec)
+    """A conv with K > 1 (or a stride, dilation or padding) that is not
+    depthwise, grouped or not: Jasper's K 11-29, stride 2 or dilation 2
+    convs (Kernel 8)."""
+    return not (is_depthwise(spec) or is_pointwise(spec))
+
+
+def heads_taps(wk: torch.Tensor, spec: ConvSpec) -> torch.Tensor:
+    """A depthwise conv's (K, C) taps: a ``heads`` conv's (K, heads) taps
+    tiled over the C = in_ch channels (channel c takes head c % heads, the
+    JAX package's fold of channels into the batch); others unchanged."""
+    if spec.heads == -1:
+        return wk
+    return wk.repeat(1, spec.in_ch // spec.heads).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -388,13 +408,21 @@ def group_shuffle(x: torch.Tensor, groups: int) -> torch.Tensor:
     return x.reshape(b, t, groups, c // groups).transpose(2, 3).reshape(b, t, c)
 
 
+SELU_ALPHA = 1.6732632423543772848170429916717
+SELU_SCALE = 1.0507009873554804934193349852946
+
+
 def _apply_activation(x: torch.Tensor, kind: str) -> torch.Tensor:
+    """The encoder's activation in float32; selu as the JAX package writes
+    it (scale * where(x > 0, x, alpha * expm1(x)), the constants rounded to
+    float32 once each), swish x * sigmoid(x)."""
     if kind == "relu":
         return torch.relu(x)
     if kind == "hardtanh":
         return x.clamp(0.0, 20.0)
     if kind == "selu":
-        return F.selu(x)
+        neg = SELU_ALPHA * torch.expm1(torch.where(x > 0, torch.zeros_like(x), x))
+        return SELU_SCALE * torch.where(x > 0, x, neg)
     if kind == "swish":
         return x * torch.sigmoid(x)
     raise ValueError(f"unknown activation {kind}")
@@ -436,8 +464,23 @@ class FloatExec:
     def group_shuffle(self, x, groups):
         return group_shuffle(x, groups)
 
-    def squeeze_excite(self, block_idx, x, bp):
-        raise NotImplementedError("SqueezeExcite is not ported")
+    def squeeze_excite(self, block_idx: int, x: torch.Tensor, bp: BlockPlan) -> torch.Tensor:
+        """SqueezeExcite: the global (or windowed) time average -> fc1 ->
+        ReLU -> fc2 -> sigmoid gate, float32 with TF32 off.  The windowed
+        context is AvgPool1d(window, stride 1) upsampled back to T by
+        repeating each value (nearest), as the JAX package computes it."""
+        p = self.params["blocks"][block_idx]["se"]
+        if bp.se_context_window <= 0:
+            y = x.mean(dim=1, keepdim=True)
+        else:
+            w = bp.se_context_window
+            c = torch.cumsum(F.pad(x, (0, 0, 1, 0)), dim=1)
+            y = (c[:, w:] - c[:, :-w]) / w
+            reps = -(-x.shape[1] // y.shape[1])
+            y = torch.repeat_interleave(y, reps, dim=1)[:, :x.shape[1]]
+        with no_tf32():
+            y = torch.matmul(torch.relu(torch.matmul(y, p["fc1"])), p["fc2"])
+        return x * torch.sigmoid(y)
 
 
 # ---------------------------------------------------------------------------
@@ -456,27 +499,34 @@ def operand_dtype(device, act_bits: int, weight_bit: int, nonneg: bool) -> torch
     return act_dtype("conv operand", act_bits, nonneg, device)
 
 
-def kernel_weight(w):
+def kernel_weight(w, depthwise: Optional[bool] = None):
     """A conv's weights (K, Cin/groups, Cout) in its kernel's layout:
-    depthwise (K, C), pointwise (Cout, Cin), dense (Cout, K, Cin).  None
-    for other convs (grouped)."""
+    depthwise (K, C) (``heads``: (K, heads)), pointwise (Cout, Cin/groups),
+    dense (Cout, K, Cin/groups).  ``depthwise`` None takes a conv with one
+    input channel a group and K > 1 as depthwise (the tables carry no
+    spec); a K = 1 depthwise conv needs it said."""
     k, cin_g, cout = w.shape
-    if k > 1 and cin_g == 1:
+    if depthwise is None:
+        depthwise = k > 1 and cin_g == 1
+    if depthwise:
         return w[:, 0, :].contiguous()
     if k == 1:
         return w[0].t().contiguous()
     return w.permute(2, 0, 1).contiguous()
 
 
-def quantize_weights(p, weight_bit: int) -> Dict[str, Any]:
+def quantize_weights(p, weight_bit: int, spec: ConvSpec) -> Dict[str, Any]:
     """A conv's per-output-channel symmetric weights: ``scale`` (Cout,) and
-    ``wk`` the integers in the kernels' layout (``kernel_weight``), int8
-    where they fit."""
+    ``wk`` the integers in the kernels' layout (``kernel_weight``; a
+    ``heads`` conv's taps tiled over C, ``heads_taps``), int8 where they
+    fit."""
     w = p["w"]
     scale = symmetric_scale(w.amin(dim=(0, 1)), w.amax(dim=(0, 1)), weight_bit)
     w_int = quantize(w, scale, weight_bit)
     narrow = w_int.to(torch.int8) if weight_bit <= 8 else w_int
-    return {"scale": scale, "wk": kernel_weight(narrow), "b": p.get("b")}
+    dw = is_depthwise(spec)
+    wk = kernel_weight(narrow, dw)
+    return {"scale": scale, "wk": heads_taps(wk, spec) if dw else wk, "b": p.get("b")}
 
 
 class QuantExec:
@@ -490,9 +540,13 @@ class QuantExec:
     of ``qstate``.  Params must be BN-folded torch tensors; ``qstate`` holds
     0-d tensors on their device (``qstate_to_device``).
 
-    Convs: depthwise in Kernel 1 (``dw_conv``, epilogue off), pointwise
-    (the decoder's too) in Kernel 2 (``pw_gemm``, no epilogue), dense in
-    Kernel 8 (``dense_conv``, no epilogue), int32 out; ``kernels=False``
+    Convs: depthwise (and ``heads``) in Kernel 1 (``dw_conv``, epilogue
+    off), pointwise (the decoder's too) in Kernel 2 (``pw_gemm``, no
+    epilogue), dense in Kernel 8 (``dense_conv``, no epilogue), grouped
+    ones in the grouped forms of Kernels 2 and 8, int32 out; GroupShuffle
+    permutes the values and a per-channel scale (``group_shuffle_q``);
+    activations other than ReLU run in float on the dequantized values and
+    round back onto the same grid, as the JAX package; ``kernels=False``
     runs their plain versions, the oracle.  Activation operands are int8,
     or uint8 for W8A8's 9-bit codes of a post-ReLU value
     (``operand_dtype``); wider ones (a signed 9-bit site, weight_bit > 8)
@@ -554,7 +608,7 @@ class QuantExec:
     def _qconv(self, key, p, spec: ConvSpec, x: QTensor, bits: int,
                nonneg: bool = False) -> QTensor:
         if key not in self.weights:
-            self.weights[key] = quantize_weights(p, self.qcfg.weight_bit)
+            self.weights[key] = quantize_weights(p, self.qcfg.weight_bit, spec)
         wq = self.weights[key]
         out_scale = wq["scale"] * x.scale
         b_int = None
@@ -565,12 +619,10 @@ class QuantExec:
             y = self._dw(xv, wq["wk"], stride=spec.stride, padding=spec.padding,
                          dilation=spec.dilation, bias=b_int)
         elif is_pointwise(spec):
-            y = self._pw(xv, wq["wk"], bias=b_int)
-        elif is_dense(spec):
-            y = self._dense(xv, wq["wk"], stride=spec.stride, padding=spec.padding,
-                            dilation=spec.dilation, bias=b_int)
+            y = self._pw(xv, wq["wk"], bias=b_int, groups=spec.groups)
         else:
-            raise NotImplementedError(f"grouped conv {spec} is not ported")
+            y = self._dense(xv, wq["wk"], stride=spec.stride, padding=spec.padding,
+                            dilation=spec.dilation, bias=b_int, groups=spec.groups)
         return QTensor(y, out_scale)
 
     def _act_storage_bits(self, spec: ConvSpec) -> int:
@@ -604,10 +656,26 @@ class QuantExec:
         return QTensor(torch.round(y / x.scale).to(torch.int32), x.scale)
 
     def group_shuffle(self, x, groups):
-        raise NotImplementedError("grouped convs are not ported")
+        return group_shuffle_q(x, groups)
 
     def squeeze_excite(self, block_idx, x, bp):
         raise NotImplementedError("SqueezeExcite does not support quantization")
+
+
+def shuffle_channel_vector(v, groups: int):
+    """GroupShuffle's permutation of a per-channel vector (a scale, a
+    mantissa): a numpy array or a torch tensor."""
+    c = v.shape[0]
+    return v.reshape(groups, c // groups).swapaxes(0, 1).reshape(c)
+
+
+def group_shuffle_q(x: QTensor, groups: int) -> QTensor:
+    """GroupShuffle on an integer activation: its values and, when it is
+    per channel, its scale."""
+    scale = x.scale
+    if getattr(scale, "ndim", 0) == 1:
+        scale = shuffle_channel_vector(scale, groups)
+    return QTensor(group_shuffle(x.values, groups), scale)
 
 
 def decoder_forward_float(params, x: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,19 @@
-"""Log-mel frontend in torch (port of qasr_tpu/ops/features.py).
+"""Log-mel and MFCC frontends in torch (port of qasr_tpu/ops/features.py).
 
 dither (off at inference) -> preemphasis -> STFT (torch.stft framing:
-reflect padding, periodic=False window zero-padded to n_fft) -> |.|^2 ->
-slaney mel -> log(x + guard) -> per-feature normalization over valid
-frames (Bessel's correction) -> zero the padded tail -> pad T to pad_to.
+reflect padding, periodic=False window zero-padded to n_fft) -> |.|^2
+(|.|^mag_power) -> slaney mel -> log(x + guard) or log(max(x, guard)) (or
+no log) -> normalization over valid frames (per feature or over all
+features, Bessel's correction; fixed mean / std; or none) -> zero the
+padded tail -> pad T to pad_to, or to max_duration's frame count
+(pad_to="max", truncating longer input).  ``MFCCFrontend`` projects the
+log-mel onto an orthonormal DCT-II; ``crop_or_pad_spectrogram`` centers a
+spectrogram on a fixed frame count.
+
+``stft_matmul`` (the JAX package's DFT-on-the-MXU lowering for the TPU) is
+accepted and computes the same STFT here; ``frame_splicing`` is taken and
+not applied, as in the JAX frontend (only the encoder's feat_in multiplies
+by it).
 
 This is the float region in front of the integer network.  TF32 is pinned
 off for it: a lower-precision mel projection flips first-site int8 codes.
@@ -101,8 +111,8 @@ def stft_power(x: torch.Tensor, window: torch.Tensor, n_fft: int, hop: int) -> t
 
 @dataclasses.dataclass(frozen=True)
 class FeatureConfig:
-    """AudioToMelSpectrogramPreprocessor's schema (same fields and defaults
-    as the JAX package's FeatureConfig, minus its TPU-only stft_matmul)."""
+    """AudioToMelSpectrogramPreprocessor's schema (the JAX package's
+    FeatureConfig: same fields and defaults)."""
 
     sample_rate: int = 16000
     window_size: float = 0.02
@@ -123,6 +133,7 @@ class FeatureConfig:
     mag_power: float = 2.0
     frame_splicing: int = 1
     max_duration: float = 16.7
+    stft_matmul: bool = False   # the TPU's DFT lowering: the same STFT here
 
     @property
     def win_length(self) -> int:
@@ -147,24 +158,37 @@ def preprocessor_config_from_dict(d: dict) -> FeatureConfig:
                             if k in d and d[k] is not None})
 
 
+def log_guard_value(v) -> float:
+    """log_zero_guard_value: a number, or "tiny" / "eps" (float32's
+    smallest normal and machine epsilon); any other string raises."""
+    if isinstance(v, str):
+        if v == "tiny":
+            return float(np.finfo(np.float32).tiny)
+        if v == "eps":
+            return float(np.finfo(np.float32).eps)
+        raise ValueError(f"log_zero_guard_value must be a number, 'tiny' or 'eps'; got {v!r}")
+    return float(v)
+
+
 class MelFrontend:
     """Log-mel features; ``__call__(x (B, L) f32, lengths (B,))`` returns
-    ((B, T, n_mels) f32, (B,) int32) with T padded to ``pad_to``."""
+    ((B, T, n_mels) f32, (B,) int32) with T padded to ``pad_to`` (a
+    multiple, or "max": max_duration's frame count)."""
 
     def __init__(self, cfg: FeatureConfig):
         self.cfg = cfg
-        if cfg.normalize != "per_feature":
-            raise NotImplementedError(f"normalize={cfg.normalize!r} is not ported")
-        if cfg.pad_to == "max" or cfg.frame_splicing != 1 or cfg.mag_power != 2.0 \
-                or not cfg.log or cfg.log_zero_guard_type != "add":
-            raise NotImplementedError("only the QuartzNet frontend options are ported "
-                                      "(numeric pad_to, mag_power 2, log add-guard)")
-        if isinstance(cfg.log_zero_guard_value, str):
-            raise NotImplementedError("string log_zero_guard_value is not ported")
-        self.log_guard = float(cfg.log_zero_guard_value)
+        normalize_mode(cfg.normalize)
+        if cfg.log_zero_guard_type not in ("add", "clamp"):
+            raise ValueError(f"log_zero_guard_type must be 'add' or 'clamp', got "
+                             f"{cfg.log_zero_guard_type!r}")
+        self.log_guard = log_guard_value(cfg.log_zero_guard_value)
         self.window = torch.from_numpy(make_window(cfg.window, cfg.win_length, cfg.n_fft))
         self.fb = torch.from_numpy(mel_filterbank(
             cfg.sample_rate, cfg.n_fft, cfg.features, cfg.lowfreq, cfg.highfreq))
+        if cfg.pad_to == "max":
+            # ceil(max_duration * sr / hop) frames, not rounded to a multiple
+            self.max_length = int(math.ceil(cfg.max_duration * cfg.sample_rate
+                                            / cfg.hop_length))
 
     def out_length(self, lengths: torch.Tensor) -> torch.Tensor:
         return torch.ceil(lengths.to(torch.float32) / self.cfg.hop_length).to(torch.int32)
@@ -181,15 +205,125 @@ class MelFrontend:
             x = torch.cat([x[:, :1], x[:, 1:] - cfg.preemph * x[:, :-1]], dim=1)
         with no_tf32():
             p = stft_power(x, self.window.to(x.device), cfg.n_fft, cfg.hop_length)
+            if cfg.mag_power != 2.0:
+                p = torch.pow(torch.sqrt(p), cfg.mag_power)
             mel = torch.matmul(p, self.fb.to(x.device))
-        mel = torch.log(mel + self.log_guard)
+        if cfg.log:
+            if cfg.log_zero_guard_type == "add":
+                mel = torch.log(mel + self.log_guard)
+            else:
+                mel = torch.log(torch.clamp(mel, min=self.log_guard))
         t = mel.shape[1]
         mask = torch.arange(t, device=x.device)[None, :] < seq_len[:, None]
-        mel = _normalize_per_feature(mel, mask, seq_len)
+        mode = normalize_mode(cfg.normalize)
+        if mode == "per_feature":
+            mel = _normalize_per_feature(mel, mask, seq_len)
+        elif mode == "all_features":
+            mel = _normalize_all_features(mel, mask, seq_len)
+        elif mode == "fixed":
+            mel = _normalize_fixed(mel, cfg.normalize)
         mel = torch.where(mask[:, :, None], mel, torch.full((), cfg.pad_value, device=x.device))
-        if cfg.pad_to and t % cfg.pad_to:
+        if cfg.pad_to == "max":
+            if t < self.max_length:
+                mel = F.pad(mel, (0, 0, 0, self.max_length - t), value=cfg.pad_value)
+            elif t > self.max_length:
+                mel = mel[:, :self.max_length]
+        elif cfg.pad_to and t % cfg.pad_to:
             mel = F.pad(mel, (0, 0, 0, cfg.pad_to - t % cfg.pad_to), value=cfg.pad_value)
         return mel, seq_len
+
+
+def dct_matrix(n_mfcc: int, n_mels: int) -> np.ndarray:
+    """Orthonormal DCT-II basis (n_mels, n_mfcc), torchaudio's MFCC
+    semantics."""
+    n = np.arange(n_mels)[:, None]
+    k = np.arange(n_mfcc)[None, :]
+    basis = np.cos(np.pi / n_mels * (n + 0.5) * k)
+    basis *= np.sqrt(2.0 / n_mels)
+    basis[:, 0] *= 1.0 / np.sqrt(2.0)
+    return basis.astype(np.float32)
+
+
+class MFCCFrontend(MelFrontend):
+    """AudioToMFCCPreprocessor: log-mel -> DCT-II -> ``n_mfcc`` coefficients
+    (float32, TF32 off)."""
+
+    def __init__(self, cfg: FeatureConfig, n_mfcc: int = 64):
+        super().__init__(cfg)
+        self.n_mfcc = n_mfcc
+        self.dct = torch.from_numpy(dct_matrix(n_mfcc, cfg.features))
+
+    def __call__(self, x, lengths, generator=None, dither=None):
+        mel, seq_len = super().__call__(x, lengths, generator=generator, dither=dither)
+        with no_tf32():
+            return torch.matmul(mel, self.dct.to(mel.device)), seq_len
+
+
+def crop_or_pad_spectrogram(x: torch.Tensor, lengths: torch.Tensor, audio_length: int,
+                            pad_value: float = 0.0):
+    """CropOrPadSpectrogramAugmentation: center-crop or symmetric-pad the
+    time axis of (B, T, C) to ``audio_length`` frames; every length
+    becomes ``audio_length``."""
+    t = x.shape[1]
+    if t > audio_length:
+        start = (t - audio_length) // 2
+        x = x[:, start:start + audio_length, :]
+    elif t < audio_length:
+        total = audio_length - t
+        left = total // 2
+        x = F.pad(x, (0, 0, left, total - left), value=pad_value)
+    return x, torch.full_like(lengths, audio_length)
+
+
+def normalize_mode(normalize) -> Optional[str]:
+    """"per_feature", "all_features", "fixed" (a mapping holding both
+    'fixed_mean' and 'fixed_std'), or None (none / empty: no
+    normalization); anything else raises, as the JAX frontend does."""
+    if isinstance(normalize, str):
+        if normalize in ("per_feature", "all_features"):
+            return normalize
+        if normalize:
+            raise NotImplementedError(normalize)
+        return None
+    if not normalize:
+        return None
+    try:
+        if "fixed_mean" in normalize and "fixed_std" in normalize:
+            return "fixed"
+    except TypeError:
+        pass
+    raise NotImplementedError(normalize)
+
+
+def _normalize_fixed(x: torch.Tensor, spec) -> torch.Tensor:
+    """(x - fixed_mean) / fixed_std with the given constants: a (C,) vector
+    over batch and time, a (B, C) table over time, or scalars; no std
+    guard and no masking (the padding is masked right after)."""
+    c = x.shape[2]
+
+    def bc(v):
+        v = torch.as_tensor(np.asarray(v, dtype=np.float32), device=x.device)
+        if v.dim() == 0:
+            return v
+        if v.dim() == 1:
+            if v.shape[0] != c:
+                raise ValueError(f"fixed stats length {v.shape[0]} != features {c}")
+            return v[None, None, :]
+        if v.dim() == 2 and v.shape[1] == c:
+            return v[:, None, :]
+        raise ValueError(f"fixed stats shape {tuple(v.shape)} not (C,) or (B, C)")
+    return (x - bc(spec["fixed_mean"])) / bc(spec["fixed_std"])
+
+
+def _normalize_all_features(x: torch.Tensor, mask: torch.Tensor,
+                            seq_len: torch.Tensor) -> torch.Tensor:
+    """(x - mean)/(std + 1e-5) per sample over its valid frames and every
+    feature, Bessel's correction."""
+    m = mask[:, :, None].to(x.dtype)
+    cnt = (seq_len.to(x.dtype) * x.shape[2])[:, None, None]
+    mean = torch.sum(x * m, dim=(1, 2), keepdim=True) / cnt
+    var = torch.sum(torch.square(x - mean) * m, dim=(1, 2), keepdim=True) / (cnt - 1.0)
+    return (x - mean) / (torch.sqrt(var) + STD_GUARD)
 
 
 def _normalize_per_feature(x: torch.Tensor, mask: torch.Tensor,

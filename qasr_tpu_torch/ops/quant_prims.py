@@ -213,20 +213,46 @@ def dyadic_requant_any(z: torch.Tensor, m, e) -> torch.Tensor:
     return dyadic_requant(z, Dyadic(m, e))
 
 
+def clip_ceiling(v: torch.Tensor, cap) -> torch.Tensor:
+    """min(v, cap) in int32: hardtanh's ceiling after its ReLU, ``cap`` a
+    Python int, a (C,) integer tensor broadcast over the channels, or None
+    (no ceiling)."""
+    if cap is None:
+        return v
+    v = v.to(torch.int32)
+    if isinstance(cap, torch.Tensor):
+        return torch.minimum(v, cap.to(torch.int32))
+    return v.clamp_max(int(cap))
+
+
+def hardtanh_ceiling(scale, narrow: bool = False):
+    """hardtanh's integer ceiling round(20 / scale) on a value of grid
+    ``scale`` (float32, rounding half to even, as the JAX FrozenExec),
+    saturated to int32, and capped at 127 for int8 codes (``narrow``):
+    a numpy int32 vector for a vector scale, else a Python int."""
+    s = np.asarray(scale, np.float32)
+    h = np.round(np.float32(20.0) / s).astype(np.float64).clip(-(2 ** 31), 2 ** 31 - 1)
+    h = h.astype(np.int64)
+    if narrow:
+        h = np.minimum(h, 127)
+    return h.astype(np.int32) if h.ndim else int(h)
+
+
 def requant_epilogue(acc: torch.Tensor, *, bias=None, relu: bool = False,
                      lens: Optional[torch.Tensor] = None, m, e,
-                     bits: int) -> torch.Tensor:
+                     bits: int, hcap=None) -> torch.Tensor:
     """The kernels' consumer epilogue on an int32 (B, T, C) accumulator:
-    bias -> ReLU -> length mask -> dyadic requant (``dyadic_requant_any``:
-    a static or per-channel exponent) -> clamp -> int8, or uint8 for a
-    9-bit code of a ReLU'd value (``code_dtype``).  Same op order as the
-    JAX FrozenExec walk (conv + bias, activation, then the consumer's mask
-    and input requant)."""
+    bias -> ReLU (with ``hcap``: hardtanh's clip to [0, hcap]) -> length
+    mask -> dyadic requant (``dyadic_requant_any``: a static or per-channel
+    exponent) -> clamp -> int8, or uint8 for a 9-bit code of a ReLU'd
+    value (``code_dtype``).  Same op order as the JAX FrozenExec walk
+    (conv + bias, activation, then the consumer's mask and input
+    requant)."""
     dtype = code_dtype(bits, relu)
     if bias is not None:
         acc = acc + bias
     if relu:
-        acc = acc.clamp_min(0)
+        acc = clip_ceiling(acc.clamp_min(0), hcap)
     if lens is not None:
         acc = mask_values(acc, lens)
     return requant_clamp(dyadic_requant_any(acc, m, e), bits).to(dtype)

@@ -37,6 +37,7 @@ from typing import Any, Dict, Optional, Union
 import numpy as np
 import torch
 
+from qasr_tpu_torch.kernels.checks import act_dtype
 from qasr_tpu_torch.kernels.dense_conv import dense_conv, dense_conv_plain
 from qasr_tpu_torch.kernels.dw_conv import dw_conv, dw_conv_plain, prologue_plain
 from qasr_tpu_torch.kernels.pw_gemm import pw_gemm, pw_gemm_plain
@@ -45,22 +46,28 @@ from qasr_tpu_torch.models.config import DecoderConfig, QuantConfig
 from qasr_tpu_torch.models.jasper import (
     ConvSpec,
     EncoderPlan,
+    _apply_activation,
     conv_out_len,
     encoder_forward,
+    group_shuffle_q,
+    heads_taps,
     is_dense,
     is_depthwise,
     is_pointwise,
     kernel_weight,
     mask_values,
+    shuffle_channel_vector,
 )
 from qasr_tpu_torch.ops.quant_prims import (
     Dyadic,
     QTensor,
+    clip_ceiling,
     dyadic_from_scale_host,
     dyadic_from_scale_host_static_e,
     dyadic_requant,
     dyadic_requant_static,
     dyadic_requant_static16,
+    hardtanh_ceiling,
     requant_clamp,
 )
 
@@ -305,12 +312,19 @@ def tables_all_static_e(tables) -> bool:
 def tables_to_device(tables, device) -> Dict[str, Any]:
     """numpy tables -> torch tensors on ``device``; Python ints, bools and
     0-d scale arrays (host constants) stay as they are.  Conv entries gain
-    ``wk``, the kernel weight layout."""
+    ``wk``, the kernel weight layout, and ``hcap``, hardtanh's ceiling on
+    their int32 output (round(20 / out_scale), ``hardtanh_ceiling``, in the
+    conv's channel order); residual-join entries gain ``hcap``, the ceiling
+    on the join's codes as a Python int (before the int8 cap)."""
     def conv(t):
         if isinstance(t, dict):
             out = {k: conv(v) for k, v in t.items()}
             if "w" in out and isinstance(out["w"], torch.Tensor):
                 out["wk"] = kernel_weight(out["w"])
+            if isinstance(t.get("out_scale"), np.ndarray) and t["out_scale"].ndim:
+                out["hcap"] = torch.from_numpy(hardtanh_ceiling(t["out_scale"])).to(device)
+            if "m_r" in t:
+                out["hcap"] = hardtanh_ceiling(t["scale"])
             return out
         if isinstance(t, list):
             return [conv(v) for v in t]
@@ -320,11 +334,17 @@ def tables_to_device(tables, device) -> Dict[str, Any]:
     return conv(tables)
 
 
+def _derived(key: str) -> bool:
+    """Keys tables_to_device and the executors add to an entry."""
+    return key in ("wk", "hcap") or key.startswith("_")
+
+
 def tables_to_numpy(tables) -> Dict[str, Any]:
-    """Inverse of tables_to_device (drops the derived ``wk`` layouts)."""
+    """Inverse of tables_to_device (drops the derived entries: ``wk``,
+    ``hcap`` and the executors' per-channel caches)."""
     def conv(t):
         if isinstance(t, dict):
-            return {k: conv(v) for k, v in t.items() if k != "wk"}
+            return {k: conv(v) for k, v in t.items() if not _derived(k)}
         if isinstance(t, list):
             return [conv(v) for v in t]
         if isinstance(t, torch.Tensor):
@@ -385,17 +405,71 @@ def quantize_input(x: torch.Tensor, act_scale, bits: int) -> torch.Tensor:
     return _narrow(torch.round(x.to(torch.float32) * inv).clamp(-n, n - 1), bits)
 
 
+def _host(scale) -> np.ndarray:
+    """A scale as host float32 numpy (tables keep 0-d scales on the host)."""
+    if isinstance(scale, torch.Tensor):
+        return scale.detach().cpu().numpy().astype(np.float32)
+    return np.asarray(scale, np.float32)
+
+
+def float_activation(values: torch.Tensor, scale, kind: str) -> torch.Tensor:
+    """selu / swish on an integer activation, as the JAX FrozenExec: dequantize
+    (values * scale in float32), the float function, divide by the scale
+    and round half to even -> int32 on the same grid."""
+    s = scale if isinstance(scale, torch.Tensor) else torch.as_tensor(
+        np.asarray(scale, np.float32), device=values.device)
+    y = _apply_activation(values.to(torch.float32) * s, kind) / s
+    return torch.round(y).to(torch.int32)
+
+
+def _per_channel(entry, key: str, c: int):
+    """entry[key] as a kernel takes a per-channel operand: a one-element
+    vector (the single weight scale of a ``heads`` = 1 conv, carried into
+    the next site's mantissas) broadcast to the c channels it meets and
+    cached in the entry ("_" + key); anything else as it is."""
+    v = entry[key]
+    if isinstance(v, torch.Tensor) and v.dim() == 1 and v.shape[0] == 1 and c > 1:
+        k = "_" + key
+        if k not in entry:
+            entry[k] = v.expand(c).contiguous()
+        return entry[k]
+    return v
+
+
+def _dw_taps(entry, spec: ConvSpec) -> torch.Tensor:
+    """A depthwise conv's (K, C) taps: ``wk``, or, for a ``heads`` conv or a
+    K = 1 depthwise conv (whose tables carry no spec), the taps laid out
+    from ``w`` once and cached in the entry."""
+    if spec.heads == -1 and spec.kernel > 1:
+        return entry["wk"]
+    if "_taps" not in entry:
+        entry["_taps"] = heads_taps(kernel_weight(entry["w"], True), spec)
+    return entry["_taps"]
+
+
+def _channels(spec: ConvSpec) -> int:
+    """A conv's output channels (a ``heads`` conv keeps its input's)."""
+    return spec.in_ch if spec.heads != -1 else spec.out_ch
+
+
+ACTIVATIONS = ("relu", "hardtanh", "selu", "swish")
+
+
 class FrozenExec:
     """Plain torch deployment executor: int convs, exact dyadic requants
-    from the frozen tables, no float math until the decoder's log-softmax.
-    Takes tables from ``tables_to_device``."""
+    from the frozen tables, no float math until the decoder's log-softmax
+    (selu and swish excepted: they dequantize, apply the float function and
+    round back, as the JAX FrozenExec does).  Hardtanh is the integer clip
+    [0, round(20 / scale)], capped at 127 on int8 codes.  Takes tables from
+    ``tables_to_device``."""
 
     def __init__(self, tables, qcfg: QuantConfig, *, activation: str):
-        if activation != "relu":
-            raise NotImplementedError(f"frozen activation {activation!r} is not ported")
+        if activation not in ACTIVATIONS:
+            raise ValueError(f"unknown activation {activation!r}")
         self.t = tables
         self.m16 = bool(tables.get("dyadic16", False))
         self.qcfg = qcfg
+        self.activation_kind = activation
 
     def _act_bits(self, spec: ConvSpec) -> int:
         return self.qcfg.act_bit + (1 if spec.asymmetric else 0)
@@ -422,16 +496,13 @@ class FrozenExec:
         xq = self._requant_in(entry, x, lens, self._act_bits(spec))
         b = entry.get("b")
         if is_depthwise(spec):
-            y = dw_conv_plain(xq, entry["wk"], stride=spec.stride,
-                              padding=spec.padding, dilation=spec.dilation,
-                              bias=b)
+            y = dw_conv_plain(xq, _dw_taps(entry, spec), stride=spec.stride,
+                              padding=spec.padding, dilation=spec.dilation, bias=b)
         elif is_pointwise(spec):
-            y = pw_gemm_plain(xq, entry["wk"], bias=b)
-        elif is_dense(spec):
-            y = dense_conv_plain(xq, entry["wk"], stride=spec.stride, padding=spec.padding,
-                                 dilation=spec.dilation, bias=b)
+            y = pw_gemm_plain(xq, entry["wk"], bias=b, groups=spec.groups)
         else:
-            raise NotImplementedError(f"grouped conv {spec} is not ported")
+            y = dense_conv_plain(xq, entry["wk"], stride=spec.stride, padding=spec.padding,
+                                 dilation=spec.dilation, bias=b, groups=spec.groups)
         return QTensor(y, entry["out_scale"]), conv_out_len(lens, spec)
 
     def residual_add(self, block_idx: int, pane: int, out: QTensor,
@@ -445,10 +516,19 @@ class FrozenExec:
         return QTensor(_narrow(requant_clamp(q, bits), bits), e["scale"])
 
     def activation(self, x: QTensor, dropout: float) -> QTensor:
-        return QTensor(x.values.clamp_min(0), x.scale)  # dtype-preserving ReLU
+        kind = self.activation_kind
+        if kind == "relu":
+            return QTensor(x.values.clamp_min(0), x.scale)  # dtype-preserving ReLU
+        if kind == "hardtanh":
+            hi = hardtanh_ceiling(_host(x.scale), narrow=x.values.dtype == torch.int8)
+            if not isinstance(hi, int):
+                hi = torch.from_numpy(hi).to(x.values.device)
+            v = clip_ceiling(x.values.clamp_min(0), hi).to(x.values.dtype)
+            return QTensor(v, x.scale)
+        return QTensor(float_activation(x.values, x.scale, kind), x.scale)
 
-    def group_shuffle(self, x, groups):
-        raise NotImplementedError("grouped convs are not ported")
+    def group_shuffle(self, x: QTensor, groups: int) -> QTensor:
+        return group_shuffle_q(x, groups)
 
     def squeeze_excite(self, block_idx, x, bp):
         raise NotImplementedError("SqueezeExcite does not support quantization")
@@ -477,51 +557,76 @@ class _PendingConv:
     """A conv whose kernel has not run yet: its input (int8 or uint8 and
     already requantized, or a materialized producer output with ``pro``,
     the prologue that requantizes it inside the kernel), its table entry
-    and spec, and a staged ReLU.  The next site flushes it through a kernel
-    whose epilogue applies that site's requant (or with the epilogue off)."""
+    and spec, a staged ReLU (with ``hcap``: hardtanh's per-channel ceiling
+    in the conv's channel order) and ``shuffle``, GroupShuffle's group
+    count for the kernel's store (0: none).  The next site flushes it
+    through a kernel whose epilogue applies that site's requant (or with
+    the epilogue off)."""
 
-    __slots__ = ("xq", "entry", "spec", "relu", "pro")
+    __slots__ = ("xq", "entry", "spec", "relu", "hcap", "shuffle", "pro")
 
     def __init__(self, xq, entry, spec, pro=None):
         self.xq = xq
         self.entry = entry
         self.spec = spec
         self.relu = False
+        self.hcap = None
+        self.shuffle = 0
         self.pro = pro or {}
 
     @property
     def depthwise(self) -> bool:
         return is_depthwise(self.spec)
 
+    @property
+    def channels(self) -> int:
+        return _channels(self.spec)
+
+    def out_scale(self):
+        """The scale of the conv's output as stored (GroupShuffle's order,
+        laid out once and cached in the entry)."""
+        if not self.shuffle:
+            return self.entry["out_scale"]
+        if "_shuffled_scale" not in self.entry:
+            self.entry["_shuffled_scale"] = shuffle_channel_vector(self.entry["out_scale"],
+                                                                   self.shuffle)
+        return self.entry["_shuffled_scale"]
+
     def run(self, **kw) -> torch.Tensor:
-        """The conv in its kernel (Kernel 1, 2 or 8) with its prologue and
-        these epilogue arguments."""
+        """The conv in its kernel (Kernel 1, 2 or 8; grouped, with
+        GroupShuffle in the store) with its prologue and these epilogue
+        arguments."""
         s = self.spec
         if self.depthwise:
-            return dw_conv(self.xq, self.entry["wk"], stride=s.stride, padding=s.padding,
-                           dilation=s.dilation, **self.pro, **kw)
+            return dw_conv(self.xq, _dw_taps(self.entry, s), stride=s.stride,
+                           padding=s.padding, dilation=s.dilation, **self.pro, **kw)
+        g = dict(groups=s.groups, shuffle=bool(self.shuffle))
         if is_pointwise(s):
-            return pw_gemm(self.xq, self.entry["wk"], **self.pro, **kw)
+            return pw_gemm(self.xq, self.entry["wk"], **g, **self.pro, **kw)
         return dense_conv(self.xq, self.entry["wk"], stride=s.stride, padding=s.padding,
-                          dilation=s.dilation, **self.pro, **kw)
+                          dilation=s.dilation, **g, **self.pro, **kw)
 
 
 class _Held:
     """A materialized tensor that more than one consumer reads (a block
     output: the next block and its residual branches, or the decoder): its
-    values (int8 or int32), scale, and the producer's bias and ReLU that
-    each consumer still applies, so its value is relu?(values + bias)."""
+    values (int8 or int32), scale, and the producer's bias, ReLU and
+    hardtanh ceiling (``hcap``) that each consumer still applies, so its
+    value is min(relu?(values + bias), hcap); ``hmax``: the ceiling that
+    a hardtanh on it would take (a join's codes)."""
 
-    __slots__ = ("values", "scale", "bias", "relu")
+    __slots__ = ("values", "scale", "bias", "relu", "hcap", "hmax")
 
-    def __init__(self, values, scale, bias=None, relu=False):
+    def __init__(self, values, scale, bias=None, relu=False, hcap=None, hmax=None):
         self.values = values
         self.scale = scale
         self.bias = bias
         self.relu = relu
+        self.hcap = hcap
+        self.hmax = hmax
 
-    def with_relu(self) -> "_Held":
-        return _Held(self.values, self.scale, self.bias, True)
+    def with_relu(self, hcap=None) -> "_Held":
+        return _Held(self.values, self.scale, self.bias, True, hcap)
 
 
 def _folded_into_dw(specs, ci: int) -> bool:
@@ -551,16 +656,17 @@ def _requant_sites(plan: EncoderPlan, tables) -> int:
 def kernel_launches(plan: EncoderPlan, tables=None) -> Dict[str, int]:
     """Kernel launches of one forward on the kernel path that
     ``make_frozen_fn`` picks for ``tables`` (None: static-exponent tables).
-    Every conv of the walk runs exactly once, depthwise in dw_conv,
-    pointwise (in-block, residual, and the decoder) in pw_gemm, dense
-    (Jasper's) in dense_conv (a key only where the plan has some).  With
-    static exponents (FrozenExecFused) the requants ride in those kernels'
-    prologues and epilogues, except a residual join that no pending
-    pointwise or dense conv can take (a depthwise block tail, a dense
-    block's later panes), which runs in the requant kernel; with vector
-    exponents (FrozenExecKernels) the requants next to a depthwise conv
-    ride in Kernel 1 and the rest run in the requant kernel
-    (``_requant_sites``)."""
+    Every conv of the walk runs exactly once, depthwise (``heads`` too) in
+    dw_conv, pointwise (in-block, grouped or not, residual, and the
+    decoder) in pw_gemm, dense (Jasper's, grouped or not) in dense_conv (a
+    key only where the plan has some); GroupShuffle, hardtanh, selu and
+    swish launch no kernel of their own.  With static exponents
+    (FrozenExecFused) the requants ride in those kernels' prologues and
+    epilogues, except a residual join that no pending pointwise or dense
+    conv can take (a depthwise block tail, a dense block's later panes),
+    which runs in the requant kernel; with vector exponents
+    (FrozenExecKernels) the requants next to a depthwise conv ride in
+    Kernel 1 and the rest run in the requant kernel (``_requant_sites``)."""
     specs = [s for bp in plan.blocks for s in bp.convs + bp.res]
     counts = {"dw_conv": sum(map(is_depthwise, specs)),
               "pw_gemm": sum(map(is_pointwise, specs)) + 1}
@@ -576,32 +682,95 @@ def kernel_launches(plan: EncoderPlan, tables=None) -> Dict[str, int]:
     return counts
 
 
-class FrozenExecFused(FrozenExec):
+class _StagedExec(FrozenExec):
+    """What the two kernel executors share: activations staged on a pending
+    conv (ReLU and hardtanh's ceiling ride in its epilogue, GroupShuffle in
+    its store) or on a materialized tensor (its consumers' prologues or
+    requants apply them), and selu / swish as float glue on the int32
+    accumulator flushed from its kernel (the JAX package runs them in XLA,
+    not in a kernel).  A plan whose codes need a storage no kernel has (the
+    signed 9-bit codes of W8A8's asymmetric sites after selu or swish)
+    raises NotImplementedError on CUDA (``kernels/checks.py::act_dtype``)."""
+
+    def _held_ceiling(self, x: _Held):
+        """hardtanh's ceiling on a join's codes: the join entry's, capped at
+        127 on int8 codes."""
+        return min(x.hmax, 127) if self.qcfg.act_bit <= 8 else x.hmax
+
+    def _join_held(self, q8, e) -> _Held:
+        return _Held(q8, e["scale"], hmax=e["hcap"])
+
+    def _flush_act(self, p: _PendingConv) -> torch.Tensor:
+        """A pending conv through its kernel with its bias and staged
+        activation, epilogue off: int32 in the stored (shuffled) order."""
+        return p.run(bias=p.entry.get("b"), relu=p.relu, hcap=p.hcap)
+
+    def activation(self, x, dropout: float):
+        kind = self.activation_kind
+        if isinstance(x, _PendingConv):
+            if kind in ("relu", "hardtanh"):
+                x.relu = True
+                if kind == "hardtanh":
+                    x.hcap = _per_channel(x.entry, "hcap", x.channels)
+                return x
+            return _Held(float_activation(self._flush_act(x), x.out_scale(), kind),
+                         x.out_scale())
+        if isinstance(x, _Held):
+            if kind == "relu":
+                return x.with_relu()
+            if kind == "hardtanh":
+                return x.with_relu(self._held_ceiling(x))
+            return _Held(float_activation(x.values, x.scale, kind), x.scale)
+        return super().activation(x, dropout)
+
+    def group_shuffle(self, x, groups: int):
+        if isinstance(x, _PendingConv) and not x.depthwise and x.spec.groups == groups:
+            x.shuffle = groups
+            return x
+        raise NotImplementedError("GroupShuffle runs in the store of the grouped pointwise or "
+                                  "dense conv before it; this one follows another conv")
+
+    @staticmethod
+    def _check_codes(bits: int, x) -> None:
+        """A conv input's code storage exists in the kernels (raises
+        NotImplementedError on CUDA where it does not; int8 holds any code
+        of <= 8 bits)."""
+        if bits <= 8:
+            return
+        if isinstance(x, _PendingConv):
+            act_dtype("conv input", bits, x.relu, x.xq.device)
+        elif isinstance(x, _Held):
+            act_dtype("conv input", bits, x.relu, x.values.device)
+
+
+class FrozenExecFused(_StagedExec):
     """Static-exponent tables with every requant inside a kernel (the
     pending-conv design of the JAX FrozenExecCMF, in (B, T, C), with
     pointwise and join fusion always on).  ``masked_conv`` returns a
     _PendingConv; the next site flushes it:
 
-      * into a conv site: Kernel 1/2/8 with the epilogue bias -> ReLU ->
-        mask -> the consumer's requant -> clamp -> int8 (uint8 for W8A8's
-        9-bit codes of a ReLU'd value);
+      * into a conv site: Kernel 1/2/8 with the epilogue bias -> ReLU (or
+        hardtanh's clip) -> mask -> the consumer's requant -> clamp -> int8
+        (uint8 for W8A8's 9-bit codes of a ReLU'd value), GroupShuffle in
+        the store where the conv is grouped;
       * into a residual join: a pending block-tail pointwise or dense conv
         goes through Kernel 2's or 8's join epilogue, the residual branch's
         conv is flushed to int32 first;
       * at a block end: the raw int32 accumulator (no bias, no ReLU) is
         materialized as a _Held, since a block output feeds several
-        consumers, each with its own input requant.
+        consumers, each with its own input requant (with its bias, ReLU and
+        ceiling applied in the kernel where it is shuffled or clipped).
 
     A materialized tensor (a block end's raw accumulator, a residual join's
     int8 output) reaches each consumer through that consumer's kernel
-    prologue: bias -> ReLU -> mask -> requant -> clamp, in shared memory
-    (Kernel 1 at a block's first depthwise conv, Kernel 2 at a residual
-    pointwise conv, a non-separable block's conv and the decoder, whose
-    input is not masked, as in the JAX package; Kernel 8 at a dense block's
-    first conv).  Outside a kernel remain only the first site's
-    quantization of the float features and the decoder's float
-    log-softmax.  Needs static exponents (freeze dyadic_mode 'static_e' or
-    'static_e16')."""
+    prologue: bias -> ReLU (or hardtanh's clip) -> mask -> requant ->
+    clamp, in shared memory (Kernel 1 at a block's first depthwise conv,
+    Kernel 2 at a residual pointwise conv, a non-separable block's conv and
+    the decoder, whose input is not masked, as in the JAX package; Kernel 8
+    at a dense block's first conv).  Outside a kernel remain only the first
+    site's quantization of the float features, selu / swish (float glue),
+    and the decoder's float log-softmax.  Needs static exponents (freeze
+    dyadic_mode 'static_e' or 'static_e16')."""
 
     def __init__(self, tables, qcfg: QuantConfig, *, activation: str):
         super().__init__(tables, qcfg, activation=activation)
@@ -615,35 +784,27 @@ class FrozenExecFused(FrozenExec):
         return p.run(**{"out_len" if p.depthwise else "lens": lens}, **kw)
 
     def _flush_int8(self, p: _PendingConv, lens, entry, bits: int) -> torch.Tensor:
-        return self._conv(p, lens, bias=p.entry.get("b"), relu=p.relu, m=entry["act_m"],
-                          e=entry["act_e"], bits=bits)
+        return self._conv(p, lens, bias=p.entry.get("b"), relu=p.relu, hcap=p.hcap,
+                          m=_per_channel(entry, "act_m", p.channels), e=entry["act_e"],
+                          bits=bits)
 
     def _flush_int32(self, p: _PendingConv) -> torch.Tensor:
-        return self._conv(p, bias=p.entry.get("b"), relu=p.relu)
+        return self._flush_act(p)
 
     def masked_conv(self, site, spec: ConvSpec, x, lens):
         bi, kind, i = site
         entry = self.t["blocks"][bi][kind][i]
-        if not (is_depthwise(spec) or is_pointwise(spec) or is_dense(spec)):
-            raise NotImplementedError(f"grouped conv {spec} is not ported")
         bits = self._act_bits(spec)
+        self._check_codes(bits, x)
         if isinstance(x, _PendingConv):
             p = _PendingConv(self._flush_int8(x, lens, entry, bits), entry, spec)
         elif isinstance(x, _Held):
             p = _PendingConv(x.values, entry, spec, pro=dict(
-                in_bias=x.bias, in_relu=x.relu, in_len=lens, m1=entry["act_m"],
-                e1=entry["act_e"], bits1=bits))
+                in_bias=x.bias, in_relu=x.relu, in_hcap=x.hcap, in_len=lens,
+                m1=_per_channel(entry, "act_m", spec.in_ch), e1=entry["act_e"], bits1=bits))
         else:
             p = _PendingConv(self._requant_in(entry, x, lens, bits), entry, spec)
         return p, conv_out_len(lens, spec)
-
-    def activation(self, x, dropout: float):
-        if isinstance(x, _PendingConv):
-            x.relu = True
-            return x
-        if isinstance(x, _Held):
-            return x.with_relu()
-        return super().activation(x, dropout)
 
     def residual_add(self, block_idx: int, pane: int, out, res_out, mode: str):
         if mode not in ("add", "stride_add"):
@@ -651,27 +812,33 @@ class FrozenExecFused(FrozenExec):
         e = self.t["blocks"][block_idx]["res_act"][pane]
         res = self._flush_int32(res_out)
         bits = self.qcfg.act_bit
+        c = res.shape[-1]
+        m, m_r = _per_channel(e, "m", c), _per_channel(e, "m_r", c)
         if isinstance(out, _PendingConv) and not out.depthwise and not out.relu:
             # a pointwise or dense block tail: the join in its epilogue
-            q8 = self._conv(out, bias=out.entry.get("b"), m=e["m"], e=e["e"], res=res,
-                            m_r=e["m_r"], e_r=e["e_r"], bits=bits)
-            return _Held(q8, e["scale"])
+            q8 = self._conv(out, bias=out.entry.get("b"), m=m, e=e["e"], res=res,
+                            m_r=m_r, e_r=e["e_r"], bits=bits)
+            return self._join_held(q8, e)
         if isinstance(out, _PendingConv):
-            out = _Held(self._flush_int32(out), out.entry["out_scale"])
+            out = _Held(self._flush_int32(out), out.out_scale())
         if out.bias is not None:
             raise ValueError("residual join of a tensor with a pending bias")
-        q8 = requant(out.values, e["m"], e["e"], bits, relu=out.relu, identity=res,
-                     m_r=e["m_r"], e_r=e["e_r"])
-        return _Held(q8, e["scale"])
+        q8 = requant(out.values, m, e["e"], bits, relu=out.relu, hcap=out.hcap, identity=res,
+                     m_r=m_r, e_r=e["e_r"])
+        return self._join_held(q8, e)
 
     def block_end(self, x):
         if isinstance(x, _PendingConv):
+            if x.shuffle or x.hcap is not None:
+                # shuffled or clipped in the store: bias and activation there too
+                return _Held(self._flush_int32(x), x.out_scale(), relu=x.relu)
             return _Held(self._conv(x), x.entry["out_scale"], x.entry.get("b"), x.relu)
         return x
 
     def _decoder_prologue(self, x: _Held):
         t = self.t["decoder"]
-        return dict(in_bias=x.bias, in_relu=x.relu, m1=t["act_m"], e1=t["act_e"],
+        return dict(in_bias=x.bias, in_relu=x.relu, in_hcap=x.hcap,
+                    m1=_per_channel(t, "act_m", x.values.shape[-1]), e1=t["act_e"],
                     bits1=self.qcfg.act_bit)
 
     def decoder_input(self, x: _Held) -> torch.Tensor:
@@ -684,12 +851,13 @@ class FrozenExecFused(FrozenExec):
         return pw_gemm(x.values, t["wk"], bias=t["b"], **self._decoder_prologue(x))
 
 
-class FrozenExecKernels(FrozenExec):
+class FrozenExecKernels(_StagedExec):
     """Any tables, vector exponents included (freeze dyadic_mode
     'per_channel'): the port's counterpart of the JAX FrozenExec with
     use_pallas=True.  Every conv runs in Kernel 1, 2 or 8 (a _PendingConv,
-    with its staged ReLU), and the requants next to a depthwise conv ride
-    in Kernel 1 with per-channel mantissas and exponents:
+    with its staged ReLU or hardtanh clip and GroupShuffle), and the
+    requants next to a depthwise conv ride in Kernel 1 with per-channel
+    mantissas and exponents:
 
       * a depthwise conv's input requant (with its length mask) in Kernel
         1's prologue, on the materialized producer output (a _Held: a
@@ -698,69 +866,67 @@ class FrozenExecKernels(FrozenExec):
         in that conv's epilogue (bias -> ReLU -> mask -> requant -> int8).
 
     Every other conv is flushed with the epilogue off (int32 out with its
-    bias, a _Held), and the remaining requants run in the requant kernel: a
-    residual branch's pointwise input, a non-separable block's input (C3,
-    and each conv of a dense block), every residual join and the decoder's
-    input (unmasked).  Outside a kernel remain only the first site's
-    quantization of the float features and the decoder's float
-    log-softmax."""
+    bias and activation, a _Held), and the remaining requants run in the
+    requant kernel: a residual branch's pointwise input, a non-separable
+    block's input (C3, and each conv of a dense block), every residual join
+    and the decoder's input (unmasked).  Outside a kernel remain only the
+    first site's quantization of the float features, selu / swish (float
+    glue) and the decoder's float log-softmax."""
 
     def _flush(self, x):
         """A pending conv through its kernel, epilogue off -> _Held int32
-        (its ReLU applied, and kept as the _Held's flag: every consumer's
-        requant then knows the value is >= 0, W8A8's uint8 rule; a second
-        ReLU changes nothing)."""
+        (its ReLU and ceiling applied, and the ReLU kept as the _Held's
+        flag: every consumer's requant then knows the value is >= 0, W8A8's
+        uint8 rule; a second ReLU changes nothing)."""
         if not isinstance(x, _PendingConv):
             return x
-        y = x.run(bias=x.entry.get("b"), relu=x.relu)
-        return _Held(y, x.entry["out_scale"], relu=x.relu)
+        return _Held(self._flush_act(x), x.out_scale(), relu=x.relu)
 
     def masked_conv(self, site, spec: ConvSpec, x, lens):
         bi, kind, i = site
         entry = self.t["blocks"][bi][kind][i]
-        if not (is_depthwise(spec) or is_pointwise(spec) or is_dense(spec)):
-            raise NotImplementedError(f"grouped conv {spec} is not ported")
         bits = self._act_bits(spec)
         out_len = conv_out_len(lens, spec)
+        c = spec.in_ch
+        self._check_codes(bits, x)
         if isinstance(x, _PendingConv) and x.depthwise and is_pointwise(spec):
-            xq = x.run(bias=x.entry.get("b"), relu=x.relu, out_len=lens, m=entry["act_m"],
-                       e=entry["act_e"], bits=bits)
+            xq = x.run(bias=x.entry.get("b"), relu=x.relu, hcap=x.hcap, out_len=lens,
+                       m=_per_channel(entry, "act_m", c), e=_per_channel(entry, "act_e", c),
+                       bits=bits)
             return _PendingConv(xq, entry, spec), out_len
         x = self._flush(x)
         if isinstance(x, _Held) and is_depthwise(spec):
             return _PendingConv(x.values, entry, spec, pro=dict(
-                in_bias=x.bias, in_relu=x.relu, in_len=lens, m1=entry["act_m"],
-                e1=entry["act_e"], bits1=bits)), out_len
+                in_bias=x.bias, in_relu=x.relu, in_hcap=x.hcap, in_len=lens,
+                m1=_per_channel(entry, "act_m", c), e1=_per_channel(entry, "act_e", c),
+                bits1=bits)), out_len
         if isinstance(x, _Held):
-            xq = requant(x.values, entry["act_m"], entry["act_e"], bits, relu=x.relu,
+            xq = requant(x.values, _per_channel(entry, "act_m", c),
+                         _per_channel(entry, "act_e", c), bits, relu=x.relu, hcap=x.hcap,
                          lens=lens)
         else:
             xq = self._requant_in(entry, x, lens, bits)
         return _PendingConv(xq, entry, spec), out_len
-
-    def activation(self, x, dropout: float):
-        if isinstance(x, _PendingConv):
-            x.relu = True
-            return x
-        if isinstance(x, _Held):
-            return x.with_relu()
-        return super().activation(x, dropout)
 
     def residual_add(self, block_idx: int, pane: int, out, res_out, mode: str):
         if mode not in ("add", "stride_add"):
             raise NotImplementedError(f"residual mode {mode!r}")
         e = self.t["blocks"][block_idx]["res_act"][pane]
         out, res = self._flush(out), self._flush(res_out)
-        q8 = requant(out.values, e["m"], e["e"], self.qcfg.act_bit, relu=out.relu,
-                     identity=res.values, m_r=e["m_r"], e_r=e["e_r"])
-        return _Held(q8, e["scale"])
+        c = res.values.shape[-1]
+        q8 = requant(out.values, _per_channel(e, "m", c), _per_channel(e, "e", c),
+                     self.qcfg.act_bit, relu=out.relu, hcap=out.hcap, identity=res.values,
+                     m_r=_per_channel(e, "m_r", c), e_r=_per_channel(e, "e_r", c))
+        return self._join_held(q8, e)
 
     def block_end(self, x):
         return self._flush(x)
 
     def decoder_input(self, x: _Held) -> torch.Tensor:
         t = self.t["decoder"]
-        return requant(x.values, t["act_m"], t["act_e"], self.qcfg.act_bit, relu=x.relu)
+        c = x.values.shape[-1]
+        return requant(x.values, _per_channel(t, "act_m", c), _per_channel(t, "act_e", c),
+                       self.qcfg.act_bit, relu=x.relu, hcap=x.hcap)
 
     def decoder_logits(self, x: _Held) -> torch.Tensor:
         t = self.t["decoder"]
