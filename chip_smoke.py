@@ -224,9 +224,34 @@ phase exits non-zero before the result line.  Phases:
    with their bounds; (f) cli.vad_infer (MatchboxNet-3x1x64) on the card:
    frames within 1e-4 of a CPU run, windows per second; (g) QuartzNet15x5
    with selu and with swish at W6A6 calibrated and served on the card (the
-   planned launches, no plain call, the plain executor's ids), and their
-   W8A8 raising NotImplementedError (signed 9-bit codes); phase 11's
+   planned launches, no plain call, the plain executor's ids); phase 11's
    seconds.
+12. Streaming: (a) Kernels 3 and 4 in their cache forms against their plain
+   versions at L 70, n in {1, 4, 16}, B in {1, 32}, seen in {0, 3, 69, 70,
+   500} (a stream's first steps and a full cache), the new caches
+   included; (b) the flagship Conformer-CTC 16 x 256 W8A8 as a causal
+   streaming configuration (att_context (70, 0), causal_conv, normalization
+   off, the committed ranges) over 15 s of seeded noise: frozen_stream_step
+   over the offline forward's subsampled frames, 4 a step, every row's
+   encodings and the ids bit-equal to the offline causal frozen forward;
+   CacheAwareConformerStream fed the audio in 40 ms, 160 ms and 1 s
+   slices, its first-site codes, rows and ids bit-equal to the same at
+   each; each step's launches equal to stream_kernel_launches, no plain
+   call in any; its latency_report and frozen_stream_step's device /
+   event / host-enqueue ms at (B, n) (1, 4), (32, 4) and (32, 16); (c)
+   the windowed streamer over 60 s on QuartzNet15x5 W6A6 and W8A8
+   static_e (normalization off): stitched ids equal to the offline ids,
+   transcribe_beam equal to offline beam decoding, one planned forward a
+   window, its latency_report; (e) QuartzNet15x5 with selu and with swish
+   at W8A8 (signed 9-bit codes as two byte planes): calibration equal to
+   the plain QuantExec's with the planned launches, 4 requests on
+   FrozenExecFused and FrozenExecKernels with the planned launches, no
+   plain call, the plain executor's ids, and every plane site of one
+   forward on each against its plain versions (Kernel 7's two planes, the
+   joined int32 conv); (f) Kernel 7's byte planes against their plain
+   version at B 64 x T 768, partial lengths, C 256 / 512 / 250, on its
+   4-channel and element paths; both cache forms timed at B 32, n 4
+   beside their bounds; phase 12's seconds.
 
 Prints the card line, a {"kernels": [...]} line (each kernel's "ms" and
 "library_ms" are device times at the site "shape" names, "call_ms" and
@@ -273,12 +298,23 @@ PW_BT = ((3, 203), (1, 1), (1, 37))
 # the H100 SXM's published peaks (NVIDIA data sheet, dense, 700 W)
 HBM_BYTES_PER_S, INT8_OPS_PER_S = 3.35e12, 1979e12
 KERNELS = ("dw_conv", "pw_gemm", "requant", "int_attention", "conv_block", "lin_epilogue",
-           "ffn_ln", "dense_conv")
+           "ffn_ln", "dense_conv", "int_attention_cached", "conv_block_cached")
 # the device kernels each wrapper launches (a substring of their names)
 KERNEL_SYMBOLS = {"dw_conv": "dw_conv_kernel", "pw_gemm": "pw_gemm_kernel",
-                  "requant": "requant_kernel", "int_attention": "int_attention",
+                  "requant": "requant_kernel",
+                  "int_attention": ("int_attention_kernel", "int_attention_stream_kernel"),
                   "conv_block": "conv_block_stage", "lin_epilogue": "lin_epilogue_kernel",
-                  "ffn_ln": "ffn_ln_kernel", "dense_conv": "dense_conv_kernel"}
+                  "ffn_ln": "ffn_ln_kernel", "dense_conv": "dense_conv_kernel",
+                  "int_attention_cached": "int_attention_cached_kernel",
+                  "conv_block_cached": "conv_block_cached_stage"}
+# phase 12: the cache-aware stream (NeMo's cache-aware streaming Conformers
+# keep 70 frames of left context), its cache forms' check grid, its feed
+# sizes (40 ms, 160 ms: the timed one, 1 s) and length, and the windowed
+# QuartzNet's length
+STREAM_L = 70
+STREAM_N, STREAM_B, STREAM_SEEN = (1, 4, 16), (1, 32), (0, 3, 69, 70, 500)
+STREAM_SLICE, STREAM_SLICES = 2560, (640, 2560, 16000)
+STREAM_SECONDS, WINDOWED_SECONDS = 15.0, 60.0
 
 
 def log(msg: str) -> None:
@@ -313,9 +349,10 @@ def cuda_ms(fn, reps: int, warmup: int = 3):
 def device_ms(fn, symbol=None, calls: int = 10):
     """(device time in ms per call of fn(), how it was read): torch.profiler
     (CPU and CUDA activities) over ``calls`` calls, the sum of the CUDA
-    kernels' device time (of the kernels whose names hold ``symbol``, or of
-    all) divided by the calls.  A trace that holds fewer than ``calls`` of
-    those kernels (the profiler drops kernel records now and then) is taken
+    kernels' device time (of the kernels whose names hold ``symbol``, or
+    one of the substrings of a tuple ``symbol``, or of all) divided by the
+    calls.  A trace that holds fewer than ``calls`` of those kernels (the
+    profiler drops kernel records now and then) is taken
     again, up to three times; after that CUDA events around the ``calls``
     calls in a row stand in, and the second value says "events"."""
     import torch
@@ -332,7 +369,8 @@ def device_ms(fn, symbol=None, calls: int = 10):
         for ev in prof.key_averages():
             if ev.device_type != torch.autograd.DeviceType.CUDA:
                 continue
-            if symbol is not None and symbol not in ev.key:
+            if symbol is not None and not any(
+                    sym in ev.key for sym in ((symbol,) if isinstance(symbol, str) else symbol)):
                 continue
             us = getattr(ev, "self_device_time_total", None)
             total_us += ev.self_cuda_time_total if us is None else us
@@ -371,18 +409,20 @@ def bound(nbytes: float, int8_ops: float):
 
 
 def wrappers():
-    from qasr_tpu_torch.kernels.conv_block import conv_block
+    from qasr_tpu_torch.kernels.conv_block import conv_block, conv_block_cached
     from qasr_tpu_torch.kernels.dense_conv import dense_conv
     from qasr_tpu_torch.kernels.dw_conv import dw_conv
     from qasr_tpu_torch.kernels.ffn_ln import ffn_ln
-    from qasr_tpu_torch.kernels.int_attention import int_attention
+    from qasr_tpu_torch.kernels.int_attention import int_attention, int_attention_cached
     from qasr_tpu_torch.kernels.lin_epilogue import lin_epilogue
     from qasr_tpu_torch.kernels.pw_gemm import pw_gemm
     from qasr_tpu_torch.kernels.requant import requant
 
     return {"dw_conv": dw_conv, "pw_gemm": pw_gemm, "requant": requant,
             "int_attention": int_attention, "conv_block": conv_block,
-            "lin_epilogue": lin_epilogue, "ffn_ln": ffn_ln, "dense_conv": dense_conv}
+            "lin_epilogue": lin_epilogue, "ffn_ln": ffn_ln, "dense_conv": dense_conv,
+            "int_attention_cached": int_attention_cached,
+            "conv_block_cached": conv_block_cached}
 
 
 def planned(counts):
@@ -3503,15 +3543,19 @@ class PlainCalls:
         self.saved = []
 
     def __enter__(self):
-        from qasr_tpu_torch.kernels import dense_conv, dw_conv, pw_gemm, requant
-        from qasr_tpu_torch.quantize import freeze
+        from qasr_tpu_torch.kernels import (
+            conv_block, dense_conv, dw_conv, ffn_ln, int_attention, lin_epilogue, pw_gemm,
+            requant,
+        )
+        from qasr_tpu_torch.quantize import conformer_freeze, freeze
 
         def counting(fn):
             def wrapper(*a, **kw):
                 self.n += 1
                 return fn(*a, **kw)
             return wrapper
-        for mod in (dense_conv, dw_conv, pw_gemm, requant, freeze):
+        for mod in (dense_conv, dw_conv, pw_gemm, requant, freeze, conv_block, ffn_ln,
+                    int_attention, lin_epilogue, conformer_freeze):
             for name in dir(mod):
                 if name.endswith("_plain") and callable(getattr(mod, name)):
                     self.saved.append((mod, name, getattr(mod, name)))
@@ -3820,22 +3864,57 @@ def phase_vad(dev, card, report):
     return out
 
 
+def selu_swish_model(act, bits):
+    """QuartzNet15x5 with ``act`` (selu or swish) at W<bits>A<bits>,
+    BN-folded, seed 0, no ranges."""
+    import dataclasses
+
+    from qasr_tpu_torch.models.config import quartznet15x5
+    from qasr_tpu_torch.models.ctc_model import ASRModel
+
+    cfg = quartznet15x5()
+    cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(cfg.encoder, activation=act))
+    model = ASRModel.from_config(cfg, seed=0)
+    model.set_quant_bit(bits, "all")
+    model.bn_folding()
+    return model
+
+
+def serve_checked(model, tables, batch, lens, tag):
+    """4 requests through the kernel path with the planned launches and no
+    plain-version call, ids equal to the plain executor's; returns the
+    launch counts."""
+    import torch
+
+    from qasr_tpu_torch.models.ctc_model import make_frozen_fn
+    from qasr_tpu_torch.quantize.freeze import kernel_launches
+
+    fn = make_frozen_fn(model, tables, argmax=True)
+    fn(batch, lens)   # builds and warms
+    reset_counts()
+    with PlainCalls() as plain:
+        ids_k, el_k = fn(batch, lens)
+        counts = read_counts()
+    expect = planned(kernel_launches(model.plan, tables))
+    if counts != expect or plain.n:
+        raise AssertionError(f"{tag}: launch counts {counts} (plan {expect}), {plain.n} "
+                             f"plain-version calls")
+    ids_p, el_p = make_frozen_fn(model, tables, argmax=True, fused=False)(batch, lens)
+    if not (torch.equal(ids_k, ids_p) and torch.equal(el_k, el_p)) or \
+            len(torch.unique(ids_k)) < 2:
+        raise AssertionError(f"{tag}: kernel path ids differ from the plain executor's "
+                             f"(or are degenerate)")
+    return counts
+
+
 def phase_selu_swish(dev):
     """11g: QuartzNet15x5 with selu and with swish at W6A6: calibrated on
     the card on 8 x 500 frames of seeded noise features, frozen
     (static_e), 4 seeded requests on the kernel path (selu / swish as float
     glue on each flushed accumulator) with the planned launches, no plain
-    call and the plain executor's ids; at W8A8 the signed 9-bit codes of
-    their asymmetric sites raise NotImplementedError on the card, in
-    calibration and in the frozen path (ranges from W6A6's)."""
-    import dataclasses
-
+    call and the plain executor's ids.  (Their W8A8 is phase 12e.)"""
     import numpy as np
     import torch
-
-    from qasr_tpu_torch.models.config import quartznet15x5
-    from qasr_tpu_torch.models.ctc_model import ASRModel, make_frozen_fn
-    from qasr_tpu_torch.quantize.freeze import kernel_launches
 
     utts, _ = seeded_requests(7)
     batch, lens = pad_batch(utts)
@@ -3843,48 +3922,12 @@ def phase_selu_swish(dev):
         np.float32)).to(dev)
     out = {}
     for act in ("selu", "swish"):
-        cfg = quartznet15x5()
-        cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(cfg.encoder, activation=act))
-        models = {}
-        for bits in (6, 8):
-            models[bits] = ASRModel.from_config(cfg, seed=0)
-            models[bits].set_quant_bit(bits, "all")
-            models[bits].bn_folding()
-        model = models[6]
+        model = selu_swish_model(act, 6)
         model.calibrate([feats], device=dev)
-        tables = model.freeze("static_e", dev)
-        fn = make_frozen_fn(model, tables, argmax=True)
-        fn(batch, lens)   # builds and warms
-        reset_counts()
-        with PlainCalls() as plain:
-            ids_k, el_k = fn(batch, lens)
-            counts = read_counts()
-        expect = planned(kernel_launches(model.plan, tables))
-        if counts != expect or plain.n:
-            raise AssertionError(f"{act} W6A6: launch counts {counts} (plan {expect}), "
-                                 f"{plain.n} plain-version calls")
-        ids_p, el_p = make_frozen_fn(model, tables, argmax=True, fused=False)(batch, lens)
-        if not (torch.equal(ids_k, ids_p) and torch.equal(el_k, el_p)) or \
-                len(torch.unique(ids_k)) < 2:
-            raise AssertionError(f"{act} W6A6: kernel path ids differ from the plain "
-                                 f"executor's (or are degenerate)")
-        raised = []
-        m8 = models[8]
-        try:
-            m8.calibrate([feats], device=dev)
-        except NotImplementedError as e:
-            raised.append(str(e)[:60])
-        m8.qstate = model.qstate
-        try:
-            make_frozen_fn(m8, m8.freeze("static_e", dev), argmax=True)(batch, lens)
-        except NotImplementedError as e:
-            raised.append(str(e)[:60])
-        if len(raised) != 2:
-            raise AssertionError(f"{act} W8A8 on CUDA: {len(raised)} of calibration and the "
-                                 f"frozen path raised NotImplementedError")
+        counts = serve_checked(model, model.freeze("static_e", dev), batch, lens,
+                               f"{act} W6A6")
         log(f"[11g] QuartzNet15x5 {act} W6A6 static_e calibrated and served on the card: "
-            f"launches {counts} == plan, 0 plain-version calls, ids == plain executor; W8A8 "
-            f"raises NotImplementedError in calibration and serving ({raised[0]}...)")
+            f"launches {counts} == plan, 0 plain-version calls, ids == plain executor")
         out[act] = counts
     return out
 
@@ -3904,6 +3947,487 @@ def phase_grouped(chk, dev, card, report, qn6):
     report["grouped_launches"] = counts
     report["grouped_seconds"] = time.perf_counter() - t_phase
     log(f"[11] phase 11 took {report['grouped_seconds']:.1f} s")
+    return rows, counts
+
+
+# ---------------------------------------------------------------------------
+# phase 12: streaming (the cache-aware Conformer stream, the windowed
+# streamer) and W8A8 selu / swish on the card
+# ---------------------------------------------------------------------------
+
+
+def causal_flagship(dev):
+    """The flagship Conformer-CTC 16 x 256 W8A8 as a cache-aware streaming
+    configuration: att_context_size (STREAM_L, 0), causal_conv, the
+    frontend's normalization off, the committed seed-0 noise ranges (their
+    sites do not depend on the attention context or the conv's padding),
+    frozen on the card; (model, tables)."""
+    import dataclasses
+
+    from qasr_tpu_torch import golden
+    from qasr_tpu_torch.models.conformer_ctc import ConformerCTC
+
+    cfg, ccfg = golden.conformer_flagship_configs()
+    cfg = dataclasses.replace(cfg, preprocessor={**cfg.preprocessor, "normalize": False})
+    ccfg = dataclasses.replace(ccfg, att_context_size=(STREAM_L, 0), causal_conv=True)
+    model = ConformerCTC.from_config(cfg, ccfg, seed=0)
+    with open(golden.CONF_QSTATE_PATH) as f:
+        model.qstate_from_json(f.read())
+    return model, model.freeze(dev)
+
+
+def stream_inputs(rng, dev, b, n, h, d_k, d, k_size):
+    import numpy as np
+    import torch
+
+    def t8(*shape):
+        return torch.from_numpy(rng.integers(-127, 127, shape).astype(np.int8)).to(dev)
+    return ([t8(b, n, h, d_k) for _ in range(4)], t8(b, STREAM_L, h, d_k),
+            t8(b, STREAM_L, h, d_k), t8(b, n, d), t8(b, n, d), t8(b, k_size - 1, d))
+
+
+def phase_stream_kernels(chk, model, tables, dev):
+    """12a: Kernels 3 and 4 in their cache forms against their plain
+    versions at L = 70, n in STREAM_N, B in STREAM_B, every layer's tables
+    in turn, and seen in STREAM_SEEN (a stream's first steps, seen < L,
+    and a full cache): the context and the new caches."""
+    import numpy as np
+
+    from qasr_tpu_torch.kernels.conv_block import conv_block_cached, conv_block_cached_plain
+    from qasr_tpu_torch.kernels.int_attention import (
+        int_attention_cached, int_attention_cached_plain,
+    )
+    from qasr_tpu_torch.quantize.conformer_freeze import _stream_p8
+
+    enc = tables["encoder"]
+    ccfg = model.ccfg
+    h, d = ccfg.n_heads, ccfg.d_model
+    k_size = ccfg.conv_kernel_size
+    p8s = _stream_p8(enc, ccfg)
+    rng = np.random.default_rng(12)
+    n0 = chk.n
+    for b in STREAM_B:
+        for n in STREAM_N:
+            for li, seen in enumerate(STREAM_SEEN):
+                li = (li + 3 * n + b) % len(enc["layers"])
+                tbl = enc["layers"][li]
+                (qu, qv, k, v), kc, vc, c8, x8, gc = stream_inputs(rng, dev, b, n, h, d // h,
+                                                                   d, k_size)
+                kw = dict(ac=tbl["ac_grid"], bd=tbl["bd_grid"], ctx_rq=tbl["ctx_rq"], nbits=8)
+                tag = f"B={b} n={n} L={STREAM_L} seen={seen} layer {li}"
+                got = int_attention_cached(qu, qv, k, v, kc, vc, p8s[li], seen, **kw)
+                want = int_attention_cached_plain(qu, qv, k, v, kc, vc, p8s[li], seen, **kw)
+                for what, g, w in zip(("context", "k cache", "v cache"), got, want):
+                    chk.equal("int_attention_cached", f"int_attention_cached {tag} {what}", g, w)
+                got = conv_block_cached(c8, x8, gc, tbl, nbits=8)
+                want = conv_block_cached_plain(c8, x8, gc, tbl, nbits=8)
+                for what, g, w in zip(("stream", "GLU cache"), got, want):
+                    chk.equal("conv_block_cached", f"conv_block_cached {tag} {what}", g, w)
+    log(f"[12a] int_attention_cached and conv_block_cached == their plain versions in "
+        f"{chk.n - n0} exact comparisons: B in {STREAM_B}, n in {STREAM_N}, L {STREAM_L}, "
+        f"seen in {STREAM_SEEN}, the new caches included")
+
+
+def phase_stream(model, tables, dev, card, report):
+    """12b: the cache-aware stream at full width over 15 s of seeded noise.
+    (i) frozen_stream_step over the offline forward's subsampled frames, 4
+    a step (a 160 ms slice): every step's launches equal to
+    ``stream_kernel_launches``, no plain-version call, the encodings of
+    every valid row and the greedy ids bit-equal to the offline causal
+    frozen forward's.  (ii) CacheAwareConformerStream fed the audio in 40
+    ms, 160 ms and 1 s slices (the frontend and subsampler re-run on each
+    slice's window): the same per-step launches and no plain call, its
+    first-site codes, every row's encodings and the ids bit-equal to the
+    offline forward's at each slice size.  Then its latency_report (160 ms
+    slices) and frozen_stream_step's device and host ms at (B, n) (1, 4),
+    (32, 4) and (32, 16).  Returns (ii)'s launch counts at 160 ms."""
+    import numpy as np
+    import torch
+
+    from qasr_tpu_torch.decode.streaming import CacheAwareConformerStream
+    from qasr_tpu_torch.models import conformer as mc
+    from qasr_tpu_torch.quantize import conformer_freeze as cf
+
+    enc_t, ccfg = tables["encoder"], model.ccfg
+    n_samp = int(16000 * STREAM_SECONDS)
+    audio = (np.random.default_rng(15).normal(size=n_samp) * 0.1).astype(np.float32)
+    with torch.no_grad():
+        a = torch.from_numpy(audio)[None].to(dev)
+        feats, fl = model.frontend(a, torch.tensor([n_samp], dtype=torch.int32, device=dev),
+                                   dither=0.0)
+        x_sub, sl = mc.subsample_convs(enc_t["subsampler"], ccfg, feats, fl)
+        x8 = cf.clip8(torch.round(cf.f32_div(x_sub, enc_t["S_pre"])), enc_t["act_bit"])
+        enc_off, el = cf.conformer_encode(enc_t, ccfg, x8, sl)
+        el = int(el[0])
+        enc_off = enc_off[0, :el]
+        ids_off = model.head(tables, enc_off[None]).argmax(-1)[0]
+    per_step = planned(cf.stream_kernel_launches(ccfg))
+    step_fn = cf.frozen_stream_step
+    steps, xs, bad_steps = [], [], []
+
+    def recording(*a, **kw):
+        before = read_counts()
+        out, state = step_fn(*a, **kw)
+        after = read_counts()
+        delta = {k: after[k] - before[k] for k in after}
+        if delta != per_step:
+            bad_steps.append(delta)
+        xs.append(a[2])
+        steps.append(out)
+        return out, state
+
+    def checked(tag, plain, n_steps, counts):
+        if bad_steps or plain.n:
+            raise AssertionError(f"{tag}: {len(bad_steps)} steps launched other than "
+                                 f"{per_step} (first {bad_steps[:1]}), {plain.n} plain calls")
+        if counts != planned({k: v * n_steps for k, v in per_step.items() if v}):
+            raise AssertionError(f"{tag}: launches {counts} != {n_steps} x {per_step}")
+
+    # (i) the offline frames, 4 a step
+    state = cf.frozen_stream_init(enc_t, ccfg, 1, dev)
+    cf.frozen_stream_step = recording
+    try:
+        reset_counts()
+        with PlainCalls() as plain:
+            for i in range(0, el, 4):
+                _, state = cf.frozen_stream_step(enc_t, ccfg, x_sub[:, i:min(i + 4, el)], state)
+            counts = read_counts()
+        checked("stream (offline frames)", plain, len(steps), counts)
+        enc_i = torch.cat(steps, dim=1)[0]
+        ids_i = model.head(tables, enc_i[None]).argmax(-1)[0]
+        if not torch.equal(enc_i, enc_off) or not torch.equal(ids_i, ids_off) or \
+                len(torch.unique(ids_off)) < 2:
+            raise AssertionError("stream (offline frames): rows or ids differ from the offline "
+                                 "causal frozen forward's (or the ids are degenerate)")
+        log(f"[12b] frozen_stream_step, Conformer 16x256 W8A8 causal (L {STREAM_L}, K "
+            f"{ccfg.conv_kernel_size}), the offline forward's {el} subsampled frames of "
+            f"{STREAM_SECONDS:g} s, 4 a step: {len(steps)} steps, every row's encodings and "
+            f"the ids ({len(torch.unique(ids_off))} distinct) bit-equal to the offline causal "
+            f"frozen forward's; launches {counts} = {len(steps)} x stream_kernel_launches, 0 "
+            f"plain-version calls")
+        # (ii) the audio, in slices of each size
+        for size in STREAM_SLICES:
+            tag = f"stream (audio, {size / 16:g} ms slices)"
+            st = CacheAwareConformerStream(model, device=dev)
+            steps.clear()
+            xs.clear()
+            ids = []
+            reset_counts()
+            with PlainCalls() as plain:
+                for s0 in range(0, n_samp, size):
+                    ids.extend(st.feed(audio[s0:s0 + size]).tolist())
+                ids.extend(st.flush().tolist())
+                n_counts = read_counts()
+            checked(tag, plain, len(steps), n_counts)
+            enc_s = torch.cat(steps, dim=1)[0]
+            x8_s = cf.clip8(torch.round(cf.f32_div(torch.cat(xs, dim=1), enc_t["S_pre"])), 8)[0]
+            if enc_s.shape[0] != el or len(ids) != el:
+                raise AssertionError(f"{tag}: {enc_s.shape[0]} rows, {len(ids)} ids, offline "
+                                     f"{el}")
+            flips = int((x8_s != x8[0, :el]).sum())
+            if flips or not torch.equal(enc_s, enc_off) or ids != ids_off.tolist():
+                raise AssertionError(f"{tag}: {flips} first-site codes, the rows or the ids "
+                                     f"differ from the offline causal frozen forward's")
+            log(f"[12b] CacheAwareConformerStream, the same audio in {size / 16:g} ms slices: "
+                f"{len(steps)} steps, first-site codes, every row's encodings and the ids "
+                f"bit-equal to the offline causal frozen forward's; launches {n_counts} = "
+                f"{len(steps)} x stream_kernel_launches, 0 plain-version calls")
+            if size == STREAM_SLICE:
+                counts, n_steps = n_counts, len(steps)
+    finally:
+        cf.frozen_stream_step = step_fn
+    rep = CacheAwareConformerStream(model, device=dev).latency_report(audio, STREAM_SLICE)
+    log(f"[12b] cache-aware latency_report ({STREAM_SLICE / 16:g} ms slices, B=1): first "
+        f"{rep['first_chunk_latency_ms']:.3f} ms, mean {rep['mean_chunk_latency_ms']:.3f}, p95 "
+        f"{rep['p95_chunk_latency_ms']:.3f}, steady {rep['steady_chunk_latency_ms']:.3f} ms; "
+        f"streaming RTFx {rep['streaming_rtfx']:.1f} [{card}]")
+    # frozen_stream_step alone: device ms (torch.profiler, every kernel of
+    # the step), per-step event ms, and host ms to enqueue a step
+    out = {"latency_report": rep, "steps": n_steps, "step": {}}
+    rng = np.random.default_rng(16)
+    for b, n in ((1, 4), (32, 4), (32, 16)):
+        state = cf.frozen_stream_init(enc_t, ccfg, b, dev)
+        x = torch.from_numpy(rng.normal(size=(b, n, x_sub.shape[-1])).astype(np.float32)).to(dev)
+        for _ in range(20):   # a stream past L frames: every cache slot valid
+            _, state = cf.frozen_stream_step(enc_t, ccfg, x, state)
+        fn = lambda s=state: cf.frozen_stream_step(enc_t, ccfg, x, s)   # noqa: E731
+        dev_ms, by = device_ms(fn)
+        ev_ms = statistics.median(cuda_ms(fn, reps=20))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            fn()
+        host_ms = (time.perf_counter() - t0) / 20 * 1e3
+        torch.cuda.synchronize()
+        calls = sum(cf.stream_kernel_launches(ccfg).values())
+        out["step"][f"B={b} n={n}"] = {"device_ms": dev_ms, "device_ms_by": by,
+                                         "event_ms": ev_ms, "host_enqueue_ms": host_ms,
+                                         "kernel_calls": calls}
+        log(f"[12b] frozen_stream_step B={b} n={n} ({calls} kernel calls): device {dev_ms:.4f} "
+            f"ms ({by}), {ev_ms:.4f} ms a step by events, host enqueue {host_ms:.4f} ms "
+            f"[{card}]")
+    report["stream"] = out
+    return counts
+
+
+def unnormalized(model):
+    """``model`` with its frontend's normalization off (a window's features
+    must not depend on the window)."""
+    import dataclasses
+
+    from qasr_tpu_torch.ops.features import MelFrontend
+
+    model.frontend = MelFrontend(dataclasses.replace(model.frontend.cfg, normalize=None))
+    return model
+
+
+def phase_windowed(dev, card, report):
+    """12c: the windowed streamer over 60 s of seeded noise on QuartzNet15x5
+    W6A6 and W8A8 (static_e, frontend normalization off): stitched greedy
+    ids equal to the offline forward's, transcribe_beam equal to offline
+    beam decoding, one kernel forward a window; its latency_report.
+    Returns W6A6's launch counts."""
+    import numpy as np
+    import torch
+
+    from qasr_tpu_torch import golden
+    from qasr_tpu_torch.decode.beam_search import BeamSearchDecoderWithLM
+    from qasr_tpu_torch.decode.streaming import StreamingTranscriber
+    from qasr_tpu_torch.quantize.freeze import kernel_launches
+
+    n_samp = int(16000 * WINDOWED_SECONDS)
+    audio = (np.random.default_rng(60).normal(size=n_samp) * 0.1).astype(np.float32)
+    first = None
+    for bits in (6, 8):
+        model = unnormalized(golden.flagship("quartznet15x5", bits))
+        tab = model.freeze("static_e", dev)
+        lp, el, ids = model.forward(audio[None], np.asarray([n_samp], np.int32), device=dev)
+        el = int(el[0])
+        st = StreamingTranscriber(model, device=dev)
+        windows = sum(1 for _ in st._windows(n_samp))
+        reset_counts()
+        with PlainCalls() as plain:
+            got = st.predictions(audio)
+            counts = read_counts()
+        expect = planned({k: v * windows for k, v in kernel_launches(model.plan, tab).items()})
+        if counts != expect or plain.n:
+            raise AssertionError(f"windowed W{bits}A{bits}: launches {counts} != {windows} "
+                                 f"windows x plan, {plain.n} plain calls")
+        want = ids[0, :el].cpu().numpy()
+        if len(got) < el or not np.array_equal(got[:el], want) or len(np.unique(want)) < 2:
+            raise AssertionError(f"windowed W{bits}A{bits}: stitched ids differ from offline "
+                                 f"(or are degenerate)")
+        beam = st.transcribe_beam(audio, beam_width=16)
+        off = BeamSearchDecoderWithLM(model.vocabulary, beam_width=16)(lp, torch.tensor([el]))
+        if beam != off[0][0][1]:
+            raise AssertionError(f"windowed W{bits}A{bits}: transcribe_beam differs from "
+                                 f"offline beam decoding")
+        rep = st.latency_report(audio)
+        log(f"[12c] windowed QuartzNet15x5 W{bits}A{bits} static_e over {WINDOWED_SECONDS:g} s "
+            f"(chunk {st.chunk_frames}, context {st.context_left}/{st.context_right} frames, "
+            f"{windows} windows): {el} stitched ids == offline, transcribe_beam == offline "
+            f"beam ({len(beam)} chars); launches {counts} = {windows} x plan, 0 plain calls; "
+            f"latency_report first {rep['first_chunk_latency_ms']:.2f} ms, mean "
+            f"{rep['mean_chunk_latency_ms']:.2f}, p95 {rep['p95_chunk_latency_ms']:.2f}, steady "
+            f"{rep['steady_chunk_latency_ms']:.2f} ms, RTFx {rep['streaming_rtfx']:.1f} [{card}]")
+        report.setdefault("windowed", {})[f"W{bits}A{bits}"] = rep
+        first = first or counts
+    return first
+
+
+def check_plane_sites(chk, model, tables, batch, lens, tag):
+    """One forward of the kernel path (``make_frozen_fn``) with every
+    byte-plane site held against its plain versions at the main path's
+    shapes, exact: Kernel 7's two planes of the site's input against
+    split_planes of requant_plain, and the site's joined int32 conv (acc_u
+    - 256 acc_s, two launches of Kernel 1, 2 or 8) against the plain
+    FrozenExec's int32 conv at that site.  Returns the sites checked."""
+    from qasr_tpu_torch.kernels.checks import split_planes
+    from qasr_tpu_torch.kernels.requant import requant, requant_plain
+    from qasr_tpu_torch.models.ctc_model import make_frozen_fn
+    from qasr_tpu_torch.ops.quant_prims import QTensor
+    from qasr_tpu_torch.quantize import freeze as fz
+
+    orig = fz._StagedExec._planes_conv
+    sites = []
+
+    def checked(self, entry, spec, x, lens_):
+        if isinstance(x, fz._PendingConv):   # flushed as _planes_conv does
+            x = fz._Held(self._flush_act(x), x.out_scale())
+        out = orig(self, entry, spec, x, lens_)
+        site = next((bi, kind, i) for bi, tb in enumerate(self.t["blocks"])
+                    for kind in ("convs", "res") for i, e in enumerate(tb[kind]) if e is entry)
+        c = spec.in_ch
+        m, e = fz._per_channel(entry, "act_m", c), fz._per_channel(entry, "act_e", c)
+        got = requant(x.values, m, e, 9, lens=lens_, planes=True)
+        want = split_planes(requant_plain(x.values, m, e, 9, lens=lens_))
+        for plane, g, w in zip("us", got, want):
+            chk.equal("requant", f"{tag} site {site} {tuple(g.shape)} plane {plane}", g, w)
+        y, _ = fz.FrozenExec(self.t, self.qcfg, activation=self.activation_kind).masked_conv(
+            site, spec, QTensor(x.values, x.scale), lens_)
+        if out.shuffled:   # GroupShuffle in the planes' stores, after the plain conv
+            y = fz.group_shuffle_q(y, out.shuffled)
+        chk.equal(fz._conv_kernel(spec), f"{tag} site {site} joined int32 conv", out.values,
+                  y.values)
+        sites.append(site)
+        return out
+
+    fz._StagedExec._planes_conv = checked
+    try:
+        make_frozen_fn(model, tables, argmax=True)(batch, lens)
+    finally:
+        fz._StagedExec._planes_conv = orig
+    return len(sites)
+
+
+def phase_requant_planes(chk, dev):
+    """12f: Kernel 7's byte planes (``requant(planes=True)``, the storage
+    of a signed 9-bit code) against split_planes of its plain version,
+    exact, at B=64 x T=768 with partial lengths: C 256 and 512 on the
+    4-channel path and on the element path (an int32 input that starts 4
+    bytes off a 16-byte boundary), C 250 (the element path), each with
+    per-channel and with static exponents, codes clamped on both sides."""
+    import numpy as np
+    import torch
+
+    from qasr_tpu_torch.kernels.checks import join_planes, split_planes
+    from qasr_tpu_torch.kernels.requant import plan, requant, requant_plain
+
+    rng = np.random.default_rng(18)
+    b, t = 64, 768
+    lens = torch.from_numpy(rng.integers(t // 4, t + 1, b).astype(np.int32)).to(dev)
+    lens[0] = t
+    n0, paths = chk.n, set()
+    for c in (256, 512, 250):
+        z = torch.from_numpy(rng.integers(-2 ** 20, 2 ** 20, (b, t, c)).astype(np.int32)).to(dev)
+        views = [("aligned", z)]
+        if c % 4 == 0:
+            buf = torch.empty(z.numel() + 1, dtype=torch.int32, device=dev)
+            off = buf[1:].view(b, t, c)
+            off.copy_(z)
+            views.append(("offset", off))
+        m = torch.from_numpy(rng.integers(1 << 29, 1 << 30, c).astype(np.int32)).to(dev)
+        e_c = torch.from_numpy(rng.integers(39, 44, c).astype(np.int32)).to(dev)
+        for exps, e in (("per-channel", e_c), ("static", 41)):
+            for how, zz in views:
+                v = plan(b, t, c, aligned=zz.data_ptr() % 16 == 0)["v"]
+                paths.add(v)
+                q = requant_plain(zz, m, e, 9, lens=lens)
+                got = requant(zz, m, e, 9, lens=lens, planes=True)
+                label = f"requant planes B={b} T={t} C={c} {exps} e, {how} (V={v})"
+                for plane, g, w in zip("us", got, split_planes(q)):
+                    chk.equal("requant", f"{label} plane {plane}", g, w)
+                if not torch.equal(join_planes(got[0].to(torch.int32), got[1].to(torch.int32)),
+                                   q) or int(q.min()) != -256 or int(q.max()) != 255:
+                    raise AssertionError(f"{label}: u - 256 s != the int32 requant, or the "
+                                         f"codes miss a clamp")
+    if paths != {1, 4}:
+        raise AssertionError(f"requant planes: paths {paths}, not both V=1 and V=4")
+    log(f"[12f] Kernel 7's byte planes == split_planes(requant_plain) in {chk.n - n0} exact "
+        f"comparisons: B={b} x T={t}, partial lengths, C 256 / 512 / 250, per-channel and "
+        f"static exponents, the 4-channel (V=4) and element (V=1) paths; u - 256 s == the "
+        f"int32 requant, clamped at -256 and 255")
+
+
+def phase_w8a8_selu_swish(chk, dev):
+    """12e: QuartzNet15x5 with selu and with swish at W8A8 on the card, its
+    asymmetric sites' signed 9-bit codes as two byte planes: calibration
+    (kernels, two launches a plane site) equal to the plain QuantExec's,
+    then 4 requests on each kernel executor (static_e: FrozenExecFused;
+    per_channel: FrozenExecKernels) with the planned launches, no plain
+    call and the plain executor's ids, and one more forward with every
+    plane site held against its plain versions (``check_plane_sites``).
+    Returns static_e's counts."""
+    import numpy as np
+    import torch
+
+    from qasr_tpu_torch.models.jasper import init_qstate
+    from qasr_tpu_torch.quantize.freeze import quant_kernel_launches
+
+    utts, _ = seeded_requests(7)
+    batch, lens = pad_batch(utts)
+    feats = torch.from_numpy(np.random.default_rng(3).normal(size=(8, 500, 64)).astype(
+        np.float32)).to(dev)
+    out = {}
+    for act in ("selu", "swish"):
+        model = selu_swish_model(act, 8)
+        reset_counts()
+        model.calibrate([feats], device=dev)
+        counts = read_counts()
+        expect = planned(quant_kernel_launches(model.plan, 8))
+        if counts != expect:
+            raise AssertionError(f"{act} W8A8 calibration launches {counts} != {expect}")
+        q_kernel = model.qstate
+        model.qstate = init_qstate(model.plan)
+        model.calibrate([feats], device=dev, kernels=False)
+        a, b = qstate_sites(q_kernel), qstate_sites(model.qstate)
+        if a != b:
+            raise AssertionError(f"{act} W8A8 calibration: ranges differ from the plain "
+                                 f"QuantExec's")
+        served, n_sites, n0 = {}, {}, chk.n
+        for mode in ("static_e", "per_channel"):
+            tab = model.freeze(mode, dev)
+            served[mode] = serve_checked(model, tab, batch, lens, f"{act} W8A8 {mode}")
+            n_sites[mode] = check_plane_sites(chk, model, tab, batch, lens,
+                                              f"{act} W8A8 {mode}")
+        log(f"[12e] QuartzNet15x5 {act} W8A8 on the card: calibration launches {counts} "
+            f"(byte planes: two a signed 9-bit site), ranges == plain QuantExec; served "
+            f"static_e {served['static_e']} and per_channel {served['per_channel']} == plan, "
+            f"0 plain calls, ids == plain executor; plane sites {n_sites} each held against "
+            f"its plain versions (Kernel 7's planes, the joined int32 conv) in {chk.n - n0} "
+            f"exact comparisons")
+        out[f"{act} W8A8"] = served["static_e"]
+    return out
+
+
+def phase_streaming(chk, dev, card, report):
+    """Phase 12; returns (kernels line rows, {path: launch counts})."""
+    import numpy as np
+
+    from qasr_tpu_torch.kernels.conv_block import conv_block_cached, conv_block_cached_plain
+    from qasr_tpu_torch.kernels.int_attention import (
+        int_attention_cached, int_attention_cached_plain,
+    )
+    from qasr_tpu_torch.quantize.conformer_freeze import _stream_p8
+
+    t_phase = time.perf_counter()
+    model, tables = causal_flagship(dev)
+    phase_stream_kernels(chk, model, tables, dev)
+    counts = {"stream": phase_stream(model, tables, dev, card, report)}
+    counts["windowed W6A6"] = phase_windowed(dev, card, report)
+    counts.update(phase_w8a8_selu_swish(chk, dev))
+    phase_requant_planes(chk, dev)
+    # each cache form at the stream's shape, B = 32, n = 4, a full cache
+    enc, ccfg = tables["encoder"], model.ccfg
+    h, d, k_size = ccfg.n_heads, ccfg.d_model, ccfg.conv_kernel_size
+    d_k = d // h
+    tbl, p8 = enc["layers"][0], _stream_p8(enc, ccfg)[0]
+    rows = []
+    b, n = 32, 4
+    (qu, qv, k, v), kc, vc, c8, x8, gc = stream_inputs(np.random.default_rng(17), dev, b, n, h,
+                                                       d_k, d, k_size)
+    kw = dict(ac=tbl["ac_grid"], bd=tbl["bd_grid"], ctx_rq=tbl["ctx_rq"], nbits=8)
+    r = timed_pair(chk, "int_attention_cached",
+                   f"int_attention_cached B={b} n={n} L={STREAM_L} h={h} d_k={d_k}",
+                   lambda: int_attention_cached(qu, qv, k, v, kc, vc, p8, 500, **kw)[0],
+                   lambda: int_attention_cached_plain(qu, qv, k, v, kc, vc, p8, 500, **kw)[0],
+                   card, rows)
+    # q/k/v and both caches and p8 in, the context and both caches out; each
+    # query's L + 1 scores (ac, bd) and its context as int8 products
+    qkv = b * n * d
+    r["bound"] = bound(4 * qkv + 2 * 2 * b * STREAM_L * d + p8.numel() + qkv,
+                       3 * 2 * b * h * n * (STREAM_L + 1) * d_k)
+    r = timed_pair(chk, "conv_block_cached",
+                   f"conv_block_cached B={b} n={n} d={d} K={k_size}",
+                   lambda: conv_block_cached(c8, x8, gc, tbl, nbits=8)[0],
+                   lambda: conv_block_cached_plain(c8, x8, gc, tbl, nbits=8)[0], card, rows)
+    weights = 4 * d * d + k_size * d + 14 * 4 * d + 16 * 4
+    r["bound"] = bound(3 * b * n * d + 2 * b * (k_size - 1) * d + weights,
+                       2 * b * n * d * (4 * d + k_size))
+    report["stream_per_kernel"] = rows
+    report["stream_launches"] = counts
+    report["stream_seconds"] = time.perf_counter() - t_phase
+    log(f"[12] phase 12 took {report['stream_seconds']:.1f} s")
     return rows, counts
 
 
@@ -3976,6 +4500,7 @@ def main() -> int:
     vgg_pre = phase_checkpoints(chk, dev, card, report, model, tables, conf_model, conf_tables)
     w8a8_rows, w8a8_counts = phase_w8a8(chk, dev, card, report, (model, tables["static_e"]))
     g_rows, g_counts = phase_grouped(chk, dev, card, report, (model, tables["static_e"]))
+    s_rows, s_counts = phase_streaming(chk, dev, card, report)
 
     rows = report["quartznet_per_kernel"] + report["conformer_per_kernel"]
     kernels = []
@@ -4034,6 +4559,19 @@ def main() -> int:
              g_counts["jasper_grouped_block W6A6 static_e"]["dense_conv"])]:
         r = next(r for r in g_rows if label in r["shape"])
         kernels.append(kernel_row(kind, replaces, r, launches))
+    # phase 12: the cache forms of Kernels 3 and 4 (launches: the cache-aware
+    # stream of phase 12b)
+    for kind, replaces, label in [
+            ("int_attention_cached", "qasr_tpu/kernels/int_attention.py:170 (#12), cache form: "
+             "the stream step's XLA composition, qasr_tpu/quantize/conformer_freeze.py:803-824",
+             "int_attention_cached B="),
+            ("conv_block_cached", "qasr_tpu/kernels/conf_module.py:341 (#13), cache form: the "
+             "stream step's XLA composition, qasr_tpu/quantize/conformer_freeze.py:825-835",
+             "conv_block_cached B=")]:
+        r = next(r for r in s_rows if label in r["shape"])
+        row = kernel_row(kind, replaces, r, s_counts["stream"][kind])
+        row["source"] = f"qasr_tpu_torch/kernels/csrc/{kind[:-len('_cached')]}.cu"
+        kernels.append(row)
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     log(f"[6] whole smoke run {report['seconds']:.1f} s")

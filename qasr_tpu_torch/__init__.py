@@ -15,3 +15,20 @@ needs (model configs, CTC decoding, audio input, the range assets).
     ids, enc_lens = fn(pcm_int16, lengths)
 """
 __version__ = "0.1.0"
+
+# names resolved at first use (``qasr_tpu_torch.StreamingTranscriber``), so
+# that importing the package stays light
+_LAZY = {
+    "StreamingTranscriber": "qasr_tpu_torch.decode.streaming",
+    "CacheAwareConformerStream": "qasr_tpu_torch.decode.streaming",
+}
+
+__all__ = sorted(_LAZY)
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+
+        return getattr(importlib.import_module(_LAZY[name]), name)
+    raise AttributeError(f"module 'qasr_tpu_torch' has no attribute {name!r}")

@@ -12,6 +12,8 @@ state carry over through ``state_from_jax`` too).  ``model_from_jax``
 rebuilds a JAX package CTC, classification or speaker model as the port's,
 its params whole: SqueezeExcite's fc1 / fc2, the classification head's
 linear, the speaker head's embedding layers (linear + BN) and final layer.
+``stream_state_from_jax`` carries a cache-aware Conformer stream's state
+(``frozen_stream_init`` / ``frozen_stream_step``) across.
 Nothing here imports jax.
 """
 from __future__ import annotations
@@ -48,6 +50,19 @@ def conformer_tables_from_jax(tables: Any, device=None) -> Any:
     """JAX frozen Conformer tables (``freeze_conformer``) -> the port's
     device tables on ``device`` (None: the CUDA device)."""
     return conformer_tables_to_device(state_from_jax(tables), as_device(device))
+
+
+def stream_state_from_jax(state: Any, device=None) -> Any:
+    """A JAX cache-aware stream state (per layer int8 ``k8``, ``v8``,
+    ``glu8``; ``seen`` a 0-d int32) -> the port's on ``device`` (None: the
+    CUDA device): the caches as torch int8 tensors, ``seen`` a Python
+    int."""
+    import torch
+
+    dev = as_device(device)
+    layers = [{k: torch.from_numpy(np.array(v, np.int8)).to(dev) for k, v in lc.items()}
+              for lc in state["layers"]]
+    return {"layers": layers, "seen": int(np.asarray(state["seen"]))}
 
 
 def model_from_jax(jm: Any):

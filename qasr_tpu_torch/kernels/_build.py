@@ -34,10 +34,11 @@ _SIGNATURES = {
     "qasr_dense_conv": [_P] * 8 + [_I] * 17 + [_P, _I, _P, _P] + [_I] * 10
                        + [_P, _I, _P, _I, _P],
     "qasr_requant_check": [_P] * 4 + [_I, _I, _P],
-    "qasr_requant_rows": [_P, _I, _P, _P, _I, _I, _P, _I, _P, _P, _I, _I, _P, _P] + [_I] * 5
+    "qasr_requant_rows": [_P, _I, _P, _P, _I, _I, _P, _I, _P, _P, _I, _I, _P, _P, _P] + [_I] * 5
                          + [_P] + [_I] * 3 + [_P],
     "qasr_int_attention": [_P] * 7 + [_I] * 14 + [_P],
-    "qasr_conv_block": [_P] * 14 + [_I] * 6 + [_P],
+    "qasr_int_attention_cached": [_P] * 10 + [_I] * 13 + [_P],
+    "qasr_conv_block": [_P] * 16 + [_I] * 7 + [_P],
     "qasr_int_fn_check": [_I] + [_P] * 3 + [_I, _P],
     "qasr_ln_check": [_P] * 2 + [_I] * 3 + [_P],
     "qasr_lin_epilogue": [_P] * 6 + [_I] * 10 + [_P],

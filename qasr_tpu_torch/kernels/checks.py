@@ -3,8 +3,9 @@ pointers, so every device, dtype, shape and contiguity it relies on is
 verified in Python first and anything else raises.  Also the host's proof
 that a per-column requant site may run on the FP64 pipe (``f64_fits``),
 which Kernel 4 applies per layer and Kernel 6 per site, and the storage
-rule of an activation code (``act_dtype``): int8, or uint8 for the
-non-negative 9-bit codes of W8A8's post-ReLU sites."""
+rule of an activation code (``act_dtype``): int8, uint8 for the
+non-negative 9-bit codes of W8A8's post-ReLU sites, and two uint8 planes
+for its signed 9-bit codes after selu or swish."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -40,24 +41,57 @@ def act_dtype(name: str, bits, nonneg: bool, device) -> torch.dtype:
     for a 9-bit code whose value is non-negative (the +1-bit asymmetric
     sites of W8A8 read a post-ReLU input, and the dyadic requant of a value
     >= 0 is >= 0, so the clamp [-256, 255] reads [0, 255]: one byte, which
-    Hopper multiplies as u8 x s8).  Anything else, a signed 9-bit code,
-    10 bits and more, is int32 on the CPU, where the plain versions run,
-    and raises NotImplementedError on CUDA, whose kernels store bytes."""
+    Hopper multiplies as u8 x s8); uint8 too for a signed 9-bit code v in
+    [-256, 255] (the same sites after selu or swish), held as two byte
+    planes v = u - 256 s with u = v & 255 and s = (v < 0) (``split_planes``,
+    ``signed_planes``): Kernel 7 writes both, the uint8 forms of Kernels 1,
+    2 and 8 multiply each with the epilogue off, and conv(W, v) = conv(W,
+    u) - 256 conv(W, s).  10 bits and more are int32 on the CPU, where the
+    plain versions run, and raise NotImplementedError on CUDA, whose
+    kernels store bytes."""
     if not isinstance(bits, int) or bits < 2:
         raise ValueError(f"{name}: bits must be an int >= 2, got {bits!r}")
+    if signed_planes(bits, nonneg):
+        return torch.uint8
     dtype = code_dtype(bits, nonneg)
     if dtype == torch.int32 and torch.device(device).type == "cuda":
-        what = "a signed 9-bit" if bits == 9 else f"a {bits}-bit"
         raise NotImplementedError(
-            f"{name}: {what} activation code has no kernel storage on CUDA (the kernels "
-            f"store int8 codes of <= 8 bits and uint8 for non-negative 9-bit ones)")
+            f"{name}: a {bits}-bit activation code has no kernel storage on CUDA (the kernels "
+            f"store int8 codes of <= 8 bits and uint8 bytes or byte planes for 9-bit ones)")
     return dtype
+
+
+def signed_planes(bits: int, nonneg: bool) -> bool:
+    """Whether a code of ``bits`` bits is stored as two uint8 planes: a
+    9-bit code of a value that may be negative (``act_dtype``)."""
+    return bits == 9 and not nonneg
+
+
+def split_planes(v: torch.Tensor):
+    """(u, s) uint8 of signed 9-bit codes v in [-256, 255]: u = v & 255,
+    s = (v < 0), so that v = u - 256 s (the plain form of Kernel 7's
+    planes)."""
+    v = v.to(torch.int32)
+    return torch.bitwise_and(v, 255).to(torch.uint8), (v < 0).to(torch.uint8)
+
+
+def join_planes(acc_u: torch.Tensor, acc_s: torch.Tensor) -> torch.Tensor:
+    """conv(W, v) from the two planes' int32 accumulators: acc_u - 256 acc_s,
+    exact in int32 wherever |conv(W, v)| < 2^31 (two's complement wraps
+    back), which the freeze proves for every such site
+    (``quantize/freeze.py::planes_bound``)."""
+    return torch.sub(acc_u, acc_s, alpha=256)
 
 
 def act_clamp(name: str, bits, nonneg: bool = False) -> Tuple[int, int]:
     """(lo, hi) of a kernel's requant output stored as ``act_dtype`` gives
     it on CUDA: [-2^(bits-1), 2^(bits-1)-1] for int8, [0, 255] for uint8
-    (the 9-bit clamp [-256, 255] on a non-negative value)."""
+    (the 9-bit clamp [-256, 255] on a non-negative value).  An epilogue
+    stores one byte plane, so a signed 9-bit code (Kernel 7's two planes)
+    raises NotImplementedError."""
+    if signed_planes(bits, nonneg):
+        raise NotImplementedError(f"{name}: a signed 9-bit code is two byte planes, which "
+                                  f"the requant kernel writes (requant(planes=True))")
     if act_dtype(name, bits, nonneg, "cuda") == torch.uint8:
         return 0, 255
     return int8_clamp(name, bits)

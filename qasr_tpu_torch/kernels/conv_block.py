@@ -22,6 +22,13 @@ The tables and the packed weights are built and validated once per layer
 per call) and runs ``conv_block_plain`` (the XLA composition of
 qasr_tpu/quantize/conformer_freeze.py, in torch) for CPU tensors; it
 never falls back from one to the other.
+
+The cache form (``conv_block_cached``, the stream step of a causal
+Conformer) runs the same two stages over the n new frames: stage A with
+no length mask, stage B's depthwise with padding (0, 0) over [cache (K-1
+rows) || glu8 (n rows)], its halo reading the cached GLU rows; it returns
+the new cache (the last K-1 rows of [cache || glu8], written by stage B's
+first time tile) beside the stream.
 """
 from __future__ import annotations
 
@@ -66,6 +73,21 @@ def conv_block_plain(c8: torch.Tensor, x8: torch.Tensor, lens: torch.Tensor,
     glu8 = clip8(dyadic_requant_static(y_int, *tbl["glu_prod"]), nbits)
     mid8 = _conv_tail_mid(tbl, glu8, padding, nbits)
     return _join_lin(mid8, tbl["pw2"], x1, tbl["j3_stream"], nbits)
+
+
+def conv_block_cached_plain(c8: torch.Tensor, x8: torch.Tensor, glu_cache: torch.Tensor,
+                            tbl, *, nbits: int):
+    """Plain torch version of the cache form: JAX's stream-step composition
+    (att_out join -> ln_conv -> GLU, no mask -> depthwise over [cache ||
+    new] with padding (0, 0) -> BN -> i-swish -> pw2 join).  Same arguments
+    and results as ``conv_block_cached``."""
+    x1 = _join_lin(c8, tbl["att_out"], x8, tbl["j2_stream"], nbits)
+    yln = _ln_rq(x1, tbl["ln_conv"], nbits)
+    glu8 = clip8(dyadic_requant_static(_glu_int(tbl, yln, nbits), *tbl["glu_prod"]), nbits)
+    glu_cat = torch.cat([glu_cache, glu8], 1)
+    mid8 = _conv_tail_mid(tbl, glu_cat, (0, 0), nbits)
+    out = _join_lin(mid8, tbl["pw2"], x1, tbl["j3_stream"], nbits)
+    return out, glu_cat[:, glu_cat.shape[1] - glu_cache.shape[1]:].contiguous()
 
 
 def tap_groups(k_size: int):
@@ -172,6 +194,41 @@ def _packed(tbl) -> Dict[str, Any]:
     return packed
 
 
+def _check_call(name: str, c8: torch.Tensor, x8: torch.Tensor, tbl, nbits: int):
+    """The activations of a CUDA call and the layer's packed tables:
+    (b, t, d, k_size, packed, swish table)."""
+    check_x(f"{name} x8", x8, 3)
+    check_x(f"{name} c8", c8, 3)
+    b, t, d = x8.shape
+    dev = x8.device
+    check_vec(name, "c8", c8, torch.int8, (b, t, d), dev)
+    k_size = tbl["dw_w"].shape[0]
+    if b * t == 0 or d % 64 or d > MAX_D or not 2 <= nbits <= 8 or x8.data_ptr() % 16 \
+            or c8.data_ptr() % 16:
+        raise ValueError(f"{name}: needs B*T > 0, d a multiple of 64 up to {MAX_D}, nbits "
+                         f"in [2, 8] and aligned inputs (got B={b} T={t} d={d} K={k_size})")
+    p = _packed(tbl)
+    if p["vec"].device != dev or p["vec"].shape[1] != d:
+        raise ValueError(f"{name}: the layer's tables are for d={p['vec'].shape[1]} "
+                         f"on {p['vec'].device}, the input is d={d} on {dev}")
+    swish = p["swish"].get(nbits)
+    if swish is None:
+        swish = p["swish"][nbits] = swish_table(tbl, nbits)
+    return b, t, d, k_size, p, swish
+
+
+def _launch(c8, x8, lens, p, swish, glu8, out, cache, new_cache, k_size, pad_l, kc, nbits):
+    b, t, d = x8.shape
+    rc = _build.library().qasr_conv_block(
+        _build.ptr(c8), _build.ptr(x8), _build.ptr(lens), _build.ptr(p["w_ao"]),
+        _build.ptr(p["w_ag"]), _build.ptr(p["dw_p"]), _build.ptr(p["w_2"]),
+        _build.ptr(p["vec"]), _build.ptr(p["sc"]), _build.ptr(p["mf"] if p["f64"] else None),
+        _build.ptr(p["sig"]), _build.ptr(swish), _build.ptr(glu8), _build.ptr(out),
+        _build.ptr(cache), _build.ptr(new_cache), b, t, d, k_size, pad_l, kc,
+        2 ** (nbits - 1) - 1, _build.stream_of(x8))
+    _build.check(rc, "conv_block")
+
+
 def conv_block(c8: torch.Tensor, x8: torch.Tensor, lens: torch.Tensor, tbl,
                padding, *, nbits: int) -> torch.Tensor:
     """The frozen conv-module sublayer with the attention-output join in
@@ -183,39 +240,46 @@ def conv_block(c8: torch.Tensor, x8: torch.Tensor, lens: torch.Tensor, tbl,
         return conv_block_plain(c8, x8, lens, tbl, padding, nbits=nbits)
     if x8.device.type != "cuda":
         raise ValueError(f"conv_block: unsupported device {x8.device}")
-    check_x("conv_block x8", x8, 3)
-    check_x("conv_block c8", c8, 3)
-    b, t, d = x8.shape
-    dev = x8.device
-    check_vec("conv_block", "c8", c8, torch.int8, (b, t, d), dev)
-    check_vec("conv_block", "lens", lens, torch.int32, (b,), dev)
-    k_size = tbl["dw_w"].shape[0]
+    b, t, d, k_size, p, swish = _check_call("conv_block", c8, x8, tbl, nbits)
+    check_vec("conv_block", "lens", lens, torch.int32, (b,), x8.device)
     pad_l, pad_r = int(padding[0]), int(padding[1])
-    if b * t == 0 or d % 64 or d > MAX_D or pad_l + pad_r != k_size - 1 \
-            or not 2 <= nbits <= 8 or x8.data_ptr() % 16 or c8.data_ptr() % 16:
-        raise ValueError(f"conv_block: needs B*T > 0, d a multiple of 64 up to "
-                         f"{MAX_D}, padding summing to K-1, nbits in [2, 8] and "
-                         f"aligned inputs (got B={b} T={t} d={d} K={k_size} "
-                         f"padding={padding})")
-    p = _packed(tbl)
-    if p["vec"].device != dev or p["vec"].shape[1] != d:
-        raise ValueError(f"conv_block: the layer's tables are for d={p['vec'].shape[1]} "
-                         f"on {p['vec'].device}, the input is d={d} on {dev}")
-    swish = p["swish"].get(nbits)
-    if swish is None:
-        swish = p["swish"][nbits] = swish_table(tbl, nbits)
-    glu8 = torch.empty((b, t, d), dtype=torch.int8, device=dev)
-    out = torch.empty((b, t, d), dtype=torch.int8, device=dev)
-    rc = _build.library().qasr_conv_block(
-        _build.ptr(c8), _build.ptr(x8), _build.ptr(lens), _build.ptr(p["w_ao"]),
-        _build.ptr(p["w_ag"]), _build.ptr(p["dw_p"]), _build.ptr(p["w_2"]),
-        _build.ptr(p["vec"]), _build.ptr(p["sc"]), _build.ptr(p["mf"] if p["f64"] else None),
-        _build.ptr(p["sig"]), _build.ptr(swish),
-        _build.ptr(glu8), _build.ptr(out), b, t, d, k_size, pad_l, 2 ** (nbits - 1) - 1,
-        _build.stream_of(x8))
-    _build.check(rc, "conv_block")
+    if pad_l + pad_r != k_size - 1:
+        raise ValueError(f"conv_block: padding {padding} must sum to K-1 = {k_size - 1}")
+    glu8 = torch.empty((b, t, d), dtype=torch.int8, device=x8.device)
+    out = torch.empty((b, t, d), dtype=torch.int8, device=x8.device)
+    _launch(c8, x8, lens, p, swish, glu8, out, None, None, k_size, pad_l, 0, nbits)
     conv_block.launches += 1
     return out
 
 
 conv_block.launches = 0
+
+
+def conv_block_cached(c8: torch.Tensor, x8: torch.Tensor, glu_cache: torch.Tensor, tbl, *,
+                      nbits: int):
+    """The cache form: c8 and x8 (B, n, d) int8 of the n new frames,
+    glu_cache (B, K-1, d) int8 (the last K-1 GLU rows, zeros before the
+    stream's start: the offline causal left padding).  Returns (the int8
+    stream after the conv module's join, the new cache)."""
+    if x8.device.type == "cpu":
+        return conv_block_cached_plain(c8, x8, glu_cache, tbl, nbits=nbits)
+    if x8.device.type != "cuda":
+        raise ValueError(f"conv_block_cached: unsupported device {x8.device}")
+    b, n, d, k_size, p, swish = _check_call("conv_block_cached", c8, x8, tbl, nbits)
+    if k_size < 2:
+        raise ValueError("conv_block_cached: a kernel of K >= 2 taps keeps a cache")
+    check_x("conv_block_cached glu_cache", glu_cache, 3)
+    check_vec("conv_block_cached", "glu_cache", glu_cache, torch.int8, (b, k_size - 1, d),
+              x8.device)
+    if glu_cache.data_ptr() % 16:
+        raise ValueError("conv_block_cached: glu_cache must be 16-byte aligned")
+    glu8 = torch.empty((b, n, d), dtype=torch.int8, device=x8.device)
+    out = torch.empty((b, n, d), dtype=torch.int8, device=x8.device)
+    new_cache = torch.empty_like(glu_cache)
+    _launch(c8, x8, None, p, swish, glu8, out, glu_cache, new_cache, k_size, 0, k_size - 1,
+            nbits)
+    conv_block_cached.launches += 1
+    return out, new_cache
+
+
+conv_block_cached.launches = 0

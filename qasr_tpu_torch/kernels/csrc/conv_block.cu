@@ -61,6 +61,15 @@
 // overhead), cheap next to the taps.  glu8 is the only intermediate in
 // device memory; stage B's epilogue joins against x1 read back from the
 // output buffer, whose elements it then overwrites.
+//
+// The cache form serves the stream step of a causal Conformer (the JAX
+// package's XLA composition at conformer_freeze.py:825-835): the same two
+// launches over the n new frames of each utterance (T = n), stage A with
+// no length mask (lens NULL: every fed frame is valid), stage B's
+// depthwise over [cache (K - 1 rows) || glu8 (n rows)] with padding
+// (0, 0), so its halo reads the cached GLU rows where the offline form
+// reads zeros; the first time tile of each utterance also writes the new
+// cache, the last K - 1 rows of [cache || glu8].
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -174,14 +183,16 @@ __device__ __forceinline__ void ln_rows(const int8_t* X1, int8_t* A8, int lda,
 // m_g, dw_sgn, dw_b, dw_m, b_2, m_2.  sc: e_ao, j2_m, j2_e, e_ln, e_a, e_g,
 // glu_m, glu_e, e_dw, bng_m, bng_e, bnp_m, bnp_e, e_2, j3_m, j3_e.  mf rows
 // (kF64, each d doubles m 2^-e): att_out, GLU a, GLU g, BN, pw2, ln affine.
+#define QASR_STAGE_A_PARAMS                                                              \
+  (const int8_t* __restrict__ c8, const int8_t* __restrict__ x8,                         \
+   const int32_t* __restrict__ lens, const int8_t* __restrict__ w_ao,                    \
+   const int8_t* __restrict__ w_ag, const int32_t* __restrict__ vec,                     \
+   const int32_t* __restrict__ sc, const double* __restrict__ mf,                        \
+   const uint8_t* __restrict__ sig_tab, int8_t* __restrict__ glu8,                       \
+   int8_t* __restrict__ x1out, int N, int T, int d, int n8)
+#define QASR_STAGE_A_ARGS (c8, x8, lens, w_ao, w_ag, vec, sc, mf, sig_tab, glu8, x1out, N, T, d, n8)
 template <bool kF64>
-__global__ void __launch_bounds__(kThreads, 3)
-conv_block_stage_a(const int8_t* __restrict__ c8, const int8_t* __restrict__ x8,
-                   const int32_t* __restrict__ lens, const int8_t* __restrict__ w_ao,
-                   const int8_t* __restrict__ w_ag, const int32_t* __restrict__ vec,
-                   const int32_t* __restrict__ sc, const double* __restrict__ mf,
-                   const uint8_t* __restrict__ sig_tab, int8_t* __restrict__ glu8,
-                   int8_t* __restrict__ x1out, int N, int T, int d, int n8) {
+__device__ __forceinline__ void stage_a QASR_STAGE_A_PARAMS {
   extern __shared__ int4 smem4[];
   const int lda = d / 4 + 4;
   int* As = reinterpret_cast<int*>(smem4);                    // 32 x lda words
@@ -219,7 +230,7 @@ conv_block_stage_a(const int8_t* __restrict__ c8, const int8_t* __restrict__ x8,
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int n = n0 + wr * 16 + g + 8 * h;
-    live[h] = n < N && (n % T) < lens[n / T];
+    live[h] = n < N && (lens == nullptr || (n % T) < lens[n / T]);
   }
 
   int acc[4][4];
@@ -319,14 +330,21 @@ __device__ __forceinline__ void dw_group(int (&acc)[kPer], int x0, int x1, int x
 
 // dw_p: (d, ngp) int32, word 0 of each channel 0 and word 1 + g the taps
 // 4g..4g+3 of group g < ng (kernels/conv_block.py::pack_taps); swish_tab:
-// mid8 of bn8 at bn8 + 128
+// mid8 of bn8 at bn8 + 128.  The depthwise reads frame s of [cache (kc
+// rows) || glu8 (T rows)] (zero outside it) at s = t - pad_l + tap; kc = 0
+// is the offline form.  With a cache, blockIdx.x 0 writes new_cache, the
+// last kc rows of [cache || glu8].
+#define QASR_STAGE_B_PARAMS                                                              \
+  (const int8_t* __restrict__ glu8, const int32_t* __restrict__ dw_p,                    \
+   const int8_t* __restrict__ w_2, const int32_t* __restrict__ vec,                      \
+   const int32_t* __restrict__ sc, const double* __restrict__ mf,                        \
+   const uint8_t* __restrict__ swish_tab, int8_t* __restrict__ out,                      \
+   const int8_t* __restrict__ cache, int8_t* __restrict__ new_cache, int T, int d,       \
+   int ng, int ngp, int pad_l, int kc, int n8)
+#define QASR_STAGE_B_ARGS \
+  (glu8, dw_p, w_2, vec, sc, mf, swish_tab, out, cache, new_cache, T, d, ng, ngp, pad_l, kc, n8)
 template <bool kF64>
-__global__ void __launch_bounds__(kThreads, 3)
-conv_block_stage_b(const int8_t* __restrict__ glu8, const int32_t* __restrict__ dw_p,
-                   const int8_t* __restrict__ w_2, const int32_t* __restrict__ vec,
-                   const int32_t* __restrict__ sc, const double* __restrict__ mf,
-                   const uint8_t* __restrict__ swish_tab,
-                   int8_t* __restrict__ out, int T, int d, int ng, int ngp, int pad_l, int n8) {
+__device__ __forceinline__ void stage_b QASR_STAGE_B_PARAMS {
   extern __shared__ int4 smem4[];
   const int lda = d / 4 + 4;
   const int nw = kRows / 4 + ng - 1;          // staged words per channel
@@ -341,6 +359,18 @@ conv_block_stage_b(const int8_t* __restrict__ glu8, const int32_t* __restrict__ 
   const int g = lane >> 2, t4 = lane & 3, wr = warp >> 1, wc = warp & 1;
   const int b = blockIdx.y, t0 = blockIdx.x * kRows;
   const size_t base = static_cast<size_t>(b) * T * d;
+  const size_t cbase = static_cast<size_t>(b) * kc * d;
+
+  if (kc > 0 && blockIdx.x == 0) {
+    // the new cache: row r is frame T + r of [cache || glu8], 16 bytes a copy
+    for (int idx = tid; idx < kc * (d / 16); idx += kThreads) {
+      const int r = idx / (d / 16), q = idx - r * (d / 16), f = T + r;
+      const int8_t* src = f < kc ? cache + cbase + static_cast<size_t>(f) * d
+                                 : glu8 + base + static_cast<size_t>(f - kc) * d;
+      *reinterpret_cast<int4*>(new_cache + cbase + static_cast<size_t>(r) * d + 16 * q) =
+          *reinterpret_cast<const int4*>(src + 16 * q);
+    }
+  }
 
   // group 0: the taps, the swish table and pw2's weight chunk 0
   for (int idx = tid; idx < d * ngp / 4; idx += kThreads) qasr_cp16(Pw + 4 * idx, dw_p + 4 * idx, 16);
@@ -349,9 +379,9 @@ conv_block_stage_b(const int8_t* __restrict__ glu8, const int32_t* __restrict__ 
   load_chunk(Ws, w_2, 0, d, lda, sp);
   qasr_cp_commit();
 
-  // glu8 frames t0 - pad_l + 4 w + i (zero outside [0, T)), channel-major:
-  // each item is 4 channels x 4 frames, transposed with byte_perm; a warp
-  // covers 8 channel groups x 4 words, on 32 banks
+  // frames t0 - pad_l + 4 w + i of [cache || glu8] (zero outside [0, kc +
+  // T)), channel-major: each item is 4 channels x 4 frames, transposed with
+  // byte_perm; a warp covers 8 channel groups x 4 words, on 32 banks
   {
     const int groups = d / 4;
 #pragma unroll 4
@@ -362,10 +392,12 @@ conv_block_stage_b(const int8_t* __restrict__ glu8, const int32_t* __restrict__ 
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int t = t0 - pad_l + 4 * w + i;
-        a[i] = (t >= 0 && t < T)
-                   ? *reinterpret_cast<const unsigned*>(glu8 + base + static_cast<size_t>(t) * d +
-                                                        4 * cg)
-                   : 0u;
+        a[i] = 0u;
+        if (t >= 0 && t < kc + T) {
+          const int8_t* src = t < kc ? cache + cbase + static_cast<size_t>(t) * d
+                                     : glu8 + base + static_cast<size_t>(t - kc) * d;
+          a[i] = *reinterpret_cast<const unsigned*>(src + 4 * cg);
+        }
       }
       unsigned o[4];
       qasr_transpose4(a, o);
@@ -466,6 +498,17 @@ conv_block_stage_b(const int8_t* __restrict__ glu8, const int32_t* __restrict__ 
   }
 }
 
+// Each stage under two kernel names, the offline form's and the cache
+// form's (conv_block_cached_stage_*), so that a trace holding both paths
+// keeps their device times apart; the code is one.
+#define QASR_STAGE_KERNEL(kernel, body, params, args) \
+  template <bool kF64>                                \
+  __global__ void __launch_bounds__(kThreads, 3) kernel params { body<kF64> args; }
+QASR_STAGE_KERNEL(conv_block_stage_a, stage_a, QASR_STAGE_A_PARAMS, QASR_STAGE_A_ARGS)
+QASR_STAGE_KERNEL(conv_block_cached_stage_a, stage_a, QASR_STAGE_A_PARAMS, QASR_STAGE_A_ARGS)
+QASR_STAGE_KERNEL(conv_block_stage_b, stage_b, QASR_STAGE_B_PARAMS, QASR_STAGE_B_ARGS)
+QASR_STAGE_KERNEL(conv_block_cached_stage_b, stage_b, QASR_STAGE_B_PARAMS, QASR_STAGE_B_ARGS)
+
 cudaError_t allow_smem(const void* fn, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -476,8 +519,9 @@ template <bool kF64>
 int launch(const int8_t* c8, const int8_t* x8, const int32_t* lens, const int8_t* w_ao,
            const int8_t* w_ag, const int32_t* dw_p, const int8_t* w_2, const int32_t* vec,
            const int32_t* sc, const double* mf, const uint8_t* sig_tab,
-           const uint8_t* swish_tab, int8_t* glu8, int8_t* out, int B, int T, int d, int K,
-           int pad_l, int n8, cudaStream_t s) {
+           const uint8_t* swish_tab, int8_t* glu8, int8_t* out, const int8_t* cache,
+           int8_t* new_cache, int B, int T, int d, int K, int pad_l, int kc, int n8,
+           cudaStream_t s) {
   const int ng = (K + 2) / 4 + 1, ngp = (ng + 1) | 1;
   const size_t lda = d / 4 + 4;
   const size_t pitch = (kRows / 4 + ng - 1) | 1;
@@ -485,18 +529,19 @@ int launch(const int8_t* c8, const int8_t* x8, const int32_t* lens, const int8_t
                        2 * static_cast<size_t>(kRows) * d + kSigTab;
   const size_t shm_b =
       4 * ((kRows + 2 * kChunk) * lda + static_cast<size_t>(d) * (ngp + pitch) + 8) + 256;
-  cudaError_t err =
-      allow_smem(reinterpret_cast<const void*>(conv_block_stage_a<kF64>), shm_a);
-  if (err == cudaSuccess)
-    err = allow_smem(reinterpret_cast<const void*>(conv_block_stage_b<kF64>), shm_b);
+  const auto stage_a_k = kc > 0 ? conv_block_cached_stage_a<kF64> : conv_block_stage_a<kF64>;
+  const auto stage_b_k = kc > 0 ? conv_block_cached_stage_b<kF64> : conv_block_stage_b<kF64>;
+  cudaError_t err = allow_smem(reinterpret_cast<const void*>(stage_a_k), shm_a);
+  if (err == cudaSuccess) err = allow_smem(reinterpret_cast<const void*>(stage_b_k), shm_b);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int N = B * T;
-  conv_block_stage_a<kF64><<<(N + kRows - 1) / kRows, kThreads, shm_a, s>>>(
+  stage_a_k<<<(N + kRows - 1) / kRows, kThreads, shm_a, s>>>(
       c8, x8, lens, w_ao, w_ag, vec, sc, mf, sig_tab, glu8, out, N, T, d, n8);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  conv_block_stage_b<kF64><<<dim3((T + kRows - 1) / kRows, B), kThreads, shm_b, s>>>(
-      glu8, dw_p, w_2, vec, sc, mf, swish_tab, out, T, d, ng, ngp, pad_l, n8);
+  stage_b_k<<<dim3((T + kRows - 1) / kRows, B), kThreads, shm_b, s>>>(
+      glu8, dw_p, w_2, vec, sc, mf, swish_tab, out, cache, new_cache, T, d, ng, ngp, pad_l, kc,
+      n8);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -507,17 +552,21 @@ int launch(const int8_t* c8, const int8_t* x8, const int32_t* lens, const int8_t
 // NULL requants every per-column site and glu_prod with qasr_rq; otherwise
 // with qasr_rq_f64 (the caller has checked each column's domain,
 // kernels/conv_block.py::_f64_scales).  sig_tab: the kSigTab-byte GLU
-// sigmoid table (kernels/conv_block.py::sigmoid_table).
+// sigmoid table (kernels/conv_block.py::sigmoid_table).  The cache form:
+// lens NULL, pad_l 0, kc = K - 1, cache (B, kc, d) and new_cache (B, kc,
+// d) int8; the offline form: cache and new_cache NULL, kc 0.
 extern "C" int qasr_conv_block(const int8_t* c8, const int8_t* x8, const int32_t* lens,
                                const int8_t* w_ao, const int8_t* w_ag, const int32_t* dw_p,
                                const int8_t* w_2, const int32_t* vec, const int32_t* sc,
                                const double* mf, const uint8_t* sig_tab,
-                               const uint8_t* swish_tab, int8_t* glu8, int8_t* out, int B,
-                               int T, int d, int K, int pad_l, int n8, void* stream) {
-  if (d % 64 != 0 || d > 32 * kMaxPer || K < 1 || sig_tab == nullptr || swish_tab == nullptr)
+                               const uint8_t* swish_tab, int8_t* glu8, int8_t* out,
+                               const int8_t* cache, int8_t* new_cache, int B, int T, int d,
+                               int K, int pad_l, int kc, int n8, void* stream) {
+  if (d % 64 != 0 || d > 32 * kMaxPer || K < 1 || sig_tab == nullptr || swish_tab == nullptr ||
+      kc < 0 || (kc > 0 && (cache == nullptr || new_cache == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto* fn = mf ? launch<true> : launch<false>;
-  return fn(c8, x8, lens, w_ao, w_ag, dw_p, w_2, vec, sc, mf, sig_tab, swish_tab, glu8, out, B,
-            T, d, K, pad_l, n8, s);
+  return fn(c8, x8, lens, w_ao, w_ag, dw_p, w_2, vec, sc, mf, sig_tab, swish_tab, glu8, out,
+            cache, new_cache, B, T, d, K, pad_l, kc, n8, s);
 }

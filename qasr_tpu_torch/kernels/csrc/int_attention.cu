@@ -60,6 +60,24 @@
 // well.  64 query rows a block (4 x 2 warps) let the same chunk loads serve
 // twice the queries, but the score rows then take 200 KB, 1 block an SM,
 // and the kernel ran slower (PERF.md, Kernel 3).
+//
+// The cache form (int_attention_cached_kernel) serves the stream step of a
+// causal Conformer (att_context (L, 0)), which the JAX package runs as an
+// XLA composition over [cache || new] (qasr_tpu/quantize/conformer_freeze.py:
+// 803-824): n new queries, keys and values the L cached rows then the n
+// new ones, the (L + 1)-row pos table of relative offsets 0..L.  Query i
+// sees slot j at r = L + i - j in [0, L] (pos row r), masked where the
+// slot holds no frame yet (j < L - seen); the slot j = L + i never is.
+// The work is small (at L = 70, n = 4: 71 scores a query row, 4 rows an
+// utterance and head), so the design is plain: one 128-thread block a
+// (batch, head, 16 queries) stages its queries, the L + 16 key / value
+// rows its queries reach and the pos table in shared memory; a warp takes
+// a query row, a lane its scores (dp4a over d_k / 4 words, rows padded to
+// an odd word count so a warp's 32 rows fall on 32 banks), then the row's
+// integer softmax (warp max, i_exp from the table, warp sum, rounding
+// division) and the context (a lane per output dimension, summed over the
+// L + 1 probabilities).  The block of the first query tile also writes the
+// new caches: the last L rows of [cache || new].
 #include <climits>
 #include <cstdint>
 
@@ -561,6 +579,128 @@ int_attention_stream_kernel(const int8_t* __restrict__ qu, const int8_t* __restr
   store_context<kDKP>(accc, out + off, rs, i0, T, DK, qasr_rq_make(ctx_m, ctx_e), n8);
 }
 
+// ---- the cache form ------------------------------------------------------
+
+constexpr int kTQC = 16;                 // queries a block
+constexpr int kWarpsC = 4;               // warps a block: a query row each at a time
+constexpr int kThreadsC = 32 * kWarpsC;
+
+// rows [r0, r0 + nrows) of [cache (L rows) || fresh (n rows)], head h of
+// batch b (rs bytes a time step), d_k bytes a row -> smem rows of dkw words
+__device__ __forceinline__ void stage_cat(int* dst, const int8_t* cache, const int8_t* fresh,
+                                          int b, int h, int L, int n, size_t rs, int DK,
+                                          int r0, int nrows, int dkw) {
+  const int dk4 = DK / 4;
+  for (int idx = threadIdx.x; idx < nrows * dk4; idx += kThreadsC) {
+    const int r = idx / dk4, w = idx - r * dk4, j = r0 + r;
+    const int8_t* src = j < L ? cache + (static_cast<size_t>(b) * L + j) * rs
+                              : fresh + (static_cast<size_t>(b) * n + (j - L)) * rs;
+    dst[r * dkw + w] = *reinterpret_cast<const int*>(src + static_cast<size_t>(h) * DK + 4 * w);
+  }
+}
+
+__global__ void __launch_bounds__(kThreadsC)
+int_attention_cached_kernel(const int8_t* __restrict__ qu, const int8_t* __restrict__ qv,
+                            const int8_t* __restrict__ k, const int8_t* __restrict__ v,
+                            const int8_t* __restrict__ kc, const int8_t* __restrict__ vc,
+                            const int8_t* __restrict__ pos, int8_t* __restrict__ out,
+                            int8_t* __restrict__ kc_new, int8_t* __restrict__ vc_new, int n,
+                            int L, int H, int DK, int seen, int ac_m, int ac_e, int bd_m,
+                            int bd_e, int ctx_m, int ctx_e, int n8) {
+  extern __shared__ int4 smem4[];
+  const int dkw = DK / 4 + 1, dk4 = DK / 4;
+  const int b = blockIdx.z, h = blockIdx.y, i0 = blockIdx.x * kTQC;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nq = min(kTQC, n - i0);
+  const size_t rs = static_cast<size_t>(H) * DK;
+  int* Qu = reinterpret_cast<int*>(smem4);
+  int* Qv = Qu + kTQC * dkw;
+  int* Ks = Qv + kTQC * dkw;                // slots i0 .. i0 + nq + L - 1
+  int* Vs = Ks + (kTQC + L) * dkw;
+  int* Ps = Vs + (kTQC + L) * dkw;          // pos rows 0..L
+  int* Sc = Ps + (L + 1) * dkw;             // a warp's L + 1 scores
+  int* Pr = Sc + kWarpsC * (L + 1);         // a warp's L + 1 exponents, then probabilities
+  int* Et = Pr + kWarpsC * (L + 1);         // i_exp's quadratic, kExpTab words
+
+  for (int idx = tid; idx < nq * dk4; idx += kThreadsC) {
+    const int r = idx / dk4, w = idx - r * dk4;
+    const size_t at = (static_cast<size_t>(b) * n + i0 + r) * rs + static_cast<size_t>(h) * DK +
+                      4 * w;
+    Qu[r * dkw + w] = *reinterpret_cast<const int*>(qu + at);
+    Qv[r * dkw + w] = *reinterpret_cast<const int*>(qv + at);
+  }
+  stage_cat(Ks, kc, k, b, h, L, n, rs, DK, i0, nq + L, dkw);
+  stage_cat(Vs, vc, v, b, h, L, n, rs, DK, i0, nq + L, dkw);
+  for (int idx = tid; idx < (L + 1) * dk4; idx += kThreadsC) {
+    const int r = idx / dk4, w = idx - r * dk4;
+    Ps[r * dkw + w] = *reinterpret_cast<const int*>(pos + r * rs + static_cast<size_t>(h) * DK +
+                                                    4 * w);
+  }
+  for (int r = tid; r < kExpTab; r += kThreadsC) Et[r] = qasr_exp_quad(r);
+  if (blockIdx.x == 0) {
+    // the new caches: row r is slot n + r of [cache || new]
+    for (int idx = tid; idx < L * dk4; idx += kThreadsC) {
+      const int r = idx / dk4, w = idx - r * dk4, j = n + r;
+      const size_t src = (j < L ? (static_cast<size_t>(b) * L + j) * rs
+                                : (static_cast<size_t>(b) * n + (j - L)) * rs) +
+                         static_cast<size_t>(h) * DK + 4 * w;
+      const size_t dst = (static_cast<size_t>(b) * L + r) * rs + static_cast<size_t>(h) * DK +
+                         4 * w;
+      *reinterpret_cast<int*>(kc_new + dst) =
+          *reinterpret_cast<const int*>((j < L ? kc : k) + src);
+      *reinterpret_cast<int*>(vc_new + dst) =
+          *reinterpret_cast<const int*>((j < L ? vc : v) + src);
+    }
+  }
+  __syncthreads();
+
+  const ScoreRq rq = score_rq(ac_m, ac_e, bd_m, bd_e, DK);
+  const QasrRq rq_ctx = qasr_rq_make(ctx_m, ctx_e);
+  int* S = Sc + warp * (L + 1);
+  int* P = Pr + warp * (L + 1);
+  for (int il = warp; il < nq; il += kWarpsC) {
+    const int i = i0 + il;
+    const int* qa = Qu + il * dkw;
+    const int* qb = Qv + il * dkw;
+    // slot j = i + c sits at relative offset r = L - c: pos row L - c
+    int m = INT_MIN;
+    for (int c = lane; c <= L; c += 32) {
+      const int* kr = Ks + (il + c) * dkw;
+      const int* pr = Ps + (L - c) * dkw;
+      int ac = 0, bd = 0;
+      for (int w = 0; w < dk4; ++w) {
+        ac = __dp4a(qa[w], kr[w], ac);
+        bd = __dp4a(qb[w], pr[w], bd);
+      }
+      int sc = rq.f64 ? qasr_rq_f64(ac, rq.f_ac) + qasr_rq_f64(bd, rq.f_bd)
+                      : qasr_rq(ac, rq.ac) + qasr_rq(bd, rq.bd);
+      if (i + c < L - seen) sc = kMasked;
+      S[c] = sc;
+      m = max(m, sc);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) m = max(m, __shfl_xor_sync(0xffffffffu, m, o));
+    int sum = 0;
+    for (int c = lane; c <= L; c += 32) {
+      const int e = row_exp(S[c], m, Et);
+      P[c] = e;
+      sum += e;
+    }
+    const unsigned den = static_cast<unsigned>(max(qasr_warp_sum(sum), 1));
+    for (int c = lane; c <= L; c += 32)
+      P[c] = static_cast<int>((static_cast<unsigned>(P[c] * n8) + (den >> 1)) / den);
+    __syncwarp();
+    for (int dd = lane; dd < DK; dd += 32) {
+      const int8_t* vcol = reinterpret_cast<const int8_t*>(Vs + il * dkw) + dd;
+      int acc = 0;
+      for (int c = 0; c <= L; ++c) acc += P[c] * static_cast<int>(vcol[4 * c * dkw]);
+      out[(static_cast<size_t>(b) * n + i) * rs + static_cast<size_t>(h) * DK + dd] =
+          static_cast<int8_t>(qasr_clamp(qasr_rq(acc, rq_ctx), -n8, n8 - 1));
+    }
+    __syncwarp();   // the row's scores and probabilities are read before the next row's
+  }
+}
+
 template <int kDKP>
 int launch(const int8_t* qu, const int8_t* qv, const int8_t* k, const int8_t* v,
            const int8_t* pos, const int32_t* lens, int8_t* out, int B, int T, int H,
@@ -609,4 +749,34 @@ extern "C" int qasr_int_attention(const int8_t* qu, const int8_t* qv, const int8
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The cache form: qu, qv, k, v (B, n, H, DK) int8 of the new frames, kc,
+// vc (B, L, H, DK) the cached ones, pos (L + 1, H, DK) the pos rows of
+// offsets 0..L, seen (<= L: the frames consumed before, capped) -> out
+// (B, n, H * DK) int8 and the new caches kc_new, vc_new (B, L, H, DK).
+// DK a multiple of 4 up to 128, L >= 1 (kernels/int_attention.py::
+// int_attention_cached checks both and the shared memory).
+extern "C" int qasr_int_attention_cached(const int8_t* qu, const int8_t* qv, const int8_t* k,
+                                         const int8_t* v, const int8_t* kc, const int8_t* vc,
+                                         const int8_t* pos, int8_t* out, int8_t* kc_new,
+                                         int8_t* vc_new, int B, int n, int L, int H, int DK,
+                                         int seen, int ac_m, int ac_e, int bd_m, int bd_e,
+                                         int ctx_m, int ctx_e, int n8, void* stream) {
+  if (DK % 4 != 0 || DK < 4 || DK > 128 || L < 1 || n < 1 || B < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int dkw = DK / 4 + 1;
+  const size_t shm = 4 * (static_cast<size_t>(2 * kTQC + 2 * (kTQC + L) + L + 1) * dkw +
+                          static_cast<size_t>(kWarpsC) * 2 * (L + 1) + kExpTab);
+  if (shm > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        int_attention_cached_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(shm));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid((n + kTQC - 1) / kTQC, H, B);
+  int_attention_cached_kernel<<<grid, kThreadsC, shm, static_cast<cudaStream_t>(stream)>>>(
+      qu, qv, k, v, kc, vc, pos, out, kc_new, vc_new, n, L, H, DK, seen, ac_m, ac_e, bd_m, bd_e,
+      ctx_m, ctx_e, n8);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -17,6 +17,12 @@
 // with [0, 255] for a 9-bit requant of a non-negative value (ReLU on, or a
 // uint8 z, and no identity: the clamp [-256, 255] reads [0, 255] there),
 // the same low-byte store; int32 for any other (the wrapper's out_dtype).
+// A signed 9-bit code v in [-256, 255] (W8A8's asymmetric sites after selu
+// or swish) is written as two uint8 planes, v = u - 256 s: the low byte u
+// = v & 255 by the same low-byte store into out, and the sign s = (v < 0)
+// into out_s (NULL for every other output), so that the uint8 forms of
+// Kernels 1, 2 and 8 multiply each plane and conv(W, v) = conv(W, u) -
+// 256 conv(W, s) (kernels/checks.py::act_dtype).
 //
 // with requant the shared device function of requant.cuh (exponents below
 // 1 count as 1, above 62 give 0, as the plain torch version and the JAX
@@ -81,19 +87,25 @@ __device__ __forceinline__ void load_vals(const Side& s, size_t idx, int (&v)[V]
 }
 
 template <int V>
-__device__ __forceinline__ void store_vals(void* out, int out32, size_t idx, const int (&s)[V]) {
+__device__ __forceinline__ void store_vals(void* out, uint8_t* out_s, int out32, size_t idx,
+                                           const int (&s)[V]) {
   if constexpr (V == 1) {
     if (out32)
       static_cast<int32_t*>(out)[idx] = s[0];
     else
       static_cast<int8_t*>(out)[idx] = static_cast<int8_t>(s[0]);
+    if (out_s) out_s[idx] = s[0] < 0 ? 1 : 0;
   } else if (out32) {
     *reinterpret_cast<int4*>(static_cast<int32_t*>(out) + idx) = make_int4(s[0], s[1], s[2], s[3]);
   } else {
-    unsigned w = 0;
+    unsigned w = 0, ws = 0;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) w |= static_cast<unsigned>(s[i] & 0xff) << (8 * i);
+    for (int i = 0; i < 4; ++i) {
+      w |= static_cast<unsigned>(s[i] & 0xff) << (8 * i);
+      ws |= (s[i] < 0 ? 1u : 0u) << (8 * i);
+    }
     *reinterpret_cast<unsigned*>(static_cast<int8_t*>(out) + idx) = w;
+    if (out_s) *reinterpret_cast<unsigned*>(out_s + idx) = ws;
   }
 }
 
@@ -102,7 +114,8 @@ constexpr int kRows = 4;   // rows a thread walks, their loads issued together
 // kCap: hardtanh's ceiling after the ReLU
 template <int V, bool R, bool kCap>
 __global__ void requant_kernel(Side a, Side r, const int32_t* __restrict__ lens,
-                               void* __restrict__ out, int out32, int T, int C, int relu,
+                               void* __restrict__ out, uint8_t* __restrict__ out_s, int out32,
+                               int T, int C, int relu,
                                const int32_t* __restrict__ hcap, int hs, int lo, int hi) {
   const int c0 = (blockIdx.y * blockDim.x + threadIdx.x) * V;
   if (c0 >= C) return;
@@ -144,12 +157,13 @@ __global__ void requant_kernel(Side a, Side r, const int32_t* __restrict__ lens,
         s[i] = qasr_clamp(s[i], lo, hi);
       }
     }
-    store_vals<V>(out, out32, row0 + k * step, s);
+    store_vals<V>(out, out_s, out32, row0 + k * step, s);
   }
 }
 
 template <int V>
-int launch(const Side& a, const Side& r, int has_r, const int32_t* lens, void* out, int out32,
+int launch(const Side& a, const Side& r, int has_r, const int32_t* lens, void* out,
+           uint8_t* out_s, int out32,
            int batch, int T, int C, int relu, const int32_t* hcap, int hs, int lo, int hi,
            cudaStream_t stream) {
   const int vecs = (C + V - 1) / V;
@@ -160,7 +174,8 @@ int launch(const Side& a, const Side& r, int has_r, const int32_t* lens, void* o
   const bool cap = hcap || hs != INT_MAX;
   const auto kernel = has_r ? (cap ? requant_kernel<V, true, true> : requant_kernel<V, true, false>)
                             : (cap ? requant_kernel<V, false, true> : requant_kernel<V, false, false>);
-  kernel<<<grid, dim3(tx, ty), 0, stream>>>(a, r, lens, out, out32, T, C, relu, hcap, hs, lo, hi);
+  kernel<<<grid, dim3(tx, ty), 0, stream>>>(a, r, lens, out, out_s, out32, T, C, relu, hcap, hs,
+                                            lo, hi);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -169,7 +184,8 @@ int launch(const Side& a, const Side& r, int has_r, const int32_t* lens, void* o
 extern "C" int qasr_requant_rows(const void* z, int zt, const int32_t* m, const int32_t* e,
                                  int ms, int es, const void* id, int id32,
                                  const int32_t* m_r, const int32_t* e_r, int ms_r, int es_r,
-                                 const int32_t* lens, void* out, int out32, int n_rows, int C,
+                                 const int32_t* lens, void* out, uint8_t* out_s, int out32,
+                                 int n_rows, int C,
                                  int rows_per_batch, int relu, const int32_t* hcap, int hs,
                                  int lo, int hi, void* stream) {
   const Side a{z, zt, m, e, ms, es};
@@ -182,10 +198,10 @@ extern "C" int qasr_requant_rows(const void* z, int zt, const int32_t* m, const 
   // a multiple of 4, or a tensor that starts off a 16-byte boundary, such as
   // a view)
   const uintptr_t align = reinterpret_cast<uintptr_t>(z) | reinterpret_cast<uintptr_t>(id)
-                          | reinterpret_cast<uintptr_t>(out);
+                          | reinterpret_cast<uintptr_t>(out) | reinterpret_cast<uintptr_t>(out_s);
   if (C % 4 != 0 || align % 16 != 0)
-    return launch<1>(a, r, has_r, lens, out, out32, batch, rows_per_batch, C, relu, hcap, hs, lo,
-                     hi, s);
-  return launch<4>(a, r, has_r, lens, out, out32, batch, rows_per_batch, C, relu, hcap, hs, lo, hi,
-                   s);
+    return launch<1>(a, r, has_r, lens, out, out_s, out32, batch, rows_per_batch, C, relu, hcap,
+                     hs, lo, hi, s);
+  return launch<4>(a, r, has_r, lens, out, out_s, out32, batch, rows_per_batch, C, relu, hcap, hs,
+                   lo, hi, s);
 }

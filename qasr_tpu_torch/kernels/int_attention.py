@@ -15,6 +15,15 @@ the kernel streams the keys three times, recomputing the scores (any T).
 ``int_attention_plain`` (the XLA composition of
 qasr_tpu/quantize/conformer_freeze.py, in torch) for CPU tensors; it
 never falls back from one to the other.
+
+The cache form (``int_attention_cached``, the stream step of a causal
+Conformer, att_context (L, 0)): n new queries attend over [cache (L) ||
+new (n)] keys, each to the L + 1 slots j in [i, L + i] whose relative
+offset r = L + i - j indexes the (L + 1)-row pos table, masked where the
+slot holds no frame yet (j < L - seen).  One block a (batch, head, 16
+queries); a warp a query row: the L + 1 scores by dp4a from shared
+memory, the integer softmax over them, the context, and the new caches
+(the last L rows of [cache || new]) written by the first query tile.
 """
 from __future__ import annotations
 
@@ -77,6 +86,103 @@ def int_attention_plain(qu8, qv8, k8, v8, p8, lens, *, ac, bd, ctx_rq,
     a8 = i_softmax_grid(q_grid, mask[:, None], out_bits=nbits)
     ctx = bmm_exact(a8, v8.permute(0, 2, 1, 3)).permute(0, 2, 1, 3).reshape(b, t, h * d_k)
     return clip8(dyadic_requant_static(ctx, ctx_rq[0], ctx_rq[1]), nbits)
+
+
+def cached_scores(qu8, qv8, k_cat, p8, seen: int, ac, bd):
+    """(q_grid (B, h, n, L+n) int32, mask (n, L+n) bool) of the cache form:
+    JAX's stream-step composition (conformer_freeze.py:778-817)."""
+    b, n, h, d_k = qu8.shape
+    left = p8.shape[0] - 1
+    ac_s = bmm_exact(qu8.permute(0, 2, 1, 3), k_cat.permute(0, 2, 3, 1))         # (B, h, n, L+n)
+    bd_full = bmm_exact(qv8.permute(0, 2, 1, 3), p8.permute(1, 2, 0)[None])     # (B, h, n, L+1)
+    i = torch.arange(n, device=qu8.device)[:, None]
+    j = torch.arange(left + n, device=qu8.device)[None, :]
+    r = left + i - j
+    mask = (r < 0) | (r > left) | (j < left - seen)
+    bd_s = torch.gather(bd_full, -1, r.clamp(0, left).expand(b, h, n, left + n))
+    return (dyadic_requant_static(ac_s, ac[0], ac[1])
+            + dyadic_requant_static(bd_s, bd[0], bd[1])), mask
+
+
+def int_attention_cached_plain(qu8, qv8, k8, v8, k_cache, v_cache, p8, seen: int, *,
+                               ac, bd, ctx_rq, nbits: int):
+    """Plain torch version of the cache form: the composition of JAX's
+    ``_frozen_stream_step_body`` over [cache || new].  Same arguments and
+    results as ``int_attention_cached``."""
+    b, n, h, d_k = qu8.shape
+    left = k_cache.shape[1]
+    k_cat = torch.cat([k_cache, k8], 1)
+    v_cat = torch.cat([v_cache, v8], 1)
+    q_grid, mask = cached_scores(qu8, qv8, k_cat, p8, seen, ac, bd)
+    a8 = i_softmax_grid(q_grid, mask[None, None], out_bits=nbits)
+    ctx = bmm_exact(a8, v_cat.permute(0, 2, 1, 3)).permute(0, 2, 1, 3).reshape(b, n, h * d_k)
+    c8 = clip8(dyadic_requant_static(ctx, ctx_rq[0], ctx_rq[1]), nbits)
+    return c8, k_cat[:, n:].contiguous(), v_cat[:, n:].contiguous()
+
+
+TQ_CACHE, CACHE_WARPS = 16, 4   # queries a block, warps a block (one query row a warp)
+
+
+def cached_smem_bytes(left: int, d_k: int) -> int:
+    """Dynamic shared memory of one block of the cache form
+    (csrc/int_attention.cu's ``int_attention_cached_kernel``): Qu, Qv, the
+    K and V window (TQ_CACHE + L rows), the pos table (L + 1 rows), each
+    row d_k / 4 + 1 words, and a warp's L + 1 scores and probabilities."""
+    dkw = d_k // 4 + 1
+    return 4 * ((2 * TQ_CACHE + 2 * (TQ_CACHE + left) + left + 1) * dkw
+                + CACHE_WARPS * 2 * (left + 1) + 568)
+
+
+def int_attention_cached(qu8, qv8, k8, v8, k_cache, v_cache, p8, seen: int, *, ac, bd,
+                         ctx_rq, nbits: int):
+    """The cache form: qu8/qv8/k8/v8 (B, n, h, d_k) int8 of the n new
+    frames, k_cache/v_cache (B, L, h, d_k) int8 (the last L frames' keys
+    and values, zeros before the stream's start), p8 (L + 1, h, d_k) int8
+    (the projected pos rows of relative offsets 0..L), ``seen`` the frames
+    consumed before this step.  Returns (the int8 context (B, n, h*d_k),
+    the new k and v caches: the last L rows of [cache || new])."""
+    if qu8.device.type == "cpu":
+        return int_attention_cached_plain(qu8, qv8, k8, v8, k_cache, v_cache, p8, seen,
+                                          ac=ac, bd=bd, ctx_rq=ctx_rq, nbits=nbits)
+    if qu8.device.type != "cuda":
+        raise ValueError(f"int_attention_cached: unsupported device {qu8.device}")
+    b, n, h, d_k = qu8.shape
+    left = k_cache.shape[1]
+    dev = qu8.device
+    for name, x, rows in (("qu8", qu8, n), ("qv8", qv8, n), ("k8", k8, n), ("v8", v8, n),
+                          ("k_cache", k_cache, left), ("v_cache", v_cache, left)):
+        check_x(f"int_attention_cached {name}", x, 4)
+        if tuple(x.shape) != (b, rows, h, d_k) or x.device != dev or x.data_ptr() % 16:
+            raise ValueError(f"int_attention_cached: {name} must be {(b, rows, h, d_k)} on "
+                             f"{dev}, 16-byte aligned")
+    check_vec("int_attention_cached", "p8", p8, torch.int8, (left + 1, h, d_k), dev)
+    if b * n == 0 or left < 1 or d_k % 4 or not 0 < d_k <= 128 or p8.data_ptr() % 16 \
+            or not isinstance(seen, int) or seen < 0:
+        raise ValueError(f"int_attention_cached: needs B*n > 0, L >= 1, d_k a multiple of 4 "
+                         f"in [4, 128], an aligned p8 and an int seen >= 0 (got B={b} n={n} "
+                         f"L={left} d_k={d_k} seen={seen!r})")
+    if cached_smem_bytes(left, d_k) > SMEM_LIMIT:
+        raise NotImplementedError(f"int_attention_cached: L={left} at d_k={d_k} needs "
+                                  f"{cached_smem_bytes(left, d_k)} bytes of shared memory")
+    for name, (m, e) in (("ac", ac), ("bd", bd), ("ctx_rq", ctx_rq)):
+        if not (isinstance(e, int) and e >= 1 and 0 < int(m) < 2 ** 31):
+            raise ValueError(f"int_attention_cached: {name} must be a static (m, e) "
+                             f"with 0 < m < 2^31, e >= 1; got {(m, e)!r}")
+    out = torch.empty((b, n, h * d_k), dtype=torch.int8, device=dev)
+    k_new = torch.empty_like(k_cache)
+    v_new = torch.empty_like(v_cache)
+    rc = _build.library().qasr_int_attention_cached(
+        _build.ptr(qu8), _build.ptr(qv8), _build.ptr(k8), _build.ptr(v8),
+        _build.ptr(k_cache), _build.ptr(v_cache), _build.ptr(p8), _build.ptr(out),
+        _build.ptr(k_new), _build.ptr(v_new), b, n, left, h, d_k, min(seen, left),
+        int(ac[0]), ac[1], int(bd[0]), bd[1], int(ctx_rq[0]), ctx_rq[1],
+        2 ** (nbits - 1) - 1, _build.stream_of(qu8))
+    _build.check(rc, "int_attention_cached")
+    int_attention_cached.launches += 1
+    return out, k_new, v_new
+
+
+int_attention_cached.launches = 0
 
 
 def int_attention(qu8, qv8, k8, v8, p8, lens, *, ac, bd, ctx_rq,

@@ -14,7 +14,13 @@ from typing import Optional
 import torch
 
 from qasr_tpu_torch.kernels import _build
-from qasr_tpu_torch.kernels.checks import cap_operand, check_act, check_vec, requant_operand
+from qasr_tpu_torch.kernels.checks import (
+    cap_operand,
+    check_act,
+    check_vec,
+    requant_operand,
+    split_planes,
+)
 from qasr_tpu_torch.models.jasper import mask_values
 from qasr_tpu_torch.ops.quant_prims import (
     clip_ceiling,
@@ -159,7 +165,7 @@ def check_launch(b: int, t: int, c: int, bits: int) -> dict:
 def requant(z: torch.Tensor, m, e, bits: int, *, relu: bool = False,
             lens: Optional[torch.Tensor] = None,
             identity: Optional[torch.Tensor] = None, m_r=None,
-            e_r=None, hcap=None) -> torch.Tensor:
+            e_r=None, hcap=None, planes: bool = False):
     """Dyadic requant of z (B, T, C) int8/int32 onto ``bits`` bits:
 
         clamp(requant(mask(relu?(z)), m, e) [+ requant(mask(identity), m_r, e_r)],
@@ -174,14 +180,21 @@ def requant(z: torch.Tensor, m, e, bits: int, *, relu: bool = False,
     non-negative 9-bit code).  Returns int8 when bits <= 8, uint8 for a
     9-bit requant of a non-negative value (``relu`` or a uint8 z, no
     identity: the clamp [-256, 255] reads [0, 255]), else int32
-    (``out_dtype``).  Replaces qasr_tpu/kernels/requant.py::requant_pallas."""
+    (``out_dtype``).  ``planes``: a 9-bit requant of a value that may be
+    negative, no identity, returned as its two uint8 planes (u, s), v = u -
+    256 s (``checks.split_planes``), the storage of a signed 9-bit code.
+    Replaces qasr_tpu/kernels/requant.py::requant_pallas."""
+    if planes and (bits != 9 or relu or identity is not None or z.dtype == torch.uint8):
+        raise ValueError("requant: planes are the storage of a signed 9-bit code: bits 9, "
+                         "no relu, no identity, a signed z")
     if identity is not None and (m_r is None or e_r is None):
         raise ValueError("requant: identity needs m_r and e_r")
     if hcap is not None and not relu:
         raise ValueError("requant: hcap (hardtanh's ceiling) needs relu")
     if z.device.type == "cpu":
-        return requant_plain(z, m, e, bits, relu=relu, lens=lens, identity=identity,
-                             m_r=m_r, e_r=e_r, hcap=hcap)
+        out = requant_plain(z, m, e, bits, relu=relu, lens=lens, identity=identity,
+                            m_r=m_r, e_r=e_r, hcap=hcap)
+        return split_planes(out) if planes else out
     if z.device.type != "cuda":
         raise ValueError(f"requant: unsupported device {z.device}")
     check_act("requant", z, 3, u8=True)
@@ -203,17 +216,20 @@ def requant(z: torch.Tensor, m, e, bits: int, *, relu: bool = False,
         erv, es_r = requant_operand("requant", "e_r", e_r, c, dev, exponent=True)
     check_vec("requant", "lens", lens, torch.int32, (b,), dev)
     hv, hs = cap_operand("requant", "hcap", hcap, c, dev, relu)
+    if planes:
+        dtype, lo, hi = torch.uint8, -256, 255
     out = torch.empty((b, t, c), dtype=dtype, device=dev)
+    out_s = torch.empty_like(out) if planes else None
     rc = _build.library().qasr_requant_rows(
         _build.ptr(z), XTYPE[z.dtype], _build.ptr(mv), _build.ptr(ev), ms, es,
         _build.ptr(identity),
         int(identity is not None and identity.dtype == torch.int32),
         _build.ptr(mrv), _build.ptr(erv), ms_r, es_r, _build.ptr(lens), _build.ptr(out),
-        int(dtype == torch.int32), b * t, c, t, int(relu), _build.ptr(hv), hs, lo, hi,
+        _build.ptr(out_s), int(dtype == torch.int32), b * t, c, t, int(relu), _build.ptr(hv), hs, lo, hi,
         _build.stream_of(z))
     _build.check(rc, "requant")
     requant.launches += 1
-    return out
+    return (out, out_s) if planes else out
 
 
 requant.launches = 0

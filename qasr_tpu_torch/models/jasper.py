@@ -34,7 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from qasr_tpu_torch.device import no_tf32
-from qasr_tpu_torch.kernels.checks import act_dtype
+from qasr_tpu_torch.kernels.checks import act_dtype, join_planes, signed_planes, split_planes
 from qasr_tpu_torch.models.config import DecoderConfig, EncoderConfig, QuantConfig
 from qasr_tpu_torch.ops.quant_prims import (
     QTensor,
@@ -410,6 +410,10 @@ def group_shuffle(x: torch.Tensor, groups: int) -> torch.Tensor:
 
 SELU_ALPHA = 1.6732632423543772848170429916717
 SELU_SCALE = 1.0507009873554804934193349852946
+# the activations that leave every value >= 0: W8A8's asymmetric sites
+# then hold uint8 codes, and after any other their signed 9-bit codes are
+# two byte planes (kernels/checks.py::act_dtype)
+NONNEG_ACTIVATIONS = ("relu", "hardtanh")
 
 
 def _apply_activation(x: torch.Tensor, kind: str) -> torch.Tensor:
@@ -490,9 +494,11 @@ class FloatExec:
 def operand_dtype(device, act_bits: int, weight_bit: int, nonneg: bool) -> torch.dtype:
     """The storage of a conv's activation operand (kernels/checks.py::
     act_dtype): int8 for signed codes of <= 8 bits, uint8 for an asymmetric
-    site's 9-bit codes of a post-ReLU value (``nonneg``), int32 for any
-    other on the CPU; on CUDA anything wider raises NotImplementedError, as
-    do weights of more than 8 bits (the kernels multiply int8 weights)."""
+    site's 9-bit codes of a post-ReLU value (``nonneg``), uint8 byte planes
+    for its signed 9-bit codes after selu or swish (``checks.signed_planes``:
+    the conv runs once a plane), int32 for anything wider on the CPU; on
+    CUDA a code of 10 bits or more raises NotImplementedError, as do
+    weights of more than 8 bits (the kernels multiply int8 weights)."""
     if weight_bit > 8 and torch.device(device).type == "cuda":
         raise NotImplementedError(f"weight_bit {weight_bit}: the kernels multiply int8 "
                                   f"weights (weight_bit <= 8) on CUDA")
@@ -548,11 +554,13 @@ class QuantExec:
     activations other than ReLU run in float on the dequantized values and
     round back onto the same grid, as the JAX package; ``kernels=False``
     runs their plain versions, the oracle.  Activation operands are int8,
-    or uint8 for W8A8's 9-bit codes of a post-ReLU value
-    (``operand_dtype``); wider ones (a signed 9-bit site, weight_bit > 8)
-    run the plain versions on the CPU and raise NotImplementedError on
-    CUDA.  ``weights`` caches each site's quantized weights across
-    batches."""
+    or uint8 for W8A8's 9-bit codes of a post-ReLU value, or, for its
+    signed 9-bit codes after selu or swish, two uint8 byte planes v = u -
+    256 s, the conv run once a plane and joined as acc_u - 256 acc_s
+    (``operand_dtype``; the plain path keeps them in int32); wider ones
+    (10 bits, weight_bit > 8) run the plain versions on the CPU and raise
+    NotImplementedError on CUDA.  ``weights`` caches each site's quantized
+    weights across batches."""
 
     def __init__(self, params, qstate, qcfg: QuantConfig, *, activation: str,
                  update_ranges: bool, kernels: bool = True,
@@ -567,10 +575,10 @@ class QuantExec:
         from qasr_tpu_torch.kernels.dw_conv import dw_conv, dw_conv_plain
         from qasr_tpu_torch.kernels.pw_gemm import pw_gemm, pw_gemm_plain
 
+        self.kernels = kernels
         self._dw, self._pw, self._dense = ((dw_conv, pw_gemm, dense_conv) if kernels else
                                            (dw_conv_plain, pw_gemm_plain, dense_conv_plain))
-        # ReLU and hardtanh leave every post-activation value >= 0
-        self._nonneg_acts = activation in ("relu", "hardtanh")
+        self._nonneg_acts = activation in NONNEG_ACTIVATIONS
         self.params = params
         self.qcfg = qcfg
         self.activation_kind = activation
@@ -614,16 +622,25 @@ class QuantExec:
         b_int = None
         if wq["b"] is not None:
             b_int = torch.round(torch.reciprocal(out_scale) * wq["b"]).to(torch.int32)
-        xv = x.values.to(operand_dtype(x.values.device, bits, self.qcfg.weight_bit, nonneg))
-        if is_depthwise(spec):
-            y = self._dw(xv, wq["wk"], stride=spec.stride, padding=spec.padding,
-                         dilation=spec.dilation, bias=b_int)
-        elif is_pointwise(spec):
-            y = self._pw(xv, wq["wk"], bias=b_int, groups=spec.groups)
-        else:
-            y = self._dense(xv, wq["wk"], stride=spec.stride, padding=spec.padding,
-                            dilation=spec.dilation, bias=b_int, groups=spec.groups)
+        dtype = operand_dtype(x.values.device, bits, self.qcfg.weight_bit, nonneg)
+        if not signed_planes(bits, nonneg):
+            return QTensor(self._conv(spec, wq, x.values.to(dtype), b_int), out_scale)
+        if not self.kernels:
+            return QTensor(self._conv(spec, wq, x.values, b_int), out_scale)
+        u, s = split_planes(x.values)
+        y = join_planes(self._conv(spec, wq, u, b_int), self._conv(spec, wq, s, None))
         return QTensor(y, out_scale)
+
+    def _conv(self, spec: ConvSpec, wq, xv: torch.Tensor, b_int) -> torch.Tensor:
+        """The integer conv of one operand in its kernel (or plain version),
+        epilogue off: int32 out."""
+        if is_depthwise(spec):
+            return self._dw(xv, wq["wk"], stride=spec.stride, padding=spec.padding,
+                            dilation=spec.dilation, bias=b_int)
+        if is_pointwise(spec):
+            return self._pw(xv, wq["wk"], bias=b_int, groups=spec.groups)
+        return self._dense(xv, wq["wk"], stride=spec.stride, padding=spec.padding,
+                           dilation=spec.dilation, bias=b_int, groups=spec.groups)
 
     def _act_storage_bits(self, spec: ConvSpec) -> int:
         return self.qcfg.act_bit + (1 if spec.asymmetric else 0)

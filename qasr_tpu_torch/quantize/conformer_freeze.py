@@ -21,6 +21,17 @@ i-LayerNorms in Kernel 6 (``ffn_ln``); under ``fused=True`` every other
 linear in Kernel 5 (``lin_epilogue``).  The default plan ("1", True) leaves
 no integer op outside a kernel but the last i-LayerNorm.  ``kernels=False``
 runs the plain compositions throughout.
+
+Cache-aware streaming of a causal configuration (att_context (L, 0),
+causal_conv), the port of the JAX package's ``frozen_stream_init`` /
+``frozen_stream_step`` (qasr_tpu/quantize/conformer_freeze.py:691-849):
+per layer the int8 keys and values of the last L frames and the conv's
+last K-1 GLU rows, so n new frames cost O(n) work.  A step runs the
+default plan's kernels: the pre projection and q_u, q_v, k, v in Kernel
+5, the FFN halves with their tail i-LayerNorms in Kernel 6, the attention
+over [cache || new] in Kernel 3's cache form, the att_out join and conv
+module over [cache || new] in Kernel 4's cache form
+(``stream_kernel_launches``); CPU tensors take the plain versions.
 """
 from __future__ import annotations
 
@@ -30,9 +41,14 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from qasr_tpu_torch.kernels.conv_block import conv_block, conv_block_plain
+from qasr_tpu_torch.device import as_device
+from qasr_tpu_torch.kernels.conv_block import conv_block, conv_block_cached, conv_block_plain
 from qasr_tpu_torch.kernels.ffn_ln import ffn_ln, ffn_ln_plain
-from qasr_tpu_torch.kernels.int_attention import int_attention, int_attention_plain
+from qasr_tpu_torch.kernels.int_attention import (
+    int_attention,
+    int_attention_cached,
+    int_attention_plain,
+)
 from qasr_tpu_torch.kernels.lin_epilogue import lin_epilogue, lin_epilogue_plain
 from qasr_tpu_torch.models.conformer import (
     ConformerConfig,
@@ -402,3 +418,115 @@ def kernel_launches(cfg: ConformerConfig, plan: ConformerPlan = DEFAULT_PLAN
     lin = 1 + 5 * n + (0 if plan.mod == "1" else 4 * n) if plan.fused else 0
     return {"int_attention": n, "conv_block": n,
             "ffn_ln": 2 * n if plan.mod == "1" else 0, "lin_epilogue": lin}
+
+
+# ---------------------------------------------------------------------------
+# cache-aware streaming (causal configurations)
+# ---------------------------------------------------------------------------
+
+
+def _causal_left(cfg: ConformerConfig) -> int:
+    left, right = cfg.att_context
+    if left < 0 or right != 0 or not cfg.causal_conv:
+        raise ValueError("cache-aware streaming needs the causal config: "
+                         "att_context_size=(L, 0) and causal_conv=True")
+    return left
+
+
+def _stream_p8(tables, cfg: ConformerConfig):
+    """Each layer's projected pos rows of relative offsets 0..L, (L + 1, h,
+    d_k) int8, built once and cached in the tables: the last L + 1 rows of
+    the length-(L + 1) table at the scale 1 / n (the JAX package's stream
+    constants), through each layer's pos site as ``_pos_tables`` builds it
+    (Kernel 5 on the card)."""
+    if "_stream_p8" not in tables:
+        left = _causal_left(cfg)
+        ab = tables["act_bit"]
+        n = 2 ** (ab - 1) - 1
+        h = cfg.n_heads
+        pos_scale = 1.0 / n
+        pos_np = rel_positional_encoding(left + 1, cfg.d_model)[left:]
+        pos8 = torch.from_numpy(np.clip(np.round(pos_np / pos_scale), -n, n - 1)
+                                .astype(np.int8)).to(tables["device"])
+        p8s = []
+        for tbl, dev_tbl in zip(tables["host"]["layers"], tables["layers"]):
+            m, e = _rq_table(pos_scale * tbl["att_pos_w"][1], tbl["S_att_pos"])
+            site = {"wt": dev_tbl["att_pos"]["wt"],
+                    "m": torch.from_numpy(m).to(tables["device"]), "e": e}
+            p8s.append(lin_epilogue(pos8, site, nbits=ab).reshape(left + 1, h, cfg.d_model // h))
+        tables["_stream_p8"] = p8s
+    return tables["_stream_p8"]
+
+
+def frozen_stream_init(tables, cfg: ConformerConfig, batch: int, device=None) -> Dict[str, Any]:
+    """The stream state of ``batch`` utterances on ``device`` (None: the
+    CUDA device; the tables must be on it): per layer int8 ``k8``, ``v8``
+    (B, L, h, d_k) and ``glu8`` (B, K-1, d), zeros (the offline causal
+    left padding), and ``seen`` = 0 frames (a Python int).  Builds the
+    stream constants once (``_stream_p8``)."""
+    dev = as_device(device)
+    if tables["device"] != dev:
+        raise ValueError(f"frozen_stream_init: the tables are on {tables['device']}, "
+                         f"not {dev}")
+    left = _causal_left(cfg)
+    d, h = cfg.d_model, cfg.n_heads
+    k = cfg.conv_kernel_size
+    _stream_p8(tables, cfg)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.int8, device=dev)
+    layers = [{"k8": zeros(batch, left, h, d // h), "v8": zeros(batch, left, h, d // h),
+               "glu8": zeros(batch, k - 1, d)} for _ in tables["layers"]]
+    return {"layers": layers, "seen": 0}
+
+
+def frozen_stream_step(tables, cfg: ConformerConfig, x_sub: torch.Tensor, state):
+    """One cache-aware step: ``x_sub`` (B, n, F_sub) float32, the n NEW
+    subsampled frames (``subsample_convs``' output, before the d_model
+    projection) -> (encodings (B, n, d) float32, the new state).  The same
+    function as the JAX package's ``_frozen_stream_step_body``: every fed
+    frame is valid (no GLU row is masked), and the rows equal the offline
+    causal forward's.  Kernels 5, 6 and the cache forms of 3 and 4 run it
+    (their plain versions for CPU tensors)."""
+    left = _causal_left(cfg)
+    ab = tables["act_bit"]
+    d, h = cfg.d_model, cfg.n_heads
+    d_k = d // h
+    p8s = _stream_p8(tables, cfg)
+    seen = int(state["seen"])
+    x8 = clip8(torch.round(f32_div(x_sub.to(torch.float32), tables["S_pre"])), ab)
+    x = lin_epilogue(x8, tables["pre"], nbits=ab)
+    b, n = x.shape[:2]
+    new_layers = []
+    out = None
+    for li, tbl in enumerate(tables["layers"]):
+        lc = state["layers"][li]
+        last = "m" not in tbl["ln_out"]
+        x, yln = ffn_ln(x, tbl["ln_ff1"], tbl["ff1_l1"], tbl["ff1_grid"], tbl["ff1_prod"],
+                        tbl["ff1_l2"], tbl["j1_stream"], tbl["ln_att"], nbits=ab)
+        qu8, qv8, k8, v8 = (lin_epilogue(yln, tbl[f"att_{s}"], nbits=ab).reshape(b, n, h, d_k)
+                            for s in ("q_u", "q_v", "k", "v"))
+        c8, k_c, v_c = int_attention_cached(qu8, qv8, k8, v8, lc["k8"], lc["v8"], p8s[li],
+                                            seen, ac=tbl["ac_grid"], bd=tbl["bd_grid"],
+                                            ctx_rq=tbl["ctx_rq"], nbits=ab)
+        x, g_c = conv_block_cached(c8, x, lc["glu8"], tbl, nbits=ab)
+        x, x_next = ffn_ln(x, tbl["ln_ff2"], tbl["ff2_l1"], tbl["ff2_grid"], tbl["ff2_prod"],
+                           tbl["ff2_l2"], tbl["j4_stream"], None if last else tbl["ln_out"],
+                           nbits=ab)
+        new_layers.append({"k8": k_c, "v8": v_c, "glu8": g_c})
+        if not last:
+            x = x_next
+        else:
+            y = i_layernorm_core(x).to(torch.float32) / (1 << _K_LN)
+            out = y * tbl["ln_out"]["gamma"] + tbl["ln_out"]["beta"]
+    return out, {"layers": new_layers, "seen": seen + n}
+
+
+def stream_kernel_launches(cfg: ConformerConfig) -> Dict[str, int]:
+    """Kernel launches of one ``frozen_stream_step``: Kernel 5
+    for the pre projection and four a layer (q_u, q_v, k, v), Kernel 6
+    twice a layer (the FFN halves), and a layer's Kernel 3 and Kernel 4
+    cache forms once each (Kernel 4 counts a call, its two stages)."""
+    n = cfg.n_layers
+    return {"lin_epilogue": 1 + 4 * n, "ffn_ln": 2 * n, "int_attention_cached": n,
+            "conv_block_cached": n}

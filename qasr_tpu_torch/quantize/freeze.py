@@ -24,9 +24,11 @@ Executors, over (B, T, C):
                           use_pallas=True.
 
 Storage (kernels/checks.py::act_dtype): the kernel executors keep
-activation codes of <= 8 bits in int8 and W8A8's 9-bit codes of a
-post-ReLU value (the asymmetric sites) in uint8; the plain FrozenExec keeps
-9-bit codes in int32, as the JAX package does.
+activation codes of <= 8 bits in int8, W8A8's 9-bit codes of a post-ReLU
+value (the asymmetric sites) in uint8, and its signed 9-bit codes (the
+same sites after selu or swish) as two uint8 planes v = u - 256 s, each
+multiplied by the conv's kernel (``_StagedExec._planes_conv``); the plain
+FrozenExec keeps 9-bit codes in int32, as the JAX package does.
 """
 from __future__ import annotations
 
@@ -37,13 +39,14 @@ from typing import Any, Dict, Optional, Union
 import numpy as np
 import torch
 
-from qasr_tpu_torch.kernels.checks import act_dtype
+from qasr_tpu_torch.kernels.checks import act_dtype, join_planes, signed_planes
 from qasr_tpu_torch.kernels.dense_conv import dense_conv, dense_conv_plain
 from qasr_tpu_torch.kernels.dw_conv import dw_conv, dw_conv_plain, prologue_plain
 from qasr_tpu_torch.kernels.pw_gemm import pw_gemm, pw_gemm_plain
 from qasr_tpu_torch.kernels.requant import requant
 from qasr_tpu_torch.models.config import DecoderConfig, QuantConfig
 from qasr_tpu_torch.models.jasper import (
+    NONNEG_ACTIVATIONS,
     ConvSpec,
     EncoderPlan,
     _apply_activation,
@@ -135,8 +138,35 @@ class _SVal:
         self.bound = bound
 
 
+def planes_bound(w_int: np.ndarray, b_int: Optional[np.ndarray]) -> int:
+    """The largest |int32| the byte-plane form of a conv with a signed
+    9-bit input (``kernels/checks.py::act_dtype``) holds: per output
+    channel o, |acc_u| <= 255 S_o + |b_o|, |256 acc_s| <= 256 S_o and
+    |acc_u - 256 acc_s| = |conv(W, v) + b|_o <= 256 S_o + |b_o|, with S_o
+    the sum of |w| over channel o's contraction (the low plane carries the
+    bias).  Below 2^31 every partial sum and the joined one are exact
+    (Jasper10x5Dr's widest contraction, Cin 768 x K 29 at 127, is 7.2e8)."""
+    s = np.abs(np.asarray(w_int, np.int64)).sum(axis=(0, 1))
+    b = 0 if b_int is None else np.abs(np.asarray(b_int, np.int64))
+    return int((256 * s + b).max())
+
+
+def plane_site(entry, activation: str) -> bool:
+    """Whether a conv site's input codes are signed 9-bit, stored as two
+    uint8 byte planes (``kernels/checks.py::act_dtype``): a requantized
+    input (its entry has an ``act_m``; the float first input is quantized
+    instead) of 9 bits after an activation that may leave it negative
+    (selu, swish).  The one rule that the freeze's bound
+    (``planes_bound``), the launch counts and the kernel executors read."""
+    return (entry is not None and "act_m" in entry
+            and signed_planes(int(entry["act_bits"]), activation in NONNEG_ACTIVATIONS))
+
+
 class ScaleFreezeExec:
-    """Host executor: propagates scales, emits tables (no tensor math)."""
+    """Host executor: propagates scales, emits tables (no tensor math).
+    ``planes``: {site: ``planes_bound``} of every conv whose input codes
+    are signed 9-bit (W8A8's asymmetric sites under selu or swish), which
+    ``freeze_model`` holds below 2^31."""
 
     def __init__(self, params, qstate, qcfg: QuantConfig, plan: EncoderPlan,
                  dyadic_mode: str = "static_e"):
@@ -144,6 +174,8 @@ class ScaleFreezeExec:
         self.qstate = qstate
         self.qcfg = qcfg
         self.dyadic_mode = dyadic_mode
+        self.activation_kind = plan.activation
+        self.planes: Dict[Any, int] = {}
         # set when a static_e16 requant could see |z| >= 2**30
         self.e16_overflow = False
         self.tables: Dict[str, Any] = {
@@ -190,6 +222,8 @@ class ScaleFreezeExec:
             entry["b"] = b_int
         entry["out_scale"] = out_scale
         self.tables["blocks"][bi][kind][i] = entry
+        if plane_site(entry, self.activation_kind):
+            self.planes[site] = planes_bound(w_int, b_int)
         contraction = spec.kernel * (spec.in_ch // spec.groups)
         acc = (contraction * (1 << (bits - 1)) * int(np.abs(w_int).max())
                + (int(np.abs(b_int).max()) if b_int is not None else 0))
@@ -255,6 +289,10 @@ def freeze_model(plan: EncoderPlan, enc_params, dec_params, qstate,
     fx = ScaleFreezeExec(enc_params, qstate, qcfg, plan, dyadic_mode)
     out_sval, _ = encoder_forward(fx, plan, _SVal(None), np.zeros((1,), np.int64))
     fx._check_e16(out_sval)  # the decoder's act requant consumes this
+    wide = {site: v for site, v in fx.planes.items() if v >= 1 << 31}
+    if wide:
+        raise ValueError(f"signed 9-bit conv inputs whose byte-plane accumulators could "
+                         f"leave int32: {wide}")
     if fx.e16_overflow:
         log.warning("static_e16 requant could overflow on this model "
                         "(worst-case accumulator >= 2**30); falling back to "
@@ -613,17 +651,21 @@ class _Held:
     values (int8 or int32), scale, and the producer's bias, ReLU and
     hardtanh ceiling (``hcap``) that each consumer still applies, so its
     value is min(relu?(values + bias), hcap); ``hmax``: the ceiling that
-    a hardtanh on it would take (a join's codes)."""
+    a hardtanh on it would take (a join's codes); ``shuffled``: the group
+    count of a GroupShuffle already applied in its producer's store (a
+    grouped byte-plane conv's)."""
 
-    __slots__ = ("values", "scale", "bias", "relu", "hcap", "hmax")
+    __slots__ = ("values", "scale", "bias", "relu", "hcap", "hmax", "shuffled")
 
-    def __init__(self, values, scale, bias=None, relu=False, hcap=None, hmax=None):
+    def __init__(self, values, scale, bias=None, relu=False, hcap=None, hmax=None,
+                 shuffled=0):
         self.values = values
         self.scale = scale
         self.bias = bias
         self.relu = relu
         self.hcap = hcap
         self.hmax = hmax
+        self.shuffled = shuffled
 
     def with_relu(self, hcap=None) -> "_Held":
         return _Held(self.values, self.scale, self.bias, True, hcap)
@@ -638,18 +680,43 @@ def _folded_into_dw(specs, ci: int) -> bool:
                                        and is_depthwise(specs[ci - 1]))
 
 
+def _conv_kernel(spec: ConvSpec) -> str:
+    """The kernel a conv runs in: "dw_conv", "pw_gemm" or "dense_conv"."""
+    if is_depthwise(spec):
+        return "dw_conv"
+    return "pw_gemm" if is_pointwise(spec) else "dense_conv"
+
+
+def _plane_sites(plan: EncoderPlan, tables):
+    """{(block, kind, index): spec} of the convs whose input codes are
+    signed 9-bit (``plane_site``)."""
+    if tables is None:
+        return {}
+    return {(bp.index, kind, ci): spec
+            for bp, tb in zip(plan.blocks, tables["blocks"])
+            for kind, specs in (("convs", bp.convs), ("res", bp.res))
+            for ci, (spec, entry) in enumerate(zip(specs, tb[kind]))
+            if plane_site(entry, plan.activation)}
+
+
 def _requant_sites(plan: EncoderPlan, tables) -> int:
     """Requant-kernel launches of one FrozenExecKernels forward: every conv
     input that is requantized (the entries with an ``act_m``; the float
     input is quantized instead) and that Kernel 1 does not take
-    (``_folded_into_dw``), every residual join, and the decoder's input."""
+    (``_folded_into_dw``), every residual join, and the decoder's input.
+    A byte-plane depthwise conv (``_plane_sites``) takes neither its own
+    input requant (the planes) nor its pointwise consumer's."""
+    planes = _plane_sites(plan, tables)
     n = 1
     for bp, tb in zip(plan.blocks, tables["blocks"]):
         n += len(tb["res_act"])
         for kind, specs in (("convs", bp.convs), ("res", bp.res)):
             for ci, entry in enumerate(tb[kind]):
                 if entry is not None and "act_m" in entry:
-                    n += kind == "res" or not _folded_into_dw(specs, ci)
+                    after_planes = (kind == "convs" and ci > 0
+                                    and (bp.index, kind, ci - 1) in planes)
+                    n += (kind == "res" or not _folded_into_dw(specs, ci)
+                          or (bp.index, kind, ci) in planes or after_planes)
     return n
 
 
@@ -666,19 +733,39 @@ def kernel_launches(plan: EncoderPlan, tables=None) -> Dict[str, int]:
     conv can take (a depthwise block tail, a dense block's later panes),
     which runs in the requant kernel; with vector exponents
     (FrozenExecKernels) the requants next to a depthwise conv ride in
-    Kernel 1 and the rest run in the requant kernel (``_requant_sites``)."""
+    Kernel 1 and the rest run in the requant kernel (``_requant_sites``).
+    A conv of signed 9-bit input codes (``_plane_sites``) runs twice, once
+    a byte plane, after a requant launch that writes the planes; its
+    output is materialized, so a dense block tail's join then runs in the
+    requant kernel."""
     specs = [s for bp in plan.blocks for s in bp.convs + bp.res]
     counts = {"dw_conv": sum(map(is_depthwise, specs)),
               "pw_gemm": sum(map(is_pointwise, specs)) + 1}
     if any(map(is_dense, specs)):
         counts["dense_conv"] = sum(map(is_dense, specs))
+    planes = _plane_sites(plan, tables)
+    for spec in planes.values():
+        counts[_conv_kernel(spec)] += 1
     if tables is not None and not tables_all_static_e(tables):
         counts["requant"] = _requant_sites(plan, tables)
         return counts
     joins = sum(pi > 0 or is_depthwise(bp.convs[-1])
+                or (bp.index, "convs", len(bp.convs) - 1) in planes
                 for bp in plan.blocks if bp.residual for pi in range(len(bp.res)))
-    if joins:
-        counts["requant"] = joins
+    if joins + len(planes):
+        counts["requant"] = joins + len(planes)
+    return counts
+
+
+def quant_kernel_launches(plan: EncoderPlan, act_bit: int) -> Dict[str, int]:
+    """Kernel launches of one QuantExec forward with the decoder (kernels
+    on, no requant kernel: its requants are torch): every conv once, and a
+    second time for each conv whose operand is signed 9-bit (an asymmetric
+    site of W8A8 under selu or swish: one launch a byte plane)."""
+    counts = {k: v for k, v in kernel_launches(plan).items() if k != "requant"}
+    if signed_planes(act_bit + 1, plan.activation in NONNEG_ACTIVATIONS):
+        for spec in (s for bp in plan.blocks for s in bp.convs + bp.res if s.asymmetric):
+            counts[_conv_kernel(spec)] += 1
     return counts
 
 
@@ -688,9 +775,9 @@ class _StagedExec(FrozenExec):
     its store) or on a materialized tensor (its consumers' prologues or
     requants apply them), and selu / swish as float glue on the int32
     accumulator flushed from its kernel (the JAX package runs them in XLA,
-    not in a kernel).  A plan whose codes need a storage no kernel has (the
-    signed 9-bit codes of W8A8's asymmetric sites after selu or swish)
-    raises NotImplementedError on CUDA (``kernels/checks.py::act_dtype``)."""
+    not in a kernel).  A conv whose input codes are signed 9-bit (W8A8's
+    asymmetric sites after selu or swish) runs on their two byte planes
+    (``_planes_conv``)."""
 
     def _held_ceiling(self, x: _Held):
         """hardtanh's ceiling on a join's codes: the join entry's, capped at
@@ -727,20 +814,44 @@ class _StagedExec(FrozenExec):
         if isinstance(x, _PendingConv) and not x.depthwise and x.spec.groups == groups:
             x.shuffle = groups
             return x
+        if isinstance(x, _Held) and x.shuffled == groups:
+            return x
         raise NotImplementedError("GroupShuffle runs in the store of the grouped pointwise or "
                                   "dense conv before it; this one follows another conv")
 
-    @staticmethod
-    def _check_codes(bits: int, x) -> None:
-        """A conv input's code storage exists in the kernels (raises
-        NotImplementedError on CUDA where it does not; int8 holds any code
-        of <= 8 bits)."""
-        if bits <= 8:
-            return
+    def _planes_input(self, entry, bits: int, x) -> bool:
+        """Whether a conv input's codes are two byte planes (``plane_site``;
+        a code of 10 bits or more raises NotImplementedError on CUDA, int8
+        holds any code of <= 8 bits)."""
+        if bits <= 8 or not isinstance(x, (_PendingConv, _Held)):
+            return False
+        act_dtype("conv input", bits, self.activation_kind in NONNEG_ACTIVATIONS,
+                  x.xq.device if isinstance(x, _PendingConv) else x.values.device)
+        return plane_site(entry, self.activation_kind)
+
+    def _planes_conv(self, entry, spec: ConvSpec, x, lens) -> _Held:
+        """A conv of signed 9-bit input codes v: the requant kernel writes
+        the input's two uint8 planes v = u - 256 s (mask, requant, clamp to
+        [-256, 255], split), the conv's kernel (Kernel 1, 2 or 8 in its
+        uint8 form) runs once a plane with the epilogue off, the bias on
+        the low plane, and acc_u - 256 acc_s (``checks.join_planes``, exact:
+        ``planes_bound``) is the conv's int32 output, materialized for its
+        consumer's prologue or requant as a block end's is.  A grouped conv
+        that GroupShuffle follows (``block_forward``: a grouped conv with
+        BN) shuffles in both planes' stores."""
         if isinstance(x, _PendingConv):
-            act_dtype("conv input", bits, x.relu, x.xq.device)
-        elif isinstance(x, _Held):
-            act_dtype("conv input", bits, x.relu, x.values.device)
+            x = _Held(self._flush_act(x), x.out_scale())
+        if x.bias is not None or x.hcap is not None:
+            raise NotImplementedError("byte planes of a tensor with a pending bias or ceiling")
+        c = spec.in_ch
+        u, s = requant(x.values, _per_channel(entry, "act_m", c),
+                       _per_channel(entry, "act_e", c), 9, lens=lens, planes=True)
+        p = _PendingConv(u, entry, spec)
+        if spec.has_bn and spec.groups > 1 and not p.depthwise:
+            p.shuffle = spec.groups
+        acc_u = p.run(bias=entry.get("b"))
+        p.xq = s
+        return _Held(join_planes(acc_u, p.run()), p.out_scale(), shuffled=p.shuffle)
 
 
 class FrozenExecFused(_StagedExec):
@@ -788,14 +899,17 @@ class FrozenExecFused(_StagedExec):
                           m=_per_channel(entry, "act_m", p.channels), e=entry["act_e"],
                           bits=bits)
 
-    def _flush_int32(self, p: _PendingConv) -> torch.Tensor:
-        return self._flush_act(p)
+    def _flush_int32(self, p) -> torch.Tensor:
+        """A residual branch's int32 output: a pending conv flushed, or a
+        byte-plane conv's joined accumulator."""
+        return p.values if isinstance(p, _Held) else self._flush_act(p)
 
     def masked_conv(self, site, spec: ConvSpec, x, lens):
         bi, kind, i = site
         entry = self.t["blocks"][bi][kind][i]
         bits = self._act_bits(spec)
-        self._check_codes(bits, x)
+        if self._planes_input(entry, bits, x):
+            return self._planes_conv(entry, spec, x, lens), conv_out_len(lens, spec)
         if isinstance(x, _PendingConv):
             p = _PendingConv(self._flush_int8(x, lens, entry, bits), entry, spec)
         elif isinstance(x, _Held):
@@ -888,7 +1002,8 @@ class FrozenExecKernels(_StagedExec):
         bits = self._act_bits(spec)
         out_len = conv_out_len(lens, spec)
         c = spec.in_ch
-        self._check_codes(bits, x)
+        if self._planes_input(entry, bits, x):
+            return self._planes_conv(entry, spec, x, lens), out_len
         if isinstance(x, _PendingConv) and x.depthwise and is_pointwise(spec):
             xq = x.run(bias=x.entry.get("b"), relu=x.relu, hcap=x.hcap, out_len=lens,
                        m=_per_channel(entry, "act_m", c), e=_per_channel(entry, "act_e", c),

@@ -213,18 +213,19 @@ def test_dynamic_forward_matches_jax():
 def test_operand_storage_rule():
     """W8A8's storage rule (kernels/checks.py::act_dtype): int8 for signed
     codes of <= 8 bits, uint8 for an asymmetric site's 9-bit codes of a
-    post-ReLU value, int32 for anything wider on the CPU; on CUDA a signed
-    9-bit site, 10 bits and weight_bit 9 raise NotImplementedError before
-    anything reaches the card.  ``_frozen_fn`` at W8A8 no longer raises
+    post-ReLU value, uint8 byte planes for its signed 9-bit codes (selu /
+    swish) on every device, int32 for anything wider on the CPU; on CUDA
+    10 bits and weight_bit 9 raise NotImplementedError before anything
+    reaches the card.  ``_frozen_fn`` at W8A8 no longer raises
     before the card: here it gets as far as moving the tables there."""
     cpu, cuda = torch.device("cpu"), torch.device("cuda")
     assert PJ.operand_dtype(cuda, 7, 6, nonneg=False) == torch.int8
     assert PJ.operand_dtype(cuda, 8, 8, nonneg=True) == torch.int8
     assert PJ.operand_dtype(cuda, 9, 8, nonneg=True) == torch.uint8
-    assert PJ.operand_dtype(cpu, 9, 8, nonneg=False) == torch.int32
+    assert PJ.operand_dtype(cpu, 9, 8, nonneg=False) == torch.uint8
+    assert PJ.operand_dtype(cpu, 10, 8, nonneg=False) == torch.int32
     assert PJ.operand_dtype(cpu, 8, 9, nonneg=False) == torch.int8
-    with pytest.raises(NotImplementedError, match="signed 9-bit"):
-        PJ.operand_dtype(cuda, 9, 8, nonneg=False)
+    assert PJ.operand_dtype(cuda, 9, 8, nonneg=False) == torch.uint8
     with pytest.raises(NotImplementedError, match="10-bit"):
         PJ.operand_dtype(cuda, 10, 8, nonneg=True)
     with pytest.raises(NotImplementedError, match="weight_bit 9"):

@@ -28,9 +28,10 @@ under relu, hardtanh, selu and swish, at W6A6 and W8A8:
 (e) Kernels 2 and 8 grouped: their plain versions against XLA's grouped
     integer conv and GroupShuffle, their plans and launch checks at
     QuartzNet15x5-g4's and the Jasper-width block's sites, and the group
-    widths they refuse (NotImplementedError), and W8A8's signed 9-bit
-    codes after selu, which no kernel stores on CUDA.
-Tests that need the card live in chip_smoke.py (phase 11).
+    widths they refuse (NotImplementedError), and the storage of W8A8's
+    signed 9-bit codes after selu or swish: two uint8 byte planes, the
+    split identity swept over every code.
+Tests that need the card live in chip_smoke.py (phases 11 and 12).
 """
 import jax
 import jax.numpy as jnp
@@ -352,9 +353,56 @@ def test_grouped_kernels_refuse_narrow_groups(launch):
 
 def test_w8a8_signed_codes_raise_on_cuda():
     """W8A8 selu / swish: the asymmetric sites' 9-bit codes may be
-    negative, a storage no kernel has on CUDA (the CPU's plain versions
-    keep them in int32, as above)."""
-    with pytest.raises(NotImplementedError, match="signed 9-bit"):
-        act_dtype("conv input", 9, False, torch.device("cuda"))
-    assert act_dtype("conv input", 9, False, "cpu") == torch.int32
-    assert act_dtype("conv input", 9, True, torch.device("cuda")) == torch.uint8
+    negative.  They no longer raise on CUDA (the test keeps the name of
+    the rule it replaced): their storage is two uint8 byte planes v = u -
+    256 s on every device (``act_dtype`` uint8, ``signed_planes``), which
+    Kernel 7 writes and the uint8 forms of Kernels 1, 2 and 8 multiply.
+    Swept over every code in [-256, 255]: the split identity, Kernel 7's
+    planes (its plain version) against the split of its int32 requant,
+    and the plane identity conv(W, v) + b == join_planes(conv(W, u) + b,
+    conv(W, s)) for a depthwise, a pointwise and a dense conv at weights
+    of +-127; an epilogue (one byte plane) still refuses the code, and
+    10 bits raise on CUDA."""
+    from qasr_tpu_torch.kernels.checks import (
+        act_clamp, join_planes, signed_planes, split_planes,
+    )
+    from qasr_tpu_torch.kernels.dw_conv import dw_conv
+    from qasr_tpu_torch.kernels.requant import requant
+
+    for dev in ("cpu", torch.device("cuda")):
+        assert act_dtype("conv input", 9, False, dev) == torch.uint8
+        assert act_dtype("conv input", 9, True, dev) == torch.uint8
+    assert signed_planes(9, False) and not signed_planes(9, True) \
+        and not signed_planes(8, False)
+    assert act_dtype("conv input", 10, False, "cpu") == torch.int32
+    with pytest.raises(NotImplementedError, match="10-bit"):
+        act_dtype("conv input", 10, False, torch.device("cuda"))
+    with pytest.raises(NotImplementedError, match="byte planes"):
+        act_clamp("dw_conv", 9, False)
+    v = torch.arange(-256, 256, dtype=torch.int32)
+    u, s = split_planes(v)
+    assert u.dtype == s.dtype == torch.uint8 and set(s.tolist()) == {0, 1}
+    assert torch.equal(u.to(torch.int32) - 256 * s.to(torch.int32), v)
+    rng = np.random.default_rng(9)
+    z = torch.from_numpy(rng.integers(-2 ** 20, 2 ** 20, size=(2, 64, 16)).astype(np.int32))
+    lens = torch.tensor([64, 40], dtype=torch.int32)
+    q = requant(z, 3 << 20, 32, 9, lens=lens)
+    assert q.dtype == torch.int32 and int(q.min()) == -256 and int(q.max()) == 255
+    pu, ps = requant(z, 3 << 20, 32, 9, lens=lens, planes=True)
+    assert all(torch.equal(a, b) for a, b in zip((pu, ps), split_planes(q)))
+    # every code in [-256, 255] through each conv family, weights at +-127
+    x = v[torch.from_numpy(rng.permutation(512))].reshape(1, 512, 1).repeat(1, 1, 16)
+    xu, xs = split_planes(x)
+    c = 16
+    b = torch.from_numpy(rng.integers(-2 ** 20, 2 ** 20, size=c).astype(np.int32))
+    w_dw = torch.from_numpy(rng.choice([-127, 127], size=(5, c)).astype(np.int8))
+    w_pw = torch.from_numpy(rng.choice([-127, 127], size=(c, c)).astype(np.int8))
+    w_dc = torch.from_numpy(rng.choice([-127, 127], size=(c, 3, c)).astype(np.int8))
+    convs = {"dw": lambda a, bias: dw_conv(a, w_dw, padding=2, bias=bias),
+             "pw": lambda a, bias: pg.pw_gemm(a, w_pw, bias=bias),
+             "dense": lambda a, bias: dc.dense_conv(a, w_dc, padding=1, bias=bias)}
+    for name, conv in convs.items():
+        want = conv(x, b)
+        got = join_planes(conv(xu, b), conv(xs, None))
+        assert torch.equal(got, want), name
+    assert port_freeze.planes_bound(np.full((29, 1, 4), 127, np.int8), None) < 2 ** 31

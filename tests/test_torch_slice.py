@@ -160,8 +160,9 @@ def test_port_imports_no_jax():
     """With ``qasr_tpu``, PyYAML and HF ``tokenizers`` made unimportable
     (the GPU machine has none of them), import every module of the port,
     build and serve a tiny QuartzNet and a tiny Conformer-CTC on the CPU,
-    save and restore both (.nemo, .qasr) and beam-decode: neither jax nor
-    any part of qasr_tpu is imported."""
+    save and restore both (.nemo, .qasr), beam-decode and stream (the
+    windowed streamer, the cache-aware stream): neither jax nor any part of
+    qasr_tpu is imported."""
     code = """
 import importlib, pkgutil, sys, tempfile, os
 sys.modules["qasr_tpu"] = None   # any import of the JAX package now fails
@@ -176,7 +177,8 @@ for name in ("cli.inference", "cli.synthesize", "quantize.synth", "compat.pickle
              "quantize.conformer_synth", "quantize.ranges", "models.conformer",
              "models.conformer_ctc", "utils.yaml_io", "utils.checkpoint", "utils.cloud",
              "compat.nemo_loader", "data.tokenizers", "data.vocabs", "models.ctc_bpe_model",
-             "models.lstm_decoder", "decode.beam_search", "cli.conformer_infer"):
+             "models.lstm_decoder", "decode.beam_search", "cli.conformer_infer",
+             "decode.streaming"):
     assert "qasr_tpu_torch." + name in sys.modules, name
 from qasr_tpu_torch.models.config import BlockConfig, DecoderConfig, EncoderConfig, ModelConfig
 from qasr_tpu_torch.models.conformer import ConformerConfig
@@ -234,6 +236,21 @@ c2.save_to(os.path.join(td, "c.qasr"))
 c3 = ConformerCTC.restore_from(os.path.join(td, "c.qasr"))
 assert c3.mode() == "ptq" and len(c3.transcribe_beam(pcm, np.asarray([8000, 6000]),
                                                      beam_width=4, device="cpu")) == 2
+# streaming: the windowed streamer over the QuartzNet, the cache-aware
+# stream over a causal copy of the Conformer
+from qasr_tpu_torch import CacheAwareConformerStream, StreamingTranscriber
+import dataclasses
+assert len(StreamingTranscriber(m, chunk_frames=32, device="cpu").predictions(
+    (rng.normal(size=12000) * 3000).astype(np.int16))) > 0
+cc = ConformerCTC.from_config(dataclasses.replace(mcfg, preprocessor={
+    "features": 16, "dither": 0.0, "normalize": False}), dataclasses.replace(
+    ccfg, att_context_size=(4, 0), causal_conv=True))
+cc.enc_qcfg, cc.enc_qstate = c.enc_qcfg, qs
+cc.freeze(device="cpu")
+cs = CacheAwareConformerStream(cc, device="cpu")
+cs.feed(pcm[0])
+cs.flush()
+assert isinstance(cs.text(), str)
 assert "jax" not in sys.modules, sorted(k for k in sys.modules if k.startswith("jax"))
 bad = sorted(k for k, v in sys.modules.items()
              if (k == "qasr_tpu" or k.startswith("qasr_tpu.")) and v is not None)
@@ -266,7 +283,9 @@ def test_entry_points_default_to_cuda():
     """device=None means the CUDA device: without a GPU every entry point
     raises instead of running on the CPU; with one it is cuda:0."""
     from qasr_tpu_torch.compat.from_jax import conformer_tables_from_jax
+    from qasr_tpu_torch.decode.streaming import CacheAwareConformerStream, StreamingTranscriber
     from qasr_tpu_torch.device import as_device
+    from qasr_tpu_torch.quantize.conformer_freeze import frozen_stream_init
 
     if torch.cuda.is_available():
         assert as_device(None) == torch.device("cuda", 0)
@@ -277,7 +296,8 @@ def test_entry_points_default_to_cuda():
     model = golden.quartznet15x5_w6a6()
     for call in (lambda: model.freeze(), lambda: model.transcribe([np.zeros(1600, np.int16)]),
                  lambda: tables_from_jax({"blocks": []}),
-                 lambda: conformer_tables_from_jax({"layers": []})):
+                 lambda: conformer_tables_from_jax({"layers": []}),
+                 lambda: StreamingTranscriber(model)):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
     conf = golden.conformer16x256_w8a8()
@@ -285,6 +305,15 @@ def test_entry_points_default_to_cuda():
                                                              np.asarray([1600])),
                  lambda: conf.transcribe_greedy(np.zeros((1, 1600), np.int16),
                                                 np.asarray([1600]))):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    # the streaming entry points: a frozen causal Conformer's stream
+    causal = dataclasses.replace(conf.ccfg, att_context_size=(70, 0), causal_conv=True)
+    conf.ccfg = causal
+    conf.frontend.cfg = dataclasses.replace(conf.frontend.cfg, normalize=False)
+    tables = conf.freeze(device="cpu")["encoder"]
+    for call in (lambda: CacheAwareConformerStream(conf),
+                 lambda: frozen_stream_init(tables, causal, 1)):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
 
