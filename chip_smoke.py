@@ -12,7 +12,8 @@ rest in Kernel 7), the same at W8A8 (uint8 codes at the +1-bit sites) and
 Jasper10x5Dr at W6A6 and W8A8 (its dense convs in Kernel 8), the
 grouped and hardtanh QuartzNet15x5 variants and a grouped Jasper-width
 block (the grouped forms of Kernels 2 and 8), MatchboxNet VAD, and
-the frozen W8A8 Conformer-CTC (16 x 256), and QuartzNet15x5's zero-shot
+the frozen W8A8 Conformer-CTC (16 x 256) and Conformer-Transducer (its
+integer decoder in Kernel 9), and QuartzNet15x5's zero-shot
 workflow (synthesis, calibration, the dynamic forward, the CLIs) and the
 Conformer-CTC's (synthesis, calibration, freeze and serve, dynamic), and
 both families through their checkpoints (.nemo, .qasr, from_pretrained)
@@ -101,7 +102,8 @@ phase exits non-zero before the result line.  Phases:
    computes the same function, that call's time: each as CUDA events
    around one call (call_ms, the wrapper's host time included) and as
    device time (device_ms: torch.profiler over 10 calls, the named
-   kernels' device time per call);
+   kernels' device time per call; where the profiler loses records, CUDA
+   events around the 10 calls queued behind a spin kernel);
 7. the zero-shot workflow on full-width QuartzNet15x5 at W6A6: (a)
    ``get_synthetic_data`` at the reference recipe (8 x 500 frames, 200
    Adam iterations, lr 0.01; a CUDA graph replay an iteration) for 2
@@ -252,6 +254,32 @@ phase exits non-zero before the result line.  Phases:
    version at B 64 x T 768, partial lengths, C 256 / 512 / 250, on its
    4-channel and element paths; both cache forms timed at B 32, n 4
    beside their bounds; phase 12's seconds.
+13. The transducer (the frozen Conformer-Transducer 16 x 256 W8A8, its
+   decoder in Kernel 9): (a) rnnt_pred_step and rnnt_joint against their
+   plain versions, exactly: the pred step at H 64 / 320 / 640, L 1 / 2, B
+   1 / 7 / 32, tokens with blank, c_q at the clip, four emit masks; the
+   joint at De 256, J 320 / 640, V+1 29 / 1025, B 1 / 32 from strided
+   frames, and with forced ties (the lower column wins); both timed at the
+   serving shapes beside their bounds; (b) the golden record: table
+   digests, the decoder fed the record's frames and Kernels 3-6 -> 9 from
+   its x8 give its frames, enc8 codes and ids exactly; from its audio, x8
+   within 0.1% at +-1 (the enc8 codes and ids that then differ counted:
+   the random-weight encoder carries a flip into most frames); the main
+   path from the audio with launches equal to kernel_launches + one joint
+   a symbol step + one pred step a layer an emitting step, no plain call;
+   the main path again with the blank's bias raised by 2 (frames ended by
+   a blank, steps that emit in one row and keep the other's state): the
+   planned launches and the CPU plain decoder's ids; (c) B=32 x 15 s: the
+   encoder's time, and for both heads (the golden one, which emits the
+   cap of 10 symbols at every frame, and the blank-biased one) the greedy
+   decode's time, symbol steps and symbols, a step's host and Kernel 9
+   device ms; (d)
+   StreamingTransducer on the causal variant (att_context (70, 0)), the
+   decoder frozen on the card: streamed == offline, transcribe_batch ==
+   each session offline, its latency_report; (e) .qasr save / restore
+   gives the main path's ids; (f) beam / tsd / alsd (beam 3) over the
+   record's frames, card == CPU (a float near-tie within 1e-4 printed
+   instead); phase 13's seconds.
 
 Prints the card line, a {"kernels": [...]} line (each kernel's "ms" and
 "library_ms" are device times at the site "shape" names, "call_ms" and
@@ -298,7 +326,8 @@ PW_BT = ((3, 203), (1, 1), (1, 37))
 # the H100 SXM's published peaks (NVIDIA data sheet, dense, 700 W)
 HBM_BYTES_PER_S, INT8_OPS_PER_S = 3.35e12, 1979e12
 KERNELS = ("dw_conv", "pw_gemm", "requant", "int_attention", "conv_block", "lin_epilogue",
-           "ffn_ln", "dense_conv", "int_attention_cached", "conv_block_cached")
+           "ffn_ln", "dense_conv", "int_attention_cached", "conv_block_cached", "rnnt_pred",
+           "rnnt_joint")
 # the device kernels each wrapper launches (a substring of their names)
 KERNEL_SYMBOLS = {"dw_conv": "dw_conv_kernel", "pw_gemm": "pw_gemm_kernel",
                   "requant": "requant_kernel",
@@ -306,7 +335,8 @@ KERNEL_SYMBOLS = {"dw_conv": "dw_conv_kernel", "pw_gemm": "pw_gemm_kernel",
                   "conv_block": "conv_block_stage", "lin_epilogue": "lin_epilogue_kernel",
                   "ffn_ln": "ffn_ln_kernel", "dense_conv": "dense_conv_kernel",
                   "int_attention_cached": "int_attention_cached_kernel",
-                  "conv_block_cached": "conv_block_cached_stage"}
+                  "conv_block_cached": "conv_block_cached_stage",
+                  "rnnt_pred": "rnnt_pred_step_kernel", "rnnt_joint": "rnnt_joint_kernel"}
 # phase 12: the cache-aware stream (NeMo's cache-aware streaming Conformers
 # keep 70 frames of left context), its cache forms' check grid, its feed
 # sizes (40 ms, 160 ms: the timed one, 1 s) and length, and the windowed
@@ -326,6 +356,11 @@ def card_line() -> str:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip().splitlines()
     return out[0].strip()
+
+
+# device_ms's events fallback: ~50 ms of spinning at the H100's SM clock,
+# longer than the host takes to queue ten calls of any timed function
+HIDE_HOST_CYCLES = 100_000_000
 
 
 def cuda_ms(fn, reps: int, warmup: int = 3):
@@ -354,7 +389,10 @@ def device_ms(fn, symbol=None, calls: int = 10):
     calls.  A trace that holds fewer than ``calls`` of those kernels (the
     profiler drops kernel records now and then) is taken
     again, up to three times; after that CUDA events around the ``calls``
-    calls in a row stand in, and the second value says "events"."""
+    calls in a row stand in, and the second value says "events".  The
+    events' calls are queued behind a spin kernel of HIDE_HOST_CYCLES, so
+    they run back to back on the card and a launch-bound kernel's reading
+    is its device time, not the host's time to launch it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -377,7 +415,15 @@ def device_ms(fn, symbol=None, calls: int = 10):
             kernels += ev.count
         if total_us > 0 and kernels >= calls:
             return total_us / 1e3 / calls, "profiler"
-    return sum(cuda_ms(lambda: [fn() for _ in range(calls)], reps=1, warmup=0)) / calls, "events"
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HIDE_HOST_CYCLES)   # the host queues the calls meanwhile
+    a.record()
+    for _ in range(calls):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / calls, "events"
 
 
 class Checker:
@@ -417,12 +463,14 @@ def wrappers():
     from qasr_tpu_torch.kernels.lin_epilogue import lin_epilogue
     from qasr_tpu_torch.kernels.pw_gemm import pw_gemm
     from qasr_tpu_torch.kernels.requant import requant
+    from qasr_tpu_torch.kernels.rnnt_decoder import rnnt_joint, rnnt_pred_step
 
     return {"dw_conv": dw_conv, "pw_gemm": pw_gemm, "requant": requant,
             "int_attention": int_attention, "conv_block": conv_block,
             "lin_epilogue": lin_epilogue, "ffn_ln": ffn_ln, "dense_conv": dense_conv,
             "int_attention_cached": int_attention_cached,
-            "conv_block_cached": conv_block_cached}
+            "conv_block_cached": conv_block_cached, "rnnt_pred": rnnt_pred_step,
+            "rnnt_joint": rnnt_joint}
 
 
 def planned(counts):
@@ -3545,7 +3593,7 @@ class PlainCalls:
     def __enter__(self):
         from qasr_tpu_torch.kernels import (
             conv_block, dense_conv, dw_conv, ffn_ln, int_attention, lin_epilogue, pw_gemm,
-            requant,
+            requant, rnnt_decoder,
         )
         from qasr_tpu_torch.quantize import conformer_freeze, freeze
 
@@ -3555,7 +3603,7 @@ class PlainCalls:
                 return fn(*a, **kw)
             return wrapper
         for mod in (dense_conv, dw_conv, pw_gemm, requant, freeze, conv_block, ffn_ln,
-                    int_attention, lin_epilogue, conformer_freeze):
+                    int_attention, lin_epilogue, conformer_freeze, rnnt_decoder):
             for name in dir(mod):
                 if name.endswith("_plain") and callable(getattr(mod, name)):
                     self.saved.append((mod, name, getattr(mod, name)))
@@ -4431,6 +4479,434 @@ def phase_streaming(chk, dev, card, report):
     return rows, counts
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the transducer (the frozen Conformer-Transducer: Kernels 3-6 in
+# the encoder, Kernel 9 in the decoder)
+# ---------------------------------------------------------------------------
+
+# Kernel 9's check grid: the pred step at (H, L, B), the joint at (J, V+1,
+# B) with De 256; NeMo's Conformer-Transducer small (320) and medium (640)
+# head widths, 29 characters and a 1,024-piece BPE vocabulary plus blank
+RNNT_H, RNNT_L, RNNT_B = (64, 320, 640), (1, 2), (1, 7, 32)
+RNNT_J, RNNT_V, RNNT_JB = (320, 640), (29, 1025), (1, 32)
+# the timed batch (B x 15 s), the streamed utterance and its chunk (mel
+# frames), the beam searches' per-frame expansion cap and their float
+# near-tie margin
+RNNT_BATCH, RNNT_SECONDS = 32, 15.0
+RNNT_STREAM_SECONDS, RNNT_STREAM_CHUNK, RNNT_STREAM_LENS = 6.0, 256, (96000, 70000, 81000)
+RNNT_BEAM, RNNT_TSD_EXP, BEAM_MARGIN = 3, 4, 1e-4
+# the blank logit's bias raise of the second head on the main path: the
+# golden head emits the cap of 10 symbols at every frame, this one ends
+# most frames with a blank (golden.nudged_out_bias)
+RNNT_BLANK_BIAS = 2.0
+
+
+def rnnt_decoder_tables(dev, hidden, layers, joint, vocab, seed):
+    """(RNNTConfig, device tables) of a random-weight decoder frozen at
+    ranges 4.0 (encoder) and 6.0 (joint)."""
+    from qasr_tpu_torch.models.rnnt import RNNTConfig, init_rnnt_params
+    from qasr_tpu_torch.quantize.rnnt_freeze import freeze_rnnt_decoder, rnnt_tables_to_device
+
+    cfg = RNNTConfig(num_classes=vocab - 1, enc_hidden=256, pred_hidden=hidden,
+                     pred_rnn_layers=layers, joint_hidden=joint)
+    host = freeze_rnnt_decoder(init_rnnt_params(seed, cfg), cfg, enc_range=4.0, joint_range=6.0)
+    return cfg, rnnt_tables_to_device(host, dev)
+
+
+def rnnt_pred_inputs(rng, dev, cfg, b):
+    """token (a blank first), h8, and c_q with entries at and next to the
+    cell state's +-2^23 clip."""
+    import numpy as np
+    import torch
+
+    n_l, h = cfg.pred_rnn_layers, cfg.pred_hidden
+    tok = rng.integers(0, cfg.num_classes + 1, b).astype(np.int32)
+    tok[0] = cfg.blank_id
+    h8 = rng.integers(-127, 128, (n_l, b, h)).astype(np.int8)
+    c = rng.integers(-(1 << 23), (1 << 23) + 1, (n_l, b, h)).astype(np.int32)
+    c[..., 0], c[..., 1], c[..., 2] = 1 << 23, -(1 << 23), (1 << 23) - 1
+    return tuple(torch.from_numpy(a).to(dev) for a in (tok, h8, c))
+
+
+def emit_masks(rng, dev, b):
+    import numpy as np
+    import torch
+
+    mixed = rng.random(b) < 0.5
+    if b > 1:
+        mixed[0], mixed[1] = True, False
+    return [None] + [torch.from_numpy(m).to(dev) for m in
+                     (np.ones(b, bool), mixed, np.zeros(b, bool))]
+
+
+def tied_joint(tables, lo, hi):
+    """``tables`` with out columns lo < hi made identical and far above the
+    rest: every row's logits tie at lo and hi, and its id must be lo."""
+    jt = dict(tables["joint"])
+    for k in ("wt_out", "m_o", "b_out_logit"):
+        jt[k] = jt[k].clone()
+        jt[k][hi] = jt[k][lo]
+    jt["b_out_logit"][lo] = jt["b_out_logit"][hi] = 1 << 24
+    return {**tables, "joint": jt}
+
+
+def phase_rnnt_kernels(chk, dev):
+    """13a: Kernel 9 against its plain versions on the card, exactly: the
+    pred step (the new h8 and c_q stacks and the top h8) at every (H, L, B)
+    of the grid with tokens including blank, c_q at and next to the clip,
+    and the emit masks none / all / mixed / no row; the joint (logits and
+    ids) at every (J, V+1, B) from strided encoder frames, and with two
+    columns forced to tie (in one warp and across warps): the lower index
+    wins."""
+    import numpy as np
+    import torch
+
+    from qasr_tpu_torch.kernels.rnnt_decoder import (
+        rnnt_joint, rnnt_joint_plain, rnnt_pred_step, rnnt_pred_step_plain,
+    )
+
+    rng = np.random.default_rng(13)
+    n0 = chk.n
+    for h in RNNT_H:
+        for n_l in RNNT_L:
+            cfg, tables = rnnt_decoder_tables(dev, h, n_l, 320, 29, seed=h + n_l)
+            for b in RNNT_B:
+                tok, h8, c = rnnt_pred_inputs(rng, dev, cfg, b)
+                for emit in emit_masks(rng, dev, b):
+                    tag = (f"rnnt_pred H={h} L={n_l} B={b} emit "
+                           f"{'none' if emit is None else emit.int().tolist()[:8]}")
+                    got = rnnt_pred_step(tables, tok, h8, c, emit)
+                    want = rnnt_pred_step_plain(tables, tok, h8, c, emit)
+                    for what, g, w in zip(("top h8", "h8", "c_q"), got, want):
+                        chk.equal("rnnt_pred", f"{tag} {what}", g, w)
+    for j in RNNT_J:
+        for v in RNNT_V:
+            cfg, tables = rnnt_decoder_tables(dev, 320, 1, j, v, seed=j + v)
+            ties = (((3, 19), (7, 20)) if v == 29 else ((700, 1000), (37, 53)))
+            for b in RNNT_JB:
+                frames = torch.from_numpy(rng.normal(size=(b, 3, 256)).astype(np.float32)
+                                          * 2).to(dev)
+                e = frames[:, 1]   # a strided view, as the greedy loop's enc[:, t]
+                h8 = torch.from_numpy(rng.integers(-127, 128, (b, 320)).astype(np.int8)).to(dev)
+                for tab, lo in [(tables, None)] + [(tied_joint(tables, lo, hi), lo)
+                                                   for lo, hi in ties]:
+                    tag = f"rnnt_joint De=256 J={j} V+1={v} B={b}" + (
+                        "" if lo is None else f" tie at {lo}")
+                    got, want = rnnt_joint(tab, e, h8), rnnt_joint_plain(tab, e, h8)
+                    chk.equal("rnnt_joint", f"{tag} logits", got[0], want[0])
+                    chk.equal("rnnt_joint", f"{tag} ids", got[1], want[1])
+                    if lo is not None and not bool((got[1] == lo).all()):
+                        raise AssertionError(f"{tag}: a tie did not go to the lower column")
+    log(f"[13a] rnnt_pred_step and rnnt_joint == their plain versions in {chk.n - n0} exact "
+        f"comparisons: pred H {RNNT_H} x L {RNNT_L} x B {RNNT_B} x 4 emit masks (tokens with "
+        f"blank, c_q at the clip); joint De 256, J {RNNT_J} x V+1 {RNNT_V} x B {RNNT_JB}, "
+        f"strided frames, forced ties in one warp and across warps to the lower column")
+
+
+def time_rnnt_kernels(chk, dev, card, rows):
+    """13a: both entries at the serving shapes (H = J = 320, one layer, 29
+    outputs; B 32, the timed batch, and B 1, a stream) beside their
+    bounds: each input read once, each output written once, over HBM;
+    the int8 multiply-adds over the tensor-core peak."""
+    import numpy as np
+    import torch
+
+    from qasr_tpu_torch.kernels.rnnt_decoder import (
+        rnnt_joint, rnnt_joint_plain, rnnt_pred_step, rnnt_pred_step_plain,
+    )
+
+    rng = np.random.default_rng(131)
+    cfg, tables = rnnt_decoder_tables(dev, 320, 1, 320, 29, seed=0)
+    h, j, v, de = 320, 320, 29, 256
+    for b in (RNNT_BATCH, 1):
+        tok, h8, c = rnnt_pred_inputs(rng, dev, cfg, b)
+        emit = emit_masks(rng, dev, b)[2].to(torch.int32)   # as the greedy loop passes it
+        pred = lambda: rnnt_pred_step(tables, tok, h8, c, emit)[2]   # noqa: E731
+        r = timed_pair(chk, "rnnt_pred", f"rnnt_pred H={h} L=1 B={b}", pred,
+                       lambda: rnnt_pred_step_plain(tables, tok, h8, c, emit)[2], card, rows)
+        # token, embedding row, h8, c and the int32 emit flag in; both
+        # weight matrices; mi, mh, b_grid over the 4H gate columns and mi2,
+        # mh2, b2_grid over the g gate's H (all int32); h8 and c out
+        r["bound"] = bound(b * (4 + h + h + 4 * h + 4) + 8 * h * h + (3 * 4 * h + 3 * h) * 4
+                           + b * (h + 4 * h), 2 * b * 4 * h * 2 * h)
+        frames = torch.from_numpy(rng.normal(size=(b, 3, de)).astype(np.float32) * 2).to(dev)
+        e = frames[:, 1]
+        g8 = torch.from_numpy(rng.integers(-127, 128, (b, h)).astype(np.int8)).to(dev)
+        jnt = lambda: rnnt_joint(tables, e, g8)[0]   # noqa: E731
+        r = timed_pair(chk, "rnnt_joint", f"rnnt_joint De={de} J={j} V+1={v} B={b}", jnt,
+                       lambda: rnnt_joint_plain(tables, e, g8)[0], card, rows)
+        r["bound"] = bound(b * (4 * de + h) + de * j + h * j + j * v + 4 * (3 * j + 2 * v)
+                           + b * (4 * v + 4), 2 * b * (de * j + h * j + j * v))
+
+
+def phase_rnnt_golden(dev, card):
+    """13b: the golden record on the card (``golden.check_rnnt_golden``:
+    the decoder from the record's frames, Kernels 3-6 and 9 from its x8,
+    exact; the float front from its audio within the x8 tolerance), then
+    the main path from the record's audio with every count at 0 before it:
+    frontend, the frozen encoder (Kernels 3-6, their planned launches),
+    Kernel 9 (one joint a symbol step, one pred step a layer an emitting
+    step and at the start), no plain-version call, the same ids as the
+    check's audio run.  Then the main path again with the head whose
+    blank bias is raised by RNNT_BLANK_BIAS: its frames end with a blank
+    (fewer pred steps than joint steps), some steps emit in one row and
+    keep the other's state, the launches are planned, and the ids equal
+    the plain decoder's on the CPU from the same frames.  Returns (model,
+    the blank-biased model, the golden main path's counts, its ids)."""
+    import torch
+
+    from qasr_tpu_torch import golden
+    from qasr_tpu_torch.quantize.conformer_freeze import kernel_launches
+    from qasr_tpu_torch.quantize.rnnt_freeze import decoder_launches, greedy_decode_frozen
+
+    model = golden.rnnt_conformer16x256_w8a8()
+    res = golden.check_rnnt_golden(model, dev)
+    if res["bad"]:
+        raise AssertionError(f"transducer golden record: {res['bad']} "
+                             f"({ {k: v for k, v in res.items() if k != 'ids_audio'} })")
+    log(f"[13b] transducer golden record holds: table digests; the integer decoder fed the "
+        f"record's frames, and Kernels 3-6 -> Kernel 9 from its x8, give its frames, enc8 "
+        f"codes and ids ({res['symbols']} symbols) exactly; from its audio, x8 flips "
+        f"{res['x8_flips']} of {res['x8_size']} (<= 0.1%, +-1), enc8 codes differing "
+        f"{res['enc8_differing_from_audio']} of {res['enc8_size']}, ids equal to the record's: "
+        f"{res['audio_ids_equal']} (first difference per utterance "
+        f"{res['audio_ids_first_difference']}) [{card}]")
+    audio, alens = golden.rnnt_golden_audio()
+    stats = {}
+    reset_counts()
+    with PlainCalls() as plain:
+        enc, enc_lens = model.encode(audio, alens, device=dev)
+        ids = model._greedy_hyps(enc, enc_lens, stats=stats)
+        counts = read_counts()
+    expect = planned({**kernel_launches(model.ccfg),
+                      **decoder_launches(model.rnnt_cfg.pred_rnn_layers, stats)})
+    if counts != expect or plain.n or ids != res["ids_audio"]:
+        raise AssertionError(f"transducer main path: launches {counts} vs plan {expect}, "
+                             f"{plain.n} plain calls, ids equal to the check's audio run: "
+                             f"{ids == res['ids_audio']}")
+    log(f"[13b] main path (frontend -> Kernels 3-6 -> Kernel 9, B=2 x 4 / 3.5 s): launches "
+        f"{ {k: v for k, v in counts.items() if v} } == plan ({stats['steps']} symbol steps, "
+        f"{stats['emit_steps']} emitting), 0 plain calls, ids == the check's audio run")
+    mixed = golden.rnnt_conformer16x256_w8a8(blank_bias=RNNT_BLANK_BIAS)
+    m_stats = {}
+    reset_counts()
+    with PlainCalls() as plain:
+        enc, enc_lens = mixed.encode(audio, alens, device=dev)
+        m_ids = mixed._greedy_hyps(enc, enc_lens, stats=m_stats)
+        m_counts = read_counts()
+    m_expect = planned({**kernel_launches(mixed.ccfg),
+                        **decoder_launches(mixed.rnnt_cfg.pred_rnn_layers, m_stats)})
+    cpu = torch.device("cpu")
+    want = greedy_decode_frozen(mixed.decoder_tables(cpu), mixed.rnnt_cfg, enc.to(cpu),
+                                enc_lens.to(cpu))
+    if (m_counts != m_expect or plain.n or m_ids != want or not all(m_ids)
+            or not m_stats["steps"] > m_stats["emit_steps"] > 0 or not m_stats.get("mixed_steps")):
+        raise AssertionError(f"transducer main path, blank bias +{RNNT_BLANK_BIAS:g}: launches "
+                             f"{m_counts} vs plan {m_expect}, {plain.n} plain calls, stats "
+                             f"{m_stats}, ids equal to the CPU's plain decoder: {m_ids == want}, "
+                             f"symbols {[len(i) for i in m_ids]}")
+    log(f"[13b] main path, blank bias +{RNNT_BLANK_BIAS:g}: launches "
+        f"{ {k: v for k, v in m_counts.items() if v} } == plan ({m_stats['steps']} symbol steps, "
+        f"{m_stats['emit_steps']} emitting, {m_stats['mixed_steps']} of them with a row kept, "
+        f"symbols {[len(i) for i in m_ids]}), 0 plain calls, ids == the CPU's plain decoder "
+        f"from the same frames")
+    return model, mixed, counts, ids
+
+
+def phase_rnnt_time(models, dev, card, report):
+    """13c: B=32 x 15 s of seeded noise: the encoder's step (CUDA events,
+    median of 10), then for each head of ``models`` (name -> model, one
+    encoder) the greedy decode's (host clock around the whole loop,
+    median of 3: every symbol step copies the symbols to the host),
+    symbol steps and symbols, a step's host ms and device ms (the decode's
+    Kernel 9 device time over its steps, torch.profiler)."""
+    import numpy as np
+    import torch
+
+    n = int(16000 * RNNT_SECONDS)
+    audio = torch.from_numpy((np.random.default_rng(32).normal(size=(RNNT_BATCH, n)) * 0.1)
+                             .astype(np.float32)).to(dev)
+    lens = torch.full((RNNT_BATCH,), n, dtype=torch.int32, device=dev)
+    model = next(iter(models.values()))
+    enc_ms = statistics.median(cuda_ms(lambda: model.encode(audio, lens, device=dev), reps=10))
+    enc, el = model.encode(audio, lens, device=dev)
+    report["transducer_step"] = {"batch": RNNT_BATCH, "seconds": RNNT_SECONDS,
+                                 "encoder_ms": enc_ms, "frames": int(enc.shape[1])}
+    log(f"[13c] Conformer-Transducer B={RNNT_BATCH} x {RNNT_SECONDS:g} s: encoder "
+        f"{enc_ms:.3f} ms (events) over {int(enc.shape[1])} frames [{card}]")
+    for name, m in models.items():
+        dec_ms, stats = [], {}
+        for _ in range(3):
+            stats = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m._greedy_hyps(enc, el, stats=stats)
+            torch.cuda.synchronize()
+            dec_ms.append((time.perf_counter() - t0) * 1e3)
+        dec_dev, by = device_ms(lambda: m._greedy_hyps(enc, el),
+                                ("rnnt_pred_step_kernel", "rnnt_joint_kernel"), calls=1)
+        steps = stats["steps"]
+        out = {"decode_ms": statistics.median(dec_ms), "decode_ms_samples": dec_ms,
+               "symbol_steps": steps, "emitting_steps": stats["emit_steps"],
+               "mixed_steps": stats.get("mixed_steps", 0), "symbols": stats["symbols"],
+               "decode_host_ms_per_step": statistics.median(dec_ms) / steps,
+               "decode_device_ms": dec_dev, "decode_device_ms_by": by,
+               "decode_device_ms_per_step": dec_dev / steps}
+        report["transducer_step"][name] = out
+        log(f"[13c] {name} head: greedy decode {out['decode_ms']:.3f} ms (host clock; "
+            f"{steps} symbol steps, {stats['emit_steps']} emitting, {out['mixed_steps']} with "
+            f"a row kept, {stats['symbols']} symbols): {out['decode_host_ms_per_step']:.4f} ms "
+            f"a step on the host, {out['decode_device_ms_per_step']:.5f} ms of Kernel 9 device "
+            f"time a step ({by}) [{card}]")
+
+
+def phase_rnnt_stream(dev, card, report):
+    """13d: StreamingTransducer on the local-attention variant (the phase
+    12b encoder config: att_context_size (70, 0), causal_conv,
+    normalization off; the transducer's ranges; the decoder frozen by
+    ``freeze_decoder`` on the card): the streamed transcript (its
+    partials prefixes of it) equals offline ``transcribe_greedy``,
+    ``transcribe_batch`` equals each session's offline transcript, and
+    its latency_report."""
+    import numpy as np
+
+    from qasr_tpu_torch import golden
+    from qasr_tpu_torch.decode.streaming import StreamingTransducer
+
+    model = unnormalized(golden.rnnt_conformer16x256_w8a8(
+        frozen=False, att_context_size=(STREAM_L, 0), causal_conv=True))
+    model.freeze_encoder()
+    rng = np.random.default_rng(61)
+    calib = (rng.normal(size=(2, 64000)) * 0.1).astype(np.float32)
+    model.freeze_decoder([(calib, np.asarray([64000, 48000], np.int32))], device=dev)
+    s_n = len(RNNT_STREAM_LENS)
+    audio = np.zeros((s_n, max(RNNT_STREAM_LENS)), np.float32)
+    for i, k in enumerate(RNNT_STREAM_LENS):
+        audio[i, :k] = (rng.normal(size=k) * 0.1).astype(np.float32)
+    offline = [model.transcribe_greedy(audio[i:i + 1, :k], np.asarray([k], np.int32),
+                                       device=dev)[0]
+               for i, k in enumerate(RNNT_STREAM_LENS)]
+    st = StreamingTransducer(model, chunk_frames=RNNT_STREAM_CHUNK, device=dev)
+    partials = []
+    streamed = st.transcribe(audio[0, :RNNT_STREAM_LENS[0]], partials=partials)
+    if streamed != offline[0] or not offline[0] or not all(streamed.startswith(p)
+                                                           for p in partials):
+        raise AssertionError(f"streamed transducer {streamed!r} != offline {offline[0]!r} "
+                             f"(or empty, or a partial is no prefix)")
+    batch = st.transcribe_batch(audio, np.asarray(RNNT_STREAM_LENS, np.int32))
+    if batch != offline:
+        raise AssertionError("StreamingTransducer.transcribe_batch differs from offline")
+    rep = st.latency_report(audio[0, :RNNT_STREAM_LENS[0]])
+    windows = sum(1 for _ in st._windows(RNNT_STREAM_LENS[0]))
+    log(f"[13d] StreamingTransducer, causal Conformer-Transducer (att_context (70, 0)): "
+        f"{RNNT_STREAM_SECONDS:g} s in {windows} windows (chunk {st.chunk_frames}, context "
+        f"{st.context_left}/{st.context_right} frames) == offline transcribe_greedy "
+        f"({len(streamed)} chars, {len(partials)} partials, each a prefix); transcribe_batch "
+        f"of {s_n} sessions == each offline; latency_report first "
+        f"{rep['first_chunk_latency_ms']:.2f} ms, mean {rep['mean_chunk_latency_ms']:.2f}, "
+        f"p95 {rep['p95_chunk_latency_ms']:.2f}, steady {rep['steady_chunk_latency_ms']:.2f} "
+        f"ms, RTFx {rep['streaming_rtfx']:.1f} [{card}]")
+    report["transducer_stream"] = rep
+
+
+def phase_rnnt_roundtrip(model, dev, ids):
+    """13e: ``save_to`` / ``restore_from`` through a .qasr on the card: the
+    restored model, frozen again (the decoder from the record's ranges),
+    has the record's decoder tables and gives the main path's ids from the
+    record's audio."""
+    import shutil
+    import tempfile
+
+    from qasr_tpu_torch import golden
+    from qasr_tpu_torch.models.rnnt_model import RNNTModel
+    from qasr_tpu_torch.quantize.rnnt_freeze import decoder_tables_digest, freeze_rnnt_decoder
+
+    rec = golden.load_rnnt_golden()[0]
+    tmp = tempfile.mkdtemp(prefix="qasr_smoke_rnnt_")
+    try:
+        path = f"{tmp}/transducer.qasr"
+        model.save_to(path)
+        m2 = RNNTModel.restore_from(path)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    m2.freeze_encoder()
+    m2.dec_frozen = freeze_rnnt_decoder(m2.params["rnnt"], m2.rnnt_cfg, enc_range=rec["ranges"][0],
+                                        joint_range=rec["ranges"][1])
+    audio, alens = golden.rnnt_golden_audio()
+    enc, el = m2.encode(audio, alens, device=dev)
+    if m2._greedy_hyps(enc, el) != ids or \
+            decoder_tables_digest(m2.dec_frozen) != rec["decoder_tables_sha256"]:
+        raise AssertionError("the restored transducer's ids or decoder tables differ")
+    log("[13e] .qasr save_to / restore_from on the card: the restored transducer's decoder "
+        "tables equal the record's, its ids the main path's")
+
+
+def phase_rnnt_beam(model, dev, card):
+    """13f: beam / tsd / alsd over the record's two utterances' frames (B=2
+    x 4 / 3.5 s) on the card and on the CPU: the best ids equal, or, where
+    the CPU's two best sort keys lie within BEAM_MARGIN (a float near-tie),
+    the margin is printed."""
+    import numpy as np
+    import torch
+
+    from qasr_tpu_torch import golden
+    from qasr_tpu_torch.models.rnnt import beam_search
+
+    rec, frames, _, _ = golden.load_rnnt_golden()
+    cfg = model.rnnt_cfg
+    on = {"card": model.float_decoder(dev), "cpu": model.float_decoder(torch.device("cpu"))}
+    t0 = time.perf_counter()
+    for st in ("beam", "tsd", "alsd"):
+        for i, n in enumerate(rec["enc_lens"]):
+            hyps = {k: beam_search(p, cfg, torch.from_numpy(frames[i, :n]), beam_size=RNNT_BEAM,
+                                   search_type=st, tsd_max_sym_exp=RNNT_TSD_EXP)
+                    for k, p in on.items()}
+            best = {k: [t for t in h[0].y_sequence if t != cfg.blank_id] for k, h in hyps.items()}
+            if best["card"] == best["cpu"]:
+                continue
+            cpu = hyps["cpu"]
+            margin = (cpu[0].score / len(cpu[0].y_sequence) - cpu[1].score
+                      / len(cpu[1].y_sequence)) if len(cpu) > 1 else float("inf")
+            if not margin < BEAM_MARGIN:
+                raise AssertionError(f"{st} utterance {i}: card ids differ from the CPU's "
+                                     f"(margin {margin:.3g})")
+            log(f"[13f] {st} utterance {i}: card and CPU best differ at a float near-tie "
+                f"(CPU margin {margin:.3g} < {BEAM_MARGIN:g})")
+    log(f"[13f] beam / tsd (max {RNNT_TSD_EXP} expansions a frame) / alsd, beam {RNNT_BEAM}, "
+        f"over the "
+        f"record's 2 utterances: the card's best ids == the CPU's "
+        f"({time.perf_counter() - t0:.1f} s) [{card}]")
+
+
+def phase_transducer(chk, dev, card, report):
+    """Phase 13; returns (kernels line rows, the main path's counts)."""
+    t_phase = time.perf_counter()
+    rows, parts = [], {}
+
+    def part(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        parts[name] = time.perf_counter() - t0
+        return out
+    part("13a checks", phase_rnnt_kernels, chk, dev)
+    model, mixed, counts, ids = part("13b golden and main path", phase_rnnt_golden, dev, card)
+    part("13a timing", time_rnnt_kernels, chk, dev, card, rows)
+    part("13c step", phase_rnnt_time,
+         {"cap-bound (golden)": model, f"blank bias +{RNNT_BLANK_BIAS:g}": mixed}, dev, card,
+         report)
+    del mixed
+    part("13d stream", phase_rnnt_stream, dev, card, report)
+    part("13e round trip", phase_rnnt_roundtrip, model, dev, ids)
+    part("13f beam", phase_rnnt_beam, model, dev, card)
+    log("[13] seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()))
+    report["transducer_part_seconds"] = parts
+    report["transducer_per_kernel"] = rows
+    report["transducer_launches"] = counts
+    report["transducer_seconds"] = time.perf_counter() - t_phase
+    log(f"[13] phase 13 took {report['transducer_seconds']:.1f} s")
+    return rows, counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="PyTorch port smoke test on one GPU")
     ap.add_argument("--report", help="also write a JSON report of every number here")
@@ -4501,6 +4977,7 @@ def main() -> int:
     w8a8_rows, w8a8_counts = phase_w8a8(chk, dev, card, report, (model, tables["static_e"]))
     g_rows, g_counts = phase_grouped(chk, dev, card, report, (model, tables["static_e"]))
     s_rows, s_counts = phase_streaming(chk, dev, card, report)
+    t_rows, t_counts = phase_transducer(chk, dev, card, report)
 
     rows = report["quartznet_per_kernel"] + report["conformer_per_kernel"]
     kernels = []
@@ -4571,6 +5048,19 @@ def main() -> int:
         r = next(r for r in s_rows if label in r["shape"])
         row = kernel_row(kind, replaces, r, s_counts["stream"][kind])
         row["source"] = f"qasr_tpu_torch/kernels/csrc/{kind[:-len('_cached')]}.cu"
+        kernels.append(row)
+    # phase 13: Kernel 9 (launches: the frozen Conformer-Transducer's main path
+    # of phase 13b)
+    for kind, replaces, label in [
+            ("rnnt_pred", "none: XLA ops, qasr_tpu/quantize/rnnt_freeze.py:157-196 "
+             "(pred_step_frozen) and the greedy loop's keep, :272-275",
+             f"rnnt_pred H=320 L=1 B={RNNT_BATCH}"),
+            ("rnnt_joint", "none: XLA ops, qasr_tpu/quantize/rnnt_freeze.py:199-217 "
+             "(joint_logits_frozen) and the host argmax, :266",
+             f"rnnt_joint De=256 J=320 V+1=29 B={RNNT_BATCH}")]:
+        r = next(r for r in t_rows if r["shape"] == label)
+        row = kernel_row(kind, replaces, r, t_counts[kind])
+        row["source"] = "qasr_tpu_torch/kernels/csrc/rnnt_decoder.cu"
         kernels.append(row)
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start

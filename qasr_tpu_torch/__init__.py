@@ -1,5 +1,5 @@
-"""QASR port to PyTorch and CUDA: integer-only QuartzNet and Conformer-CTC
-serving on Hopper.
+"""QASR port to PyTorch and CUDA: integer-only QuartzNet, Jasper,
+Conformer-CTC and Conformer-Transducer serving on Hopper.
 
 The JAX package ``qasr_tpu`` is the reference; this package mirrors its
 layout (``ops/``, ``models/``, ``quantize/``, ``kernels/``) and imports
@@ -21,6 +21,7 @@ __version__ = "0.1.0"
 _LAZY = {
     "StreamingTranscriber": "qasr_tpu_torch.decode.streaming",
     "CacheAwareConformerStream": "qasr_tpu_torch.decode.streaming",
+    "StreamingTransducer": "qasr_tpu_torch.decode.streaming",
 }
 
 __all__ = sorted(_LAZY)

@@ -13,7 +13,9 @@ rebuilds a JAX package CTC, classification or speaker model as the port's,
 its params whole: SqueezeExcite's fc1 / fc2, the classification head's
 linear, the speaker head's embedding layers (linear + BN) and final layer.
 ``stream_state_from_jax`` carries a cache-aware Conformer stream's state
-(``frozen_stream_init`` / ``frozen_stream_step``) across.
+(``frozen_stream_init`` / ``frozen_stream_step``) across;
+``rnnt_model_from_jax`` a transducer (``RNNTModel``) with its ranges and
+frozen host tables.
 Nothing here imports jax.
 """
 from __future__ import annotations
@@ -29,13 +31,13 @@ from qasr_tpu_torch.quantize.freeze import tables_to_device
 
 def state_from_jax(tree: Any) -> Any:
     """JAX params or range state -> the port's: a deep copy with every
-    array leaf a numpy array; Python scalars and numpy scalars keep their
-    type."""
+    array leaf a numpy array; Python scalars, strings and numpy scalars
+    keep their type."""
     if isinstance(tree, dict):
         return {k: state_from_jax(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(state_from_jax(v) for v in tree)
-    if isinstance(tree, (bool, int, float, np.generic)) or tree is None:
+    if isinstance(tree, (bool, int, float, str, np.generic)) or tree is None:
         return tree
     return np.array(tree)
 
@@ -98,4 +100,48 @@ def model_from_jax(jm: Any):
                                  for f in dataclasses.fields(QuantConfig)})
         pm.folded = bool(getattr(jm, "folded", False))
     pm.params = state_from_jax(jm.params)
+    return pm
+
+
+def rnnt_model_from_jax(jm: Any):
+    """A JAX package ``RNNTModel`` (or ``EncDecRNNTBPEModel``) as the
+    port's: the same config, encoder kind and transducer config, its params
+    (encoder and 'rnnt', numpy), the encoder's quantization config and
+    ranges, and the frozen encoder and decoder host tables (numpy; the
+    JAX package's cached closures left behind).  The BPE model's tokenizer
+    is read again from its file."""
+    import dataclasses
+
+    from qasr_tpu_torch.models.config import ModelConfig, config_to_dict
+    from qasr_tpu_torch.models.rnnt import RNNTConfig
+    from qasr_tpu_torch.models.rnnt_model import EncDecRNNTBPEModel, RNNTModel
+
+    cfg = ModelConfig.from_dict(config_to_dict(jm.cfg))
+    rnnt_cfg = RNNTConfig(**dataclasses.asdict(jm.rnnt_cfg))
+    if jm.encoder_kind == "conformer":
+        from qasr_tpu_torch.models.conformer import ConformerConfig
+
+        pm = RNNTModel.conformer_transducer(cfg, ConformerConfig(**dataclasses.asdict(jm.plan)),
+                                            rnnt_cfg=rnnt_cfg)
+    else:
+        pm = RNNTModel.from_config(cfg, rnnt_cfg=rnnt_cfg)
+    pm.params = state_from_jax(jm.params)
+    if jm.enc_qcfg is not None:
+        from qasr_tpu_torch.quantize.conformer_ptq import ConformerQuantConfig
+
+        pm.enc_qcfg = ConformerQuantConfig(**dataclasses.asdict(jm.enc_qcfg))
+        pm.enc_qstate = state_from_jax(jm.enc_qstate)
+
+    def host(tables):
+        if tables is None:
+            return None
+        return state_from_jax({k: v for k, v in tables.items() if not k.startswith("_")})
+
+    pm.enc_frozen, pm.dec_frozen = host(jm.enc_frozen), host(jm.dec_frozen)
+    tok = getattr(jm, "tokenizer", None)
+    if tok is not None:
+        from qasr_tpu_torch.data.tokenizers import BPETokenizer
+
+        pm.__class__ = EncDecRNNTBPEModel
+        pm.tokenizer = BPETokenizer(tok.path)
     return pm

@@ -11,6 +11,9 @@ stitched outputs equal the full-utterance outputs.  Each window runs the
 model's own serving path: the frozen executors on Kernels 1, 2, 7 (and 8
 for Jasper) or Kernels 3-6.
 
+``StreamingTransducer`` streams a transducer (``RNNTModel``) the same
+way, its greedy decoder's carry kept across chunks.
+
 ``CacheAwareConformerStream`` keeps O(1) state instead for a frozen causal
 Conformer-CTC (att_context (L, 0), causal_conv): per-layer int8 key /
 value and conv-tail caches (``quantize/conformer_freeze.py::
@@ -250,6 +253,130 @@ class StreamingTranscriber:
             return {"chunks": 0}
         return _report(lat, self.chunk_frames * self.hop / self.sample_rate,
                        len(audio) / float(self.sample_rate), total)
+
+
+@dataclass
+class StreamingTransducer(StreamingTranscriber):
+    """Windowed greedy transcription over a transducer (``RNNTModel``: a
+    Jasper-family or local-attention Conformer encoder; float, PTQ or
+    frozen), on ``device`` (None: the CUDA device).
+
+    The encoder windows are stitched as for CTC and stay on the device;
+    the greedy decoder's carry (prediction-network state, last output,
+    hypotheses) persists across chunks, so the frames decode as offline
+    and the transcript equals offline ``transcribe_greedy`` wherever the
+    stitched frames equal the whole utterance's.  The decoder follows the
+    model's serving mode: the frozen integer decoder (Kernel 9) after
+    ``freeze_decoder``, else the float one."""
+
+    max_symbols_per_step: int = 10
+
+    def _window_forward(self, seg: np.ndarray, seg_len: int):
+        enc, el = self.model.encode(seg[None], np.asarray([seg_len], np.int32),
+                                    device=self.device)
+        return (enc[0],), int(el[0])
+
+    def predictions(self, audio: np.ndarray):
+        raise NotImplementedError("transducers have no frame-wise greedy ids; use "
+                                  "transcribe / transcribe_batch")
+
+    def transcribe_beam(self, audio: np.ndarray, *a, **k):
+        raise NotImplementedError("CTC streaming beam search does not apply to transducers; "
+                                  "use RNNTModel.transcribe_beam offline or transcribe() here")
+
+    def _decoder_fns(self):
+        """(init(batch) -> carry, frames(enc, lens, carry) -> carry) of the
+        model's serving decoder on the streamer's device."""
+        m, cfg, n = self.model, self.model.rnnt_cfg, self.max_symbols_per_step
+        if m.dec_frozen is not None:
+            from qasr_tpu_torch.quantize.rnnt_freeze import (
+                frozen_decoder_init,
+                greedy_decode_frames_frozen,
+            )
+
+            tables = m.decoder_tables(self.device)
+            return (lambda b: frozen_decoder_init(tables, cfg, b),
+                    lambda enc, lens, carry: greedy_decode_frames_frozen(tables, cfg, enc, lens,
+                                                                         carry, n))
+        from qasr_tpu_torch.models.rnnt import greedy_decode_frames, greedy_init
+
+        params = m.float_decoder(self.device)
+        return (lambda b: greedy_init(params, cfg, b),
+                lambda enc, lens, carry: greedy_decode_frames(params, cfg, enc, lens, carry, n))
+
+    def transcribe(self, audio: np.ndarray, partials: Optional[List[str]] = None) -> str:
+        """The streamed transcript; ``partials`` collects the running
+        hypothesis after each chunk (a live caption)."""
+        init, frames = self._decoder_fns()
+        carry = init(1)
+        for (enc_c,) in self._chunks(audio):
+            if len(enc_c):
+                carry = frames(enc_c[None], np.asarray([len(enc_c)]), carry)
+            if partials is not None:
+                partials.append(self.model._text(carry[2][0]))
+        return self.model._text(carry[2][0])
+
+    def transcribe_batch(self, audio: np.ndarray, alens: np.ndarray) -> List[str]:
+        """S live sessions advanced together: one (S, window) encoder batch
+        and one batched greedy loop a tick, rows advancing independently;
+        each session's transcript equals its own offline one.  audio (S, L)
+        padded signals, alens (S,) valid samples."""
+        init, frames = self._decoder_fns()
+        audio = np.asarray(audio)
+        alens = np.asarray(alens)
+        s_n, hop, s = audio.shape[0], self.hop, self.stride
+        n_frames = np.ceil(alens / hop).astype(np.int64)
+        chunk = self.chunk_frames
+        full = (self.context_left + chunk + self.context_right) * hop
+        carry = init(s_n)
+        # the windows of the longest stream; shorter rows mask out by n_valid
+        for start, w0, s0, s1, o0 in self._windows(int(alens.max())):
+            seg = audio[:, s0:s1]
+            if seg.shape[1] < full:
+                seg = np.concatenate([seg, np.zeros((s_n, full - seg.shape[1]), audio.dtype)],
+                                     axis=1)
+            seg_lens = np.clip(np.minimum(alens, s0 + full) - s0, 0, full).astype(np.int32)
+            enc, el = self.model.encode(seg, seg_lens, device=self.device)
+            el = el.cpu().numpy()
+            valid_in = np.clip(np.minimum(chunk, n_frames - start), 0, None)
+            o1 = np.minimum(o0 + -(-valid_in // s), el).astype(np.int64)
+            n_valid = np.clip(o1 - o0, 0, None).astype(np.int32)
+            t_max = int(n_valid.max())
+            if t_max:
+                carry = frames(enc[:, o0:o0 + t_max], n_valid, carry)
+        return [self.model._text(h) for h in carry[2]]
+
+    def latency_report(self, audio: np.ndarray, beam: bool = False, **beam_kwargs) -> dict:
+        """Per-chunk latency with the greedy decode on the clock (the
+        encoder window and the emit loop; the card synchronized before each
+        clock read), the first chunk's, the sustained streaming RTFx and
+        the transcript."""
+        if beam or beam_kwargs:
+            raise NotImplementedError("transducer streaming is greedy; the beam options are "
+                                      "CTC-only")
+        init, frames = self._decoder_fns()
+        carry = init(1)
+        lat: List[float] = []
+        chunks = self._chunks(audio)
+        t_all0 = time.perf_counter()
+        while True:
+            t0 = time.perf_counter()
+            try:
+                (enc_c,) = next(chunks)
+            except StopIteration:
+                break
+            if len(enc_c):
+                carry = frames(enc_c[None], np.asarray([len(enc_c)]), carry)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            lat.append(time.perf_counter() - t0)
+        total = time.perf_counter() - t_all0
+        if not lat:
+            return {"chunks": 0}
+        rep = _report(lat, self.chunk_frames * self.hop / self.sample_rate,
+                      len(audio) / float(self.sample_rate), total)
+        rep["text"] = self.model._text(carry[2][0])
+        return rep
 
 
 def _pcm_f32(audio) -> np.ndarray:

@@ -30,6 +30,15 @@ check has two parts: (a) the port's x8 differs from the golden one in at
 most 0.1% of codes, each by +-1; (b) the port's integer stack, run from
 the golden x8, reproduces the encodings' hash, the lengths and the ids
 exactly, and the log-probs within 1e-4.
+
+Conformer-Transducer.  ``rnnt_conformer16x256_w8a8`` builds the CTC
+flagship's encoder config with the transducer head at its defaults (seed
+0, its own committed ranges, the out bias nudged); its record (written
+by the same script with ``--model rnnt``) starts from seeded audio and
+holds the two decoder ranges, the subsampler's x8, the encoder frames,
+their enc8 codes and the frozen decoder's ids.  ``check_rnnt_golden``
+holds the ids exactly from the record's frames and x8; the float front
+from audio is held at the x8 tolerance above.
 """
 from __future__ import annotations
 
@@ -201,6 +210,13 @@ CONF_GOLDEN_PATH = os.path.join(ASSETS, "conformer16x256_w8a8_s0_golden.json")
 CONF_GOLDEN_NPZ = os.path.join(ASSETS, "conformer16x256_w8a8_s0_golden.npz")
 CONF_LABELS = tuple(" abcdefghijklmnopqrstuvwxyz'")
 CONF_FEATURE_SEED, CONF_FEATURE_T, CONF_FEATURE_LENS = 4321, 160, (160, 121)
+# the Conformer-Transducer flagship (the same encoder config, seed 0, whose
+# encoder draws differ from the CTC flagship's: ranges of its own); its
+# golden record starts from audio: 2 utterances of seeded noise
+RNNT_QSTATE_PATH = os.path.join(ASSETS, "rnnt_conformer16x256_noise_qstate_w8a8_s0.json")
+RNNT_GOLDEN_PATH = os.path.join(ASSETS, "rnnt_conformer16x256_w8a8_s0_golden.json")
+RNNT_GOLDEN_NPZ = os.path.join(ASSETS, "rnnt_conformer16x256_w8a8_s0_golden.npz")
+RNNT_AUDIO_SEED, RNNT_AUDIO_LENS = 16, (64000, 56000)
 # tolerances of the Conformer golden check
 X8_FLIP_SHARE, LOGPROB_ATOL = 1e-3, 1e-4
 
@@ -232,6 +248,30 @@ def conformer_golden_features(feat_in: int = 80) -> Tuple[np.ndarray, np.ndarray
     rng = np.random.default_rng(CONF_FEATURE_SEED)
     feats = rng.normal(size=(len(CONF_FEATURE_LENS), CONF_FEATURE_T, feat_in))
     return feats.astype(np.float32), np.asarray(CONF_FEATURE_LENS, np.int32)
+
+
+def rnnt_golden_audio() -> Tuple[np.ndarray, np.ndarray]:
+    """(audio (2, 64000) float32 noise at 0.1 rms, the second zero past its
+    length; lengths (2,) int32): the transducer record's input."""
+    rng = np.random.default_rng(RNNT_AUDIO_SEED)
+    n = max(RNNT_AUDIO_LENS)
+    audio = np.zeros((len(RNNT_AUDIO_LENS), n), np.float32)
+    for i, k in enumerate(RNNT_AUDIO_LENS):
+        audio[i, :k] = (rng.normal(size=k) * 0.1).astype(np.float32)
+    return audio, np.asarray(RNNT_AUDIO_LENS, np.int32)
+
+
+def nudged_out_bias(b, blank_id: int, seed: int = 0, blank_bias: float = 0.0) -> np.ndarray:
+    """The joint's out bias with uniform(0.5, 1.5) added to every non-blank
+    entry (``default_rng(seed)``), as the JAX package's streaming
+    transducer tests do, and ``blank_bias`` added to the blank's.  The
+    flagship's seed-0 head emits the cap of symbols at every frame with
+    ``blank_bias`` 0 (so does its un-nudged head); +2.0 makes blank end
+    most frames, as a trained head's does."""
+    b = np.asarray(b, np.float32).copy()
+    b[:blank_id] += np.random.default_rng(seed).uniform(0.5, 1.5, size=b.size - 1)
+    b[blank_id] += np.float32(blank_bias)
+    return b
 
 
 def conformer_record(tables_sha256: str, x8: np.ndarray, enc: np.ndarray,
@@ -289,3 +329,132 @@ def check_conformer_golden(model: ConformerCTC, tables, kernels: bool = True,
     return {"bad": bad, "x8_flips": int((diff != 0).sum()) if diff is not None else -1,
             "x8_size": int(gx8.size), "x8_max_diff": int(diff.max()) if diff is not None else -1,
             "log_prob_max_err": lp_err, "enc_lens": rec["enc_lens"]}
+
+# ---------------------------------------------------------------------------
+# the Conformer-Transducer
+# ---------------------------------------------------------------------------
+
+
+def load_rnnt_golden():
+    """(record dict, encoder frames (2, T', 256) float32, their enc8 codes
+    int8, the subsampler's quantized output x8 int8)."""
+    with open(RNNT_GOLDEN_PATH) as f:
+        rec = json.load(f)
+    with np.load(RNNT_GOLDEN_NPZ) as z:
+        return rec, z["enc"], z["enc8"], z["x8"]
+
+
+def rnnt_conformer16x256_w8a8(seed: int = 0, frozen: bool = True, blank_bias: float = 0.0,
+                              **ccfg_changes):
+    """The flagship Conformer-Transducer: the CTC flagship's encoder config
+    (``ccfg_changes`` replace fields, e.g. a streaming att_context_size),
+    the transducer head at its defaults (prediction network and joint 320
+    wide, one LSTM layer), seed 0, the joint's out bias nudged
+    (``nudged_out_bias`` with ``blank_bias``; the golden record's is 0),
+    the committed encoder ranges and, with ``frozen``, the encoder frozen
+    and the decoder frozen from the golden record's two ranges (host
+    tables equal to the JAX package's; a head with another
+    ``blank_bias`` is not calibrated again)."""
+    import dataclasses
+
+    from qasr_tpu_torch.models.rnnt_model import RNNTModel
+    from qasr_tpu_torch.quantize.rnnt_freeze import freeze_rnnt_decoder
+
+    cfg, ccfg = conformer_flagship_configs()
+    model = RNNTModel.conformer_transducer(cfg, dataclasses.replace(ccfg, **ccfg_changes),
+                                           seed=seed)
+    out = model.params["rnnt"]["joint"]["out"]
+    out["b"] = nudged_out_bias(out["b"], model.rnnt_cfg.blank_id, blank_bias=blank_bias)
+    with open(RNNT_QSTATE_PATH) as f:
+        d = json.load(f)
+    from qasr_tpu_torch.quantize.conformer_ptq import ConformerQuantConfig
+
+    model.enc_qcfg = ConformerQuantConfig(**d["qcfg"])
+    model.enc_qstate = _qstate_from_json(d["qstate"])
+    if frozen:
+        model.freeze_encoder()
+        enc_range, joint_range = load_rnnt_golden()[0]["ranges"]
+        model.dec_frozen = freeze_rnnt_decoder(model.params["rnnt"], model.rnnt_cfg,
+                                               enc_range=enc_range, joint_range=joint_range)
+    return model
+
+
+def _qstate_from_json(t):
+    if isinstance(t, dict):
+        return {k: _qstate_from_json(v) for k, v in t.items()}
+    if isinstance(t, list):
+        return [_qstate_from_json(v) for v in t]
+    return np.float32(t)
+
+
+@torch.no_grad()
+def check_rnnt_golden(model, device, audio: bool = True) -> Dict[str, Any]:
+    """Hold the frozen transducer (``rnnt_conformer16x256_w8a8()``) to its
+    golden record on ``device``: the host tables' digests, then
+    (a) the integer decoder fed the record's encoder frames gives the
+    record's ids;
+    (b) the integer encoder run from the record's x8 (Kernels 3-6 on a
+    CUDA device) gives the record's frames bit for bit (their hash; so
+    (a)'s ids) and their enc8 codes;
+    (c) with ``audio``, from the record's audio, the float frontend and
+    subsampler give an x8 within 0.1% of codes at +-1 of the record's (as
+    the CTC record's check).  The random-weight 16-layer encoder carries such a flip into
+    most frames (7 flips of 1,001,984 codes moved 81% of the enc8 codes on
+    the CPU), so the audio path's enc8 codes and ids are counted and
+    compared, not gated.
+    Returns the numbers and the failures under "bad"."""
+    from qasr_tpu_torch.quantize.conformer_freeze import (
+        conformer_encode,
+        conformer_tables_digest,
+        conformer_x8,
+    )
+    from qasr_tpu_torch.quantize.rnnt_freeze import (
+        decoder_tables_digest,
+        greedy_decode_frozen,
+        quantize_frame,
+    )
+
+    rec, genc, genc8, gx8 = load_rnnt_golden()
+    dev = torch.device(device)
+    enc_t = model.encoder_tables(dev)
+    bad = []
+    if conformer_tables_digest(enc_t) != rec["encoder_tables_sha256"]:
+        bad.append("encoder_tables_sha256")
+    if decoder_tables_digest(model.dec_frozen) != rec["decoder_tables_sha256"]:
+        bad.append("decoder_tables_sha256")
+    tables = model.decoder_tables(dev)
+    lens = torch.tensor(rec["enc_lens"], dtype=torch.int32, device=dev)
+    if greedy_decode_frozen(tables, model.rnnt_cfg, torch.from_numpy(genc).to(dev),
+                            lens) != rec["ids"]:
+        bad.append("ids from the record's frames")
+    enc, enc_lens = conformer_encode(enc_t, model.ccfg, torch.from_numpy(gx8).to(dev), lens)
+    if array_sha256(enc.cpu().numpy().astype(np.float32)) != rec["encodings_f32_sha256"]:
+        bad.append("encodings from x8")
+    if array_sha256(quantize_frame(tables, enc).cpu().numpy()) != rec["enc8_sha256"]:
+        bad.append("enc8 from x8")
+    if enc_lens.cpu().numpy().tolist() != rec["enc_lens"]:
+        bad.append("enc_lens from x8")
+    res = {"bad": bad, "x8_size": int(gx8.size), "enc8_size": int(genc8.size),
+           "symbols": [len(h) for h in rec["ids"]]}
+    if not audio:
+        return res
+    audio, alens = rnnt_golden_audio()
+    a = torch.from_numpy(audio).to(dev)
+    feats, feat_lens = model.frontend(a, torch.from_numpy(alens).to(dev), dither=0.0)
+    x8, _ = conformer_x8(enc_t, model.ccfg, feats, feat_lens)
+    x8 = x8.cpu().numpy().astype(np.int32)
+    diff = np.abs(x8 - gx8) if x8.shape == gx8.shape else None
+    if diff is None or (diff != 0).mean() > X8_FLIP_SHARE or diff.max() > 1:
+        bad.append("x8 from audio")
+    enc_a, lens_a = model.encode(audio, alens, device=dev)
+    enc8_a = quantize_frame(tables, enc_a).cpu().numpy()
+    ids_audio = model._greedy_hyps(enc_a, lens_a)
+    same = [next((i for i, (p, q) in enumerate(zip(g, w)) if p != q),
+                 None if len(g) == len(w) else min(len(g), len(w)))
+            for g, w in zip(ids_audio, rec["ids"])]
+    res.update({"x8_flips": int((diff != 0).sum()) if diff is not None else -1,
+                "enc8_differing_from_audio": int((enc8_a != genc8).sum())
+                if enc8_a.shape == genc8.shape else -1,
+                "ids_audio": ids_audio, "audio_ids_equal": ids_audio == rec["ids"],
+                "audio_ids_first_difference": same})
+    return res

@@ -25,7 +25,7 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C prototypes of the entries in csrc/*.cu (pointers and the stream as void*)
 _SIGNATURES = {
     "qasr_dw_conv": [_P, _P, _P, _P, _I, _P, _I, _P, _P] + [_I] * 14 + [_P, _I, _P, _P, _I, _P]
@@ -43,6 +43,8 @@ _SIGNATURES = {
     "qasr_ln_check": [_P] * 2 + [_I] * 3 + [_P],
     "qasr_lin_epilogue": [_P] * 6 + [_I] * 10 + [_P],
     "qasr_ffn_ln": [_P] * 15 + [_I] * 8 + [_P],
+    "qasr_rnnt_pred_step": [_P] * 16 + [_I] * 12 + [_P],
+    "qasr_rnnt_joint": [_P, _L] + [_P] * 11 + [_I] * 5 + [_F] + [_I] * 4 + [_P],
 }
 
 _lock = threading.Lock()
@@ -147,6 +149,9 @@ def ptr(t) -> Optional[int]:
 
 
 def stream_of(t):
+    """The raw handle of the current stream of a CUDA tensor's device (the
+    direct binding: ``torch.cuda.current_stream`` builds a Stream object
+    on every call)."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.device.index)

@@ -390,7 +390,7 @@ def conformer_encoder_apply(params, cfg: ConformerConfig, x: torch.Tensor, lens:
     module's pre-BN (mean, var)."""
     if train:
         raise NotImplementedError("train-mode dropout is not ported (ROADMAP queue A "
-                                  "item 12, training)")
+                                  "item 8, training)")
     with no_tf32():
         if cfg.subsampling:
             x, lens = conv_subsampling(params["pre_encode"], cfg, x, lens)

@@ -49,10 +49,9 @@ from qasr_tpu_torch.ops.features import MelFrontend, preprocessor_config_from_di
 from qasr_tpu_torch.quantize.conformer_freeze import (
     DEFAULT_PLAN,
     ConformerPlan,
-    conformer_encode,
     conformer_tables_to_device,
-    conformer_x8,
     freeze_conformer,
+    frozen_conformer_apply,
 )
 from qasr_tpu_torch.quantize.conformer_ptq import (
     ConformerQuantConfig,
@@ -487,9 +486,8 @@ def frozen_log_probs(model: ConformerCTC, tables, feats: torch.Tensor, feat_lens
     """Float features -> (log-probs, encoder lengths) on the frozen path:
     the subsampler and the one quantization (x8), the integer encoder, the
     quantized CTC head, log-softmax."""
-    x8, sub_lens = conformer_x8(tables["encoder"], model.ccfg, feats, feat_lens)
-    enc, enc_lens = conformer_encode(tables["encoder"], model.ccfg, x8, sub_lens,
-                                     kernels=kernels, plan=plan)
+    enc, enc_lens = frozen_conformer_apply(tables["encoder"], model.ccfg, feats, feat_lens,
+                                           kernels, plan)
     return model.head(tables, enc), enc_lens
 
 

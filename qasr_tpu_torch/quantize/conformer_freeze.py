@@ -11,7 +11,9 @@ Apply, split at the one float -> int boundary:
   * ``conformer_x8``: float features -> subsampler (float32, TF32 off)
     -> the single quantization onto the pre_out site -> (x8, lens);
   * ``conformer_encode``: x8 -> integer layer stack -> float encodings
-    (the last i-LayerNorm's gamma/beta affine is the one float op).
+    (the last i-LayerNorm's gamma/beta affine is the one float op);
+  * ``frozen_conformer_apply``: the two in a row (the CTC and the
+    transducer models' frozen encoder).
 ``kernels=True`` runs the stack through the kernels that a
 ``ConformerPlan`` names (the JAX package's QASR_CONF_MOD / QASR_CONF_FUSED
 flags, passed explicitly): every layer's attention core in Kernel 3
@@ -404,6 +406,17 @@ def conformer_encode(tables, cfg: ConformerConfig, x8: torch.Tensor,
         y = i_layernorm_core(x).to(torch.float32) / (1 << _K_LN)
         return y * tbl["ln_out"]["gamma"] + tbl["ln_out"]["beta"], lens
     raise AssertionError("unreachable: the last layer returns")
+
+
+def frozen_conformer_apply(tables, cfg: ConformerConfig, feats: torch.Tensor,
+                           lens: torch.Tensor, kernels: bool = True,
+                           plan: ConformerPlan = DEFAULT_PLAN):
+    """Float features (B, T, F) -> (float encodings (B, T', d), lens'): the
+    frozen integer encoder, ``conformer_x8`` then ``conformer_encode`` (the
+    JAX package's ``frozen_conformer_apply``); the last i-LayerNorm's
+    gamma / beta affine is the one float op at the output."""
+    x8, sub_lens = conformer_x8(tables, cfg, feats, lens)
+    return conformer_encode(tables, cfg, x8, sub_lens, kernels=kernels, plan=plan)
 
 
 def kernel_launches(cfg: ConformerConfig, plan: ConformerPlan = DEFAULT_PLAN

@@ -395,7 +395,7 @@ def tables_digest(tables) -> str:
     """SHA-256 over a canonical serialization of numpy tables: keys sorted,
     lists and tuples in order, arrays as dtype + shape + C-order bytes,
     Python ints and bools tagged by type (a static exponent and a 0-d array
-    differ), Python floats by their exact hex form."""
+    differ), Python floats by their exact hex form, strings tagged."""
     h = hashlib.sha256()
 
     def walk(t):
@@ -418,6 +418,8 @@ def tables_digest(tables) -> str:
             h.update(f"{type(t).__name__}:{t};".encode())
         elif isinstance(t, float):  # the Conformer's static site scales
             h.update(f"float:{t.hex()};".encode())
+        elif isinstance(t, str):    # the transducer joint's activation
+            h.update(f"str:{t};".encode())
         else:
             raise TypeError(f"tables_digest: unexpected leaf {type(t)}")
     walk(tables)
