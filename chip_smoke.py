@@ -255,25 +255,34 @@ phase exits non-zero before the result line.  Phases:
    4-channel and element paths; both cache forms timed at B 32, n 4
    beside their bounds; phase 12's seconds.
 13. The transducer (the frozen Conformer-Transducer 16 x 256 W8A8, its
-   decoder in Kernel 9): (a) rnnt_pred_step and rnnt_joint against their
-   plain versions, exactly: the pred step at H 64 / 320 / 640, L 1 / 2, B
-   1 / 7 / 32, tokens with blank, c_q at the clip, four emit masks; the
-   joint at De 256, J 320 / 640, V+1 29 / 1025, B 1 / 32 from strided
-   frames, and with forced ties (the lower column wins); both timed at the
-   serving shapes beside their bounds; (b) the golden record: table
-   digests, the decoder fed the record's frames and Kernels 3-6 -> 9 from
-   its x8 give its frames, enc8 codes and ids exactly; from its audio, x8
-   within 0.1% at +-1 (the enc8 codes and ids that then differ counted:
-   the random-weight encoder carries a flip into most frames); the main
-   path from the audio with launches equal to kernel_launches + one joint
-   a symbol step + one pred step a layer an emitting step, no plain call;
-   the main path again with the blank's bias raised by 2 (frames ended by
-   a blank, steps that emit in one row and keep the other's state): the
+   decoder in Kernel 9): (a) rnnt_pred_step and rnnt_joint (the step
+   kernels, off the main path) against their plain versions, exactly: the
+   pred step at H 64 / 320 / 640, L 1 / 2, B 1 / 7 / 32, tokens with
+   blank, c_q at the clip, four emit masks; the joint at De 256, J 320 /
+   640, V+1 29 / 1025, B 1 / 32 from strided frames, and with forced ties
+   (the lower column wins); rnnt_greedy (the whole greedy decode in one
+   launch) against rnnt_greedy_plain, exactly (each row's symbols, joint
+   steps and ids, the new carry): H 64 / 320 / 640 x L 1 / 2 (the
+   resident and the streamed form) x B 1 / 7 / 32 x a random and a
+   blank-biased head, unequal lengths with a zero, caps 10 and 1, a second
+   chunk from the first's carry; the three timed beside their bounds
+   (rnnt_greedy at a stream chunk, B=1 x 64 frames); (b) the golden
+   record: table digests, the decoder fed the record's frames and Kernels
+   3-6 -> 9 from its x8 give its frames, enc8 codes and ids exactly; from
+   its audio, x8 within 0.1% at +-1 (the enc8 codes and ids that then
+   differ counted: the random-weight encoder carries a flip into most
+   frames); the main path from the audio with launches equal to
+   kernel_launches + one rnnt_greedy (in the form its plan names) + the
+   start-of-sequence pred step a layer, no plain call; the main path
+   again with the blank's bias raised by 2 (frames ended by a blank): the
    planned launches and the CPU plain decoder's ids; (c) B=32 x 15 s: the
-   encoder's time, and for both heads (the golden one, which emits the
-   cap of 10 symbols at every frame, and the blank-biased one) the greedy
-   decode's time, symbol steps and symbols, a step's host and Kernel 9
-   device ms; (d)
+   encoder's time, the exchange floor (a push into every CTA's shared
+   memory and one barrier.cluster, a round), and for both heads (the
+   golden one, which emits the cap of 10 symbols at every frame, and the
+   blank-biased one) the greedy decode by the host clock and by CUDA
+   events with its one copy, against the former host loop on the step
+   kernels in turns, rnnt_greedy's device time, its longest row's joint
+   steps, us a step and the latency floor; (d)
    StreamingTransducer on the causal variant (att_context (70, 0)), the
    decoder frozen on the card: streamed == offline, transcribe_batch ==
    each session offline, its latency_report; (e) .qasr save / restore
@@ -327,7 +336,9 @@ PW_BT = ((3, 203), (1, 1), (1, 37))
 HBM_BYTES_PER_S, INT8_OPS_PER_S = 3.35e12, 1979e12
 KERNELS = ("dw_conv", "pw_gemm", "requant", "int_attention", "conv_block", "lin_epilogue",
            "ffn_ln", "dense_conv", "int_attention_cached", "conv_block_cached", "rnnt_pred",
-           "rnnt_joint")
+           "rnnt_joint", "rnnt_greedy")
+# the launches of each rnnt_greedy form (kernels/rnnt_decoder.py: rnnt_greedy.forms)
+GREEDY_FORMS = ("rnnt_greedy_resident", "rnnt_greedy_streamed")
 # the device kernels each wrapper launches (a substring of their names)
 KERNEL_SYMBOLS = {"dw_conv": "dw_conv_kernel", "pw_gemm": "pw_gemm_kernel",
                   "requant": "requant_kernel",
@@ -336,7 +347,8 @@ KERNEL_SYMBOLS = {"dw_conv": "dw_conv_kernel", "pw_gemm": "pw_gemm_kernel",
                   "ffn_ln": "ffn_ln_kernel", "dense_conv": "dense_conv_kernel",
                   "int_attention_cached": "int_attention_cached_kernel",
                   "conv_block_cached": "conv_block_cached_stage",
-                  "rnnt_pred": "rnnt_pred_step_kernel", "rnnt_joint": "rnnt_joint_kernel"}
+                  "rnnt_pred": "rnnt_pred_step_kernel", "rnnt_joint": "rnnt_joint_kernel",
+                  "rnnt_greedy": "rnnt_greedy_kernel"}
 # phase 12: the cache-aware stream (NeMo's cache-aware streaming Conformers
 # keep 70 frames of left context), its cache forms' check grid, its feed
 # sizes (40 ms, 160 ms: the timed one, 1 s) and length, and the windowed
@@ -463,31 +475,38 @@ def wrappers():
     from qasr_tpu_torch.kernels.lin_epilogue import lin_epilogue
     from qasr_tpu_torch.kernels.pw_gemm import pw_gemm
     from qasr_tpu_torch.kernels.requant import requant
-    from qasr_tpu_torch.kernels.rnnt_decoder import rnnt_joint, rnnt_pred_step
+    from qasr_tpu_torch.kernels.rnnt_decoder import rnnt_greedy, rnnt_joint, rnnt_pred_step
 
     return {"dw_conv": dw_conv, "pw_gemm": pw_gemm, "requant": requant,
             "int_attention": int_attention, "conv_block": conv_block,
             "lin_epilogue": lin_epilogue, "ffn_ln": ffn_ln, "dense_conv": dense_conv,
             "int_attention_cached": int_attention_cached,
             "conv_block_cached": conv_block_cached, "rnnt_pred": rnnt_pred_step,
-            "rnnt_joint": rnnt_joint}
+            "rnnt_joint": rnnt_joint, "rnnt_greedy": rnnt_greedy}
 
 
 def planned(counts):
-    """Every kernel's expected count: 0 unless ``counts`` names it."""
-    return {**{k: 0 for k in KERNELS}, **counts}
+    """Every kernel's (and rnnt_greedy's forms') expected count: 0 unless
+    ``counts`` names it."""
+    return {**{k: 0 for k in KERNELS + GREEDY_FORMS}, **counts}
 
 
 def reset_counts() -> None:
-    for w in wrappers().values():
+    ws = wrappers()
+    for w in ws.values():
         w.launches = 0
+    for form in ws["rnnt_greedy"].forms:
+        ws["rnnt_greedy"].forms[form] = 0
 
 
 def read_counts():
     import torch
 
     torch.cuda.synchronize()
-    return {k: w.launches for k, w in wrappers().items()}
+    ws = wrappers()
+    counts = {k: w.launches for k, w in ws.items()}
+    counts.update({f"rnnt_greedy_{f}": n for f, n in ws["rnnt_greedy"].forms.items()})
+    return counts
 
 
 def phase_requant(chk, dev):
@@ -886,13 +905,16 @@ def pad_batch(utts):
     return batch, lens
 
 
-def timed_pair(chk, kind, label, kern, plain, card, rows, library=None):
+def timed_pair(chk, kind, label, kern, plain, card, rows, library=None, plain_reps=5):
     """Hold kern() against plain() (exact), then time both (and the
     library call, if any) with CUDA events around each call (median of
-    10), and the kernel and the library call in device time (torch.profiler
-    over 10 calls)."""
+    10; the plain version 2 x ``plain_reps`` calls, after 3 warm-ups each
+    unless ``plain_reps`` is 1), and the kernel and the library call in
+    device time (torch.profiler over 10 calls)."""
     chk.equal(kind, label, kern(), plain())
-    pk = statistics.median(cuda_ms(plain, reps=5) + cuda_ms(plain, reps=5))
+    warm = 3 if plain_reps > 1 else 0
+    pk = statistics.median(cuda_ms(plain, reps=plain_reps, warmup=warm)
+                           + cuda_ms(plain, reps=plain_reps, warmup=warm))
     kk = statistics.median(cuda_ms(kern, reps=10))
     kd, kd_by = device_ms(kern, KERNEL_SYMBOLS[kind])
     lib = lib_d = lib_by = None
@@ -4499,17 +4521,35 @@ RNNT_BEAM, RNNT_TSD_EXP, BEAM_MARGIN = 3, 4, 1e-4
 # golden head emits the cap of 10 symbols at every frame, this one ends
 # most frames with a blank (golden.nudged_out_bias)
 RNNT_BLANK_BIAS = 2.0
+# rnnt_greedy's checks: the frames a check decodes at each batch, the
+# second chunk's first frame, the two heads of the random decoders (blank
+# bias 0 and +2), and its timed shape (B=1 x 64 frames: a chunk of 13d's
+# stream, 256 mel frames)
+RNNT_GREEDY_T = {1: 6, 7: 5, 32: 2}
+RNNT_GREEDY_SPLIT = 3
+RNNT_GREEDY_BIAS = (0.0, RNNT_BLANK_BIAS)
+# the check grid's shapes whose weights the plan keeps in shared memory
+RNNT_GREEDY_RESIDENT = ((64, 1), (64, 2), (320, 1))
+# a batch that no wave of clusters covers (at most 8 rows x 33 clusters),
+# so that clusters take a second group of rows, and its cap
+RNNT_GREEDY_MANY, RNNT_GREEDY_MANY_CAP = 300, 3
+RNNT_CHUNK_FRAMES = 64
+# the exchange micro-benchmark: dependent rounds a launch (n and 2n timed)
+EXCHANGE_ROUNDS = 20000
 
 
-def rnnt_decoder_tables(dev, hidden, layers, joint, vocab, seed):
+def rnnt_decoder_tables(dev, hidden, layers, joint, vocab, seed, blank_bias=0.0):
     """(RNNTConfig, device tables) of a random-weight decoder frozen at
-    ranges 4.0 (encoder) and 6.0 (joint)."""
+    ranges 4.0 (encoder) and 6.0 (joint), the blank's out bias raised by
+    ``blank_bias``."""
     from qasr_tpu_torch.models.rnnt import RNNTConfig, init_rnnt_params
     from qasr_tpu_torch.quantize.rnnt_freeze import freeze_rnnt_decoder, rnnt_tables_to_device
 
     cfg = RNNTConfig(num_classes=vocab - 1, enc_hidden=256, pred_hidden=hidden,
                      pred_rnn_layers=layers, joint_hidden=joint)
-    host = freeze_rnnt_decoder(init_rnnt_params(seed, cfg), cfg, enc_range=4.0, joint_range=6.0)
+    params = init_rnnt_params(seed, cfg)
+    params["joint"]["out"]["b"][cfg.blank_id] += blank_bias
+    host = freeze_rnnt_decoder(params, cfg, enc_range=4.0, joint_range=6.0)
     return cfg, rnnt_tables_to_device(host, dev)
 
 
@@ -4603,16 +4643,153 @@ def phase_rnnt_kernels(chk, dev):
         f"strided frames, forced ties in one warp and across warps to the lower column")
 
 
+def greedy_inputs(rng, dev, cfg, b, t):
+    """(B, t, 256) float32 frames, unequal lengths (the first row all t
+    frames, the second none, the rest at random) and a random carry (h8,
+    c_q at and next to the cell state's clip, g8 the top layer's h8)."""
+    import numpy as np
+    import torch
+
+    n_l, h = cfg.pred_rnn_layers, cfg.pred_hidden
+    enc = torch.from_numpy(rng.normal(size=(b, t, 256)).astype(np.float32) * 2).to(dev)
+    lens = rng.integers(0, t + 1, b).astype(np.int32)
+    lens[0] = t
+    if b > 1:
+        lens[1] = 0
+    h8 = rng.integers(-127, 128, (n_l, b, h)).astype(np.int8)
+    c = rng.integers(-(1 << 23), (1 << 23) + 1, (n_l, b, h)).astype(np.int32)
+    c[..., 0], c[..., 1] = 1 << 23, -(1 << 23)
+    h8, c = (torch.from_numpy(a).to(dev) for a in (h8, c))
+    return enc, torch.from_numpy(lens).to(dev), (h8[-1].clone(), h8, c)
+
+
+def greedy_equal(chk, tag, got, want):
+    """rnnt_greedy's result (symbols, joint steps, ids; g8, h8, c_q) held
+    to its plain version's, exactly."""
+    chk.equal("rnnt_greedy", f"{tag} symbols, steps, ids", got[0], want[0])
+    for what, g, w in zip(("g8", "h8", "c_q"), got[1], want[1]):
+        chk.equal("rnnt_greedy", f"{tag} {what}", g, w)
+
+
+def phase_rnnt_greedy(chk, dev):
+    """13a: rnnt_greedy against rnnt_greedy_plain, exactly (each row's
+    symbols, joint steps and ids, the new carry): H 64 / 320 / 640 x L 1 /
+    2 (each in the form that its shared-memory plan picks: resident for
+    the serving shape and H 64, streamed from L2 for two layers of H 320
+    and for H 640) x B 1 / 7 / 32 x both heads, unequal lengths with a
+    zero, max_symbols_per_step 10 (and 1 at B=7), a carry fed back into a
+    second chunk of strided frames at B=7.  Then, in each form, a batch of
+    RNNT_GREEDY_MANY rows, more than a wave of clusters takes, so that
+    clusters decode a second group of rows.  Returns the launches by
+    form."""
+    import numpy as np
+
+    from qasr_tpu_torch.kernels.rnnt_decoder import rnnt_greedy, rnnt_greedy_plain
+
+    rng = np.random.default_rng(17)
+    n0, forms = chk.n, {"resident": 0, "streamed": 0}
+    capped = blanked = 0
+
+    def launch(tag, want_form, *a):
+        got = rnnt_greedy(*a)
+        ran = rnnt_greedy.last_config["form"]
+        if ran != want_form:
+            raise AssertionError(f"{tag}: rnnt_greedy ran {ran}, the shape plans {want_form}")
+        forms[ran] += 1
+        return got
+
+    for h in RNNT_H:
+        for n_l in RNNT_L:
+            form = "resident" if (h, n_l) in RNNT_GREEDY_RESIDENT else "streamed"
+            for bias in RNNT_GREEDY_BIAS:
+                cfg, tables = rnnt_decoder_tables(dev, h, n_l, 320, 29, seed=h + n_l,
+                                                  blank_bias=bias)
+                blank = cfg.blank_id
+                for b in RNNT_B:
+                    t = RNNT_GREEDY_T[b]
+                    enc, lens, carry = greedy_inputs(rng, dev, cfg, b, t)
+                    tag = f"rnnt_greedy {form} H={h} L={n_l} B={b} T={t} bias {bias:g}"
+                    for cap in ((10, 1) if b == 7 and bias == 0 else (10,)):
+                        got = launch(tag, form, tables, enc, lens, carry, cap, blank)
+                        want = rnnt_greedy_plain(tables, enc, lens, carry, cap, blank)
+                        greedy_equal(chk, f"{tag} cap {cap}", got, want)
+                        # joint steps = symbols + frames - the frames that reach the cap
+                        res, n = want[0].cpu().numpy(), lens.cpu().numpy()
+                        capped += int((res[:, 0] + n > res[:, 1]).any())
+                        blanked += int((res[:, 1] > res[:, 0]).any())
+                    if b != 7:
+                        continue
+                    s = RNNT_GREEDY_SPLIT   # a second chunk, from the first's carry
+                    l1, l2 = lens.clamp(max=s), (lens - s).clamp(min=0)
+                    g1 = launch(tag, form, tables, enc[:, :s], l1, carry, 10, blank)
+                    w1 = rnnt_greedy_plain(tables, enc[:, :s], l1, carry, 10, blank)
+                    g2 = launch(tag, form, tables, enc[:, s:], l2, g1[1], 10, blank)
+                    w2 = rnnt_greedy_plain(tables, enc[:, s:], l2, w1[1], 10, blank)
+                    greedy_equal(chk, f"{tag} chunk 1", g1, w1)
+                    greedy_equal(chk, f"{tag} chunk 2 from chunk 1's carry", g2, w2)
+    if not capped or not blanked or not all(forms.values()):
+        raise AssertionError(f"rnnt_greedy checks: {capped} cases reached the cap, {blanked} "
+                             f"ended frames with a blank, launches by form {forms}")
+    n1, b, t, cap = chk.n, RNNT_GREEDY_MANY, 2, RNNT_GREEDY_MANY_CAP
+    waves = []
+    for h, form in ((320, "resident"), (640, "streamed")):
+        for bias in RNNT_GREEDY_BIAS:
+            cfg, tables = rnnt_decoder_tables(dev, h, 1, 320, 29, seed=h + 1, blank_bias=bias)
+            enc, lens, carry = greedy_inputs(rng, dev, cfg, b, t)
+            tag = f"rnnt_greedy {form} H={h} L=1 B={b} T={t} bias {bias:g} cap {cap}"
+            got = launch(tag, form, tables, enc, lens, carry, cap, cfg.blank_id)
+            plan = dict(rnnt_greedy.last_config)
+            if plan["rows"] * plan["clusters"] >= b:
+                raise AssertionError(f"{tag}: {plan} covers the batch in one group a cluster")
+            waves.append(plan)
+            greedy_equal(chk, tag, got,
+                         rnnt_greedy_plain(tables, enc, lens, carry, cap, cfg.blank_id))
+    log(f"[13a] rnnt_greedy == rnnt_greedy_plain in {chk.n - n0} exact comparisons (symbols, "
+        f"joint steps, ids; g8, h8, c_q): H {RNNT_H} x L {RNNT_L} x B {RNNT_B} x blank bias "
+        f"{RNNT_GREEDY_BIAS}, lengths with a zero, caps 10 and 1, a second chunk from the "
+        f"first's carry; {capped} cases reach the cap, {blanked} end frames with a blank; "
+        f"{chk.n - n1} of them at B={b} x T={t}, cap {cap}, past one wave of clusters "
+        f"({waves}); launches by form {forms}")
+    return forms
+
+
+def greedy_work(tables, batch, frames, symbols, steps, out_ints):
+    """(bytes, int8 operations) of one rnnt_greedy decode of ``batch`` rows
+    that walked ``frames`` frames in all, emitted ``symbols`` and took
+    ``steps`` joint steps: the frames read once, the blob's weights once,
+    the carry in and out, the (B, 2 + T cap) result written; the products
+    this decode needed (a joint step's out product over J x V+1, a frame's
+    f_j over De x J, an emission's gates over 2 H x 4 H a layer and its g_j
+    over H x J)."""
+    jt = tables["joint"]
+    j, de = jt["wt_enc"].shape
+    v, hid, n_l = jt["wt_out"].shape[0], tables["embed"].shape[1], len(tables["layers"])
+    weights = sum(t.numel() * t.element_size() for t in
+                  [tables["embed"]] + [lt[k] for lt in tables["layers"] for k in
+                                       ("wt_i", "wt_h", "mi", "mh", "b_grid")]
+                  + [jt[k] for k in ("wt_enc", "wt_pred", "wt_out", "m_f", "m_g", "b_j", "m_o",
+                                     "b_out_logit")])
+    weights += n_l * 3 * hid * 4   # mi2, mh2, b2_grid over the g gate's columns
+    nbytes = (frames * de * 4 + weights + 2 * batch * (hid + n_l * hid * 5) + 4 * batch
+              + 4 * out_ints)
+    ops = 2 * (steps * j * v + frames * de * j + symbols * (n_l * 8 * hid * hid + hid * j))
+    return nbytes, ops
+
+
 def time_rnnt_kernels(chk, dev, card, rows):
-    """13a: both entries at the serving shapes (H = J = 320, one layer, 29
-    outputs; B 32, the timed batch, and B 1, a stream) beside their
+    """13a: the step entries at the serving shapes (H = J = 320, one layer,
+    29 outputs; B 32, the timed batch, and B 1, a stream) beside their
     bounds: each input read once, each output written once, over HBM;
-    the int8 multiply-adds over the tensor-core peak."""
+    the int8 multiply-adds over the tensor-core peak.  Then rnnt_greedy at
+    a chunk of the stream (B=1 x RNNT_CHUNK_FRAMES frames, the serving
+    decoder at blank bias 0 and +2) beside its bound from the decode's own
+    work (``greedy_work``)."""
     import numpy as np
     import torch
 
     from qasr_tpu_torch.kernels.rnnt_decoder import (
-        rnnt_joint, rnnt_joint_plain, rnnt_pred_step, rnnt_pred_step_plain,
+        rnnt_greedy, rnnt_greedy_plain, rnnt_joint, rnnt_joint_plain, rnnt_pred_step,
+        rnnt_pred_step_plain,
     )
 
     rng = np.random.default_rng(131)
@@ -4637,6 +4814,19 @@ def time_rnnt_kernels(chk, dev, card, rows):
                        lambda: rnnt_joint_plain(tables, e, g8)[0], card, rows)
         r["bound"] = bound(b * (4 * de + h) + de * j + h * j + j * v + 4 * (3 * j + 2 * v)
                            + b * (4 * v + 4), 2 * b * (de * j + h * j + j * v))
+    for bias in RNNT_GREEDY_BIAS:
+        cfg, tables = rnnt_decoder_tables(dev, 320, 1, 320, 29, seed=0, blank_bias=bias)
+        t = RNNT_CHUNK_FRAMES
+        enc, _, carry = greedy_inputs(rng, dev, cfg, 1, t)
+        lens = torch.full((1,), t, dtype=torch.int32, device=dev)
+        fn = lambda: rnnt_greedy(tables, enc, lens, carry, 10, cfg.blank_id)[0]   # noqa: E731
+        # the plain per-row loop takes seconds here: two timed calls
+        r = timed_pair(chk, "rnnt_greedy", f"rnnt_greedy H=320 L=1 B=1 T={t} bias {bias:g}", fn,
+                       lambda: rnnt_greedy_plain(tables, enc, lens, carry, 10,
+                                                 cfg.blank_id)[0], card, rows, plain_reps=1)
+        res = fn().cpu().numpy()
+        r["bound"] = bound(*greedy_work(tables, 1, t, int(res[0, 0]), int(res[0, 1]), res.size))
+        r["joint_steps"], r["symbols"] = int(res[0, 1]), int(res[0, 0])
 
 
 def phase_rnnt_golden(dev, card):
@@ -4645,17 +4835,18 @@ def phase_rnnt_golden(dev, card):
     exact; the float front from its audio within the x8 tolerance), then
     the main path from the record's audio with every count at 0 before it:
     frontend, the frozen encoder (Kernels 3-6, their planned launches),
-    Kernel 9 (one joint a symbol step, one pred step a layer an emitting
-    step and at the start), no plain-version call, the same ids as the
+    Kernel 9 (one rnnt_greedy, in the resident form that the serving
+    head's plan picks, one pred step a layer at the start), no plain-version call, the same ids as the
     check's audio run.  Then the main path again with the head whose
     blank bias is raised by RNNT_BLANK_BIAS: its frames end with a blank
-    (fewer pred steps than joint steps), some steps emit in one row and
-    keep the other's state, the launches are planned, and the ids equal
-    the plain decoder's on the CPU from the same frames.  Returns (model,
+    (each row takes more joint steps than it emits symbols), the launches
+    are planned, and the ids equal the plain decoder's on the CPU from the
+    same frames.  Returns (model,
     the blank-biased model, the golden main path's counts, its ids)."""
     import torch
 
     from qasr_tpu_torch import golden
+    from qasr_tpu_torch.kernels.rnnt_decoder import rnnt_greedy
     from qasr_tpu_torch.quantize.conformer_freeze import kernel_launches
     from qasr_tpu_torch.quantize.rnnt_freeze import decoder_launches, greedy_decode_frozen
 
@@ -4679,14 +4870,16 @@ def phase_rnnt_golden(dev, card):
         ids = model._greedy_hyps(enc, enc_lens, stats=stats)
         counts = read_counts()
     expect = planned({**kernel_launches(model.ccfg),
-                      **decoder_launches(model.rnnt_cfg.pred_rnn_layers, stats)})
-    if counts != expect or plain.n or ids != res["ids_audio"]:
+                      **decoder_launches(model.decoder_tables(dev), stats),
+                      "rnnt_greedy_resident": stats["calls"]})
+    if counts != expect or plain.n or ids != res["ids_audio"] or stats["calls"] != 1:
         raise AssertionError(f"transducer main path: launches {counts} vs plan {expect}, "
                              f"{plain.n} plain calls, ids equal to the check's audio run: "
                              f"{ids == res['ids_audio']}")
     log(f"[13b] main path (frontend -> Kernels 3-6 -> Kernel 9, B=2 x 4 / 3.5 s): launches "
-        f"{ {k: v for k, v in counts.items() if v} } == plan ({stats['steps']} symbol steps, "
-        f"{stats['emit_steps']} emitting), 0 plain calls, ids == the check's audio run")
+        f"{ {k: v for k, v in counts.items() if v} } == plan (one rnnt_greedy, "
+        f"{rnnt_greedy.last_config}; joint steps a row {stats['joint_steps']}, "
+        f"{stats['symbols']} symbols), 0 plain calls, ids == the check's audio run")
     mixed = golden.rnnt_conformer16x256_w8a8(blank_bias=RNNT_BLANK_BIAS)
     m_stats = {}
     reset_counts()
@@ -4695,33 +4888,105 @@ def phase_rnnt_golden(dev, card):
         m_ids = mixed._greedy_hyps(enc, enc_lens, stats=m_stats)
         m_counts = read_counts()
     m_expect = planned({**kernel_launches(mixed.ccfg),
-                        **decoder_launches(mixed.rnnt_cfg.pred_rnn_layers, m_stats)})
+                        **decoder_launches(mixed.decoder_tables(dev), m_stats),
+                        "rnnt_greedy_resident": m_stats["calls"]})
     cpu = torch.device("cpu")
     want = greedy_decode_frozen(mixed.decoder_tables(cpu), mixed.rnnt_cfg, enc.to(cpu),
                                 enc_lens.to(cpu))
+    # frames end with a blank (more joint steps than symbols in each row)
+    blank_ended = all(n > len(i) for n, i in zip(m_stats["joint_steps"], m_ids))
     if (m_counts != m_expect or plain.n or m_ids != want or not all(m_ids)
-            or not m_stats["steps"] > m_stats["emit_steps"] > 0 or not m_stats.get("mixed_steps")):
+            or not blank_ended):
         raise AssertionError(f"transducer main path, blank bias +{RNNT_BLANK_BIAS:g}: launches "
                              f"{m_counts} vs plan {m_expect}, {plain.n} plain calls, stats "
                              f"{m_stats}, ids equal to the CPU's plain decoder: {m_ids == want}, "
                              f"symbols {[len(i) for i in m_ids]}")
     log(f"[13b] main path, blank bias +{RNNT_BLANK_BIAS:g}: launches "
-        f"{ {k: v for k, v in m_counts.items() if v} } == plan ({m_stats['steps']} symbol steps, "
-        f"{m_stats['emit_steps']} emitting, {m_stats['mixed_steps']} of them with a row kept, "
-        f"symbols {[len(i) for i in m_ids]}), 0 plain calls, ids == the CPU's plain decoder "
-        f"from the same frames")
+        f"{ {k: v for k, v in m_counts.items() if v} } == plan (joint steps a row "
+        f"{m_stats['joint_steps']}, symbols {[len(i) for i in m_ids]}), 0 plain calls, ids == "
+        f"the CPU's plain decoder from the same frames")
     return model, mixed, counts, ids
+
+
+def host_loop_decode(tables, cfg, enc, enc_lens, carry, max_symbols_per_step=10, stats=None):
+    """The former greedy loop on Kernel 9's step kernels, rnnt_greedy's
+    "was" in 13c's turns: a symbol step is one rnnt_joint launch, one copy of the
+    B ids to the host, one host-to-card copy of tokens and emit flags and,
+    where a row emits, one rnnt_pred_step launch a layer that keeps the
+    old state in the rows that do not.  ``stats`` counts "steps" (joint
+    launches) and "emit_steps"."""
+    import numpy as np
+    import torch
+
+    from qasr_tpu_torch.kernels.rnnt_decoder import rnnt_joint, rnnt_pred_step
+
+    g8, (h8, c_q), hyps = carry
+    dev = tables["device"]
+    enc_lens = enc_lens.cpu().numpy() if isinstance(enc_lens, torch.Tensor) \
+        else np.asarray(enc_lens)
+    st = stats if stats is not None else {}
+    for t in range(enc.shape[1]):
+        active = enc_lens > t
+        if not active.any():
+            break
+        e_t = enc[:, t]
+        for _ in range(max_symbols_per_step):
+            sym = rnnt_joint(tables, e_t, g8)[1].cpu().numpy()
+            st["steps"] = st.get("steps", 0) + 1
+            emit = (sym != cfg.blank_id) & active
+            if not emit.any():
+                break
+            tok_emit = torch.from_numpy(np.stack([np.where(emit, sym, cfg.blank_id),
+                                                  emit]).astype(np.int32)).to(dev)
+            g8, h8, c_q = rnnt_pred_step(tables, tok_emit[0], h8, c_q, emit=tok_emit[1])
+            for i in np.nonzero(emit)[0]:
+                hyps[i].append(int(sym[i]))
+            st["emit_steps"] = st.get("emit_steps", 0) + 1
+    return g8, (h8, c_q), hyps
+
+
+def exchange_floor(dev, card, clusters):
+    """The latency floor of a rnnt_greedy step's exchange: us a round of
+    ``cluster_exchange`` (every CTA pushes a word into every CTA's shared
+    memory, then one barrier.cluster, then reads what arrived; dependent
+    rounds) on ``clusters`` clusters of 8 CTAs, and of the barrier alone:
+    CUDA events around n and 2n rounds a launch, the difference over n,
+    median of 3."""
+    from qasr_tpu_torch.kernels.rnnt_decoder import cluster_exchange
+
+    out = {"clusters": clusters}
+    for exchange in (True, False):
+        per = []
+        for _ in range(3):
+            ms = {n: statistics.median(cuda_ms(
+                lambda n=n: cluster_exchange(n, clusters, exchange, device=dev), reps=3,
+                warmup=1)) for n in (EXCHANGE_ROUNDS, 2 * EXCHANGE_ROUNDS)}
+            per.append((ms[2 * EXCHANGE_ROUNDS] - ms[EXCHANGE_ROUNDS]) / EXCHANGE_ROUNDS * 1e3)
+        out["exchange_us" if exchange else "barrier_us"] = statistics.median(per)
+        out["exchange_us_samples" if exchange else "barrier_us_samples"] = per
+    log(f"[13c] cluster exchange floor ({clusters} clusters of 8 CTAs): a push into every "
+        f"CTA + barrier.cluster {out['exchange_us']:.4f} us a round, the barrier alone "
+        f"{out['barrier_us']:.4f} us [{card}]")
+    return out
 
 
 def phase_rnnt_time(models, dev, card, report):
     """13c: B=32 x 15 s of seeded noise: the encoder's step (CUDA events,
     median of 10), then for each head of ``models`` (name -> model, one
-    encoder) the greedy decode's (host clock around the whole loop,
-    median of 3: every symbol step copies the symbols to the host),
-    symbol steps and symbols, a step's host ms and device ms (the decode's
-    Kernel 9 device time over its steps, torch.profiler)."""
+    encoder) the greedy decode on the main path (``_greedy_hyps``: the
+    start-of-sequence step, one rnnt_greedy launch, one copy of ids and
+    counts) and the former host loop (``host_loop_decode``) in turns (was,
+    now, now, was; two decodes each), each by the host clock and by CUDA
+    events around the whole decode with its final copy; both give the same
+    ids.  For the main path also: rnnt_greedy's device time (profiler),
+    its joint steps (the most a row takes, ``max_row_steps``), us a step,
+    and the latency floor: the critical row's chain of exchanges (a step
+    each, and one a layer each emission) times the measured round."""
     import numpy as np
     import torch
+
+    from qasr_tpu_torch.kernels.rnnt_decoder import rnnt_greedy
+    from qasr_tpu_torch.quantize.rnnt_freeze import frozen_decoder_init
 
     n = int(16000 * RNNT_SECONDS)
     audio = torch.from_numpy((np.random.default_rng(32).normal(size=(RNNT_BATCH, n)) * 0.1)
@@ -4734,30 +4999,67 @@ def phase_rnnt_time(models, dev, card, report):
                                  "encoder_ms": enc_ms, "frames": int(enc.shape[1])}
     log(f"[13c] Conformer-Transducer B={RNNT_BATCH} x {RNNT_SECONDS:g} s: encoder "
         f"{enc_ms:.3f} ms (events) over {int(enc.shape[1])} frames [{card}]")
+    model._greedy_hyps(enc, el)
+    floor = exchange_floor(dev, card, rnnt_greedy.last_config["clusters"])
+    report["transducer_step"]["exchange_floor"] = floor
     for name, m in models.items():
-        dec_ms, stats = [], {}
-        for _ in range(3):
-            stats = {}
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            m._greedy_hyps(enc, el, stats=stats)
-            torch.cuda.synchronize()
-            dec_ms.append((time.perf_counter() - t0) * 1e3)
-        dec_dev, by = device_ms(lambda: m._greedy_hyps(enc, el),
-                                ("rnnt_pred_step_kernel", "rnnt_joint_kernel"), calls=1)
-        steps = stats["steps"]
-        out = {"decode_ms": statistics.median(dec_ms), "decode_ms_samples": dec_ms,
-               "symbol_steps": steps, "emitting_steps": stats["emit_steps"],
-               "mixed_steps": stats.get("mixed_steps", 0), "symbols": stats["symbols"],
-               "decode_host_ms_per_step": statistics.median(dec_ms) / steps,
-               "decode_device_ms": dec_dev, "decode_device_ms_by": by,
-               "decode_device_ms_per_step": dec_dev / steps}
+        tables, cfg = m.decoder_tables(dev), m.rnnt_cfg
+
+        def now():
+            st = {}
+            return m._greedy_hyps(enc, el, stats=st), st
+
+        def was():
+            st = {}
+            carry = frozen_decoder_init(tables, cfg, RNNT_BATCH)
+            return host_loop_decode(tables, cfg, enc, el, carry, 10, st)[2], st
+        fns = {"was": was, "now": now}
+        ids = {k: fn()[0] for k, fn in fns.items()}   # warm-up, and the same ids
+        if ids["was"] != ids["now"]:
+            raise AssertionError(f"{name} head: rnnt_greedy's ids differ from the host loop's")
+        host, events, stats = {k: [] for k in fns}, {k: [] for k in fns}, {}
+        for k in ("was", "now", "now", "was"):
+            for _ in range(2):
+                torch.cuda.synchronize()
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                t0 = time.perf_counter()
+                a.record()
+                _, stats[k] = fns[k]()
+                b.record()
+                b.synchronize()
+                host[k].append((time.perf_counter() - t0) * 1e3)
+                events[k].append(a.elapsed_time(b))
+        dev_ms, by = device_ms(lambda: m._greedy_hyps(enc, el), KERNEL_SYMBOLS["rnnt_greedy"],
+                               calls=1)
+        st = stats["now"]
+        steps = st["joint_steps"]
+        frames = int(el.clamp(max=enc.shape[1]).sum())
+        work = greedy_work(tables, RNNT_BATCH, frames, st["symbols"], int(sum(steps)),
+                           RNNT_BATCH * (2 + enc.shape[1] * 10))
+        crit = int(np.argmax(steps))
+        chain = steps[crit] + cfg.pred_rnn_layers * len(ids["now"][crit])
+        out = {"decode_ms": statistics.median(host["now"]), "decode_ms_samples": host["now"],
+               "decode_event_ms": statistics.median(events["now"]),
+               "decode_event_ms_samples": events["now"],
+               "was_decode_ms": statistics.median(host["was"]), "was_decode_ms_samples": host["was"],
+               "was_decode_event_ms": statistics.median(events["was"]),
+               "was_symbol_steps": stats["was"]["steps"],
+               "was_emitting_steps": stats["was"]["emit_steps"],
+               "symbols": st["symbols"], "max_row_steps": st["max_row_steps"],
+               "row_steps_total": int(sum(steps)), "greedy_config": rnnt_greedy.last_config,
+               "greedy_device_ms": dev_ms, "greedy_device_ms_by": by,
+               "us_per_step": dev_ms * 1e3 / st["max_row_steps"],
+               "floor_chain": chain, "floor_ms": chain * floor["exchange_us"] / 1e3,
+               "bound": bound(*work)}
         report["transducer_step"][name] = out
-        log(f"[13c] {name} head: greedy decode {out['decode_ms']:.3f} ms (host clock; "
-            f"{steps} symbol steps, {stats['emit_steps']} emitting, {out['mixed_steps']} with "
-            f"a row kept, {stats['symbols']} symbols): {out['decode_host_ms_per_step']:.4f} ms "
-            f"a step on the host, {out['decode_device_ms_per_step']:.5f} ms of Kernel 9 device "
-            f"time a step ({by}) [{card}]")
+        log(f"[13c] {name} head: greedy decode {out['decode_ms']:.3f} ms host clock, "
+            f"{out['decode_event_ms']:.3f} ms events (was {out['was_decode_ms']:.3f} / "
+            f"{out['was_decode_event_ms']:.3f} ms: {stats['was']['steps']} batched symbol "
+            f"steps); rnnt_greedy {dev_ms:.4f} ms device ({by}), {st['max_row_steps']} joint "
+            f"steps in the longest row ({out['us_per_step']:.3f} us a step), {st['symbols']} "
+            f"symbols; floor {out['floor_ms']:.4f} ms ({chain} exchanges x "
+            f"{floor['exchange_us']:.4f} us), bound {out['bound'][0]:.5f} ms "
+            f"({out['bound'][1]}); {rnnt_greedy.last_config} [{card}]")
 
 
 def phase_rnnt_stream(dev, card, report):
@@ -4889,6 +5191,7 @@ def phase_transducer(chk, dev, card, report):
         parts[name] = time.perf_counter() - t0
         return out
     part("13a checks", phase_rnnt_kernels, chk, dev)
+    part("13a rnnt_greedy checks", phase_rnnt_greedy, chk, dev)
     model, mixed, counts, ids = part("13b golden and main path", phase_rnnt_golden, dev, card)
     part("13a timing", time_rnnt_kernels, chk, dev, card, rows)
     part("13c step", phase_rnnt_time,
@@ -5050,14 +5353,20 @@ def main() -> int:
         row["source"] = f"qasr_tpu_torch/kernels/csrc/{kind[:-len('_cached')]}.cu"
         kernels.append(row)
     # phase 13: Kernel 9 (launches: the frozen Conformer-Transducer's main path
-    # of phase 13b)
+    # of phase 13b: one rnnt_greedy a decode, the start-of-sequence pred step;
+    # rnnt_joint is off the main path since rnnt_greedy took the loop)
     for kind, replaces, label in [
             ("rnnt_pred", "none: XLA ops, qasr_tpu/quantize/rnnt_freeze.py:157-196 "
-             "(pred_step_frozen) and the greedy loop's keep, :272-275",
+             "(pred_step_frozen); on the main path the start-of-sequence step",
              f"rnnt_pred H=320 L=1 B={RNNT_BATCH}"),
             ("rnnt_joint", "none: XLA ops, qasr_tpu/quantize/rnnt_freeze.py:199-217 "
-             "(joint_logits_frozen) and the host argmax, :266",
-             f"rnnt_joint De=256 J=320 V+1=29 B={RNNT_BATCH}")]:
+             "(joint_logits_frozen) and the host argmax, :266; off the main path (the host "
+             "loop that 13c times as rnnt_greedy's was)",
+             f"rnnt_joint De=256 J=320 V+1=29 B={RNNT_BATCH}"),
+            ("rnnt_greedy", "none: the greedy loop of XLA ops driven from the host, "
+             "qasr_tpu/quantize/rnnt_freeze.py:251-278 (pred_step_frozen :157-196, "
+             "joint_logits_frozen :199-217)", "rnnt_greedy H=320 L=1 B=1 T="
+             f"{RNNT_CHUNK_FRAMES} bias 0")]:
         r = next(r for r in t_rows if r["shape"] == label)
         row = kernel_row(kind, replaces, r, t_counts[kind])
         row["source"] = "qasr_tpu_torch/kernels/csrc/rnnt_decoder.cu"

@@ -1,23 +1,33 @@
-"""Kernel 9 (the transducer decoder's rnnt_pred_step and rnnt_joint) and the
+"""Kernel 9 (the transducer decoder: rnnt_greedy, the whole greedy decode in
+one launch, and the step kernels rnnt_pred_step and rnnt_joint) and the
 frozen Conformer-Transducer on a GPU.
 
-    python3 experiments/torch_rnnt_sites.py [--checks] [--time] [--phase13] [--profile] \
-        [--fallback] [--out PATH]
+    python3 experiments/torch_rnnt_sites.py [--checks] [--greedy] [--time] [--exchange] \
+        [--turns] [--phase13] [--profile] [--fallback] [--out PATH]
 
---checks builds the kernels, prints ptxas's lines for Kernel 9 and runs
-chip_smoke.py's phase 13a checks (both entries against their plain
-versions over the grid, exact).  --time times both at the serving shapes
-beside their bounds and plain versions (chip_smoke.py's
-``time_rnnt_kernels``).  --phase13 runs the whole of chip_smoke.py's phase
-13 (the checks, the golden record and the main path's launches, the B=32 x
-15 s encoder / decoder split, the streamer, the .qasr round trip, the beam
-searches against the CPU).  --profile runs the flagship's frozen greedy
-decode over B=32 and B=1 x 15 s of seeded noise under cProfile and prints
-the host functions that take its time.  --fallback reads both entries at
-the serving shapes (B 32 and 1) twice each through ``device_ms``'s
-profiler and through its events fallback (forced by a kernel name that
-matches nothing), beside CUDA events around single calls.  The helpers
-are this checkout's chip_smoke.py.
+Every run builds the kernels and prints ptxas's lines for Kernel 9.
+--checks runs chip_smoke.py's phase 13a checks of the step kernels (both
+entries against their plain versions over the grid, exact); --greedy its
+rnnt_greedy checks (``phase_rnnt_greedy``: against rnnt_greedy_plain,
+exact, each shape in the form that its shared-memory plan picks, and past
+one wave of clusters in both forms).  --time times the three entries at
+their timed shapes beside their bounds and plain versions (chip_smoke.py's
+``time_rnnt_kernels``).  --exchange measures the latency floor of a
+rnnt_greedy step's exchange (``exchange_floor``: a push into every CTA's
+shared memory and one barrier.cluster a round, and the barrier alone) at 1
+and 16 clusters of 8 CTAs.  --turns builds the frozen flagship transducer
+and its blank-biased head and times the B=32 x 15 s greedy decode on
+rnnt_greedy against the former host loop on the step kernels, in turns
+(chip_smoke.py's ``phase_rnnt_time``).  --phase13 runs the whole of
+chip_smoke.py's phase 13 (the checks, the golden record and the main
+path's launches, the B=32 x 15 s encoder / decoder split, the streamer,
+the .qasr round trip, the beam searches against the CPU).  --profile runs
+the flagship's frozen greedy decode over B=32 and B=1 x 15 s of seeded
+noise under cProfile and prints the host functions that take its time.
+--fallback reads both entries at the serving shapes (B 32 and 1) twice
+each through ``device_ms``'s profiler and through its events fallback
+(forced by a kernel name that matches nothing), beside CUDA events around
+single calls.  The helpers are this checkout's chip_smoke.py.
 """
 from __future__ import annotations
 
@@ -57,8 +67,9 @@ def profile_decode(cs, dev, card):
         torch.cuda.synchronize()
         prof.disable()
         ms = (time.perf_counter() - t0) * 1e3
-        print(f"decode B={b}: {ms:.1f} ms under cProfile, {stats['steps']} steps "
-              f"({ms / stats['steps']:.4f} ms a step) [{card}]", flush=True)
+        print(f"decode B={b}: {ms:.1f} ms under cProfile, {stats['max_row_steps']} joint steps "
+              f"in the longest row ({ms / stats['max_row_steps']:.4f} ms a step) [{card}]",
+              flush=True)
         pstats.Stats(prof).sort_stats("tottime").print_stats(18)
 
 
@@ -98,6 +109,9 @@ def fallback_readings(cs, dev, card):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--checks", action="store_true")
+    ap.add_argument("--greedy", action="store_true")
+    ap.add_argument("--exchange", action="store_true")
+    ap.add_argument("--turns", action="store_true")
     ap.add_argument("--time", action="store_true")
     ap.add_argument("--phase13", action="store_true")
     ap.add_argument("--profile", action="store_true")
@@ -119,17 +133,31 @@ def main() -> int:
     card = cs.card_line()
     print(card, flush=True)
     _build.library()
+    ours = False   # the lines of Kernel 9's entries, from each "Compiling entry" on
     for line in _build.BuildInfo.log.splitlines():
-        if any(k in line for k in ("registers", "spill", "Compiling entry")) and "rnnt" in line:
+        if "Compiling entry" in line or "Function properties" in line:
+            ours = "rnnt" in line or "cluster_exchange" in line
+        if ours and any(k in line for k in ("registers", "spill", "Compiling entry", "smem")):
             print("ptxas:", line.strip())
     chk, report, rows = cs.Checker(), {"card": card}, []
     if args.checks:
         cs.phase_rnnt_kernels(chk, dev)
+    if args.greedy:
+        report["greedy_forms"] = cs.phase_rnnt_greedy(chk, dev)
     if args.time:
         cs.time_rnnt_kernels(chk, dev, card, rows)
         for r in rows:
             print(json.dumps(r), flush=True)
         report["rows"] = rows
+    if args.exchange:
+        report["exchange"] = [cs.exchange_floor(dev, card, n) for n in (1, 16)]
+    if args.turns:
+        from qasr_tpu_torch import golden
+
+        models = {"cap-bound (golden)": golden.rnnt_conformer16x256_w8a8(),
+                  f"blank bias +{cs.RNNT_BLANK_BIAS:g}": golden.rnnt_conformer16x256_w8a8(
+                      blank_bias=cs.RNNT_BLANK_BIAS)}
+        cs.phase_rnnt_time(models, dev, card, report)
     if args.phase13:
         report["phase13"] = cs.phase_transducer(chk, dev, card, report)[0]
     if args.profile:

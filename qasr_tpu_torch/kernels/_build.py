@@ -45,6 +45,8 @@ _SIGNATURES = {
     "qasr_ffn_ln": [_P] * 15 + [_I] * 8 + [_P],
     "qasr_rnnt_pred_step": [_P] * 16 + [_I] * 12 + [_P],
     "qasr_rnnt_joint": [_P, _L] + [_P] * 11 + [_I] * 5 + [_F] + [_I] * 4 + [_P],
+    "qasr_rnnt_greedy": [_P] * 11 + [_I, _F, _P, _P],
+    "qasr_cluster_exchange": [_I] * 4 + [_P, _P],
 }
 
 _lock = threading.Lock()

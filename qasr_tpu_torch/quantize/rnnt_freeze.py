@@ -25,9 +25,10 @@ tables bit for bit; ``rnnt_tables_to_device`` puts them on a torch device
 with the weights K-contiguous (out, in), Kernel 9's layout.
 ``pred_step_frozen`` and ``joint_logits_frozen`` are the plain torch
 versions of the cell and the joint (integer products as int32 matmuls on
-the CPU, exact float64 on the card).  The greedy loop runs Kernel 9
-(``kernels/rnnt_decoder.py``): one launch a layer a symbol step that
-emits, one joint launch a step; CPU tensors take the plain versions.
+the CPU, exact float64 on the card).  The greedy loop is one launch of
+Kernel 9's ``rnnt_greedy`` (``kernels/rnnt_decoder.py``) a call, after
+the start-of-sequence step's ``rnnt_pred_step``; CPU tensors take the
+plain versions.
 Only two ranges need data: the encoder output's and the pre-ReLU joint
 hidden's (``calibrate_decoder_ranges``, a float greedy pass).
 """
@@ -39,7 +40,7 @@ import numpy as np
 import torch
 
 from qasr_tpu_torch.device import as_device, no_tf32
-from qasr_tpu_torch.kernels.rnnt_decoder import rnnt_joint, rnnt_pred_step
+from qasr_tpu_torch.kernels.rnnt_decoder import rnnt_greedy, rnnt_pred_step
 from qasr_tpu_torch.ops.integer_sigmoid import K_SIG, i_sigmoid_grid
 from qasr_tpu_torch.ops.integer_softmax import N_IN, S_IN
 from qasr_tpu_torch.ops.quant_prims import dyadic_requant_static, f32_div
@@ -255,58 +256,45 @@ def frozen_decoder_init(tables, cfg, batch: int):
 
 def greedy_decode_frames_frozen(tables, cfg, enc, enc_lens, carry,
                                 max_symbols_per_step: int = 10,
-                                stats: Optional[Dict[str, int]] = None):
+                                stats: Optional[Dict[str, Any]] = None):
     """The integer counterpart of ``models/rnnt.py::greedy_decode_frames``
-    over (B, T, De) float frames: a symbol step is one ``rnnt_joint``
-    launch (logits and the argmax), one copy of the B symbols to the host
-    and, where a row emits, one ``rnnt_pred_step`` launch a layer that
-    keeps the old state in the rows that do not.  ``stats``, if given,
-    counts "steps" (joint calls), "emit_steps" (prediction steps),
-    "mixed_steps" (prediction steps where some rows keep their state) and
-    "symbols"."""
+    over (B, T, De) float frames: one ``rnnt_greedy`` launch (the whole
+    emit loop on the card, each row walking its own frames), then one copy
+    of the ids and per-row counts to the host.  ``stats``, if given,
+    accumulates "symbols", "joint_steps" (per row), "max_row_steps" (the
+    most joint steps of a row, summed over calls: the decode's chain of
+    dependent steps) and "calls"."""
     g8, (h8, c_q), hyps = carry
     dev = tables["device"]
     enc = torch.as_tensor(enc).to(dev, torch.float32)
-    enc_lens = enc_lens.cpu().numpy() if isinstance(enc_lens, torch.Tensor) \
-        else np.asarray(enc_lens)
-    st = stats if stats is not None else {}
-    for t in range(enc.shape[1]):
-        active = enc_lens > t
-        if not active.any():
-            break
-        e_t = enc[:, t]
-        for _ in range(max_symbols_per_step):
-            sym = rnnt_joint(tables, e_t, g8)[1].cpu().numpy()
-            st["steps"] = st.get("steps", 0) + 1
-            emit = (sym != cfg.blank_id) & active
-            if not emit.any():
-                break
-            # the tokens and the emit flags in one copy to the card
-            tok_emit = torch.from_numpy(np.stack([np.where(emit, sym, cfg.blank_id),
-                                                  emit]).astype(np.int32)).to(dev)
-            g8, h8, c_q = rnnt_pred_step(tables, tok_emit[0], h8, c_q, emit=tok_emit[1])
-            rows = np.nonzero(emit)[0]
-            for i in rows:
-                hyps[i].append(int(sym[i]))
-            st["emit_steps"] = st.get("emit_steps", 0) + 1
-            st["mixed_steps"] = st.get("mixed_steps", 0) + int(len(rows) < len(emit))
-            st["symbols"] = st.get("symbols", 0) + len(rows)
+    res, (g8, h8, c_q) = rnnt_greedy(tables, enc, enc_lens, (g8, h8, c_q),
+                                     max_symbols_per_step, cfg.blank_id)
+    res = res.cpu().numpy()   # the decode's one sync
+    for i, row in enumerate(res):
+        hyps[i].extend(row[2:2 + row[0]].tolist())
+    if stats is not None:
+        steps = res[:, 1].astype(np.int64)
+        prev = stats.get("joint_steps")
+        stats["joint_steps"] = (steps if prev is None else np.asarray(prev) + steps).tolist()
+        stats["symbols"] = stats.get("symbols", 0) + int(res[:, 0].sum())
+        stats["max_row_steps"] = stats.get("max_row_steps", 0) + int(steps.max(initial=0))
+        stats["calls"] = stats.get("calls", 0) + 1
     return g8, (h8, c_q), hyps
 
 
 def greedy_decode_frozen(tables, cfg, enc, enc_lens, max_symbols_per_step: int = 10,
-                         stats: Optional[Dict[str, int]] = None) -> List[List[int]]:
+                         stats: Optional[Dict[str, Any]] = None) -> List[List[int]]:
     carry = frozen_decoder_init(tables, cfg, enc.shape[0])
     return greedy_decode_frames_frozen(tables, cfg, enc, enc_lens, carry,
                                        max_symbols_per_step, stats)[2]
 
 
-def decoder_launches(n_layers: int, stats: Dict[str, int]) -> Dict[str, int]:
+def decoder_launches(tables, stats: Dict[str, Any]) -> Dict[str, int]:
     """Kernel 9's launches for a greedy decode that ``stats`` counted:
-    "rnnt_joint", one a symbol step; "rnnt_pred", one a layer per emitting
-    step and for the start-of-sequence step."""
-    return {"rnnt_joint": stats.get("steps", 0),
-            "rnnt_pred": n_layers * (stats.get("emit_steps", 0) + 1)}
+    "rnnt_greedy", one a ``greedy_decode_frames_frozen`` call (in the form
+    that the kernel's shared-memory plan picks: ``rnnt_greedy.forms``
+    counts it); "rnnt_pred", one a layer for the start-of-sequence step."""
+    return {"rnnt_greedy": stats.get("calls", 0), "rnnt_pred": len(tables["layers"])}
 
 
 # ---------------------------------------------------------------------------

@@ -11,8 +11,8 @@ on the CPU (Kernel 9's plain versions).
     h, int32 c, int32 logits.
 (c) Frozen greedy ids equal the JAX package's (its jitted loop: integer
     ops, and the frame's quantization checked op by op in (b)), offline
-    and over frame spans; the decode's stats give the planned Kernel 9
-    launches.
+    and over frame spans; the decode's stats (symbols, per-row joint
+    steps) give the planned Kernel 9 launches.
 (d) ``calibrate_decoder_ranges`` on a Jasper-encoder transducer is within
     1e-5 relative of the JAX package's.
 (e) The full integer transducer (the JAX tests' one-layer d 64
@@ -33,7 +33,7 @@ on the CPU (Kernel 9's plain versions).
     JAX package.
 (i) The flagship head with the blank's bias raised by 2 decodes the
     record's frames to the JAX package's ids, its frames ending with a
-    blank and some steps keeping a row's state.
+    blank and its rows taking their own numbers of steps.
 (j) Kernel 9's table check is redone when a table tensor or scalar is
     replaced.
 """
@@ -128,16 +128,17 @@ def test_frozen_greedy_ids_equal(frozen, rng):
     enc = (rng.normal(size=(3, 10, 40)) * 2).astype(np.float32)
     lens = np.asarray([10, 6, 3])
     want = JF.greedy_decode_frozen(jt, jc, enc, lens)
-    K9.rnnt_pred_step.launches = K9.rnnt_joint.launches = 0
+    K9.rnnt_pred_step.launches = K9.rnnt_greedy.launches = 0
     stats = {}
     got = PF.greedy_decode_frozen(dt, pc, torch.from_numpy(enc), lens, stats=stats)
     assert got == want and any(want)
-    assert stats["symbols"] == sum(map(len, want)) and stats["steps"] > stats["emit_steps"]
-    assert 0 < stats["mixed_steps"] <= stats["emit_steps"]
-    assert PF.decoder_launches(2, stats) == {"rnnt_joint": stats["steps"],
-                                            "rnnt_pred": 2 * (stats["emit_steps"] + 1)}
+    assert stats["symbols"] == sum(map(len, want)) and stats["calls"] == 1
+    # a row's joint steps: one an emission, one a frame it leaves with a blank
+    assert all(s > len(h) for s, h in zip(stats["joint_steps"], want))
+    assert stats["max_row_steps"] == max(stats["joint_steps"])
+    assert PF.decoder_launches(dt, stats) == {"rnnt_greedy": 1, "rnnt_pred": 2}
     # on the CPU the wrappers run the plain versions and count nothing
-    assert K9.rnnt_pred_step.launches == K9.rnnt_joint.launches == 0
+    assert K9.rnnt_pred_step.launches == K9.rnnt_greedy.launches == 0
     carry = PF.frozen_decoder_init(dt, pc, 3)
     for t0, t1 in ((0, 4), (4, 10)):
         carry = PF.greedy_decode_frames_frozen(dt, pc, torch.from_numpy(enc[:, t0:t1]),
@@ -249,7 +250,7 @@ def test_blank_biased_flagship_head_matches_jax():
     """The flagship head with the blank's bias raised by 2 (chip_smoke.py
     13b's second main-path head), frozen from the record's ranges in both
     packages, decodes the record's frames to the same ids: frames end with
-    a blank and some steps keep one row's state."""
+    a blank and each row takes its own number of steps."""
     model = golden.rnnt_conformer16x256_w8a8(frozen=False, blank_bias=2.0)
     rec, enc, _, _ = golden.load_rnnt_golden()
     p, pc = model.params["rnnt"], model.rnnt_cfg
@@ -260,7 +261,9 @@ def test_blank_biased_flagship_head_matches_jax():
     stats = {}
     got = PF.greedy_decode_frozen(dt, pc, torch.from_numpy(enc), rec["enc_lens"], stats=stats)
     assert got == JF.greedy_decode_frozen(jt, jc, enc, np.asarray(rec["enc_lens"]))
-    assert all(got) and stats["steps"] > stats["emit_steps"] and stats["mixed_steps"] > 0
+    # frames end with a blank, and the rows take their own numbers of steps
+    assert all(got) and all(s > len(h) for s, h in zip(stats["joint_steps"], got))
+    assert len(set(stats["joint_steps"])) == len(got)
 
 
 def test_kernel9_table_check_follows_replaced_tensors():
