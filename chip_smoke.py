@@ -229,31 +229,35 @@ phase exits non-zero before the result line.  Phases:
    planned launches, no plain call, the plain executor's ids); phase 11's
    seconds.
 12. Streaming: (a) Kernels 3 and 4 in their cache forms against their plain
-   versions at L 70, n in {1, 4, 16}, B in {1, 32}, seen in {0, 3, 69, 70,
-   500} (a stream's first steps and a full cache), the new caches
-   included; (b) the flagship Conformer-CTC 16 x 256 W8A8 as a causal
-   streaming configuration (att_context (70, 0), causal_conv, normalization
-   off, the committed ranges) over 15 s of seeded noise: frozen_stream_step
-   over the offline forward's subsampled frames, 4 a step, every row's
-   encodings and the ids bit-equal to the offline causal frozen forward;
-   CacheAwareConformerStream fed the audio in 40 ms, 160 ms and 1 s
-   slices, its first-site codes, rows and ids bit-equal to the same at
-   each; each step's launches equal to stream_kernel_launches, no plain
-   call in any; its latency_report and frozen_stream_step's device /
-   event / host-enqueue ms at (B, n) (1, 4), (32, 4) and (32, 16); (c)
-   the windowed streamer over 60 s on QuartzNet15x5 W6A6 and W8A8
-   static_e (normalization off): stitched ids equal to the offline ids,
-   transcribe_beam equal to offline beam decoding, one planned forward a
-   window, its latency_report; (e) QuartzNet15x5 with selu and with swish
-   at W8A8 (signed 9-bit codes as two byte planes): calibration equal to
-   the plain QuantExec's with the planned launches, 4 requests on
-   FrozenExecFused and FrozenExecKernels with the planned launches, no
-   plain call, the plain executor's ids, and every plane site of one
-   forward on each against its plain versions (Kernel 7's two planes, the
-   joined int32 conv); (f) Kernel 7's byte planes against their plain
-   version at B 64 x T 768, partial lengths, C 256 / 512 / 250, on its
-   4-channel and element paths; both cache forms timed at B 32, n 4
-   beside their bounds; phase 12's seconds.
+   versions at L 70, n in {1, 4, 16}, B in {1, 32}, and (B, n) (1, 25), (32,
+   25) (1 s slices), (3, 7) (a tile the utterances do not fill), (300, 4)
+   (past one wave of clusters) and (2, 40) (past Kernel 4's cluster tile: its
+   staged form), seen in {0, 3, 69, 70, 500} (a stream's first steps and a
+   full cache), the new caches included, each Kernel 4 call in the form
+   expected of its n; (b) the flagship Conformer-CTC 16 x 256 W8A8 as a
+   causal streaming configuration (att_context (70, 0), causal_conv,
+   normalization off, the committed ranges) over 15 s of seeded noise:
+   frozen_stream_step over the offline forward's subsampled frames, 4 a step,
+   every row's encodings and the ids bit-equal to the offline causal frozen
+   forward; CacheAwareConformerStream fed the audio in 40 ms, 160 ms and 1 s
+   slices, its first-site codes, rows and ids bit-equal to the same at each;
+   each step's launches equal to stream_kernel_launches, no plain call in
+   any; its latency_report and frozen_stream_step's device / event / host-
+   enqueue ms at (B, n) (1, 4), (32, 4) and (32, 16); (c) the windowed
+   streamer over 60 s on QuartzNet15x5 W6A6 and W8A8 static_e (normalization
+   off): stitched ids equal to the offline ids, transcribe_beam equal to
+   offline beam decoding, one planned forward a window, its latency_report;
+   (e) QuartzNet15x5 with selu and with swish at W8A8 (signed 9-bit codes as
+   two byte planes): calibration equal to the plain QuantExec's with the
+   planned launches, 4 requests on FrozenExecFused and FrozenExecKernels with
+   the planned launches, no plain call, the plain executor's ids, and every
+   plane site of one forward on each against its plain versions (Kernel 7's
+   two planes, the joined int32 conv); (f) Kernel 7's byte planes against
+   their plain version at B 64 x T 768, partial lengths, C 256 / 512 / 250,
+   on its 4-channel and element paths; both cache forms timed at (B, n) (1,
+   4), (32, 4) and (32, 16) beside their bounds and latency floors (an empty
+   kernel on the same grid and cluster shape, plus Kernel 4's three
+   dependent exchanges at cluster_exchange's round); phase 12's seconds.
 13. The transducer (the frozen Conformer-Transducer 16 x 256 W8A8, its
    decoder in Kernel 9): (a) rnnt_pred_step and rnnt_joint (the step
    kernels, off the main path) against their plain versions, exactly: the
@@ -338,7 +342,9 @@ KERNELS = ("dw_conv", "pw_gemm", "requant", "int_attention", "conv_block", "lin_
            "ffn_ln", "dense_conv", "int_attention_cached", "conv_block_cached", "rnnt_pred",
            "rnnt_joint", "rnnt_greedy")
 # the launches of each rnnt_greedy form (kernels/rnnt_decoder.py: rnnt_greedy.forms)
+# and of each conv_block_cached form (kernels/conv_block.py: conv_block_cached.forms)
 GREEDY_FORMS = ("rnnt_greedy_resident", "rnnt_greedy_streamed")
+CONV_FORMS = ("conv_block_cached_cluster", "conv_block_cached_staged")
 # the device kernels each wrapper launches (a substring of their names)
 KERNEL_SYMBOLS = {"dw_conv": "dw_conv_kernel", "pw_gemm": "pw_gemm_kernel",
                   "requant": "requant_kernel",
@@ -346,7 +352,7 @@ KERNEL_SYMBOLS = {"dw_conv": "dw_conv_kernel", "pw_gemm": "pw_gemm_kernel",
                   "conv_block": "conv_block_stage", "lin_epilogue": "lin_epilogue_kernel",
                   "ffn_ln": "ffn_ln_kernel", "dense_conv": "dense_conv_kernel",
                   "int_attention_cached": "int_attention_cached_kernel",
-                  "conv_block_cached": "conv_block_cached_stage",
+                  "conv_block_cached": ("conv_block_cached_kernel", "conv_block_cached_stage"),
                   "rnnt_pred": "rnnt_pred_step_kernel", "rnnt_joint": "rnnt_joint_kernel",
                   "rnnt_greedy": "rnnt_greedy_kernel"}
 # phase 12: the cache-aware stream (NeMo's cache-aware streaming Conformers
@@ -355,6 +361,15 @@ KERNEL_SYMBOLS = {"dw_conv": "dw_conv_kernel", "pw_gemm": "pw_gemm_kernel",
 # QuartzNet's length
 STREAM_L = 70
 STREAM_N, STREAM_B, STREAM_SEEN = (1, 4, 16), (1, 32), (0, 3, 69, 70, 500)
+# 12a's further (B, n): 1 s slices, a tile the utterances do not fill, past
+# one wave of Kernel 4's clusters, past its 32-row cluster tile (staged);
+# the timed (B, n) of the cache forms and of the step
+STREAM_MORE = ((1, 25), (32, 25), (3, 7), (300, 4), (2, 40))
+STREAM_TIMED = ((1, 4), (32, 4), (32, 16))
+# frozen_stream_step's device / host-enqueue ms at STREAM_TIMED on PR 15's
+# card runs (PERF.md section 5; B=32 n=4 was not recorded)
+STREAM_STEP_PR15 = {(1, 4): (2.547, "7.669-14.339"), (32, 4): None,
+                    (32, 16): (3.327, "10.865")}
 STREAM_SLICE, STREAM_SLICES = 2560, (640, 2560, 16000)
 STREAM_SECONDS, WINDOWED_SECONDS = 15.0, 60.0
 
@@ -486,17 +501,18 @@ def wrappers():
 
 
 def planned(counts):
-    """Every kernel's (and rnnt_greedy's forms') expected count: 0 unless
-    ``counts`` names it."""
-    return {**{k: 0 for k in KERNELS + GREEDY_FORMS}, **counts}
+    """Every kernel's (and rnnt_greedy's and conv_block_cached's forms')
+    expected count: 0 unless ``counts`` names it."""
+    return {**{k: 0 for k in KERNELS + GREEDY_FORMS + CONV_FORMS}, **counts}
 
 
 def reset_counts() -> None:
     ws = wrappers()
     for w in ws.values():
         w.launches = 0
-    for form in ws["rnnt_greedy"].forms:
-        ws["rnnt_greedy"].forms[form] = 0
+    for name in ("rnnt_greedy", "conv_block_cached"):
+        for form in ws[name].forms:
+            ws[name].forms[form] = 0
 
 
 def read_counts():
@@ -505,7 +521,8 @@ def read_counts():
     torch.cuda.synchronize()
     ws = wrappers()
     counts = {k: w.launches for k, w in ws.items()}
-    counts.update({f"rnnt_greedy_{f}": n for f, n in ws["rnnt_greedy"].forms.items()})
+    for name in ("rnnt_greedy", "conv_block_cached"):
+        counts.update({f"{name}_{f}": n for f, n in ws[name].forms.items()})
     return counts
 
 
@@ -4056,11 +4073,23 @@ def stream_inputs(rng, dev, b, n, h, d_k, d, k_size):
             t8(b, STREAM_L, h, d_k), t8(b, n, d), t8(b, n, d), t8(b, k_size - 1, d))
 
 
+def stream_cases():
+    """12a's (B, n): STREAM_B x STREAM_N, then STREAM_MORE."""
+    return [(b, n) for b in STREAM_B for n in STREAM_N] + list(STREAM_MORE)
+
+
+def conv_form(n):
+    """The form Kernel 4's cache form is expected to run at n new frames:
+    one cluster launch while an utterance's rows fit its 32-row tile."""
+    return "cluster" if n <= 32 else "staged"
+
+
 def phase_stream_kernels(chk, model, tables, dev):
     """12a: Kernels 3 and 4 in their cache forms against their plain
-    versions at L = 70, n in STREAM_N, B in STREAM_B, every layer's tables
-    in turn, and seen in STREAM_SEEN (a stream's first steps, seen < L,
-    and a full cache): the context and the new caches."""
+    versions at L = 70, the (B, n) of ``stream_cases``, every layer's
+    tables in turn, and seen in STREAM_SEEN (a stream's first steps, seen
+    < L, and a full cache): the context and the new caches, each Kernel 4
+    call in the form ``conv_form`` expects."""
     import numpy as np
 
     from qasr_tpu_torch.kernels.conv_block import conv_block_cached, conv_block_cached_plain
@@ -4076,26 +4105,35 @@ def phase_stream_kernels(chk, model, tables, dev):
     p8s = _stream_p8(enc, ccfg)
     rng = np.random.default_rng(12)
     n0 = chk.n
-    for b in STREAM_B:
-        for n in STREAM_N:
-            for li, seen in enumerate(STREAM_SEEN):
-                li = (li + 3 * n + b) % len(enc["layers"])
-                tbl = enc["layers"][li]
-                (qu, qv, k, v), kc, vc, c8, x8, gc = stream_inputs(rng, dev, b, n, h, d // h,
-                                                                   d, k_size)
-                kw = dict(ac=tbl["ac_grid"], bd=tbl["bd_grid"], ctx_rq=tbl["ctx_rq"], nbits=8)
-                tag = f"B={b} n={n} L={STREAM_L} seen={seen} layer {li}"
-                got = int_attention_cached(qu, qv, k, v, kc, vc, p8s[li], seen, **kw)
-                want = int_attention_cached_plain(qu, qv, k, v, kc, vc, p8s[li], seen, **kw)
-                for what, g, w in zip(("context", "k cache", "v cache"), got, want):
-                    chk.equal("int_attention_cached", f"int_attention_cached {tag} {what}", g, w)
-                got = conv_block_cached(c8, x8, gc, tbl, nbits=8)
-                want = conv_block_cached_plain(c8, x8, gc, tbl, nbits=8)
-                for what, g, w in zip(("stream", "GLU cache"), got, want):
-                    chk.equal("conv_block_cached", f"conv_block_cached {tag} {what}", g, w)
+    forms = {}
+    for b, n in stream_cases():
+        for li, seen in enumerate(STREAM_SEEN):
+            li = (li + 3 * n + b) % len(enc["layers"])
+            tbl = enc["layers"][li]
+            (qu, qv, k, v), kc, vc, c8, x8, gc = stream_inputs(rng, dev, b, n, h, d // h,
+                                                               d, k_size)
+            kw = dict(ac=tbl["ac_grid"], bd=tbl["bd_grid"], ctx_rq=tbl["ctx_rq"], nbits=8)
+            tag = f"B={b} n={n} L={STREAM_L} seen={seen} layer {li}"
+            got = int_attention_cached(qu, qv, k, v, kc, vc, p8s[li], seen, **kw)
+            want = int_attention_cached_plain(qu, qv, k, v, kc, vc, p8s[li], seen, **kw)
+            for what, g, w in zip(("context", "k cache", "v cache"), got, want):
+                chk.equal("int_attention_cached", f"int_attention_cached {tag} {what}", g, w)
+            got = conv_block_cached(c8, x8, gc, tbl, nbits=8)
+            cfg = conv_block_cached.last_config
+            if cfg["form"] != conv_form(n):
+                raise AssertionError(f"conv_block_cached {tag}: ran the {cfg['form']} form, "
+                                     f"expected {conv_form(n)} ({cfg})")
+            forms[(b, n)] = cfg
+            want = conv_block_cached_plain(c8, x8, gc, tbl, nbits=8)
+            for what, g, w in zip(("stream", "GLU cache"), got, want):
+                chk.equal("conv_block_cached", f"conv_block_cached {tag} {what}", g, w)
     log(f"[12a] int_attention_cached and conv_block_cached == their plain versions in "
-        f"{chk.n - n0} exact comparisons: B in {STREAM_B}, n in {STREAM_N}, L {STREAM_L}, "
+        f"{chk.n - n0} exact comparisons: (B, n) in {stream_cases()}, L {STREAM_L}, "
         f"seen in {STREAM_SEEN}, the new caches included")
+    log("[12a] conv_block_cached's plans (form, utterances a tile, clusters, shared memory "
+        "a CTA): " + "; ".join(f"B={b} n={n}: {c['form']} {c['utterances']} {c['clusters']} "
+                               f"{c['smem']}" for (b, n), c in forms.items()))
+    return forms
 
 
 def phase_stream(model, tables, dev, card, report):
@@ -4131,7 +4169,8 @@ def phase_stream(model, tables, dev, card, report):
         el = int(el[0])
         enc_off = enc_off[0, :el]
         ids_off = model.head(tables, enc_off[None]).argmax(-1)[0]
-    per_step = planned(cf.stream_kernel_launches(ccfg))
+    per_step = planned({**cf.stream_kernel_launches(ccfg),
+                        "conv_block_cached_cluster": ccfg.n_layers})
     step_fn = cf.frozen_stream_step
     steps, xs, bad_steps = [], [], []
 
@@ -4211,13 +4250,29 @@ def phase_stream(model, tables, dev, card, report):
         f"{rep['first_chunk_latency_ms']:.3f} ms, mean {rep['mean_chunk_latency_ms']:.3f}, p95 "
         f"{rep['p95_chunk_latency_ms']:.3f}, steady {rep['steady_chunk_latency_ms']:.3f} ms; "
         f"streaming RTFx {rep['streaming_rtfx']:.1f} [{card}]")
-    # frozen_stream_step alone: device ms (torch.profiler, every kernel of
-    # the step), per-step event ms, and host ms to enqueue a step
-    out = {"latency_report": rep, "steps": n_steps, "step": {}}
+    out = {"latency_report": rep, "steps": n_steps, "step": stream_step_times(model, tables,
+                                                                             dev, card)}
+    report["stream"] = out
+    return counts
+
+
+def stream_step_times(model, tables, dev, card):
+    """frozen_stream_step alone at each (B, n) of STREAM_TIMED, a stream
+    past L frames (every cache slot valid): device ms (torch.profiler,
+    every kernel of the step), per-step event ms, and host ms to enqueue a
+    step; logged beside PR 15's readings."""
+    import numpy as np
+    import torch
+
+    from qasr_tpu_torch.quantize import conformer_freeze as cf
+
+    enc_t, ccfg = tables["encoder"], model.ccfg
+    f_sub = enc_t["pre"]["wt"].shape[1]   # the subsampled frame's features (K of pre)
+    out = {}
     rng = np.random.default_rng(16)
-    for b, n in ((1, 4), (32, 4), (32, 16)):
+    for b, n in STREAM_TIMED:
         state = cf.frozen_stream_init(enc_t, ccfg, b, dev)
-        x = torch.from_numpy(rng.normal(size=(b, n, x_sub.shape[-1])).astype(np.float32)).to(dev)
+        x = torch.from_numpy(rng.normal(size=(b, n, f_sub)).astype(np.float32)).to(dev)
         for _ in range(20):   # a stream past L frames: every cache slot valid
             _, state = cf.frozen_stream_step(enc_t, ccfg, x, state)
         fn = lambda s=state: cf.frozen_stream_step(enc_t, ccfg, x, s)   # noqa: E731
@@ -4230,14 +4285,14 @@ def phase_stream(model, tables, dev, card, report):
         host_ms = (time.perf_counter() - t0) / 20 * 1e3
         torch.cuda.synchronize()
         calls = sum(cf.stream_kernel_launches(ccfg).values())
-        out["step"][f"B={b} n={n}"] = {"device_ms": dev_ms, "device_ms_by": by,
-                                         "event_ms": ev_ms, "host_enqueue_ms": host_ms,
-                                         "kernel_calls": calls}
+        out[f"B={b} n={n}"] = {"device_ms": dev_ms, "device_ms_by": by, "event_ms": ev_ms,
+                               "host_enqueue_ms": host_ms, "kernel_calls": calls}
+        was = STREAM_STEP_PR15[(b, n)]
         log(f"[12b] frozen_stream_step B={b} n={n} ({calls} kernel calls): device {dev_ms:.4f} "
             f"ms ({by}), {ev_ms:.4f} ms a step by events, host enqueue {host_ms:.4f} ms "
-            f"[{card}]")
-    report["stream"] = out
-    return counts
+            + (f"(PR 15: device {was[0]} ms, host {was[1]} ms) " if was else
+               "(PR 15: not recorded) ") + f"[{card}]")
+    return out
 
 
 def unnormalized(model):
@@ -4450,8 +4505,28 @@ def phase_w8a8_selu_swish(chk, dev):
     return out
 
 
-def phase_streaming(chk, dev, card, report):
-    """Phase 12; returns (kernels line rows, {path: launch counts})."""
+def stream_floor_ms(grid, threads, cluster, smem, dev):
+    """The device ms of an empty kernel on this launch shape (10 calls,
+    torch.profiler; ``device_ms``)."""
+    from qasr_tpu_torch.kernels.floor import empty_launch
+
+    ms, _ = device_ms(lambda: empty_launch(grid, threads, cluster, smem, device=dev),
+                      "empty_kernel")
+    return ms
+
+
+def time_stream_kernels(chk, model, tables, dev, card, report, floors=True):
+    """Each cache form at the (B, n) of STREAM_TIMED, a full cache (seen
+    500), layer 0's tables: held against its plain version, then timed
+    (``timed_pair``) beside its bound and, with ``floors``, its latency
+    floor: an empty kernel on the kernel's own grid, block, cluster and
+    shared memory (``stream_floor_ms``), plus for Kernel 4's cluster form
+    its three dependent exchanges (x1, the i-LN's rows, mid8) each at the
+    round ``exchange_floor`` measures in this run (one push into every CTA
+    and barrier.cluster, clusters of 8; the kernel's st.async exchanges
+    need no barrier, so this part may sit above their true cost).
+    ``floors`` off times a tree whose wrappers lack the plan's report (a
+    parent checkout).  Returns the rows."""
     import numpy as np
 
     from qasr_tpu_torch.kernels.conv_block import conv_block_cached, conv_block_cached_plain
@@ -4460,6 +4535,58 @@ def phase_streaming(chk, dev, card, report):
     )
     from qasr_tpu_torch.quantize.conformer_freeze import _stream_p8
 
+    enc, ccfg = tables["encoder"], model.ccfg
+    h, d, k_size = ccfg.n_heads, ccfg.d_model, ccfg.conv_kernel_size
+    d_k = d // h
+    tbl, p8 = enc["layers"][0], _stream_p8(enc, ccfg)[0]
+    kw = dict(ac=tbl["ac_grid"], bd=tbl["bd_grid"], ctx_rq=tbl["ctx_rq"], nbits=8)
+    round_us = exchange_floor(dev, card, 1, "12")["exchange_us"] if floors else None
+    rows = []
+    for b, n in STREAM_TIMED:
+        (qu, qv, k, v), kc, vc, c8, x8, gc = stream_inputs(np.random.default_rng(17), dev, b, n,
+                                                           h, d_k, d, k_size)
+        r = timed_pair(chk, "int_attention_cached",
+                       f"int_attention_cached B={b} n={n} L={STREAM_L} h={h} d_k={d_k}",
+                       lambda: int_attention_cached(qu, qv, k, v, kc, vc, p8, 500, **kw)[0],
+                       lambda: int_attention_cached_plain(qu, qv, k, v, kc, vc, p8, 500,
+                                                          **kw)[0], card, rows)
+        # q/k/v and both caches and p8 in, the context and both caches out; each
+        # query's L + 1 scores (ac, bd) and its context as int8 products
+        qkv = b * n * d
+        r["bound"] = bound(4 * qkv + 2 * 2 * b * STREAM_L * d + p8.numel() + qkv,
+                           3 * 2 * b * h * n * (STREAM_L + 1) * d_k)
+        if floors:
+            from qasr_tpu_torch.kernels.int_attention import TQ_CACHE, cached_smem_bytes
+
+            warps = min(n, TQ_CACHE)
+            r["floor_ms"] = stream_floor_ms((-(-n // TQ_CACHE), h, b), 32 * warps, 1,
+                                            cached_smem_bytes(STREAM_L, d_k, warps), dev)
+        r = timed_pair(chk, "conv_block_cached", f"conv_block_cached B={b} n={n} d={d} "
+                       f"K={k_size}", lambda: conv_block_cached(c8, x8, gc, tbl, nbits=8)[0],
+                       lambda: conv_block_cached_plain(c8, x8, gc, tbl, nbits=8)[0], card, rows)
+        weights = 4 * d * d + k_size * d + 14 * 4 * d + 16 * 4
+        r["bound"] = bound(3 * b * n * d + 2 * b * (k_size - 1) * d + weights,
+                           2 * b * n * d * (4 * d + k_size))
+        if floors:
+            from qasr_tpu_torch.kernels.conv_block import CTA_COLS
+
+            cfg = conv_block_cached.last_config
+            r["plan"] = cfg
+            c = d // CTA_COLS
+            r["floor_ms"] = stream_floor_ms((cfg["clusters"] * c, 1, 1), 128, c, cfg["smem"], dev)
+            r["floor_ms"] += 3 * round_us / 1e3 if cfg["form"] == "cluster" else 0.0
+        for row in rows[-2:]:
+            if "floor_ms" in row:
+                log(f"[12] {row['shape']}: bound {row['bound'][0]:.5f} ms ({row['bound'][1]}, "
+                    f"{row['bound'][0] / row['device_ms']:.1%}), latency floor "
+                    f"{row['floor_ms']:.5f} ms ({row['floor_ms'] / row['device_ms']:.1%}) "
+                    f"[{card}]")
+    report["stream_round_us"] = round_us
+    return rows
+
+
+def phase_streaming(chk, dev, card, report):
+    """Phase 12; returns (kernels line rows, {path: launch counts})."""
     t_phase = time.perf_counter()
     model, tables = causal_flagship(dev)
     phase_stream_kernels(chk, model, tables, dev)
@@ -4467,33 +4594,7 @@ def phase_streaming(chk, dev, card, report):
     counts["windowed W6A6"] = phase_windowed(dev, card, report)
     counts.update(phase_w8a8_selu_swish(chk, dev))
     phase_requant_planes(chk, dev)
-    # each cache form at the stream's shape, B = 32, n = 4, a full cache
-    enc, ccfg = tables["encoder"], model.ccfg
-    h, d, k_size = ccfg.n_heads, ccfg.d_model, ccfg.conv_kernel_size
-    d_k = d // h
-    tbl, p8 = enc["layers"][0], _stream_p8(enc, ccfg)[0]
-    rows = []
-    b, n = 32, 4
-    (qu, qv, k, v), kc, vc, c8, x8, gc = stream_inputs(np.random.default_rng(17), dev, b, n, h,
-                                                       d_k, d, k_size)
-    kw = dict(ac=tbl["ac_grid"], bd=tbl["bd_grid"], ctx_rq=tbl["ctx_rq"], nbits=8)
-    r = timed_pair(chk, "int_attention_cached",
-                   f"int_attention_cached B={b} n={n} L={STREAM_L} h={h} d_k={d_k}",
-                   lambda: int_attention_cached(qu, qv, k, v, kc, vc, p8, 500, **kw)[0],
-                   lambda: int_attention_cached_plain(qu, qv, k, v, kc, vc, p8, 500, **kw)[0],
-                   card, rows)
-    # q/k/v and both caches and p8 in, the context and both caches out; each
-    # query's L + 1 scores (ac, bd) and its context as int8 products
-    qkv = b * n * d
-    r["bound"] = bound(4 * qkv + 2 * 2 * b * STREAM_L * d + p8.numel() + qkv,
-                       3 * 2 * b * h * n * (STREAM_L + 1) * d_k)
-    r = timed_pair(chk, "conv_block_cached",
-                   f"conv_block_cached B={b} n={n} d={d} K={k_size}",
-                   lambda: conv_block_cached(c8, x8, gc, tbl, nbits=8)[0],
-                   lambda: conv_block_cached_plain(c8, x8, gc, tbl, nbits=8)[0], card, rows)
-    weights = 4 * d * d + k_size * d + 14 * 4 * d + 16 * 4
-    r["bound"] = bound(3 * b * n * d + 2 * b * (k_size - 1) * d + weights,
-                       2 * b * n * d * (4 * d + k_size))
+    rows = time_stream_kernels(chk, model, tables, dev, card, report)
     report["stream_per_kernel"] = rows
     report["stream_launches"] = counts
     report["stream_seconds"] = time.perf_counter() - t_phase
@@ -4945,7 +5046,7 @@ def host_loop_decode(tables, cfg, enc, enc_lens, carry, max_symbols_per_step=10,
     return g8, (h8, c_q), hyps
 
 
-def exchange_floor(dev, card, clusters):
+def exchange_floor(dev, card, clusters, tag="13c"):
     """The latency floor of a rnnt_greedy step's exchange: us a round of
     ``cluster_exchange`` (every CTA pushes a word into every CTA's shared
     memory, then one barrier.cluster, then reads what arrived; dependent
@@ -4964,7 +5065,7 @@ def exchange_floor(dev, card, clusters):
             per.append((ms[2 * EXCHANGE_ROUNDS] - ms[EXCHANGE_ROUNDS]) / EXCHANGE_ROUNDS * 1e3)
         out["exchange_us" if exchange else "barrier_us"] = statistics.median(per)
         out["exchange_us_samples" if exchange else "barrier_us_samples"] = per
-    log(f"[13c] cluster exchange floor ({clusters} clusters of 8 CTAs): a push into every "
+    log(f"[{tag}] cluster exchange floor ({clusters} clusters of 8 CTAs): a push into every "
         f"CTA + barrier.cluster {out['exchange_us']:.4f} us a round, the barrier alone "
         f"{out['barrier_us']:.4f} us [{card}]")
     return out
@@ -5238,10 +5339,14 @@ def main() -> int:
     info = _build.BuildInfo
     log(f"[2] kernels built from csrc in {build_s:.2f} s (nvcc {info.seconds:.2f} s, "
         f"compiled={info.compiled}) -> {os.path.relpath(info.path, ROOT)}")
+    if info.per_source:
+        log("[2] nvcc seconds a source, slowest first: " + ", ".join(
+            f"{name} {sec:.1f}" for name, sec in info.per_source.items()))
     for line in info.log.splitlines():
         if "registers" in line or "Compiling entry" in line:
             log(f"    ptxas: {line.strip()}")
-    report.update(build_s=build_s, nvcc_s=info.seconds, ptxas=info.log)
+    report.update(build_s=build_s, nvcc_s=info.seconds, nvcc_per_source=info.per_source,
+                  ptxas=info.log)
 
     chk = Checker()
     phase_requant(chk, dev)
@@ -5344,13 +5449,16 @@ def main() -> int:
     for kind, replaces, label in [
             ("int_attention_cached", "qasr_tpu/kernels/int_attention.py:170 (#12), cache form: "
              "the stream step's XLA composition, qasr_tpu/quantize/conformer_freeze.py:803-824",
-             "int_attention_cached B="),
+             "int_attention_cached B=32 n=4 "),
             ("conv_block_cached", "qasr_tpu/kernels/conf_module.py:341 (#13), cache form: the "
              "stream step's XLA composition, qasr_tpu/quantize/conformer_freeze.py:825-835",
-             "conv_block_cached B=")]:
+             "conv_block_cached B=32 n=4 ")]:
         r = next(r for r in s_rows if label in r["shape"])
         row = kernel_row(kind, replaces, r, s_counts["stream"][kind])
-        row["source"] = f"qasr_tpu_torch/kernels/csrc/{kind[:-len('_cached')]}.cu"
+        row["source"] = ("qasr_tpu_torch/kernels/csrc/int_attention.cu"
+                         if kind == "int_attention_cached" else
+                         "qasr_tpu_torch/kernels/csrc/conv_block_cached.cu")
+        row["floor_ms"] = r["floor_ms"]
         kernels.append(row)
     # phase 13: Kernel 9 (launches: the frozen Conformer-Transducer's main path
     # of phase 13b: one rnnt_greedy a decode, the start-of-sequence pred step;

@@ -37,8 +37,9 @@ _SIGNATURES = {
     "qasr_requant_rows": [_P, _I, _P, _P, _I, _I, _P, _I, _P, _P, _I, _I, _P, _P, _P] + [_I] * 5
                          + [_P] + [_I] * 3 + [_P],
     "qasr_int_attention": [_P] * 7 + [_I] * 14 + [_P],
-    "qasr_int_attention_cached": [_P] * 10 + [_I] * 13 + [_P],
+    "qasr_int_attention_cached": [_P] * 11 + [_I] * 13 + [_P],
     "qasr_conv_block": [_P] * 16 + [_I] * 7 + [_P],
+    "qasr_conv_block_cached": [_P] * 16 + [_I] * 5 + [_P, _P],
     "qasr_int_fn_check": [_I] + [_P] * 3 + [_I, _P],
     "qasr_ln_check": [_P] * 2 + [_I] * 3 + [_P],
     "qasr_lin_epilogue": [_P] * 6 + [_I] * 10 + [_P],
@@ -47,6 +48,7 @@ _SIGNATURES = {
     "qasr_rnnt_joint": [_P, _L] + [_P] * 11 + [_I] * 5 + [_F] + [_I] * 4 + [_P],
     "qasr_rnnt_greedy": [_P] * 11 + [_I, _F, _P, _P],
     "qasr_cluster_exchange": [_I] * 4 + [_P, _P],
+    "qasr_empty_launch": [_I] * 6 + [_P],
 }
 
 _lock = threading.Lock()
@@ -60,6 +62,7 @@ class BuildInfo:
     seconds: float = 0.0
     compiled: bool = False
     log: str = ""
+    per_source: dict = {}   # seconds each source's nvcc took (the build's critical path)
 
 
 def find_nvcc() -> str:
@@ -102,7 +105,17 @@ def build() -> str:
     procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, c], cwd=CSRC,
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for c, o in zip(cu, objs)]
-    logs = [p.communicate()[0] for p in procs]
+    logs, done = [None] * len(procs), {}
+
+    def collect(i):
+        logs[i] = procs[i].communicate()[0]
+        done[os.path.basename(cu[i])] = time.perf_counter() - t0
+    readers = [threading.Thread(target=collect, args=(i,)) for i in range(len(procs))]
+    for r in readers:
+        r.start()
+    for r in readers:
+        r.join()
+    BuildInfo.per_source = dict(sorted(done.items(), key=lambda kv: -kv[1]))
     cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]
     failed = [(c, p.returncode, lg) for c, p, lg in zip(cu, procs, logs) if p.returncode]
     link = None if failed else subprocess.run(cmd, capture_output=True, text=True, cwd=CSRC)

@@ -1,5 +1,6 @@
 """Kernel 4: the frozen Conformer's attention-output join plus its whole
-conv module (kernels/csrc/conv_block.cu).
+conv module (kernels/csrc/conv_block.cu; the cache form's cluster kernel
+in kernels/csrc/conv_block_cached.cu).
 
 Replaces qasr_tpu/kernels/conf_module.py::fused_conv_block.  The TPU runs
 one grid step per utterance; on the H100 that would fill 32 of 132 SMs,
@@ -24,14 +25,22 @@ qasr_tpu/quantize/conformer_freeze.py, in torch) for CPU tensors; it
 never falls back from one to the other.
 
 The cache form (``conv_block_cached``, the stream step of a causal
-Conformer) runs the same two stages over the n new frames: stage A with
-no length mask, stage B's depthwise with padding (0, 0) over [cache (K-1
-rows) || glu8 (n rows)], its halo reading the cached GLU rows; it returns
-the new cache (the last K-1 rows of [cache || glu8], written by stage B's
-first time tile) beside the stream.
+Conformer) is one launch of ``conv_block_cached_kernel`` over the n new
+frames: a cluster of d / 64 CTAs takes the rows of whole utterances, each
+CTA 64 columns of att_out and pw2 and the same 64 GLU and depthwise
+channels, its slice of the layer held in shared memory (``cached_blob``);
+its x1 columns, its share of the i-LN's rows and its mid8 columns go to
+every CTA through distributed shared memory, and glu8 stays in its CTA.
+The depthwise runs over [cache (K-1 rows) || glu8 (n rows)] with padding
+(0, 0), no length mask; the new cache is the last K-1 rows of [cache ||
+glu8].  Past 32 new frames an utterance no
+longer fits the kernel's tile, and the C entry runs the offline form's two
+stages over the n frames instead; it picks the form and reports it, and
+``conv_block_cached.forms`` counts the form that ran.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Any, Dict
 
 import torch
@@ -59,6 +68,7 @@ from qasr_tpu_torch.quantize.conformer_int import (
 
 ROWS = 32            # rows per block in both stages (csrc/conv_block.cu)
 MAX_D = 512
+CTA_COLS = 64        # columns a CTA of the cache form's cluster owns (kCh)
 SIG_TAB = 4544       # entries of the GLU sigmoid table (csrc/conformer_int.cuh kSigTab)
 
 
@@ -123,6 +133,58 @@ def swish_table(tbl, nbits: int) -> torch.Tensor:
     return swish_lut(tbl["bn_grid"], tbl["bn_prod"], nbits, tbl["dw_w"].device)
 
 
+def blob_layout(d: int, k_size: int) -> Dict[str, int]:
+    """Byte offsets of one CTA's slice in ``cached_blob``
+    (csrc/conv_block_cached.cu ``blob_layout``), in three parts that the
+    kernel waits for one by one: "ao" its w_ao rows (each d + 16 bytes),
+    "vc" its columns of the 14 int32 vectors, "mfc" its columns of the five
+    per-column FP64 scales (att_out, GLU a, GLU g, BN, pw2), "sc" the 16
+    scalars; from "b": "lnv" the ln affine's sgn / b / m whole, "lnf" its
+    FP64 scale whole, "ag" its w_ag rows, "sig" the sigmoid table; from "c":
+    "w2" its w_2 rows, "pw" its packed taps; "bytes" the slice's size."""
+    ngp = tap_groups(k_size)[1]
+    row = d + 16
+    sizes = [("ao", CTA_COLS * row), ("vc", 14 * CTA_COLS * 4), ("mfc", 5 * CTA_COLS * 8),
+             ("sc", 16 * 4), ("lnv", 3 * d * 4), ("lnf", d * 8), ("ag", 2 * CTA_COLS * row),
+             ("sig", SIG_TAB), ("w2", CTA_COLS * row), ("pw", CTA_COLS * ngp * 4)]
+    out, o = {}, 0
+    for name, size in sizes:
+        out[name] = o
+        o += size
+    out["b"], out["c"], out["bytes"] = out["lnv"], out["w2"], o
+    return out
+
+
+def cached_blob(p: Dict[str, Any]) -> torch.Tensor:
+    """The cache form's slice of a layer for each CTA of its cluster of d /
+    64, from the packed tables ``p`` (``_packed``): (d / 64, bytes) uint8
+    laid out by ``blob_layout``.  CTA q's weight rows are w_ao[64q:64q+64],
+    the interleaved w_ag[128q:128q+128] (its 64 GLU channels' a and g rows)
+    and w_2[64q:64q+64], each padded with 16 zero bytes (the kernel's
+    ldmatrix pitch); its columns are [64q, 64q + 64) of every per-column
+    vector and scale and its taps those channels'.  Bulk copies lay a slice
+    out as the kernel reads it."""
+    d = p["w_ao"].shape[1]
+    c = d // CTA_COLS
+
+    def u8(t):
+        return t.contiguous().view(torch.uint8).reshape(c, -1)
+
+    def cols(t):   # (rows, d) -> (c, rows, 64): each CTA's columns
+        return t.reshape(t.shape[0], c, CTA_COLS).transpose(0, 1)
+
+    def whole(t):
+        return t.reshape(1, -1).expand(c, -1)
+
+    def rows(w, k):   # CTA q's k-row slices, padded to d + 16 bytes
+        return torch.nn.functional.pad(w.reshape(c, k, d), (0, 16))
+
+    parts = [rows(p["w_ao"], CTA_COLS), cols(p["vec"]), cols(p["mf"][:5]), whole(p["sc"]),
+             whole(p["vec"][2:5]), whole(p["mf"][5]), rows(p["w_ag"], 2 * CTA_COLS),
+             whole(p["sig"]), rows(p["w_2"], CTA_COLS), p["dw_p"].reshape(c, -1)]
+    return torch.cat([u8(t) for t in parts], dim=1).contiguous()
+
+
 def _f64_scales(tbl):
     """(mf, ok): the per-column sites' m 2^-e as a (6, d) float64 tensor
     (att_out, GLU a, GLU g, BN, pw2, ln affine), and whether every column
@@ -156,7 +218,8 @@ def _packed(tbl) -> Dict[str, Any]:
     stacked (14, d); the static scalars as one int32 vector; the GLU
     sigmoid table; the i-swish table per activation width (``swish``); the
     per-column sites' requant scales in float64 and whether the kernel may
-    requant them on the FP64 pipe (``_f64_scales``)."""
+    requant them on the FP64 pipe (``_f64_scales``); the cache form's
+    per-CTA weight slices (``cached_blob``)."""
     if "_conv_block" in tbl:
         return tbl["_conv_block"]
     a, g = tbl["pw1_a"], tbl["pw1_g"]
@@ -180,12 +243,14 @@ def _packed(tbl) -> Dict[str, Any]:
               "sc": torch.tensor([int(s) for s in scalars], dtype=torch.int32, device=dev),
               "sig": sigmoid_table(dev), "swish": {}}
     packed["mf"], packed["f64"] = _f64_scales(tbl)
+    packed["blob"] = cached_blob(packed)
     if dev.type == "cuda":
         shapes = {"w_ao": ((d, d), torch.int8), "w_ag": ((2 * d, d), torch.int8),
                   "dw_p": ((d, tap_groups(k_size)[1]), torch.int32),
                   "w_2": ((d, d), torch.int8), "vec": ((14, d), torch.int32),
                   "sc": ((16,), torch.int32), "sig": ((SIG_TAB,), torch.uint8),
-                  "mf": ((6, d), torch.float64)}
+                  "mf": ((6, d), torch.float64),
+                  "blob": ((d // CTA_COLS, blob_layout(d, k_size)["bytes"]), torch.uint8)}
         for name, (shape, dtype) in shapes.items():
             check_vec("conv_block", name, packed[name], dtype, shape, dev)
             if packed[name].data_ptr() % 16:
@@ -217,15 +282,14 @@ def _check_call(name: str, c8: torch.Tensor, x8: torch.Tensor, tbl, nbits: int):
     return b, t, d, k_size, p, swish
 
 
-def _launch(c8, x8, lens, p, swish, glu8, out, cache, new_cache, k_size, pad_l, kc, nbits):
+def _launch(c8, x8, lens, p, swish, glu8, out, k_size, pad_l, nbits):
     b, t, d = x8.shape
     rc = _build.library().qasr_conv_block(
         _build.ptr(c8), _build.ptr(x8), _build.ptr(lens), _build.ptr(p["w_ao"]),
         _build.ptr(p["w_ag"]), _build.ptr(p["dw_p"]), _build.ptr(p["w_2"]),
         _build.ptr(p["vec"]), _build.ptr(p["sc"]), _build.ptr(p["mf"] if p["f64"] else None),
         _build.ptr(p["sig"]), _build.ptr(swish), _build.ptr(glu8), _build.ptr(out),
-        _build.ptr(cache), _build.ptr(new_cache), b, t, d, k_size, pad_l, kc,
-        2 ** (nbits - 1) - 1, _build.stream_of(x8))
+        None, None, b, t, d, k_size, pad_l, 0, 2 ** (nbits - 1) - 1, _build.stream_of(x8))
     _build.check(rc, "conv_block")
 
 
@@ -247,7 +311,7 @@ def conv_block(c8: torch.Tensor, x8: torch.Tensor, lens: torch.Tensor, tbl,
         raise ValueError(f"conv_block: padding {padding} must sum to K-1 = {k_size - 1}")
     glu8 = torch.empty((b, t, d), dtype=torch.int8, device=x8.device)
     out = torch.empty((b, t, d), dtype=torch.int8, device=x8.device)
-    _launch(c8, x8, lens, p, swish, glu8, out, None, None, k_size, pad_l, 0, nbits)
+    _launch(c8, x8, lens, p, swish, glu8, out, k_size, pad_l, nbits)
     conv_block.launches += 1
     return out
 
@@ -260,7 +324,12 @@ def conv_block_cached(c8: torch.Tensor, x8: torch.Tensor, glu_cache: torch.Tenso
     """The cache form: c8 and x8 (B, n, d) int8 of the n new frames,
     glu_cache (B, K-1, d) int8 (the last K-1 GLU rows, zeros before the
     stream's start: the offline causal left padding).  Returns (the int8
-    stream after the conv module's join, the new cache)."""
+    stream after the conv module's join, the new cache).  On the card one
+    call runs in the form the C entry's plan picks ("cluster": one launch
+    where an utterance's n rows fit the 32-row tile; "staged": the offline
+    form's two stages past that): the counts go to ``launches`` and
+    ``forms``, the plan (form, utterances a tile, clusters, shared memory
+    bytes a CTA) to ``last_config``."""
     if x8.device.type == "cpu":
         return conv_block_cached_plain(c8, x8, glu_cache, tbl, nbits=nbits)
     if x8.device.type != "cuda":
@@ -276,10 +345,23 @@ def conv_block_cached(c8: torch.Tensor, x8: torch.Tensor, glu_cache: torch.Tenso
     glu8 = torch.empty((b, n, d), dtype=torch.int8, device=x8.device)
     out = torch.empty((b, n, d), dtype=torch.int8, device=x8.device)
     new_cache = torch.empty_like(glu_cache)
-    _launch(c8, x8, None, p, swish, glu8, out, glu_cache, new_cache, k_size, 0, k_size - 1,
-            nbits)
+    cfg = (ctypes.c_int * 4)()
+    rc = _build.library().qasr_conv_block_cached(
+        _build.ptr(c8), _build.ptr(x8), _build.ptr(p["blob"]), _build.ptr(p["w_ao"]),
+        _build.ptr(p["w_ag"]), _build.ptr(p["dw_p"]), _build.ptr(p["w_2"]),
+        _build.ptr(p["vec"]), _build.ptr(p["sc"]), _build.ptr(p["mf"] if p["f64"] else None),
+        _build.ptr(p["sig"]), _build.ptr(swish), _build.ptr(glu_cache), _build.ptr(new_cache),
+        _build.ptr(glu8), _build.ptr(out), b, n, d, k_size, 2 ** (nbits - 1) - 1,
+        ctypes.addressof(cfg), _build.stream_of(x8))
+    _build.check(rc, "conv_block_cached")
+    ran = "cluster" if cfg[0] else "staged"
     conv_block_cached.launches += 1
+    conv_block_cached.forms[ran] += 1
+    conv_block_cached.last_config = {"form": ran, "utterances": cfg[1], "clusters": cfg[2],
+                                     "smem": cfg[3]}
     return out, new_cache
 
 
 conv_block_cached.launches = 0
+conv_block_cached.forms = {"cluster": 0, "staged": 0}
+conv_block_cached.last_config = None

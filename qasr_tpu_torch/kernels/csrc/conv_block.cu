@@ -62,31 +62,30 @@
 // device memory; stage B's epilogue joins against x1 read back from the
 // output buffer, whose elements it then overwrites.
 //
-// The cache form serves the stream step of a causal Conformer (the JAX
-// package's XLA composition at conformer_freeze.py:825-835): the same two
-// launches over the n new frames of each utterance (T = n), stage A with
-// no length mask (lens NULL: every fed frame is valid), stage B's
-// depthwise over [cache (K - 1 rows) || glu8 (n rows)] with padding
-// (0, 0), so its halo reads the cached GLU rows where the offline form
-// reads zeros; the first time tile of each utterance also writes the new
-// cache, the last K - 1 rows of [cache || glu8].
+// The cache form (the stream step of a causal Conformer, the JAX package's
+// XLA composition at conformer_freeze.py:825-835) is one cluster launch,
+// conv_block_cached.cu, while an utterance's new frames fit its 32-row
+// tile.  Past that its C entry runs the two stages here over the n new
+// frames of each utterance (T = n; kernels conv_block_cached_stage_{a,b},
+// so that a trace keeps them apart): stage A with no length mask (lens
+// NULL: every fed frame is valid), stage B's depthwise over [cache (K - 1
+// rows) || glu8 (n rows)] with padding (0, 0), so its halo reads the cached
+// GLU rows where the offline form reads zeros; the first time tile of each
+// utterance also writes the new cache, the last K - 1 rows of [cache ||
+// glu8].
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
 #include "conformer_int.cuh"
+#include "conv_block.cuh"
 #include "requant.cuh"
 #include "tile_s8.cuh"
 
 namespace {
 
-constexpr int kRows = 32;         // rows (stage A) or frames (stage B) per block
 constexpr int kThreads = 128;     // 4 warps: 2 row groups x 2 column groups
-constexpr int kChunk = 64;        // weight rows (output columns) per chunk
-constexpr int kMaxPer = 16;       // d <= 512: values per lane in the i-LN
 constexpr int kPer = 16;          // depthwise outputs per task: 4 quads of 4
-
-__device__ __forceinline__ int clamp8(int q, int n8) { return qasr_clamp(q, -n8, n8 - 1); }
 
 // a thread's share of copying rows of d bytes in 16-byte pieces: piece q
 // of rows r, r + step, ... (threads from step * (d / 16) on copy none), so
@@ -111,32 +110,6 @@ __device__ __forceinline__ void load_chunk(int* dst, const int8_t* w, int row0, 
                                            int lda, const RowSplit& sp) {
   for (int r = sp.r; r < kChunk; r += sp.step)
     qasr_cp16(dst + r * lda + 4 * sp.q, w + static_cast<size_t>(row0 + r) * d + 16 * sp.q, 16);
-}
-
-// acc = As (32 x d) . Ws^T (64 x d) for this warp's 16 x 32 part:
-// accumulator (j, r) is row 16 wr + g + 8 (r >> 1), column 32 wc + 8 j + 2 t4 + (r & 1)
-__device__ __forceinline__ void gemm_tile(const int* As, const int* Ws, int lda, int d,
-                                          int (&acc)[4][4]) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wr = warp >> 1, wc = warp & 1, q = lane >> 3, rr = lane & 7;
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) acc[j][r] = 0;
-  // matrix q of A: rows 8 (q & 1), bytes 16 (q >> 1); of B: columns 8 (q >> 1), bytes 16 (q & 1)
-  const int* a_row = As + (wr * 16 + rr + 8 * (q & 1)) * lda + 4 * (q >> 1);
-  const int* b_row = Ws + (wc * 32 + rr + 8 * (q >> 1)) * lda + 4 * (q & 1);
-  for (int kw = 0; kw < d / 4; kw += 8) {
-    int a[4];
-    qasr_ldsm4(a, a_row + kw);
-#pragma unroll
-    for (int p = 0; p < 2; ++p) {
-      int b[4];
-      qasr_ldsm4(b, b_row + p * 16 * lda + kw);
-      qasr_mma_s8(acc[2 * p], a, b[0], b[1]);
-      qasr_mma_s8(acc[2 * p + 1], a, b[2], b[3]);
-    }
-  }
 }
 
 // The i-LN of the tile's x1 rows (kRows / 4 a warp) and the ln_conv affine
@@ -499,8 +472,8 @@ __device__ __forceinline__ void stage_b QASR_STAGE_B_PARAMS {
 }
 
 // Each stage under two kernel names, the offline form's and the cache
-// form's (conv_block_cached_stage_*), so that a trace holding both paths
-// keeps their device times apart; the code is one.
+// form's staged plan (conv_block_cached_stage_*), so that a trace holding
+// both paths keeps their device times apart; the code is one.
 #define QASR_STAGE_KERNEL(kernel, body, params, args) \
   template <bool kF64>                                \
   __global__ void __launch_bounds__(kThreads, 3) kernel params { body<kF64> args; }
@@ -552,9 +525,10 @@ int launch(const int8_t* c8, const int8_t* x8, const int32_t* lens, const int8_t
 // NULL requants every per-column site and glu_prod with qasr_rq; otherwise
 // with qasr_rq_f64 (the caller has checked each column's domain,
 // kernels/conv_block.py::_f64_scales).  sig_tab: the kSigTab-byte GLU
-// sigmoid table (kernels/conv_block.py::sigmoid_table).  The cache form:
-// lens NULL, pad_l 0, kc = K - 1, cache (B, kc, d) and new_cache (B, kc,
-// d) int8; the offline form: cache and new_cache NULL, kc 0.
+// sigmoid table (kernels/conv_block.py::sigmoid_table).  The cache form's
+// staged plan (qasr_conv_block_cached, conv_block_cached.cu): lens NULL,
+// pad_l 0, kc = K - 1, cache (B, kc, d) and new_cache (B, kc, d) int8; the
+// offline form: cache and new_cache NULL, kc 0.
 extern "C" int qasr_conv_block(const int8_t* c8, const int8_t* x8, const int32_t* lens,
                                const int8_t* w_ao, const int8_t* w_ag, const int32_t* dw_p,
                                const int8_t* w_2, const int32_t* vec, const int32_t* sc,

@@ -69,15 +69,21 @@
 // sees slot j at r = L + i - j in [0, L] (pos row r), masked where the
 // slot holds no frame yet (j < L - seen); the slot j = L + i never is.
 // The work is small (at L = 70, n = 4: 71 scores a query row, 4 rows an
-// utterance and head), so the design is plain: one 128-thread block a
-// (batch, head, 16 queries) stages its queries, the L + 16 key / value
-// rows its queries reach and the pos table in shared memory; a warp takes
-// a query row, a lane its scores (dp4a over d_k / 4 words, rows padded to
-// an odd word count so a warp's 32 rows fall on 32 banks), then the row's
-// integer softmax (warp max, i_exp from the table, warp sum, rounding
-// division) and the context (a lane per output dimension, summed over the
-// L + 1 probabilities).  The block of the first query tile also writes the
-// new caches: the last L rows of [cache || new].
+// utterance and head), so what bounds it is latency: one block a (batch,
+// head, 16 queries) with a warp a query (min(n, 16) warps) issues every
+// staging copy at once as cp.async (the queries, the pos rows, the L + 16
+// key rows its queries reach and the i_exp table, built once on the host;
+// then the value rows, a second group); rows are padded to a multiple of
+// 16 bytes plus 16, so a quarter warp's 16-byte reads of 8 rows hit
+// distinct banks.  A warp takes a query row: a lane its scores (dp4a over
+// 16-byte words), then the row's integer softmax (warp max, i_exp from
+// the table, warp sum, rounding division) into int8 probabilities, while
+// the values land; then the context: a lane a dim, dp4a of 4
+// probabilities against 4 slots of V transposed in shared memory (a word
+// realigned by the row's offset with a funnel shift).  The new caches
+// (the last L rows of [cache || new]) are written from the staged rows by
+// the tiles that staged them.  A block a batch with a warp a (head, query)
+// would stage 256-byte rows; not built.
 #include <climits>
 #include <cstdint>
 
@@ -582,95 +588,175 @@ int_attention_stream_kernel(const int8_t* __restrict__ qu, const int8_t* __restr
 // ---- the cache form ------------------------------------------------------
 
 constexpr int kTQC = 16;                 // queries a block
-constexpr int kWarpsC = 4;               // warps a block: a query row each at a time
-constexpr int kThreadsC = 32 * kWarpsC;
+constexpr int kMaxWarpsC = kTQC;         // warps a block: a query row each at a time
 
-// rows [r0, r0 + nrows) of [cache (L rows) || fresh (n rows)], head h of
-// batch b (rs bytes a time step), d_k bytes a row -> smem rows of dkw words
-__device__ __forceinline__ void stage_cat(int* dst, const int8_t* cache, const int8_t* fresh,
-                                          int b, int h, int L, int n, size_t rs, int DK,
-                                          int r0, int nrows, int dkw) {
-  const int dk4 = DK / 4;
-  for (int idx = threadIdx.x; idx < nrows * dk4; idx += kThreadsC) {
-    const int r = idx / dk4, w = idx - r * dk4, j = r0 + r;
-    const int8_t* src = j < L ? cache + (static_cast<size_t>(b) * L + j) * rs
-                              : fresh + (static_cast<size_t>(b) * n + (j - L)) * rs;
-    dst[r * dkw + w] = *reinterpret_cast<const int*>(src + static_cast<size_t>(h) * DK + 4 * w);
+// A staged row of d_k bytes: d_k rounded up to 16, plus 16, so that the
+// 16-byte reads of 8 consecutive rows by a quarter warp fall on distinct
+// banks; the bytes from d_k to the rounded size are zeros.
+__host__ __device__ inline int cached_row_bytes(int DK) { return (DK + 15) / 16 * 16 + 16; }
+
+// V transposed: a row of the window's slots for each of the d_k dims, 4
+// slots a word, an odd word count (a warp's dims on 32 banks) with a word
+// to spare past the window
+__host__ __device__ inline int cached_vt_words(int L) { return ((kTQC + L + 3) / 4 + 1) | 1; }
+
+// a query row's int8 probabilities: the L + 1 slots rounded up to 4, zeros past L
+__host__ __device__ inline int cached_p8_bytes(int L) { return (L + 1 + 3) / 4 * 4; }
+
+// The dynamic shared memory of a block of the cache form, in bytes from
+// the base: Qu, Qv (kTQC rows), the K and V window (kTQC + L rows), the
+// pos rows (L + 1), the i_exp table, V transposed, each warp's L + 1
+// scores and exponents, and each query row's int8 probabilities
+// (kernels/int_attention.py::cached_smem_bytes states the same).
+struct CachedAttLayout {
+  int qu, qv, ks, vs, ps, et, vt, sc, pr, p8, bytes;
+};
+
+__host__ __device__ inline CachedAttLayout cached_att_layout(int DK, int L, int warps) {
+  const int rp = cached_row_bytes(DK);
+  CachedAttLayout l;
+  l.qu = 0;
+  l.qv = l.qu + kTQC * rp;
+  l.ks = l.qv + kTQC * rp;
+  l.vs = l.ks + (kTQC + L) * rp;
+  l.ps = l.vs + (kTQC + L) * rp;
+  l.et = l.ps + (L + 1) * rp;
+  l.vt = l.et + kExpTab * 4;
+  l.sc = l.vt + (rp - 16) * cached_vt_words(L) * 4;
+  l.pr = l.sc + warps * (L + 1) * 4;
+  l.p8 = l.pr + warps * (L + 1) * 4;
+  l.bytes = l.p8 + kTQC * cached_p8_bytes(L);
+  return l;
+}
+
+// piece k of a row: 16 bytes where d_k is a multiple of 16; else 4 bytes,
+// zero-filled from d_k on (the row's padded size)
+__device__ __forceinline__ void cp_row_piece(int8_t* dst, const int8_t* src, int k, int DK,
+                                             bool v16) {
+  if (v16) {
+    qasr_cp16(dst + 16 * k, src + 16 * k, 16);
+  } else {
+    const bool ok = 4 * k < DK;
+    qasr_cp4(dst + 4 * k, ok ? src + 4 * k : src, ok ? 4 : 0);
   }
 }
 
-__global__ void __launch_bounds__(kThreadsC)
+// One block a (batch, head, kTQC queries), a warp a query row at a time
+// (see the note at the top).  Every staging copy is issued at once as
+// cp.async and waited for once: the queries, the [cache || new] key and
+// value rows the tile's queries reach, the pos rows and the i_exp table
+// (exp_tab, built once on the host: kernels/int_attention.py::exp_table).
+// The block that owns a slot of the new caches writes it from the staged
+// rows (the first tile the slots before L; tile t the new frames' slots
+// L + 16 t ..).
+// kNV: 16-byte words of a staged row at most (1, 2, 4 or 8; the row's
+// own count nv may be smaller, DK rounded up to 16 over 16)
+template <int kNV>
+__global__ void __launch_bounds__(32 * kMaxWarpsC)
 int_attention_cached_kernel(const int8_t* __restrict__ qu, const int8_t* __restrict__ qv,
                             const int8_t* __restrict__ k, const int8_t* __restrict__ v,
                             const int8_t* __restrict__ kc, const int8_t* __restrict__ vc,
-                            const int8_t* __restrict__ pos, int8_t* __restrict__ out,
-                            int8_t* __restrict__ kc_new, int8_t* __restrict__ vc_new, int n,
-                            int L, int H, int DK, int seen, int ac_m, int ac_e, int bd_m,
-                            int bd_e, int ctx_m, int ctx_e, int n8) {
-  extern __shared__ int4 smem4[];
-  const int dkw = DK / 4 + 1, dk4 = DK / 4;
+                            const int8_t* __restrict__ pos, const int32_t* __restrict__ exp_tab,
+                            int8_t* __restrict__ out, int8_t* __restrict__ kc_new,
+                            int8_t* __restrict__ vc_new, int n, int L, int H, int DK, int seen,
+                            int ac_m, int ac_e, int bd_m, int bd_e, int ctx_m, int ctx_e,
+                            int n8) {
+  extern __shared__ __align__(16) uint8_t smem_c[];
+  const int nw = blockDim.x >> 5, nt = blockDim.x;
+  const CachedAttLayout lay = cached_att_layout(DK, L, nw);
+  const int rp = cached_row_bytes(DK), dkp = rp - 16, nv = dkp / 16;
   const int b = blockIdx.z, h = blockIdx.y, i0 = blockIdx.x * kTQC;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nq = min(kTQC, n - i0);
-  const size_t rs = static_cast<size_t>(H) * DK;
-  int* Qu = reinterpret_cast<int*>(smem4);
-  int* Qv = Qu + kTQC * dkw;
-  int* Ks = Qv + kTQC * dkw;                // slots i0 .. i0 + nq + L - 1
-  int* Vs = Ks + (kTQC + L) * dkw;
-  int* Ps = Vs + (kTQC + L) * dkw;          // pos rows 0..L
-  int* Sc = Ps + (L + 1) * dkw;             // a warp's L + 1 scores
-  int* Pr = Sc + kWarpsC * (L + 1);         // a warp's L + 1 exponents, then probabilities
-  int* Et = Pr + kWarpsC * (L + 1);         // i_exp's quadratic, kExpTab words
+  const int nq = min(kTQC, n - i0), nwin = nq + L;
+  const size_t rs = static_cast<size_t>(H) * DK, hoff = static_cast<size_t>(h) * DK;
+  const bool v16 = DK % 16 == 0;
+  int8_t* Qu = reinterpret_cast<int8_t*>(smem_c + lay.qu);
+  int8_t* Qv = reinterpret_cast<int8_t*>(smem_c + lay.qv);
+  int8_t* Ks = reinterpret_cast<int8_t*>(smem_c + lay.ks);   // slots i0 .. i0 + nq + L - 1
+  int8_t* Vs = reinterpret_cast<int8_t*>(smem_c + lay.vs);
+  int8_t* Ps = reinterpret_cast<int8_t*>(smem_c + lay.ps);   // pos rows 0..L
+  int* Et = reinterpret_cast<int*>(smem_c + lay.et);         // i_exp's quadratic
+  int* Vt = reinterpret_cast<int*>(smem_c + lay.vt);         // V transposed
+  int* Sc = reinterpret_cast<int*>(smem_c + lay.sc);         // a warp's L + 1 scores
+  int* Pr = reinterpret_cast<int*>(smem_c + lay.pr);         // ... exponents
+  int8_t* P8 = reinterpret_cast<int8_t*>(smem_c + lay.p8);   // a row's int8 probabilities
 
-  for (int idx = tid; idx < nq * dk4; idx += kThreadsC) {
-    const int r = idx / dk4, w = idx - r * dk4;
-    const size_t at = (static_cast<size_t>(b) * n + i0 + r) * rs + static_cast<size_t>(h) * DK +
-                      4 * w;
-    Qu[r * dkw + w] = *reinterpret_cast<const int*>(qu + at);
-    Qv[r * dkw + w] = *reinterpret_cast<const int*>(qv + at);
-  }
-  stage_cat(Ks, kc, k, b, h, L, n, rs, DK, i0, nq + L, dkw);
-  stage_cat(Vs, vc, v, b, h, L, n, rs, DK, i0, nq + L, dkw);
-  for (int idx = tid; idx < (L + 1) * dk4; idx += kThreadsC) {
-    const int r = idx / dk4, w = idx - r * dk4;
-    Ps[r * dkw + w] = *reinterpret_cast<const int*>(pos + r * rs + static_cast<size_t>(h) * DK +
-                                                    4 * w);
-  }
-  for (int r = tid; r < kExpTab; r += kThreadsC) Et[r] = qasr_exp_quad(r);
-  if (blockIdx.x == 0) {
-    // the new caches: row r is slot n + r of [cache || new]
-    for (int idx = tid; idx < L * dk4; idx += kThreadsC) {
-      const int r = idx / dk4, w = idx - r * dk4, j = n + r;
-      const size_t src = (j < L ? (static_cast<size_t>(b) * L + j) * rs
-                                : (static_cast<size_t>(b) * n + (j - L)) * rs) +
-                         static_cast<size_t>(h) * DK + 4 * w;
-      const size_t dst = (static_cast<size_t>(b) * L + r) * rs + static_cast<size_t>(h) * DK +
-                         4 * w;
-      *reinterpret_cast<int*>(kc_new + dst) =
-          *reinterpret_cast<const int*>((j < L ? kc : k) + src);
-      *reinterpret_cast<int*>(vc_new + dst) =
-          *reinterpret_cast<const int*>((j < L ? vc : v) + src);
+  // the staged rows in two lists, a thread copying one piece of a row and
+  // stepping over the rows: Qu, Qv (nq each), the pos rows (L + 1), the K
+  // window (nwin) and the i_exp table in one cp.async group; the V window
+  // (nwin) in a second, which the scores do not wait for
+  {
+    const int pcs = v16 ? DK / 16 : dkp / 4, kk = tid % pcs, step = nt / pcs;
+    const bool copies = tid < step * pcs;
+    const int2 win = make_int2(2 * nq + L + 1, 2 * nq + L + 1 + nwin);
+    for (int vr = tid / pcs; vr < win.y && copies; vr += step) {
+      int8_t* dst;
+      const int8_t* src;
+      if (vr < 2 * nq) {
+        const bool isv = vr >= nq;
+        const int r = isv ? vr - nq : vr;
+        dst = (isv ? Qv : Qu) + r * rp;
+        src = (isv ? qv : qu) + (static_cast<size_t>(b) * n + i0 + r) * rs + hoff;
+      } else if (vr < win.x) {
+        const int r = vr - 2 * nq;
+        dst = Ps + r * rp;
+        src = pos + r * rs + hoff;
+      } else {
+        const int r = vr - win.x, j = i0 + r;
+        dst = Ks + r * rp;
+        src = j < L ? kc + (static_cast<size_t>(b) * L + j) * rs + hoff
+                    : k + (static_cast<size_t>(b) * n + j - L) * rs + hoff;
+      }
+      cp_row_piece(dst, src, kk, DK, v16);
     }
+    for (int idx = tid; idx < kExpTab / 4; idx += nt)
+      qasr_cp16(Et + 4 * idx, exp_tab + 4 * idx, 16);
+    qasr_cp_commit();
+    for (int r = tid / pcs; r < nwin && copies; r += step) {
+      const int j = i0 + r;
+      cp_row_piece(Vs + r * rp,
+                   j < L ? vc + (static_cast<size_t>(b) * L + j) * rs + hoff
+                         : v + (static_cast<size_t>(b) * n + j - L) * rs + hoff,
+                   kk, DK, v16);
+    }
+    qasr_cp_commit();
   }
+  qasr_cp_wait<1>();
   __syncthreads();
 
+  // the scores and the softmax of each query row: a warp a row, a lane its
+  // slots; the row's int8 probabilities kept for the context
   const ScoreRq rq = score_rq(ac_m, ac_e, bd_m, bd_e, DK);
-  const QasrRq rq_ctx = qasr_rq_make(ctx_m, ctx_e);
+  const int np4 = cached_p8_bytes(L) / 4;  // probability words of a row
   int* S = Sc + warp * (L + 1);
   int* P = Pr + warp * (L + 1);
-  for (int il = warp; il < nq; il += kWarpsC) {
+  for (int il = warp; il < nq; il += nw) {
     const int i = i0 + il;
-    const int* qa = Qu + il * dkw;
-    const int* qb = Qv + il * dkw;
+    int4 qa[kNV], qb[kNV];
+#pragma unroll
+    for (int w = 0; w < kNV; ++w) {
+      qa[w] = w < nv ? reinterpret_cast<const int4*>(Qu + il * rp)[w] : make_int4(0, 0, 0, 0);
+      qb[w] = w < nv ? reinterpret_cast<const int4*>(Qv + il * rp)[w] : make_int4(0, 0, 0, 0);
+    }
     // slot j = i + c sits at relative offset r = L - c: pos row L - c
     int m = INT_MIN;
     for (int c = lane; c <= L; c += 32) {
-      const int* kr = Ks + (il + c) * dkw;
-      const int* pr = Ps + (L - c) * dkw;
+      const int4* kr = reinterpret_cast<const int4*>(Ks + (il + c) * rp);
+      const int4* pr = reinterpret_cast<const int4*>(Ps + (L - c) * rp);
       int ac = 0, bd = 0;
-      for (int w = 0; w < dk4; ++w) {
-        ac = __dp4a(qa[w], kr[w], ac);
-        bd = __dp4a(qb[w], pr[w], bd);
+#pragma unroll
+      for (int w = 0; w < kNV; ++w) {
+        if (w < nv) {
+          const int4 y = kr[w], yb = pr[w];
+          ac = __dp4a(qa[w].x, y.x, ac);
+          ac = __dp4a(qa[w].y, y.y, ac);
+          ac = __dp4a(qa[w].z, y.z, ac);
+          ac = __dp4a(qa[w].w, y.w, ac);
+          bd = __dp4a(qb[w].x, yb.x, bd);
+          bd = __dp4a(qb[w].y, yb.y, bd);
+          bd = __dp4a(qb[w].z, yb.z, bd);
+          bd = __dp4a(qb[w].w, yb.w, bd);
+        }
       }
       int sc = rq.f64 ? qasr_rq_f64(ac, rq.f_ac) + qasr_rq_f64(bd, rq.f_bd)
                       : qasr_rq(ac, rq.ac) + qasr_rq(bd, rq.bd);
@@ -687,18 +773,99 @@ int_attention_cached_kernel(const int8_t* __restrict__ qu, const int8_t* __restr
       sum += e;
     }
     const unsigned den = static_cast<unsigned>(max(qasr_warp_sum(sum), 1));
-    for (int c = lane; c <= L; c += 32)
-      P[c] = static_cast<int>((static_cast<unsigned>(P[c] * n8) + (den >> 1)) / den);
-    __syncwarp();
-    for (int dd = lane; dd < DK; dd += 32) {
-      const int8_t* vcol = reinterpret_cast<const int8_t*>(Vs + il * dkw) + dd;
-      int acc = 0;
-      for (int c = 0; c <= L; ++c) acc += P[c] * static_cast<int>(vcol[4 * c * dkw]);
-      out[(static_cast<size_t>(b) * n + i) * rs + static_cast<size_t>(h) * DK + dd] =
-          static_cast<int8_t>(qasr_clamp(qasr_rq(acc, rq_ctx), -n8, n8 - 1));
-    }
-    __syncwarp();   // the row's scores and probabilities are read before the next row's
+    int8_t* pb = P8 + il * 4 * np4;
+    for (int c = lane; c < 4 * np4; c += 32)
+      pb[c] = c <= L ? static_cast<int8_t>((static_cast<unsigned>(P[c] * n8) + (den >> 1)) / den)
+                     : 0;
+    __syncwarp();   // the row's scores and exponents are read before the next row's
   }
+  qasr_cp_wait<0>();
+  __syncthreads();
+
+  // the new caches: row r is slot n + r of [cache || new], written by the
+  // tile that staged it (16 or 4 bytes a thread)
+  {
+    const int lo = blockIdx.x == 0 ? 0 : L + i0 - n;   // the rows this tile owns: [lo, hi)
+    const int hi = min(L, L + i0 + kTQC - n);
+    const int r0 = max(lo, 0), rows = max(hi - r0, 0);
+    const int ps = v16 ? 16 : 4, pr = DK / ps, kk = tid % pr, step = nt / pr;
+    for (int vr = tid / pr; vr < 2 * rows && tid < step * pr; vr += step) {
+      const bool isv = vr >= rows;
+      const int r = r0 + (isv ? vr - rows : vr);
+      const int8_t* src = (isv ? Vs : Ks) + (n + r - i0) * rp + ps * kk;
+      int8_t* dst =
+          (isv ? vc_new : kc_new) + (static_cast<size_t>(b) * L + r) * rs + hoff + ps * kk;
+      if (v16)
+        *reinterpret_cast<int4*>(dst) = *reinterpret_cast<const int4*>(src);
+      else
+        *reinterpret_cast<int*>(dst) = *reinterpret_cast<const int*>(src);
+    }
+  }
+
+  // V transposed into Vt: 4 x 4 byte blocks (4 slots x 4 dims) of the
+  // window, slot quads past it read whatever follows Vs (their bytes only
+  // ever meet zero probabilities)
+  const int vtw = cached_vt_words(L);
+  {
+    const int dq4 = dkp / 4, dq = tid % dq4, step = nt / dq4;
+    for (int sq = tid / dq4; sq < (nwin + 3) / 4 && tid < step * dq4; sq += step) {
+      unsigned a[4], o[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        a[i] = *reinterpret_cast<const unsigned*>(Vs + (4 * sq + i) * rp + 4 * dq);
+      qasr_transpose4(a, o);
+#pragma unroll
+      for (int kq = 0; kq < 4; ++kq) Vt[(4 * dq + kq) * vtw + sq] = static_cast<int>(o[kq]);
+    }
+  }
+  __syncthreads();
+
+  // the context of each query row: a warp a row, a lane two dims (dd, dd
+  // + 32)
+  const QasrRq rq_ctx = qasr_rq_make(ctx_m, ctx_e);
+  for (int il = warp; il < nq; il += nw) {
+    const int i = i0 + il;
+    const int* Pw = reinterpret_cast<const int*>(P8 + il * 4 * np4);
+    // the row's probabilities 4 a word against V's slots il + 4 w .. (Vt's
+    // words realigned by il mod 4 bytes)
+    const int sh = 8 * (il & 3);
+    for (int dd = lane; dd < DK; dd += 64) {
+      const bool two = dd + 32 < DK;
+      const int* v0 = Vt + dd * vtw + (il >> 2);
+      const int* v1 = two ? v0 + 32 * vtw : v0;
+      int a0 = 0, a1 = 0, lo0 = v0[0], lo1 = v1[0];
+#pragma unroll 2
+      for (int w = 0; w < np4; ++w) {
+        const int pw = Pw[w], hi0 = v0[w + 1], hi1 = v1[w + 1];
+        a0 = __dp4a(pw, static_cast<int>(__funnelshift_r(lo0, hi0, sh)), a0);
+        a1 = __dp4a(pw, static_cast<int>(__funnelshift_r(lo1, hi1, sh)), a1);
+        lo0 = hi0;
+        lo1 = hi1;
+      }
+      int8_t* orow = out + (static_cast<size_t>(b) * n + i) * rs + hoff;
+      orow[dd] = static_cast<int8_t>(qasr_clamp(qasr_rq(a0, rq_ctx), -n8, n8 - 1));
+      if (two) orow[dd + 32] = static_cast<int8_t>(qasr_clamp(qasr_rq(a1, rq_ctx), -n8, n8 - 1));
+    }
+  }
+}
+
+template <int kNV>
+cudaError_t launch_cached(const dim3& grid, int threads, size_t shm, cudaStream_t s,
+                          const int8_t* qu, const int8_t* qv, const int8_t* k, const int8_t* v,
+                          const int8_t* kc, const int8_t* vc, const int8_t* pos,
+                          const int32_t* exp_tab, int8_t* out, int8_t* kc_new, int8_t* vc_new,
+                          int n, int L, int H, int DK, int seen, int ac_m, int ac_e, int bd_m,
+                          int bd_e, int ctx_m, int ctx_e, int n8) {
+  if (shm > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(int_attention_cached_kernel<kNV>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 static_cast<int>(shm));
+    if (err != cudaSuccess) return err;
+  }
+  int_attention_cached_kernel<kNV><<<grid, threads, shm, s>>>(
+      qu, qv, k, v, kc, vc, pos, exp_tab, out, kc_new, vc_new, n, L, H, DK, seen, ac_m, ac_e,
+      bd_m, bd_e, ctx_m, ctx_e, n8);
+  return cudaGetLastError();
 }
 
 template <int kDKP>
@@ -753,30 +920,28 @@ extern "C" int qasr_int_attention(const int8_t* qu, const int8_t* qv, const int8
 
 // The cache form: qu, qv, k, v (B, n, H, DK) int8 of the new frames, kc,
 // vc (B, L, H, DK) the cached ones, pos (L + 1, H, DK) the pos rows of
-// offsets 0..L, seen (<= L: the frames consumed before, capped) -> out
-// (B, n, H * DK) int8 and the new caches kc_new, vc_new (B, L, H, DK).
-// DK a multiple of 4 up to 128, L >= 1 (kernels/int_attention.py::
-// int_attention_cached checks both and the shared memory).
+// offsets 0..L, exp_tab the kExpTab-entry i_exp table (kernels/
+// int_attention.py::exp_table), seen (<= L: the frames consumed before,
+// capped) -> out (B, n, H * DK) int8 and the new caches kc_new, vc_new (B,
+// L, H, DK).  DK a multiple of 4 up to 128, L >= 1 (kernels/
+// int_attention.py::int_attention_cached checks both and the shared
+// memory).  A block has min(n, 16) warps.
 extern "C" int qasr_int_attention_cached(const int8_t* qu, const int8_t* qv, const int8_t* k,
                                          const int8_t* v, const int8_t* kc, const int8_t* vc,
-                                         const int8_t* pos, int8_t* out, int8_t* kc_new,
-                                         int8_t* vc_new, int B, int n, int L, int H, int DK,
-                                         int seen, int ac_m, int ac_e, int bd_m, int bd_e,
-                                         int ctx_m, int ctx_e, int n8, void* stream) {
-  if (DK % 4 != 0 || DK < 4 || DK > 128 || L < 1 || n < 1 || B < 1)
+                                         const int8_t* pos, const int32_t* exp_tab, int8_t* out,
+                                         int8_t* kc_new, int8_t* vc_new, int B, int n, int L,
+                                         int H, int DK, int seen, int ac_m, int ac_e, int bd_m,
+                                         int bd_e, int ctx_m, int ctx_e, int n8, void* stream) {
+  if (DK % 4 != 0 || DK < 4 || DK > 128 || L < 1 || n < 1 || B < 1 || exp_tab == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int dkw = DK / 4 + 1;
-  const size_t shm = 4 * (static_cast<size_t>(2 * kTQC + 2 * (kTQC + L) + L + 1) * dkw +
-                          static_cast<size_t>(kWarpsC) * 2 * (L + 1) + kExpTab);
-  if (shm > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        int_attention_cached_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(shm));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  const int warps = n < kMaxWarpsC ? n : kMaxWarpsC;
+  const size_t shm = static_cast<size_t>(cached_att_layout(DK, L, warps).bytes);
   const dim3 grid((n + kTQC - 1) / kTQC, H, B);
-  int_attention_cached_kernel<<<grid, kThreadsC, shm, static_cast<cudaStream_t>(stream)>>>(
-      qu, qv, k, v, kc, vc, pos, out, kc_new, vc_new, n, L, H, DK, seen, ac_m, ac_e, bd_m, bd_e,
-      ctx_m, ctx_e, n8);
-  return static_cast<int>(cudaGetLastError());
+  const int nv = (cached_row_bytes(DK) - 16) / 16;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* fn = nv <= 1 ? launch_cached<1> : nv <= 2 ? launch_cached<2>
+           : nv <= 4 ? launch_cached<4> : launch_cached<8>;
+  return static_cast<int>(fn(grid, 32 * warps, shm, s, qu, qv, k, v, kc, vc, pos, exp_tab, out,
+                             kc_new, vc_new, n, L, H, DK, seen, ac_m, ac_e, bd_m, bd_e, ctx_m,
+                             ctx_e, n8));
 }

@@ -50,6 +50,7 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "cluster.cuh"
 #include "conformer_int.cuh"
 #include "gemm_s8.cuh"
 #include "requant.cuh"
@@ -428,19 +429,6 @@ __device__ __forceinline__ int ldi(const int* p) {
   }
 }
 
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release;" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_sync() {
-  cluster_arrive();
-  cluster_wait();
-}
-
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(gemm_s8::smem_u32(dst)),
                "l"(src)
@@ -453,15 +441,6 @@ __device__ __forceinline__ void cp_async_commit() {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;" ::: "memory");
-}
-
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
-      :
-      : "r"(gemm_s8::smem_u32(dst)), "l"(src), "r"(bytes), "r"(gemm_s8::smem_u32(bar))
-      : "memory");
 }
 
 // The dot products of a step run on groups of 8 lanes, 4 a warp, kSlots in
@@ -550,7 +529,7 @@ __global__ void __launch_bounds__(kThreads, 1) rnnt_greedy_kernel(const GreedyPa
       gemm_s8::mbar_expect_tx(bar, static_cast<uint32_t>(blob_bytes));
       const int8_t* src = p.blob + static_cast<long long>(rank) * blob_bytes;
       for (int o = 0; o < blob_bytes; o += kLoadChunk)
-        bulk_load(smem + o, src + o, min(kLoadChunk, blob_bytes - o), bar);
+        qasr_bulk_load(smem + o, src + o, min(kLoadChunk, blob_bytes - o), bar);
     }
   }
   bool weights_ready = !kRes;
@@ -668,7 +647,7 @@ __global__ void __launch_bounds__(kThreads, 1) rnnt_greedy_kernel(const GreedyPa
     __syncthreads();   // vec is read; it now takes the first frames
     frame_entry(nr, b0);
     __syncthreads();
-    cluster_sync();    // every CTA's state is in place before any push
+    qasr_cluster_sync();    // every CTA's state is in place before any push
 
     const int max_steps = T * cap + 1;
     for (int sc = 0;; ++sc) {
@@ -688,7 +667,7 @@ __global__ void __launch_bounds__(kThreads, 1) rnnt_greedy_kernel(const GreedyPa
         int* dst = part + ((par * R + r) * C + rank) * V + v;
         for (int q = q0; q < C; q += fan) *cluster.map_shared_rank(dst, q) = s;
       }
-      cluster_sync();
+      qasr_cluster_sync();
       // B: the logits, the argmax and the row's decisions (a warp a row)
       if (warp < nr) {
         Row& w = rs[warp];
@@ -816,12 +795,12 @@ __global__ void __launch_bounds__(kThreads, 1) rnnt_greedy_kernel(const GreedyPa
               *cluster.map_shared_rank(hrow(r, l, rs[r].epar ^ 1) + u_lo + u, gl) =
                   static_cast<int8_t>(h_new);
           }
-          cluster_arrive();
+          qasr_cluster_arrive();
           if (l == 0 && any_enter) {
             frame_entry(nr, b0);
             __syncthreads();   // its f_j and x8 are written before g_j reads them
           }
-          cluster_wait();
+          qasr_cluster_wait();
         }
         pred_term(nr, false);
       } else if (any_enter) {
@@ -854,7 +833,7 @@ __global__ void __launch_bounds__(kThreads, 1) rnnt_greedy_kernel(const GreedyPa
       for (long long i = 2 + rs[r].nsym + rank * kThreads + tid; i < row_out; i += C * kThreads)
         p.out[(b0 + r) * row_out + i] = -1;
   }
-  cluster_sync();   // no CTA leaves while another may still read its memory
+  qasr_cluster_sync();   // no CTA leaves while another may still read its memory
 }
 
 // Dependent rounds of one cluster barrier, each after every CTA has pushed
@@ -870,27 +849,11 @@ __global__ void __launch_bounds__(kThreads, 1) cluster_exchange_kernel(int iters
   for (int i = 0; i < iters; ++i) {
     if (exchange && threadIdx.x < n)
       *cluster.map_shared_rank(&buf[i & 1][rank], static_cast<int>(threadIdx.x)) = acc + i;
-    cluster_sync();
+    qasr_cluster_sync();
     if (exchange) acc += buf[i & 1][threadIdx.x % n];
   }
   if (threadIdx.x == 0) out[blockIdx.x] = acc;
-  cluster_sync();
-}
-
-cudaLaunchConfig_t launch_config(int blocks, int cluster, int smem, void* stream,
-                                 cudaLaunchAttribute* attr) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(blocks);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = cluster;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
+  qasr_cluster_sync();
 }
 
 // The clusters of `cluster` CTAs of the form that can be resident at once
@@ -911,7 +874,8 @@ int max_clusters(bool res, int cluster, int smem, cudaError_t* err) {
                               gemm_s8::kSmemLimit);
   if (*err != cudaSuccess) return 0;
   cudaLaunchAttribute attr;
-  cudaLaunchConfig_t cfg = launch_config(cluster, cluster, smem, nullptr, &attr);
+  cudaLaunchConfig_t cfg =
+      qasr_cluster_launch_config(cluster, kThreads, cluster, smem, nullptr, &attr);
   int n = 0;
   *err = cudaOccupancyMaxActiveClusters(&n, fn, &cfg);
   if (*err != cudaSuccess) return 0;
@@ -983,7 +947,8 @@ extern "C" int qasr_rnnt_greedy(const float* enc, const int32_t* lens, const int
   p.groups = (a[kBatch] + rows - 1) / rows;
   const int clusters = p.groups < maxc ? p.groups : maxc;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t lc = launch_config(clusters * C, C, smem, stream, &attr);
+  const cudaLaunchConfig_t lc =
+      qasr_cluster_launch_config(clusters * C, kThreads, C, smem, stream, &attr);
   err = res ? cudaLaunchKernelEx(&lc, rnnt_greedy_kernel<true>, p)
             : cudaLaunchKernelEx(&lc, rnnt_greedy_kernel<false>, p);
   cfg[0] = res;
@@ -1001,8 +966,8 @@ extern "C" int qasr_cluster_exchange(int iters, int cluster, int exchange, int c
   if (iters < 0 || cluster < 1 || cluster > kMaxCluster || clusters < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t lc = launch_config(clusters * cluster, cluster, 0, stream,
-                                                    &attr);
+  const cudaLaunchConfig_t lc =
+      qasr_cluster_launch_config(clusters * cluster, kThreads, cluster, 0, stream, &attr);
   const cudaError_t err = cudaLaunchKernelEx(&lc, cluster_exchange_kernel, iters, exchange, out);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }

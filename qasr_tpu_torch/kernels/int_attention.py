@@ -21,9 +21,14 @@ Conformer, att_context (L, 0)): n new queries attend over [cache (L) ||
 new (n)] keys, each to the L + 1 slots j in [i, L + i] whose relative
 offset r = L + i - j indexes the (L + 1)-row pos table, masked where the
 slot holds no frame yet (j < L - seen).  One block a (batch, head, 16
-queries); a warp a query row: the L + 1 scores by dp4a from shared
-memory, the integer softmax over them, the context, and the new caches
-(the last L rows of [cache || new]) written by the first query tile.
+queries) with min(n, 16) warps: every staging copy (queries, the [cache
+|| new] key and value rows, the pos rows, the i_exp table of
+``exp_table``) issued at once as cp.async, the value rows in a second
+group; a warp a query row: the L + 1 scores by dp4a from shared memory
+and the integer softmax over them while the values land, then the
+context by dp4a of its int8 probabilities against V transposed in shared
+memory; the new caches (the last L rows of [cache || new]) written from
+the staged rows.
 """
 from __future__ import annotations
 
@@ -32,7 +37,7 @@ import torch
 from qasr_tpu_torch.kernels import _build
 from qasr_tpu_torch.kernels.checks import check_vec, check_x
 from qasr_tpu_torch.models.conformer import attention_mask
-from qasr_tpu_torch.ops.integer_softmax import i_softmax_grid
+from qasr_tpu_torch.ops.integer_softmax import Q_B, Q_C, Q_LN2, i_softmax_grid
 from qasr_tpu_torch.ops.quant_prims import dyadic_requant_static
 from qasr_tpu_torch.quantize.conformer_int import clip8
 
@@ -120,17 +125,40 @@ def int_attention_cached_plain(qu8, qv8, k8, v8, k_cache, v_cache, p8, seen: int
     return c8, k_cat[:, n:].contiguous(), v_cat[:, n:].contiguous()
 
 
-TQ_CACHE, CACHE_WARPS = 16, 4   # queries a block, warps a block (one query row a warp)
+TQ_CACHE, CACHE_WARPS = 16, 16   # queries a block; warps a block at most (a query row each)
+EXP_TAB = -Q_LN2                 # entries of the i_exp table (conformer_int.cuh kExpTab)
 
 
-def cached_smem_bytes(left: int, d_k: int) -> int:
-    """Dynamic shared memory of one block of the cache form
-    (csrc/int_attention.cu's ``int_attention_cached_kernel``): Qu, Qv, the
-    K and V window (TQ_CACHE + L rows), the pos table (L + 1 rows), each
-    row d_k / 4 + 1 words, and a warp's L + 1 scores and probabilities."""
-    dkw = d_k // 4 + 1
-    return 4 * ((2 * TQ_CACHE + 2 * (TQ_CACHE + left) + left + 1) * dkw
-                + CACHE_WARPS * 2 * (left + 1) + 568)
+def exp_table(device) -> torch.Tensor:
+    """i_exp's quadratic at r in [0, EXP_TAB): (Q_B - r)^2 + Q_C as int32,
+    the table that the cache form reads (csrc/conformer_int.cuh
+    ``qasr_exp_quad``; i_exp(-a) >> 4 is entry a mod 568 shifted right by
+    a // 568 + 4).  Built once a device and cached."""
+    dev = torch.device(device)
+    tab = _EXP_TABLES.get(dev)
+    if tab is None:
+        r = torch.arange(EXP_TAB, dtype=torch.int32)
+        tab = _EXP_TABLES[dev] = ((Q_B - r) * (Q_B - r) + Q_C).to(dev)
+    return tab
+
+
+_EXP_TABLES = {}
+
+
+def cached_smem_bytes(left: int, d_k: int, warps: int = CACHE_WARPS) -> int:
+    """Dynamic shared memory of one block of the cache form with ``warps``
+    warps, by default its most (csrc/int_attention.cu's
+    ``cached_att_layout``): Qu, Qv (TQ_CACHE rows), the K and V window
+    (TQ_CACHE + L rows), the pos table (L + 1 rows), each row d_k rounded
+    up to 16 bytes plus 16, the i_exp table, V transposed (a row of the
+    window's slots, 4 a word, an odd word count, for each padded dim), each
+    warp's L + 1 scores and exponents, and each query row's int8
+    probabilities."""
+    dkp = -(-d_k // 16) * 16
+    vt_words = ((TQ_CACHE + left + 3) // 4 + 1) | 1
+    return ((2 * TQ_CACHE + 2 * (TQ_CACHE + left) + left + 1) * (dkp + 16) + 4 * EXP_TAB
+            + dkp * vt_words * 4 + warps * 2 * 4 * (left + 1)
+            + TQ_CACHE * -(-(left + 1) // 4) * 4)
 
 
 def int_attention_cached(qu8, qv8, k8, v8, k_cache, v_cache, p8, seen: int, *, ac, bd,
@@ -173,7 +201,8 @@ def int_attention_cached(qu8, qv8, k8, v8, k_cache, v_cache, p8, seen: int, *, a
     v_new = torch.empty_like(v_cache)
     rc = _build.library().qasr_int_attention_cached(
         _build.ptr(qu8), _build.ptr(qv8), _build.ptr(k8), _build.ptr(v8),
-        _build.ptr(k_cache), _build.ptr(v_cache), _build.ptr(p8), _build.ptr(out),
+        _build.ptr(k_cache), _build.ptr(v_cache), _build.ptr(p8), _build.ptr(exp_table(dev)),
+        _build.ptr(out),
         _build.ptr(k_new), _build.ptr(v_new), b, n, left, h, d_k, min(seen, left),
         int(ac[0]), ac[1], int(bd[0]), bd[1], int(ctx_rq[0]), ctx_rq[1],
         2 ** (nbits - 1) - 1, _build.stream_of(qu8))

@@ -539,7 +539,11 @@ def stream_kernel_launches(cfg: ConformerConfig) -> Dict[str, int]:
     """Kernel launches of one ``frozen_stream_step``: Kernel 5
     for the pre projection and four a layer (q_u, q_v, k, v), Kernel 6
     twice a layer (the FFN halves), and a layer's Kernel 3 and Kernel 4
-    cache forms once each (Kernel 4 counts a call, its two stages)."""
+    cache forms once each.  Kernel 4's cache form is one cluster launch a
+    call where an utterance's n new frames fit its 32-row tile (every
+    stream slice up to 1.28 s); past that its C entry runs the offline
+    form's two stages, counted as one call (``conv_block_cached.forms``
+    says which form ran)."""
     n = cfg.n_layers
     return {"lin_epilogue": 1 + 4 * n, "ffn_ln": 2 * n, "int_attention_cached": n,
             "conv_block_cached": n}
