@@ -207,19 +207,22 @@ phase exits non-zero before the result line.  Phases:
    call, exact here); phase 10's seconds.
 
 11. The rest of the Jasper family and VAD: (a) Kernels 2 and 8 in their
-   grouped forms (groups 2 / 4 / 8 at QuartzNet15x5-g4's and Jasper's
-   widths, Cout/g 64 to 192, with and without the prologue, every
-   epilogue mode, GroupShuffle in the store or not, int8 and uint8
-   operands) and hardtanh's ceiling (per channel and scalar, prologue and
-   epilogue) in Kernels 1, 2, 7 and 8 against their plain versions,
-   exact, and the group widths they refuse; (b) QuartzNet15x5-g4 W6A6
+   grouped forms (pw_gemm_grouped.cu, dense_conv_grouped.cu: groups 2 /
+   3 / 4 / 6 / 8 at QuartzNet15x5-g4's and Jasper's widths, Cin/g 16 /
+   48 / 64 / 80 / 128 / 192, Cout/g ragged against the column tile, N = 1
+   and ragged lengths, Kernel 2 past one persistent wave, with and
+   without the prologue on int8 and int32 producers, every epilogue mode,
+   GroupShuffle in the store or not, int8 and uint8 operands) and
+   hardtanh's ceiling (per channel and scalar, prologue and epilogue) in
+   Kernels 1, 2, 7 and 8 against their plain versions, exact, and the
+   group widths they refuse; (b) QuartzNet15x5-g4 W6A6
    (static_e, per_channel) and QuartzNet15x5 with hardtanh (static_e)
    reproduce their JAX golden records on the kernel executors and the
    plain path, and the Jasper-width grouped block (C 768, K 25, 4 groups,
    residual) calibrates on the card with ranges equal to the plain
    QuantExec's; (c) 4 seeded requests through transcribe on each: the
-   planned launches, no call of a plain version, the plain executor's
-   ids; (d) QuartzNet15x5-g4 and hardtanh calibration against the plain
+   planned launches (the grouped forms' as the plan's grouped convs), no
+   call of a plain version, the plain executor's ids; (d) QuartzNet15x5-g4 and hardtanh calibration against the plain
    QuantExec; (e) their B=64 x 15 s steps beside QuartzNet15x5 W6A6
    static_e's, and the grouped Kernel 2 (beside torch._int_mm per group)
    and Kernel 8 (beside float64 conv1d(groups=4)) at their serving sites
@@ -346,11 +349,13 @@ KERNELS = ("dw_conv", "pw_gemm", "requant", "int_attention", "conv_block", "lin_
 GREEDY_FORMS = ("rnnt_greedy_resident", "rnnt_greedy_streamed")
 CONV_FORMS = ("conv_block_cached_cluster", "conv_block_cached_staged")
 # the device kernels each wrapper launches (a substring of their names)
-KERNEL_SYMBOLS = {"dw_conv": "dw_conv_kernel", "pw_gemm": "pw_gemm_kernel",
+KERNEL_SYMBOLS = {"dw_conv": "dw_conv_kernel",
+                  "pw_gemm": ("pw_gemm_kernel", "pw_gemm_grouped_kernel"),
                   "requant": "requant_kernel",
                   "int_attention": ("int_attention_kernel", "int_attention_stream_kernel"),
                   "conv_block": "conv_block_stage", "lin_epilogue": "lin_epilogue_kernel",
-                  "ffn_ln": "ffn_ln_kernel", "dense_conv": "dense_conv_kernel",
+                  "ffn_ln": "ffn_ln_kernel",
+                  "dense_conv": ("dense_conv_kernel", "dense_conv_grouped_kernel"),
                   "int_attention_cached": "int_attention_cached_kernel",
                   "conv_block_cached": ("conv_block_cached_kernel", "conv_block_cached_stage"),
                   "rnnt_pred": "rnnt_pred_step_kernel", "rnnt_joint": "rnnt_joint_kernel",
@@ -510,6 +515,7 @@ def reset_counts() -> None:
     ws = wrappers()
     for w in ws.values():
         w.launches = 0
+    ws["pw_gemm"].grouped_launches = ws["dense_conv"].grouped_launches = 0
     for name in ("rnnt_greedy", "conv_block_cached"):
         for form in ws[name].forms:
             ws[name].forms[form] = 0
@@ -3375,16 +3381,26 @@ def phase_w8a8(chk, dev, card, report, qn6):
 # Jasper family and MatchboxNet VAD on the card
 # ---------------------------------------------------------------------------
 
-# Kernel 2's grouped checks: (Cin, Cout, groups) at N = B * T in {609, 1, 37}
-# (PW_BT): QuartzNet15x5-g4's 256 / 512 sites, groups 2 and 8, 16 input
-# channels a group (the narrowest the kernel takes) and Cout/g 32 (BN 32)
+# Kernel 2's grouped checks (pw_gemm_grouped.cu): (Cin, Cout, groups) at N =
+# B * T in {609, 1, 37} (PW_BT): QuartzNet15x5-g4's 256 / 512 sites, groups
+# 2 and 8, Cin/g 16 (the narrowest the kernel takes), 48, 80 (the thread-
+# filled A with a zero pad a group) and 192, Cout/g not a multiple of the
+# column tile's (40, 48, 50), 3 and 6 groups (a tile of 1 or 2 of them)
 GROUPED_PW = ((256, 256, 2), (256, 256, 4), (512, 512, 4), (256, 512, 4), (512, 512, 8),
-              (128, 256, 8), (1024, 512, 8))
-# Kernel 8's grouped checks: (K, Cin, Cout, stride, dilation, groups) -- the
-# Jasper-width block's site (768, K 25, 4 groups: Cout/g 192), Cout/g 64 (the
-# narrow tile) at 4 and 8 groups, 2 groups at Cout/g 192, stride 2, dilation 2
+              (128, 256, 8), (1024, 512, 8), (192, 160, 4), (160, 96, 2), (768, 768, 4),
+              (240, 150, 3), (384, 192, 6))
+# Kernel 2 grouped past one persistent wave (row tiles > 2 x 132 blocks):
+# (B, T) and the shapes
+GROUPED_PW_WAVE, GROUPED_PW_WAVE_SHAPES = (8, 6007), ((512, 512, 4), (256, 256, 4), (256, 256, 8))
+# Kernel 8's grouped checks (dense_conv_grouped.cu): (K, Cin, Cout, stride,
+# dilation, groups) -- the Jasper-width block's site (768, K 25, 4 groups:
+# Cout/g 192), Cout/g 64 at 4 and 8 groups, 2 groups at Cout/g 192, stride 2,
+# dilation 2, Cin/g 48 / 80 / 16 (K steps past the group: zero weights),
+# 3 and 6 groups
 GROUPED_DENSE = ((25, 768, 768, 1, 1, 4), (5, 256, 256, 1, 1, 4), (11, 512, 512, 1, 1, 8),
-                 (13, 256, 384, 1, 1, 2), (7, 128, 256, 2, 1, 2), (9, 512, 512, 1, 2, 2))
+                 (13, 256, 384, 1, 1, 2), (7, 128, 256, 2, 1, 2), (9, 512, 512, 1, 2, 2),
+                 (5, 192, 160, 1, 1, 4), (7, 160, 96, 1, 1, 2), (5, 128, 128, 1, 1, 8),
+                 (3, 384, 240, 1, 1, 3), (5, 384, 192, 1, 1, 6))
 
 
 def phase_grouped_kernels(chk, dev):
@@ -3478,6 +3494,22 @@ def phase_grouped_kernels(chk, dev):
             kw = dict(pro, **modes[mode])
             chk.equal("pw_gemm", f"pw_gemm N={b * tt} {cin}->{cout} g={g} {pname}, {mode}",
                       pw_gemm(x, wt, groups=g, **kw), pw_gemm_plain(x, wt, groups=g, **kw))
+    # past one persistent wave: every block walks several row tiles, each A
+    # stage refilled (by TMA, and by the warpgroup with the prologue on)
+    b, tt = GROUPED_PW_WAVE
+    for cin, cout, g in GROUPED_PW_WAVE_SHAPES:
+        wt = t(-31, 32, (cout, cin // g), np.int8)
+        modes = modes_for(cout, b, tt, math.sqrt(cin // g) * 40 * 18, g)
+        x = t(-64, 64, (b, tt, cin), np.int8)
+        for name in ("requant shuffle", "join shuffle", "none"):
+            chk.equal("pw_gemm", f"pw_gemm N={b * tt} {cin}->{cout} g={g} int8 in, {name}",
+                      pw_gemm(x, wt, groups=g, **modes[name]),
+                      pw_gemm_plain(x, wt, groups=g, **modes[name]))
+        pname, (xp, pro) = next(iter(prologues(cin, b, tt).items()))
+        kw = dict(pro, **modes["requant+hardtanh[c] u8 shuffle"])
+        chk.equal("pw_gemm", f"pw_gemm N={b * tt} {cin}->{cout} g={g} {pname}",
+                  pw_gemm(xp, wt, groups=g, **kw), pw_gemm_plain(xp, wt, groups=g, **kw))
+        del x, xp
     n_pw = chk.n - n0
 
     # Kernel 8, grouped
@@ -3601,9 +3633,10 @@ def phase_grouped_kernels(chk, dev):
                 refused += 1
             else:
                 raise AssertionError(f"{fn.__name__}: 8 input channels a group was taken")
-    log(f"[11a] exact: pw_gemm grouped {n_pw} (groups 2/4/8 at {len(GROUPED_PW)} shapes x N in "
-        f"{[b * t for b, t in PW_BT]}, 9 epilogue modes incl. GroupShuffle and hardtanh, "
-        f"int8 / uint8 A, 6 prologue forms), dense_conv grouped {n_dense} "
+    log(f"[11a] exact: pw_gemm grouped {n_pw} (groups 2/3/4/6/8 at {len(GROUPED_PW)} shapes x N "
+        f"in {[b * t for b, t in PW_BT]} and {len(GROUPED_PW_WAVE_SHAPES)} at N = "
+        f"{GROUPED_PW_WAVE[0] * GROUPED_PW_WAVE[1]}, 9 epilogue modes incl. GroupShuffle and "
+        f"hardtanh, int8 / uint8 A, 6 prologue forms), dense_conv grouped {n_dense} "
         f"({len(GROUPED_DENSE)} sites x 3 shapes), hardtanh ceilings in Kernels 2 + 8 "
         f"{n_cap28}, Kernel 1 {n_cap1}, Kernel 7 {n_cap7}; {refused} narrow groups refused "
         f"(NotImplementedError)")
@@ -3729,10 +3762,31 @@ def phase_grouped_golden(dev):
     return models, tables
 
 
+def grouped_sites(plan):
+    """The launches of the grouped forms of Kernels 2 and 8 in one frozen
+    forward: its grouped pointwise and grouped dense convs (a depthwise
+    conv's groups are its channels: Kernel 1)."""
+    from qasr_tpu_torch.models.jasper import is_depthwise, is_pointwise
+
+    specs = [s for bp in plan.blocks for s in bp.convs + bp.res
+             if s.groups > 1 and not is_depthwise(s)]
+    pw = sum(map(is_pointwise, specs))
+    return {"pw_gemm_grouped": pw, "dense_conv_grouped": len(specs) - pw}
+
+
+def grouped_counts():
+    from qasr_tpu_torch.kernels.dense_conv import dense_conv
+    from qasr_tpu_torch.kernels.pw_gemm import pw_gemm
+
+    return {"pw_gemm_grouped": pw_gemm.grouped_launches,
+            "dense_conv_grouped": dense_conv.grouped_launches}
+
+
 def phase_grouped_serve(models, tables, dev):
     """11c: 4 seeded requests through transcribe on each path of
-    GROUPED_SERVED: the launches kernel_launches plans, no call of a
-    plain version, and the plain executor's ids; returns {path: counts}."""
+    GROUPED_SERVED: the launches kernel_launches plans (of them, the
+    grouped forms' as the plan's grouped convs), no call of a plain
+    version, and the plain executor's ids; returns {path: counts}."""
     import torch
 
     from qasr_tpu_torch.models.ctc_model import make_frozen_fn
@@ -3748,11 +3802,14 @@ def phase_grouped_serve(models, tables, dev):
         with PlainCalls() as plain:
             texts = model.transcribe(utts, batch_size=4, device=dev, dyadic_mode=mode)
             counts = read_counts()
+            grouped = grouped_counts()
         expect = planned(kernel_launches(model.plan, tab))
         tag = f"{name} W{bits}A{bits} {mode}"
-        if counts != expect or plain.n:
-            raise AssertionError(f"{tag}: launch counts {counts} (plan {expect}), "
-                                 f"{plain.n} plain-version calls")
+        if counts != expect or plain.n or grouped != grouped_sites(model.plan):
+            raise AssertionError(f"{tag}: launch counts {counts} (plan {expect}), grouped forms "
+                                 f"{grouped} (plan {grouped_sites(model.plan)}), {plain.n} "
+                                 f"plain-version calls")
+        counts.update(grouped)
         ids_k, el_k = make_frozen_fn(model, tab, argmax=True)(batch, lens)
         ids_p, el_p = make_frozen_fn(model, tab, argmax=True, fused=False)(batch, lens)
         if not (torch.equal(ids_k, ids_p) and torch.equal(el_k, el_p)):
@@ -5435,15 +5492,18 @@ def main() -> int:
     # phase 11: the grouped forms of Kernels 2 and 8 (launches: QuartzNet15x5-g4's
     # static_e path; the Jasper-width grouped block's)
     for kind, replaces, label, launches in [
-            ("pw_gemm", "qasr_tpu/kernels/cm_fused.py:131 (#4), grouped with GroupShuffle",
+            ("pw_gemm", "none: XLA's grouped_conv1d, qasr_tpu/ops/grouped_conv.py:45 (from "
+             "qasr_tpu/models/jasper.py:390-392), and group_shuffle, jasper.py:415",
              "pw_gemm grouped g=4 N=49152 512->512",
-             g_counts["quartznet15x5_g4 W6A6 static_e"]["pw_gemm"]),
+             g_counts["quartznet15x5_g4 W6A6 static_e"]["pw_gemm_grouped"]),
             ("dense_conv", "none: XLA's grouped integer conv, qasr_tpu/ops/grouped_conv.py "
              "(conv_nwc, qasr_tpu/models/jasper.py:332), with GroupShuffle",
              "dense_conv grouped g=4",
-             g_counts["jasper_grouped_block W6A6 static_e"]["dense_conv"])]:
+             g_counts["jasper_grouped_block W6A6 static_e"]["dense_conv_grouped"])]:
         r = next(r for r in g_rows if label in r["shape"])
-        kernels.append(kernel_row(kind, replaces, r, launches))
+        row = kernel_row(kind, replaces, r, launches)
+        row["source"] = f"qasr_tpu_torch/kernels/csrc/{kind}_grouped.cu"
+        kernels.append(row)
     # phase 12: the cache forms of Kernels 3 and 4 (launches: the cache-aware
     # stream of phase 12b)
     for kind, replaces, label in [

@@ -13,9 +13,11 @@ the Jasper-width grouped block's K 25 conv, B=64 x 15 s) beside their
 bounds, their plain versions and their yardsticks.  --phase11 runs the
 whole of chip_smoke.py's phase 11 (the checks, the golden records, the
 served paths, calibration, the steps beside QuartzNet15x5 W6A6 static_e,
-the sites and vad_infer).  --steps times the frozen steps that share the
-changed kernels (QuartzNet15x5 W6A6 static_e and per_channel, Jasper10x5Dr
-W6A6 static_e; B=64 x 15 s, median of 10, CUDA events) with the
+the sites and vad_infer).  --steps times the frozen steps of the grouped
+kernels' paths and of the ungrouped ones that share their wrappers
+(QuartzNet15x5-g4 W6A6 static_e, the Jasper-width grouped block W6A6
+static_e, QuartzNet15x5 W6A6 static_e and per_channel, Jasper10x5Dr W6A6
+static_e; B=64 x 15 s, median of 10, CUDA events) with the
 qasr_tpu_torch of --root (a parent commit unpacked with git archive into
 a .gitignore'd directory), so that parent and change run in one chip
 call, one process each.  The helpers are this checkout's chip_smoke.py.
@@ -67,9 +69,11 @@ def main() -> int:
 
         audio, lens = cs.noise_batch(64, 15.0, dev)
         steps = {}
-        for name, mode in (("quartznet15x5", "static_e"), ("quartznet15x5", "per_channel"),
+        for name, mode in (("quartznet15x5_g4", "static_e"), ("jasper_grouped_block", "static_e"),
+                           ("quartznet15x5", "static_e"), ("quartznet15x5", "per_channel"),
                            ("jasper10x5dr", "static_e")):
-            m = golden.flagship(name, 6)
+            m = (cs.grouped_block_model(dev) if name == "jasper_grouped_block"
+                 else golden.flagship(name, 6))
             fn = make_frozen_fn(m, m.freeze(mode, dev), argmax=True)
             steps[f"{name} W6A6 {mode}"] = statistics.median(
                 cs.cuda_ms(lambda: fn(audio, lens), reps=10))

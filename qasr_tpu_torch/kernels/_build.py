@@ -31,8 +31,12 @@ _SIGNATURES = {
     "qasr_dw_conv": [_P, _P, _P, _P, _I, _P, _I, _P, _P] + [_I] * 14 + [_P, _I, _P, _P, _I, _P]
                     + [_I] * 7 + [_P, _I, _P, _I, _P],
     "qasr_pw_gemm": [_P] * 8 + [_I] * 12 + [_P, _I, _P, _P] + [_I] * 7 + [_P, _I, _P, _I, _P],
+    "qasr_pw_gemm_grouped": [_P] * 8 + [_I] * 12 + [_P, _I, _P, _P] + [_I] * 7
+                            + [_P, _I, _P, _I] + [_I] * 6 + [_P],
     "qasr_dense_conv": [_P] * 8 + [_I] * 17 + [_P, _I, _P, _P] + [_I] * 10
                        + [_P, _I, _P, _I, _P],
+    "qasr_dense_conv_grouped": [_P] * 8 + [_I] * 17 + [_P, _I, _P, _P] + [_I] * 7
+                               + [_P, _I, _P, _I] + [_I] * 5 + [_P],
     "qasr_requant_check": [_P] * 4 + [_I, _I, _P],
     "qasr_requant_rows": [_P, _I, _P, _P, _I, _I, _P, _I, _P, _P, _I, _I, _P, _P, _P] + [_I] * 5
                          + [_P] + [_I] * 3 + [_P],

@@ -2,7 +2,8 @@
 pointers, so every device, dtype, shape and contiguity it relies on is
 verified in Python first and anything else raises.  Also the host's proof
 that a per-column requant site may run on the FP64 pipe (``f64_fits``),
-which Kernel 4 applies per layer and Kernel 6 per site, and the storage
+which Kernel 4 applies per layer and Kernel 6 per site, and the grouped
+forms of Kernels 2 and 8 per launch (``f64_site``), and the storage
 rule of an activation code (``act_dtype``): int8, uint8 for the
 non-negative 9-bit codes of W8A8's post-ReLU sites, and two uint8 planes
 for its signed 9-bit codes after selu or swish."""
@@ -182,17 +183,18 @@ def cap_operand(name: str, arg: str, cap, c: int, device, relu: bool):
 
 
 def group_width(name: str, cin: int, cout: int, groups: int) -> int:
-    """Cin / groups of a grouped conv on CUDA, which Kernels 2 and 8 load
-    at a column offset of a TMA map with a Cin / groups byte pitch: it must
-    be a positive multiple of 16.  A narrower group raises
-    NotImplementedError (the plain version takes it on the CPU)."""
+    """Cin / groups of a grouped conv on CUDA, which the grouped forms of
+    Kernels 2 and 8 read in 16-byte granules and (their weights) through a
+    TMA map with a Cin / groups byte pitch: it must be a positive multiple
+    of 16.  A narrower group raises NotImplementedError (the plain version
+    takes it on the CPU)."""
     if not isinstance(groups, int) or groups < 1 or cin % groups or cout % groups:
         raise ValueError(f"{name}: groups {groups!r} must divide Cin {cin} and Cout {cout}")
     cg = cin // groups
     if groups > 1 and cg % 16:
         raise NotImplementedError(
             f"{name}: a group of {cg} input channels (Cin {cin} / {groups} groups) is not a "
-            f"multiple of 16 bytes, the TMA pitch the grouped kernel loads its groups at")
+            f"multiple of 16 bytes, the granule the grouped kernels read a group's channels in")
     return cg
 
 
@@ -217,6 +219,19 @@ def f64_fits(zmax: torch.Tensor, m, e) -> bool:
     prod = zmax.to(torch.int64) * torch.as_tensor(m).to(torch.int64).abs()
     lim = 1 << min(62, int(e) + 26)
     return 1 <= int(e) <= 62 and bool((prod < lim).all())
+
+
+def f64_site(e, zmax: int = 2 ** 31) -> bool:
+    """Whether qasr_rq_f64 equals the exact requant (m, e) for every
+    mantissa 0 <= m < 2^31 and every |z| <= zmax (by default any int32 z):
+    ``f64_fits`` at the largest m.  The grouped kernels' host proof of a
+    requant site whose m is a device vector (never read back): any int32 z
+    at e >= 36, a smaller |z| bound from the shapes at a smaller e."""
+    # f64_fits at m = 2^31 - 1, in Python ints: the grouped wrappers call it
+    # every launch, and a torch op here cost more host time than the kernel
+    if not isinstance(e, int) or not 1 <= e <= 62:
+        return False
+    return min(int(zmax), 2 ** 31) * (2 ** 31 - 1) < 1 << min(62, e + 26)
 
 
 def f64_scale(m, e) -> torch.Tensor:

@@ -24,13 +24,10 @@
 //   with a ceiling (cap a (Cout,) vector or the scalar hs; INT_MAX: none);
 //   the prologue's relu?() is min(relu?(), in_cap[i]) the same way.
 //
-// Grouped form (groups > 1, w (Cout, K, Cin/g)): a block owns one group's
-// Cin/g channels of its halo rows and that group's Cout/g channels, the
-// group the outer part of grid z; its weight boxes start at row g *
-// Cout/g, its rows at channel g * Cin/g (Cin/g a multiple of 16).  Cout/g
-// picks the tile as Cout does (64 too: C = 256 in 4 groups); with
-// `shuffle` the epilogue writes channel o to GroupShuffle's position (o %
-// (Cout/g)) * g + o / (Cout/g) and reads m, m_r and res there.
+// Grouped convs (groups > 1) run in dense_conv_grouped.cu.  The entry here
+// takes groups == 1 only; the kernel's group fields (one group: offsets 0,
+// no GroupShuffle store) are left as they were so that ungrouped launches
+// run the code they ran before the grouped form moved out.
 //   a clamp is [-2^(bits-1), 2^(bits-1)-1] with an int8 result, or [0, 255]
 //   with a uint8 one (W8A8's 9-bit codes of a ReLU'd value, the wrapper's
 //   act_clamp).  With a uint8 operand (kU8) the products are wgmma's
@@ -669,8 +666,7 @@ extern "C" int qasr_dense_conv(const void* x, const int8_t* w, const int32_t* bi
                                int lo1, int hi1, int u8, int bn, int stages, int ct_per,
                                int groups, int shuffle, const int32_t* hcap, int hs,
                                const int32_t* in_hcap, int in_hs, void* stream) {
-  if (groups < 1 || cin % groups != 0 || cout % groups != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (groups != 1) return static_cast<int>(cudaErrorInvalidValue);
   const int cg = cin / groups, cog = cout / groups;
   if (batch < 1 || t_out < 1 || cout < 1 || cg < 16 || cg % 16 != 0 || k_size < 1 ||
       stride < 1 || dil < 1 || mode < 0 || mode > 2 || ct_per < 1 || stages < 2 ||
@@ -696,7 +692,6 @@ extern "C" int qasr_dense_conv(const void* x, const int8_t* w, const int32_t* bi
   const bool uu = u8 != 0;
   cudaError_t rc;
   switch (bn) {
-    case 64: rc = launch_bn<64>(uu, map, p, grid, smem, st); break;
     case 128: rc = launch_bn<128>(uu, map, p, grid, smem, st); break;
     case 160: rc = launch_bn<160>(uu, map, p, grid, smem, st); break;
     case 192: rc = launch_bn<192>(uu, map, p, grid, smem, st); break;

@@ -20,16 +20,10 @@
 //   to [0, H[o]] (cap a (Cout,) vector, or the scalar hs; INT_MAX: none);
 //   the prologue's relu?() is min(relu?(), in_cap[i]) the same way.
 //
-// Grouped form (groups > 1): group g multiplies its own Cin/g input columns
-// by its own (Cout/g x Cin/g) weights, wt (Cout, Cin/g): the group the
-// fastest index of the grid (a row tile's groups run side by side), each
-// block one group's rows, its A box starting at column g *
-// Cin/g (Cin/g a multiple of 16; columns of the next group that a 128-byte
-// box takes meet the weight map's zero fill past Cin/g), its weight boxes
-// at row g * Cout/g.  The block-diagonal weight matrix is never formed.
-// With `shuffle` the epilogue writes channel o to GroupShuffle's position
-// (o % (Cout/g)) * g + o / (Cout/g), and reads m, m_r and res there (the
-// freeze's tables are in the shuffled order; bias and cap in the conv's).
+// Grouped convs (groups > 1) run in pw_gemm_grouped.cu.  The entry here
+// takes groups == 1 only; the kernel's group fields (one group: offsets 0,
+// no GroupShuffle store) are left as they were so that ungrouped launches
+// run the code they ran before the grouped form moved out.
 //   a clamp is [-2^(bits-1), 2^(bits-1)-1] with an int8 result, or [0,
 //   255] with a uint8 one: W8A8's 9-bit codes of a ReLU'd value, whose
 //   clamp [-256, 255] reads [0, 255] (the wrapper's act_clamp), stored in
@@ -437,8 +431,7 @@ extern "C" int qasr_pw_gemm(const void* x, const int8_t* wt,
                             int e1, int lo1, int hi1, int u8, int groups, int shuffle,
                             const int32_t* hcap, int hs, const int32_t* in_hcap, int in_hs,
                             void* stream) {
-  if (groups < 1 || cin % groups != 0 || cout % groups != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (groups != 1) return static_cast<int>(cudaErrorInvalidValue);
   const int cg = cin / groups, cog = cout / groups;
   // the tile plan (kernels/pw_gemm.py::plan computes the same)
   const int bn = cog <= 32 ? 32 : 64;

@@ -4,16 +4,18 @@ wgmma / TMA mainloop of kernels/csrc/gemm_s8.cuh).
 
 Replaces qasr_tpu/kernels/cm_fused.py::fused_pw_cm and fused_pw_join_cm,
 and qasr_tpu/kernels/pw_matmul.py::requant_pointwise_matmul.  Its grouped
-form (``groups``: a group axis in the grid, each group its own Cin/g
-columns and Cout/g x Cin/g weights) computes the grouped pointwise convs
-of QuartzNet-style blocks with ``groups`` > 1, and writes GroupShuffle's
-permutation in its store (``shuffle``).
+form (``groups`` > 1: kernels/csrc/pw_gemm_grouped.cu, ``grouped_plan``)
+computes the grouped pointwise convs of QuartzNet-style blocks: a
+persistent grid whose blocks hold their weights resident (packed once per
+weight tensor by ``pack_grouped``) and read each row tile's whole Cin once
+for every group, its column tiles in GroupShuffle's order (``shuffle``).
 ``pw_gemm`` launches the CUDA kernel for CUDA tensors and runs
 ``pw_gemm_plain`` for CPU tensors; it never falls back from one to the
 other.
 """
 from __future__ import annotations
 
+import functools
 from typing import List, Optional, Tuple
 
 import torch
@@ -25,6 +27,7 @@ from qasr_tpu_torch.kernels.checks import (
     cap_operand,
     check_vec,
     epilogue_bounds,
+    f64_site,
     group_width,
 )
 from qasr_tpu_torch.kernels.dw_conv import check_prologue, prologue_args, prologue_plain
@@ -41,23 +44,118 @@ SMEM_LIMIT = 232448  # dynamic shared memory one block may use on an H100
 CHUNK = 128          # bytes of K per TMA box (the 128B swizzle's row)
 STAGES = 2           # the weight ring's stages
 ALIGN = 1024         # slack to align the shared-memory base to the swizzle's repeat
+SMS = 132            # the H100 SXM's streaming multiprocessors
+# the grouped form (csrc/pw_gemm_grouped.cu)
+GROUPED_BN = 128     # GroupShuffle-order positions a column tile covers
+GROUPED_BM = 64      # rows a warpgroup pair's tile
+GROUPED_STAGES = 4   # the A ring's deepest (even: stage s serves pair s % 2)
+# two warpgroup pairs' staging tiles (64 rows x 128 int32) and row flags
+GROUPED_STAGING = 2 * GROUPED_BM * (4 * GROUPED_BN + 16) + 2 * GROUPED_BM
 
 
-def plan(cin: int, cout: int, groups: int = 1) -> dict:
-    """Kernel 2's tiles for one launch, as csrc/pw_gemm.cu computes them.
+def plan(cin: int, cout: int) -> dict:
+    """Kernel 2's tiles for one ungrouped launch, as csrc/pw_gemm.cu
+    computes them.
 
     A block (one consumer warpgroup and a producer warp) keeps its ``bm`` =
-    64 rows of A (``nk`` chunks of 128 bytes of its group's Cin / groups)
-    resident and walks every ``bn``-column tile of its group's Cout /
-    groups, the weights streaming through a ring of ``stages``; the grid is
-    (row tiles, ``groups``).  ``smem`` is its dynamic shared memory: the A
-    tile, the ring, the int32 staging tile (rows of 4 * bn + 32 bytes), the
-    mbarriers, the two row masks and the alignment slack."""
-    cg, cog = cin // groups, cout // groups
-    bm, bn, nk = 64, (32 if cog <= 32 else 64), -(-cg // CHUNK)
+    64 rows of A (``nk`` chunks of 128 bytes of Cin) resident and walks
+    every ``bn``-column tile of Cout, the weights streaming through a ring
+    of ``stages``; the grid is the row tiles.  ``smem`` is its dynamic
+    shared memory: the A tile, the ring, the int32 staging tile (rows of 4
+    * bn + 32 bytes), the mbarriers, the two row masks and the alignment
+    slack."""
+    bm, bn, nk = 64, (32 if cout <= 32 else 64), -(-cin // CHUNK)
     smem = (bm * CHUNK * nk + STAGES * bn * CHUNK + bm * (4 * bn + 32)
             + 8 * (2 * STAGES + 1) + 2 * bm + ALIGN)
-    return {"bm": bm, "bn": bn, "stages": STAGES, "nk": nk, "smem": smem, "groups": groups}
+    return {"bm": bm, "bn": bn, "stages": STAGES, "nk": nk, "smem": smem, "groups": 1}
+
+
+def group_chunk(groups: int) -> int:
+    """The groups a grouped column tile takes: all of them at 2, 4 or 8
+    groups (so GroupShuffle's positions of a column pair are consecutive),
+    else the largest of 8, 4, 2 and 1 dividing ``groups``."""
+    return next(k for k in (8, 4, 2, 1) if groups % k == 0)
+
+
+@functools.lru_cache(maxsize=256)
+def grouped_plan(n_rows: int, cin: int, cout: int, groups: int, pro: bool) -> dict:
+    """Kernel 2 grouped's plan for one launch (csrc/pw_gemm_grouped.cu takes
+    ``kgc``, ``t_per``, ``stages`` and ``grid``'s x from here and computes
+    the same shared memory).
+
+    A column tile holds GROUPED_BN positions of GroupShuffle's order:
+    ``kgc`` groups (``group_chunk``) x ``nj`` columns, ``njt`` tiles a
+    group chunk, ``n_tiles`` in all.  A group's channels take ``cgp`` bytes
+    (Cin / groups rounded up to 32, the wgmma's K step) in the A tile and in
+    the packed weights (``pack_grouped``: ``tile_bytes`` a column tile,
+    ``nkb`` 128-byte chunks a group).  A block keeps the weights of
+    ``t_per`` column tiles resident (the fewest grid-y slices that leave
+    room for an A stage a warpgroup pair) and a ring of ``stages`` (even)
+    A tiles of 64 rows x ``nka`` chunks, beside each pair's staging tile
+    (64 rows x 128 int32) and row flags and the epilogue's per-position
+    constants (16 bytes each); ``a_tma``: A arrives by TMA (the prologue
+    off and Cin / groups a multiple of 32), else its pair fills it.
+    ``grid``: about an SM's worth of blocks walking the ``row_tiles`` (two
+    a block at a time), times the slices.
+    ValueError where two A stages and one column tile do not fit a block."""
+    cg, cog = cin // groups, cout // groups
+    kgc = group_chunk(groups)
+    nj = GROUPED_BN // kgc
+    cgp = -(-cg // 32) * 32
+    nkb, nka = -(-cgp // CHUNK), -(-(groups * cgp) // CHUNK)
+    njt = -(-cog // nj)
+    n_tiles = groups // kgc * njt
+    tile = GROUPED_BN * nkb * CHUNK
+    a_stage = GROUPED_BM * CHUNK * nka
+    room = SMEM_LIMIT - ALIGN - GROUPED_STAGING - 16 * cout - 8 * (2 * GROUPED_STAGES + 1)
+    t_per = next((-(-n_tiles // s) for s in range(1, n_tiles + 1)
+                  if -(-n_tiles // s) * tile + 2 * a_stage <= room), None)
+    if t_per is None:
+        raise ValueError(f"pw_gemm: grouped Cin={cin} Cout={cout} groups={groups} needs "
+                         f"{tile + 2 * a_stage} bytes of shared memory for one column tile and "
+                         f"two A stages, above {room}")
+    stages = min(GROUPED_STAGES, (room - t_per * tile) // a_stage) // 2 * 2
+    slices = -(-n_tiles // t_per)
+    row_tiles = -(-n_rows // GROUPED_BM)
+    smem = (t_per * tile + stages * a_stage + GROUPED_STAGING + 16 * cout + 8 * (2 * stages + 1)
+            + ALIGN)
+    return {"groups": groups, "kgc": kgc, "nj": nj, "njt": njt, "n_tiles": n_tiles,
+            "cgp": cgp, "nkb": nkb, "nka": nka, "tile_bytes": tile, "t_per": t_per,
+            "stages": stages, "smem": smem, "a_tma": not pro and cg % 32 == 0,
+            "row_tiles": row_tiles,
+            "grid": (min(-(-row_tiles // 2), max(1, SMS // slices)), slices)}
+
+
+def pack_grouped(wt: torch.Tensor, groups: int, kgc: int) -> torch.Tensor:
+    """A grouped conv's weights wt (Cout, Cin / groups) int8 as the image
+    Kernel 2 grouped keeps in shared memory (flat int8, ``grouped_plan``'s
+    ``n_tiles`` x ``tile_bytes``): column tile (chunk gc, tile jt) after
+    column tile; in each, group i of the chunk's ``nkb`` 128-byte K chunks,
+    each ``nj`` rows (columns jt * nj.. of group gc * kgc + i; zero past Cout
+    / groups) x 128 bytes (its channels, zero past Cin / groups) in the 128B
+    swizzle: row r's 16-byte granule u at u ^ (r % 8)."""
+    cout, cg = wt.shape
+    cog = cout // groups
+    nj = GROUPED_BN // kgc
+    nkb = -(-(-(-cg // 32) * 32) // CHUNK)
+    njt = -(-cog // nj)
+    w = F.pad(wt.reshape(groups, cog, cg), (0, nkb * CHUNK - cg, 0, njt * nj - cog))
+    w = w.reshape(groups // kgc, kgc, njt, nj, nkb, CHUNK // 16, 16).permute(0, 2, 1, 4, 3, 5, 6)
+    r = torch.arange(nj, device=wt.device)[:, None]
+    src = torch.arange(CHUNK // 16, device=wt.device)[None, :] ^ (r % 8)
+    return w[:, :, :, :, r, src].reshape(-1).contiguous()
+
+
+def packed(w: torch.Tensor, pack, groups: int, kgc: int) -> torch.Tensor:
+    """``pack(w, groups, kgc)`` (a grouped kernel's weight image), built once
+    per weight tensor and kept on it (rebuilt if the tensor is written in
+    place)."""
+    key = (pack.__module__, groups, kgc, w._version)
+    hit = getattr(w, "_qasr_grouped_pack", None)
+    if hit is None or hit[0] != key:
+        hit = (key, pack(w, groups, kgc))
+        w._qasr_grouped_pack = hit
+    return hit[1]
 
 
 def check_launch(n_rows: int, cin: int, cout: int, pro: bool, x_dtype: torch.dtype,
@@ -65,9 +163,9 @@ def check_launch(n_rows: int, cin: int, cout: int, pro: bool, x_dtype: torch.dty
     """The launch's plan, or ValueError for a shape the kernel does not take:
     TMA needs a row pitch of Cin bytes that is a multiple of 16 (x int8 or
     uint8 without the prologue, wt always), and the plan's shared memory
-    must fit a block.  A grouped launch needs Cin / groups a multiple of 16
-    (the weights' pitch, the offset of a group's A box), else
-    NotImplementedError (``checks.group_width``)."""
+    must fit a block.  A grouped launch (``grouped_plan``) needs Cin /
+    groups a multiple of 16 (the 16-byte granules a group's channels are
+    read in), else NotImplementedError (``checks.group_width``)."""
     if n_rows < 1 or cout < 1:
         raise ValueError(f"pw_gemm: empty input or output (N={n_rows}, Cout={cout})")
     cg = group_width("pw_gemm", cin, cout, groups)
@@ -77,7 +175,9 @@ def check_launch(n_rows: int, cin: int, cout: int, pro: bool, x_dtype: torch.dty
     if not pro and x_dtype not in (torch.int8, torch.uint8):
         raise ValueError(f"pw_gemm: without the prologue x must be int8 or uint8, "
                          f"got {x_dtype}")
-    p = plan(cin, cout, groups)
+    if groups > 1:
+        return grouped_plan(n_rows, cin, cout, groups, pro)
+    p = plan(cin, cout)
     if p["smem"] > SMEM_LIMIT:
         raise ValueError(f"pw_gemm: Cin={cin} Cout={cout} needs {p['smem']} bytes of shared "
                          f"memory, above {SMEM_LIMIT}")
@@ -303,7 +403,7 @@ def pw_gemm(x: torch.Tensor, wt: torch.Tensor, *,
         return clip_ceiling(acc.clamp_min(0), hcap) if relu else acc
     if x.data_ptr() % 16 or wt.data_ptr() % 16:
         raise ValueError("pw_gemm: x and wt must be 16-byte aligned")
-    check_launch(b * t, cin, cout, bool(pro), x.dtype, groups)
+    p = check_launch(b * t, cin, cout, bool(pro), x.dtype, groups)
     dev = x.device
     check_vec("pw_gemm", "wt", wt, torch.int8, (cout, cin // groups), dev)
     lo, hi, ee, ee_r, lens, out = check_epilogue("pw_gemm", mode, (b, t, cout), dev, bias,
@@ -311,16 +411,39 @@ def pw_gemm(x: torch.Tensor, wt: torch.Tensor, *,
     hv, hs = cap_operand("pw_gemm", "hcap", hcap, cout, dev, relu)
     ihv, ihs = cap_operand("pw_gemm", "in_hcap", in_hcap, cin, dev, in_relu)
     lib = _build.library()
-    rc = lib.qasr_pw_gemm(
-        _build.ptr(x), _build.ptr(wt), _build.ptr(bias), _build.ptr(m),
-        _build.ptr(lens), _build.ptr(res), _build.ptr(m_r), _build.ptr(out),
-        b * t, cin, cout, t, mode, int(relu), ee, ee_r, lo, hi, pro,
-        int(x.dtype == torch.int32), _build.ptr(in_bias), int(in_relu), _build.ptr(in_len),
-        _build.ptr(m1v), m1s, ee1, lo1, hi1, int(u8), groups, int(bool(shuffle) and groups > 1),
-        _build.ptr(hv), hs, _build.ptr(ihv), ihs, _build.stream_of(x))
+    args = (_build.ptr(bias), _build.ptr(m), _build.ptr(lens), _build.ptr(res), _build.ptr(m_r),
+            _build.ptr(out), b * t, cin, cout, t, mode, int(relu), ee, ee_r, lo, hi, pro,
+            int(x.dtype == torch.int32), _build.ptr(in_bias), int(in_relu), _build.ptr(in_len),
+            _build.ptr(m1v), m1s, ee1, lo1, hi1, int(u8), groups, int(bool(shuffle) and groups > 1),
+            _build.ptr(hv), hs, _build.ptr(ihv), ihs)
+    if groups == 1:
+        rc = lib.qasr_pw_gemm(_build.ptr(x), _build.ptr(wt), *args, _build.stream_of(x))
+    else:
+        f64, f64_1 = grouped_f64(mode, ee, ee_r, 1, cin // groups, bool(u8), bias, pro, x.dtype,
+                                 in_bias, ee1)
+        rc = lib.qasr_pw_gemm_grouped(
+            _build.ptr(x), _build.ptr(packed(wt, pack_grouped, groups, p["kgc"])), *args, p["kgc"],
+            p["t_per"], p["stages"], p["grid"][0], int(f64), int(f64_1), _build.stream_of(x))
+        pw_gemm.grouped_launches += 1
     _build.check(rc, "pw_gemm")
     pw_gemm.launches += 1
     return out
 
 
+def grouped_f64(mode: int, e: int, e_r: int, k_size: int, cg: int, u8: bool, bias, pro,
+                x_dtype, in_bias, e1: int) -> Tuple[bool, bool]:
+    """Whether the grouped kernels' epilogue and prologue requants run on the
+    FP64 pipe (``checks.f64_site`` over the |z| each can reach): the
+    epilogue's z = acc + bias, |acc| <= K * Cin/g * 255 (uint8 operand; 128
+    for int8) * 128, any int32 with a bias; the join also needs its int32
+    residual's requant proven; the prologue's z = x + in_bias, |z| <= 128
+    for an int8 x without in_bias, else any int32."""
+    zmax = 2 ** 31 if bias is not None else k_size * cg * (255 if u8 else 128) * 128
+    f64 = mode != MODE_NONE and f64_site(e, zmax) and (mode != MODE_JOIN or f64_site(e_r))
+    f64_1 = bool(pro) and f64_site(e1, 128 if x_dtype == torch.int8 and in_bias is None
+                                   else 2 ** 31)
+    return f64, f64_1
+
+
 pw_gemm.launches = 0
+pw_gemm.grouped_launches = 0   # of them, the grouped form's (pw_gemm_grouped.cu)

@@ -315,23 +315,28 @@ def test_grouped_plain_matches_xla_and_group_shuffle(k, groups, shuffle):
 
 
 def test_grouped_plans_at_the_serving_sites():
-    """Kernel 2 at QuartzNet15x5-g4's grouped pointwise sites (B=64 x 15 s:
-    49,152 rows) and Kernel 8 at the Jasper-width grouped block's (C 768, K
-    25, 4 groups) and at Cout/g = 64: a group's K chunks and Cout tile, the
-    grid holding every group, shared memory within a block's."""
+    """Kernel 2 grouped at QuartzNet15x5-g4's grouped pointwise sites (B=64
+    x 15 s: 49,152 rows) and Kernel 8 grouped at the Jasper-width grouped
+    block's (C 768, K 25, 4 groups) and at Cout/g = 64: column tiles of the
+    4 groups x 32 (Kernel 2) or 48 (Kernel 8) columns in GroupShuffle's
+    order, a group's K in steps that its width fills (no zero-padded
+    channels), every column tile of a slice, shared memory within a
+    block's."""
     for cin, cout in ((256, 256), (256, 512), (512, 512)):
         p = pg.check_launch(49152, cin, cout, True, torch.int32, groups=4)
-        assert p == pg.plan(cin, cout, 4)
-        assert p["nk"] == -(-cin // 4 // pg.CHUNK) and p["bn"] == 64 and p["groups"] == 4
+        assert p == pg.grouped_plan(49152, cin, cout, 4, True)
+        assert (p["kgc"], p["nj"], p["cgp"], p["n_tiles"]) == (4, 32, cin // 4, cout // 128)
+        assert p["grid"] == (132, 1) and not p["a_tma"] and p["groups"] == 4
         assert p["smem"] <= pg.SMEM_LIMIT
     p = dc.check_launch(64, 768, 768, 768, 25, 1, 12, 1, True, torch.int32, groups=4)
-    assert (p["bn"], p["nc"], p["groups"]) == (192, 2, 4)
+    assert (p["kgc"], p["nks"], p["nj"], p["groups"]) == (4, 3, 48, 4)
+    assert p["nks"] * dc.GROUPED_KS == 768 // 4
     gx, gy, gz = p["grid"]
-    assert (gx, gy) == (6, 64) and gz == 4 * -(-1 // p["ct_per"])
+    assert (gx, gy, gz) == (6, 64, 1) and p["t_per"] == p["n_tiles"] == 4
     assert p["smem"] <= dc.SMEM_LIMIT and p["stages"] >= 2
     p = dc.check_launch(8, 300, 256, 256, 5, 1, 2, 1, False, torch.int8, groups=4)
-    assert (p["bn"], p["nc"], p["grid"][2]) == (64, 1, 4)
-    assert dc.tile_n(64) == 128 and dc.tile_n(64, 4) == 64
+    assert (p["nj"], p["nks"], p["n_tiles"], p["grid"][2]) == (48, 1, 2, 2)
+    assert dc.tile_n(64) == 128
 
 
 @pytest.mark.parametrize("launch", ["pw", "dense"])
