@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port (qasr_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--report PATH]
+    python3 chip_smoke.py [--report PATH] [--only training]
 
 Drives the port's serving paths on the card, the frozen W6A6 QuartzNet15x5
 in its dyadic modes (static_e and static_e16 on FrozenExecFused,
@@ -17,7 +17,9 @@ integer decoder in Kernel 9), and QuartzNet15x5's zero-shot
 workflow (synthesis, calibration, the dynamic forward, the CLIs) and the
 Conformer-CTC's (synthesis, calibration, freeze and serve, dynamic), and
 both families through their checkpoints (.nemo, .qasr, from_pretrained)
-with the CTC beam search and the vggnet subsampler and the LSTM head, with
+with the CTC beam search and the vggnet subsampler and the LSTM head, and
+training (the three model families' steps, the transducer's loss in
+Kernel 10, the training CLIs, train -> quantize -> serve), with
 nothing that falls back: no CUDA, a failed kernel build or any failed
 phase exits non-zero before the result line.  Phases:
 
@@ -297,6 +299,33 @@ phase exits non-zero before the result line.  Phases:
    record's frames, card == CPU (a float near-tie within 1e-4 printed
    instead); phase 13's seconds.
 
+14. Training (``--only training`` runs the build and this phase alone, a
+   partial run without the result line): (a) Kernel 10 (the RNNT loss,
+   ``kernels/csrc/rnnt_loss.cu``) forward and backward at (B, T, U) in
+   RNNT_LOSS_SHAPES with ragged lengths against its plain version in
+   float32 and in float64 (the truth): the NLL within RNNT_NLL_RTOL of
+   float64, each gradient no farther from float64 than twice the float32
+   plain version (floor RNNT_GRAD_FLOOR) and at most RNNT_GRAD_ATOL; timed
+   at RNNT_LOSS_TIMED beside the plain version, its byte bound and its
+   latency floor of 2 (T + U) barrier rounds; (b) the golden training
+   records (``qasr_tpu_torch/train/golden.py``: 3 Novograd steps of
+   QuartzNet15x5, the Conformer-CTC 16 x 256 and the Conformer-Transducer
+   at full width on B=2 x 200 seeded frames, written by the JAX package)
+   held at golden.py's bounds, the transducer's steps on Kernel 10 alone
+   (its launches counted from 0, rnnt_loss_plain's 0); (c) full-width
+   training steps on one fixed two-tone batch, median of 5 after 2
+   warm-ups by CUDA events: QuartzNet15x5 B=32 x 15 s with the YAML's
+   spec-augment, the Conformer-CTC B=32 x 15 s and the Transducer B=16 x
+   15 s with dropout 0.1 (150-166 character targets), each with its peak
+   memory, the params' write-back, Kernel 10's and F.ctc_loss's device ms
+   and the device-busy share of one profiled step; every loss and
+   gradient finite; (d) cli.speech_to_text (QuartzNet15x5's YAML) 3 steps
+   on 8 wavs, checkpoints, a resume equal to the saved state bit for bit,
+   and cli.speech_to_text_rnnt 2 steps; (e) the toy of
+   tests/test_e2e_quantization_accuracy.py trained 700 steps on the
+   50-utterance corpus, then fp32 WER <= 0.02 and W8A8 dynamic and
+   calibrated WER <= 0.08 on the card; phase 14's seconds.
+
 Prints the card line, a {"kernels": [...]} line (each kernel's "ms" and
 "library_ms" are device times at the site "shape" names, "call_ms" and
 "library_call_ms" the per-call event times), then as the last line
@@ -343,7 +372,7 @@ PW_BT = ((3, 203), (1, 1), (1, 37))
 HBM_BYTES_PER_S, INT8_OPS_PER_S = 3.35e12, 1979e12
 KERNELS = ("dw_conv", "pw_gemm", "requant", "int_attention", "conv_block", "lin_epilogue",
            "ffn_ln", "dense_conv", "int_attention_cached", "conv_block_cached", "rnnt_pred",
-           "rnnt_joint", "rnnt_greedy")
+           "rnnt_joint", "rnnt_greedy", "rnnt_loss")
 # the launches of each rnnt_greedy form (kernels/rnnt_decoder.py: rnnt_greedy.forms)
 # and of each conv_block_cached form (kernels/conv_block.py: conv_block_cached.forms)
 GREEDY_FORMS = ("rnnt_greedy_resident", "rnnt_greedy_streamed")
@@ -359,7 +388,8 @@ KERNEL_SYMBOLS = {"dw_conv": "dw_conv_kernel",
                   "int_attention_cached": "int_attention_cached_kernel",
                   "conv_block_cached": ("conv_block_cached_kernel", "conv_block_cached_stage"),
                   "rnnt_pred": "rnnt_pred_step_kernel", "rnnt_joint": "rnnt_joint_kernel",
-                  "rnnt_greedy": "rnnt_greedy_kernel"}
+                  "rnnt_greedy": "rnnt_greedy_kernel",
+                  "rnnt_loss": ("rnnt_alpha_kernel", "rnnt_beta_grad_kernel")}
 # phase 12: the cache-aware stream (NeMo's cache-aware streaming Conformers
 # keep 70 frames of left context), its cache forms' check grid, its feed
 # sizes (40 ms, 160 ms: the timed one, 1 s) and length, and the windowed
@@ -496,13 +526,14 @@ def wrappers():
     from qasr_tpu_torch.kernels.pw_gemm import pw_gemm
     from qasr_tpu_torch.kernels.requant import requant
     from qasr_tpu_torch.kernels.rnnt_decoder import rnnt_greedy, rnnt_joint, rnnt_pred_step
+    from qasr_tpu_torch.kernels.rnnt_loss import rnnt_loss
 
     return {"dw_conv": dw_conv, "pw_gemm": pw_gemm, "requant": requant,
             "int_attention": int_attention, "conv_block": conv_block,
             "lin_epilogue": lin_epilogue, "ffn_ln": ffn_ln, "dense_conv": dense_conv,
             "int_attention_cached": int_attention_cached,
             "conv_block_cached": conv_block_cached, "rnnt_pred": rnnt_pred_step,
-            "rnnt_joint": rnnt_joint, "rnnt_greedy": rnnt_greedy}
+            "rnnt_joint": rnnt_joint, "rnnt_greedy": rnnt_greedy, "rnnt_loss": rnnt_loss}
 
 
 def planned(counts):
@@ -5368,9 +5399,599 @@ def phase_transducer(chk, dev, card, report):
     return rows, counts
 
 
+# ---------------------------------------------------------------------------
+# phase 14: training
+# ---------------------------------------------------------------------------
+
+# 14a: Kernel 10's check grid (B, T, U) and its timed shapes (a B=16 x 15 s
+# transducer batch with 166-character targets, and a longer lattice)
+RNNT_LOSS_SHAPES = ((1, 1, 0), (1, 1, 5), (4, 37, 0), (4, 37, 12), (16, 375, 166), (3, 500, 300))
+RNNT_LOSS_TIMED = ((16, 375, 166), (3, 500, 300))
+RNNT_LOSS_V = 28                   # the character labels; blank is V
+# the NLL relative to the float64 plain version, and each gradient's largest
+# |difference| from it: no farther than 2x the float32 plain version's own,
+# with a floor, and at most RNNT_GRAD_ATOL (both bounds set from the card's
+# worst, NLL 4.7e-8 and gradients 6e-8, NVIDIA H100 700 W, with room; the
+# NLL's was 1e-5 at first)
+RNNT_NLL_RTOL, RNNT_GRAD_FLOOR, RNNT_GRAD_ATOL = 1e-6, 1e-5, 1e-6
+# NeMo's examples/asr/conf/quartznet_15x5.yaml: SpecCutout 5 x (120 frames x
+# 50 mels); its blocks' dropout is 0.0
+QN_SPEC_AUGMENT = {"rect_masks": 5, "rect_time": 120, "rect_freq": 50}
+TRAIN_SECONDS, CONF_TRAIN_DROPOUT = 15.0, 0.1
+TRAIN_BATCH = {"quartznet15x5": 32, "conformer16x256": 32, "rnnt_conformer16x256": 16}
+TRAIN_CHARS = (150, 166)           # 166 characters of 0.09 s: 14.94 s
+# 14e: tests/corpus_utils.py::train_ctc_model's recipe on the toy of
+# tests/test_e2e_quantization_accuracy.py, and the WER bounds that test
+# holds the JAX package to
+TOY_STEPS, TOY_BATCH, TOY_LR, TOY_CLIP = 700, 10, 0.02, 1.0
+TOY_FP32_WER, TOY_W8A8_WER = 0.02, 0.08
+CHAR_SEC, SAMPLE_RATE = 0.09, 16000
+WORDS = ["cat", "dog", "bird", "fish", "tree", "rock", "wind", "rain", "moon", "star", "sand",
+         "wave", "leaf", "frog", "bear", "wolf", "ant", "bee", "owl", "fox"]
+
+
+def char_tone(c):
+    """The two-tone code of a character (tests/corpus_utils.py's recipe)."""
+    if c == " ":
+        return (0.0, 0.0)
+    i = ord(c) - ord("a")
+    return (320.0 + 42.0 * i, 1250.0 + 67.0 * i)
+
+
+def synth_utterance(text, rng, noise=0.02):
+    import numpy as np
+
+    n_char = int(CHAR_SEC * SAMPLE_RATE)
+    t = np.arange(n_char) / SAMPLE_RATE
+    env = np.ones(n_char)
+    edge = n_char // 8
+    ramp = 0.5 - 0.5 * np.cos(np.pi * np.arange(edge) / edge)
+    env[:edge] *= ramp
+    env[-edge:] *= ramp[::-1]
+    out = []
+    for c in text:
+        f1, f2 = char_tone(c)
+        out.append(np.zeros(n_char) if f1 == 0.0 else
+                   env * (0.18 * np.sin(2 * np.pi * f1 * t) + 0.12 * np.sin(2 * np.pi * f2 * t)))
+    sig = np.concatenate(out) if out else np.zeros(n_char)
+    return (sig + rng.normal(size=sig.shape) * noise).astype(np.float32)
+
+
+def make_corpus(n_utts, seed=0, min_words=2, max_words=3, noise=0.02):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    texts = []
+    for _ in range(n_utts):
+        k = int(rng.integers(min_words, max_words + 1))
+        texts.append(" ".join(rng.choice(WORDS) for _ in range(k)))
+    clips = [synth_utterance(s, rng, noise) for s in texts]
+    audio = np.zeros((n_utts, max(len(c) for c in clips)), np.float32)
+    lens = np.zeros((n_utts,), np.int32)
+    for i, c in enumerate(clips):
+        audio[i, :len(c)] = c
+        lens[i] = len(c)
+    return texts, audio, lens
+
+
+def tokenize(texts, labels):
+    import numpy as np
+
+    lab = {c: i for i, c in enumerate(labels)}
+    tlens = np.asarray([len(s) for s in texts], np.int32)
+    toks = np.zeros((len(texts), int(tlens.max())), np.int32)
+    for i, s in enumerate(texts):
+        toks[i, :len(s)] = [lab[c] for c in s]
+    return toks, tlens
+
+
+def long_texts(rng, n):
+    """n texts of words, each TRAIN_CHARS[0]..TRAIN_CHARS[1] characters long."""
+    chars = TRAIN_CHARS
+    out = []
+    while len(out) < n:
+        s = ""
+        while len(s) < chars[0]:
+            s = (s + " " + str(rng.choice(WORDS))).strip()
+        if len(s) <= chars[1]:
+            out.append(s)
+    return out
+
+
+def train_batch(b, labels, seed, dev):
+    """(audio (B, 15 s) float32, lengths, tokens, token lengths) on ``dev``:
+    two-tone utterances of 150-166 characters, padded to 15 s."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    texts = long_texts(rng, b)
+    n = int(TRAIN_SECONDS * SAMPLE_RATE)
+    audio = np.zeros((b, n), np.float32)
+    lens = np.zeros((b,), np.int32)
+    for i, s in enumerate(texts):
+        sig = synth_utterance(s, rng)[:n]
+        audio[i, :len(sig)] = sig
+        lens[i] = len(sig)
+    toks, tl = tokenize(texts, labels)
+    return tuple(torch.from_numpy(a).to(dev) for a in (audio, lens, toks, tl))
+
+
+def rnnt_loss_inputs(rng, b, t, u, dev):
+    """float64 (blank (B, T, U+1), emit (B, T, U)) of random joint logits'
+    log-softmax, ragged lengths (row 0 at the full T and U) on ``dev``."""
+    import numpy as np
+    import torch
+
+    logits = torch.from_numpy(rng.normal(size=(b, t, u + 1, RNNT_LOSS_V + 1))).to(dev)
+    lp = torch.log_softmax(logits, dim=-1)
+    tg = torch.from_numpy(rng.integers(0, RNNT_LOSS_V, size=(b, u))).to(dev)
+    emit = torch.gather(lp[:, :, :u], 3, tg[:, None, :, None].expand(b, t, u, 1))[..., 0]
+    il = rng.integers(max(1, t // 2), t + 1, size=b)
+    tl = rng.integers(0, u + 1, size=b)
+    il[0], tl[0] = t, u
+    return (lp[..., RNNT_LOSS_V].contiguous(), emit.contiguous(),
+            torch.from_numpy(il.astype(np.int32)).to(dev),
+            torch.from_numpy(tl.astype(np.int32)).to(dev))
+
+
+def rnnt_loss_grads(fn, blank, emit, il, tl, w):
+    """(nll, d(w . nll)/d blank, d(w . nll)/d emit) of one loss function."""
+    import torch
+
+    blank = blank.detach().clone().requires_grad_()
+    emit = emit.detach().clone().requires_grad_()
+    nll = fn(blank, emit, il, tl)
+    gb, ge = torch.autograd.grad((nll * w).sum(), (blank, emit))
+    return nll.detach(), gb, ge
+
+
+def rnnt_loss_bound(b, t, u, il, tl):
+    """(bound_ms, bound_by): the bytes Kernel 10's function must move (the
+    lattice cells these lengths use, read once; both gradients written
+    whole; the NLL) over HBM; its operations (a few a cell) are far below
+    their peak."""
+    cells = int((il.long() * (tl.long() + 1)).sum() + (il.long() * tl.long()).sum())
+    nbytes = 4 * cells + 4 * b * t * (2 * u + 1) + 4 * b
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def phase_rnnt_loss(chk, dev, card, rows):
+    """14a: Kernel 10 against its plain version (float32) and the plain
+    version in float64 (the truth) on the card; the timed shapes."""
+    import numpy as np
+    import torch
+
+    from qasr_tpu_torch.kernels import rnnt_loss as K10
+
+    rng = np.random.default_rng(14)
+    worst = {"nll_rel": 0.0, "grad_ratio": 0.0}
+    for b, t, u in RNNT_LOSS_SHAPES:
+        blank64, emit64, il, tl = rnnt_loss_inputs(rng, b, t, u, dev)
+        w = torch.from_numpy(rng.uniform(0.5, 1.5, size=b).astype(np.float32)).to(dev)
+        blank, emit = blank64.float(), emit64.float()
+        got = rnnt_loss_grads(K10.rnnt_loss, blank, emit, il, tl, w)
+        plain = rnnt_loss_grads(K10.rnnt_loss_plain, blank, emit, il, tl, w)
+        truth = rnnt_loss_grads(K10.rnnt_loss_plain, blank.double(), emit.double(), il, tl,
+                                w.double())
+        torch.cuda.synchronize()
+        nll_rel = float(((got[0].double() - truth[0]).abs() / truth[0].abs()).max())
+        worst["nll_rel"] = max(worst["nll_rel"], nll_rel)
+        if not nll_rel <= RNNT_NLL_RTOL:
+            raise AssertionError(f"14a rnnt_loss B={b} T={t} U={u}: NLL {nll_rel:.3g} relative "
+                                 f"from float64, above {RNNT_NLL_RTOL}")
+        errs = []
+        for i, what in ((1, "d blank"), (2, "d emit")):
+            if got[i].numel() == 0:
+                continue
+            ek = float((got[i].double() - truth[i]).abs().max())
+            ep = float((plain[i].double() - truth[i]).abs().max())
+            if not ek <= min(max(2 * ep, RNNT_GRAD_FLOOR), RNNT_GRAD_ATOL):
+                raise AssertionError(f"14a rnnt_loss B={b} T={t} U={u} {what}: {ek:.3g} from "
+                                     f"float64, the plain float32 version {ep:.3g}")
+            errs.append((what, ek, ep))
+            worst["grad_ratio"] = max(worst["grad_ratio"],
+                                      ek / min(max(2 * ep, RNNT_GRAD_FLOOR), RNNT_GRAD_ATOL))
+            chk.max_err["rnnt_loss"] = max(chk.max_err["rnnt_loss"], ek)
+        chk.max_err["rnnt_loss"] = max(chk.max_err["rnnt_loss"],
+                                       float((got[0].double() - truth[0]).abs().max()))
+        chk.n += 1
+        log(f"[14a] rnnt_loss B={b} T={t} U={u}: NLL {nll_rel:.2e} relative from float64; "
+            + "; ".join(f"{what} {ek:.2e} (plain float32 {ep:.2e})" for what, ek, ep in errs))
+        if (b, t, u) in RNNT_LOSS_TIMED:
+            bl = blank.detach().clone().requires_grad_()
+            em = emit.detach().clone().requires_grad_()
+
+            def kern():
+                return torch.autograd.grad(K10.rnnt_loss(bl, em, il, tl).sum(), (bl, em))
+
+            def plain_fn():
+                return torch.autograd.grad(K10.rnnt_loss_plain(bl, em, il, tl).sum(), (bl, em))
+            call = statistics.median(cuda_ms(kern, reps=10))
+            # each kernel read on its own: device_ms counts one record a call,
+            # and a trace that dropped one kernel's records would pass for
+            # both; its events fallback times whole calls (both kernels)
+            fwd_ms, by_f = device_ms(kern, "rnnt_alpha_kernel")
+            bwd_ms, by_b = device_ms(kern, "rnnt_beta_grad_kernel")
+            if by_f == by_b == "profiler":
+                dev_ms, by = fwd_ms + bwd_ms, "profiler"
+            else:
+                dev_ms, by = (fwd_ms if by_f == "events" else bwd_ms), "events"
+                fwd_ms = fwd_ms if by_f == "profiler" else None
+            pk = statistics.median(cuda_ms(plain_fn, reps=3, warmup=1))
+            bnd = rnnt_loss_bound(b, t, u, il, tl)
+            rounds = 2 * (t + u)
+            rows.append({"shape": f"rnnt_loss B={b} T={t} U={u}", "kernel": "rnnt_loss",
+                         "call_ms": call, "device_ms": dev_ms, "device_ms_by": by,
+                         "forward_device_ms": fwd_ms, "plain_ms": pk, "bound": bnd,
+                         "barrier_rounds": rounds, "library_call_ms": None,
+                         "library_device_ms": None, "library_device_ms_by": None})
+            fwd = "not read" if fwd_ms is None else f"{fwd_ms:.4f}"
+            log(f"[14a] rnnt_loss B={b} T={t} U={u} forward + backward: {dev_ms:.4f} ms device "
+                f"({by}; forward {fwd}; {call:.4f} ms call), plain {pk:.3f} ms, bound "
+                f"{bnd[0]:.5f} ms ({bnd[1]}), latency floor {rounds} dependent barrier rounds, "
+                f"library: none [{card}]")
+    log(f"[14a] worst: NLL {worst['nll_rel']:.2e} relative (bound {RNNT_NLL_RTOL}), gradient "
+        f"error / allowed {worst['grad_ratio']:.3f}")
+    return worst
+
+
+def phase_train_golden(dev, report):
+    """14b: the three golden training records on the card; Kernel 10's
+    launches on the transducer's (the main path's counts)."""
+    import torch
+
+    from qasr_tpu_torch.kernels import rnnt_loss as K10
+    from qasr_tpu_torch.train import golden as G
+
+    out, counts = {}, None
+    for name in G.MODELS:
+        model = G.train_model(name)
+        start = G.start_norms(model)
+        tr = G.make_trainer(name, model, dev)
+        if name == "rnnt_conformer16x256":
+            reset_counts()
+            K10.rnnt_loss_plain.launches = 0
+        rec = G.train_record(name, dev, tr)
+        if name == "rnnt_conformer16x256":
+            counts = read_counts()
+            counts["rnnt_loss_plain"] = K10.rnnt_loss_plain.launches
+            want = planned({"rnnt_loss": 2 * G.STEPS})
+            got = {k: counts.get(k, 0) for k in want}
+            if got != want or counts["rnnt_loss_plain"]:
+                raise AssertionError(f"14b transducer steps launched {counts}, planned {want} "
+                                     f"and no rnnt_loss_plain")
+        cmp = G.compare_train_record(rec, G.load_record(name), start)
+        out[name] = {"record": rec, "compare": cmp}
+        log(f"[14b] {name}: losses {rec['losses']}; step-1 loss {cmp['loss1']:.2e} relative "
+            f"(bound {G.LOSS_RTOL}), later steps {cmp['later_losses']:.2e}; worst step-1 "
+            f"gradient norm {cmp['grad'][0]:.2e} ({cmp['grad'][1]}; bound {G.GRAD_RTOL}), "
+            f"step-3 param norm {cmp['param'][0]:.2e} ({cmp['param'][1]}; bound "
+            f"{G.PARAM_RTOL}); {cmp['weak']} weak leaves: gradient norms at "
+            f"{cmp['weak_grad'][0]:.3f} of their bound, moves at {cmp['weak_param'][0]:.3f} "
+            f"of Novograd's reach")
+        if cmp["failures"]:
+            raise AssertionError(f"14b {name}: {cmp['failures'][:5]}")
+        del tr, model
+        torch.cuda.empty_cache()
+    log(f"[14b] transducer golden steps: rnnt_loss {counts['rnnt_loss']} launches, "
+        f"rnnt_loss_plain {counts['rnnt_loss_plain']}")
+    report["train_golden"] = {k: v["compare"] for k, v in out.items()}
+    return counts
+
+
+def profile_step(fn):
+    """(device kernel ms by group, all kernels' device ms, the call's ms by
+    CUDA events) of one fn() under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+    groups = {"rnnt_loss": 0.0, "ctc_loss": 0.0}
+    total, by_kernel = 0.0, []
+    for ev in prof.key_averages():
+        # a record_function range (torch.optim's "Optimizer.step#..." around
+        # the optimizer's step) spans kernels that are counted themselves
+        if ev.device_type != torch.autograd.DeviceType.CUDA or getattr(
+                ev, "is_user_annotation", False) or ev.key.startswith("Optimizer."):
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        us = ev.self_cuda_time_total if us is None else us
+        total += us
+        by_kernel.append((us / 1e3, ev.count, ev.key[:90]))
+        if "rnnt_alpha" in ev.key or "rnnt_beta" in ev.key:
+            groups["rnnt_loss"] += us
+        elif "ctc_loss" in ev.key:
+            groups["ctc_loss"] += us
+    groups = {k: v / 1e3 for k, v in groups.items()}
+    groups["top"] = sorted(by_kernel, reverse=True)[:6]
+    return groups, total / 1e3, a.elapsed_time(b)
+
+
+def phase_train_steps(dev, card, report):
+    """14c: full-width training steps timed (median of 5 after 2 warm-ups,
+    CUDA events around train_step), peak memory, the params' write-back,
+    Kernel 10's and F.ctc_loss's device ms a step, the device-busy share
+    (one profiled step's kernel time over the median step: the profiler
+    slows the host, not the kernels) and the step's top kernels; every loss
+    and gradient finite."""
+    import dataclasses
+
+    import torch
+
+    from qasr_tpu_torch.kernels import rnnt_loss as K10
+    from qasr_tpu_torch.ops.spec_augment import SpecAugmentConfig
+    from qasr_tpu_torch.train import golden as G
+
+    steps = {}
+    for name in G.MODELS:
+        model = G.train_model(name)
+        spec = None
+        if name == "quartznet15x5":
+            spec = SpecAugmentConfig.from_dict(QN_SPEC_AUGMENT)
+        else:
+            ccfg = dataclasses.replace(model.plan if name.startswith("rnnt") else model.ccfg,
+                                       dropout=CONF_TRAIN_DROPOUT)
+            if name.startswith("rnnt"):
+                model.plan = ccfg
+            else:
+                model.ccfg = ccfg
+        tr = G.make_trainer(name, model, dev)
+        tr.spec_aug = spec
+        b = TRAIN_BATCH[name]
+        batch = train_batch(b, list(model.cfg.labels), seed=40 + b, dev=dev)
+        loss = tr.backward(batch)
+        grads = [p.grad for p in tr.opt.params if p.grad is not None]
+        finite = bool(torch.isfinite(loss)) and bool(
+            torch.isfinite(torch.stack(torch._foreach_norm(grads))).all())
+        if not finite:
+            raise AssertionError(f"14c {name}: loss {float(loss)} or a gradient not finite")
+        tr.apply()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        n0 = K10.rnnt_loss.launches
+        times = cuda_ms(lambda: tr.train_step(batch), reps=5, warmup=2)
+        launches = (K10.rnnt_loss.launches - n0) / 7
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        step_ms = statistics.median(times)
+        wb_ms = statistics.median(cuda_ms(tr.sync_model, reps=5, warmup=1))
+        groups, busy, prof_ms = profile_step(lambda: tr.train_step(batch))
+        last = tr.train_step(batch)
+        if not math.isfinite(last):
+            raise AssertionError(f"14c {name}: loss {last} after the timed steps")
+        steps[name] = {"batch": b, "seconds": TRAIN_SECONDS, "step_ms": step_ms,
+                       "samples_ms": times, "peak_gib": peak, "write_back_ms": wb_ms,
+                       "rnnt_loss_device_ms": groups["rnnt_loss"],
+                       "rnnt_loss_launches_per_step": launches,
+                       "ctc_loss_device_ms": groups["ctc_loss"], "kernels_device_ms": busy,
+                       "profiled_step_ms": prof_ms, "busy_share": busy / step_ms,
+                       "top_kernels": groups["top"], "loss": last}
+        log(f"[14c] {name} B={b} x {TRAIN_SECONDS:g} s train step: median {step_ms:.2f} ms of "
+            f"{len(times)} ({b * TRAIN_SECONDS / step_ms * 1e3:.1f} audio-s/s), peak "
+            f"{peak:.2f} GiB, params write-back {wb_ms:.2f} ms, Kernel 10 "
+            f"{groups['rnnt_loss']:.3f} ms device and {launches:g} launches a step, F.ctc_loss "
+            f"{groups['ctc_loss']:.3f} ms device, kernels {busy:.1f} ms device in a profiled "
+            f"step of {prof_ms:.1f} ms (busy share, over the median step: {busy / step_ms:.3f}), "
+            f"loss {last:.3f} [{card}]")
+        log(f"[14c] {name} top kernels (device ms, calls): " + "; ".join(
+            f"{ms:.1f} ({n}) {key}" for ms, n, key in groups["top"]))
+        del tr, model, batch
+        torch.cuda.empty_cache()
+    report["train_steps"] = steps
+    return steps
+
+
+def write_train_manifest(root, n=8, seed=8):
+    """n two-tone wavs of 2-3 words and their manifest."""
+    import numpy as np
+
+    from qasr_tpu_torch.data.audio import write_wav
+
+    texts, audio, lens = make_corpus(n, seed=seed)
+    path = os.path.join(root, "train.json")
+    with open(path, "w") as f:
+        for i, s in enumerate(texts):
+            wav = os.path.join(root, f"t{i}.wav")
+            write_wav(wav, audio[i, :lens[i]], SAMPLE_RATE)
+            f.write(json.dumps({"audio_filepath": wav, "duration": int(lens[i]) / SAMPLE_RATE,
+                                "text": s}) + "\n")
+    return path
+
+
+def npz_arrays(path):
+    import numpy as np
+
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def phase_train_cli(dev, report):
+    """14d: cli.speech_to_text (QuartzNet15x5's YAML at full width) 3 steps,
+    checkpoints, a resume whose params and optimizer state equal the saved
+    ones bit for bit; cli.speech_to_text_rnnt 2 steps."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+
+    from qasr_tpu_torch.cli import speech_to_text, speech_to_text_rnnt
+    from qasr_tpu_torch.models.config import config_to_dict, quartznet15x5
+    from qasr_tpu_torch.utils.yaml_io import safe_dump
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as td:
+        manifest = write_train_manifest(td)
+        model = dict(config_to_dict(quartznet15x5()), spec_augment=QN_SPEC_AUGMENT,
+                     train_ds={"manifest_filepath": manifest, "batch_size": 4, "shuffle": True},
+                     optim={"name": "novograd", "lr": 0.01, "betas": [0.8, 0.5],
+                            "weight_decay": 0.001,
+                            "sched": {"name": "CosineAnnealing", "warmup_steps": 0}})
+        cfg = os.path.join(td, "quartznet_15x5.yaml")
+        with open(cfg, "w") as f:
+            safe_dump({"model": model, "trainer": {"max_steps": 3},
+                       "exp_manager": {"exp_dir": os.path.join(td, "exp"), "name": "qn",
+                                       "checkpoint_every_n_steps": 1, "resume_if_exists": True,
+                                       "resume_ignore_no_checkpoint": True}}, f)
+        quiet = contextlib.redirect_stderr(io.StringIO())
+        with quiet:
+            tr = speech_to_text.main(["--config-path", cfg])
+        ck = os.path.join(td, "exp", "qn", "version_0", "checkpoints")
+        names = sorted(os.listdir(ck))
+        if tr.step != 3 or not {"last.npz", "step_2.npz", "step_3.npz"} <= set(names):
+            raise AssertionError(f"14d speech_to_text: step {tr.step}, checkpoints {names}")
+        saved = npz_arrays(os.path.join(ck, "last.npz"))
+        with contextlib.redirect_stderr(io.StringIO()):
+            tr2 = speech_to_text.main(["--config-path", cfg])     # resumes at step 3
+        again = npz_arrays(os.path.join(ck, "last.npz"))
+        same = sorted(again) == sorted(saved) and all(
+            np.array_equal(again[k], saved[k]) for k in saved)
+        if tr2.step != 3 or not same:
+            raise AssertionError(f"14d resume: step {tr2.step}, bit-equal {same}")
+        n_opt = sum(1 for k in saved if k.startswith("opt/"))
+        log(f"[14d] cli.speech_to_text QuartzNet15x5 (full width, spec-augment) 3 steps: "
+            f"{names}; resumed from last.npz, its params and {n_opt} optimizer leaves equal "
+            f"the saved ones bit for bit")
+        rcfg = os.path.join(td, "rnnt.yaml")
+        with open(rcfg, "w") as f:
+            safe_dump({"model": config_to_dict(quartznet15x5())}, f)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(io.StringIO()):
+            out = speech_to_text_rnnt.main(["--config", rcfg, "--train_manifest", manifest,
+                                            "--batch_size", "4", "--max_steps", "2"])
+        if out["steps"] != 2 or not math.isfinite(out["final_loss"]):
+            raise AssertionError(f"14d speech_to_text_rnnt: {out}")
+        log(f"[14d] cli.speech_to_text_rnnt 2 steps: {buf.getvalue().strip()}")
+    report["train_cli_seconds"] = time.perf_counter() - t0
+
+
+def toy_config():
+    """tests/test_e2e_quantization_accuracy.py::_cfg: 16 mels, four tiny
+    blocks (24, 24 x 2, 32 x 2, 40), 28 labels, no dither."""
+    from qasr_tpu_torch.models.config import BlockConfig, DecoderConfig, EncoderConfig, ModelConfig
+
+    blocks = (BlockConfig(filters=24, repeat=1, kernel=(7,), stride=(2,), residual=False,
+                          separable=True),
+              BlockConfig(filters=24, repeat=2, kernel=(5,), residual=True, separable=True),
+              BlockConfig(filters=32, repeat=2, kernel=(5,), residual=True, separable=True),
+              BlockConfig(filters=40, repeat=1, kernel=(1,), residual=False, separable=False))
+    return ModelConfig(encoder=EncoderConfig(feat_in=16, blocks=blocks, activation="relu"),
+                       decoder=DecoderConfig(feat_in=40, num_classes=28),
+                       preprocessor={"features": 16, "dither": 0.0})
+
+
+def corpus_wer(model, texts, audio, lens, dev, mode=None, batch_size=10):
+    from qasr_tpu_torch.decode.ctc import WER
+
+    wer = WER(model.vocabulary)
+    toks, tlens = tokenize(texts, model.vocabulary)
+    for i in range(0, len(texts), batch_size):
+        sl = slice(i, i + batch_size)
+        _, el, preds = model.forward(audio[sl], lens[sl], mode=mode, device=dev)
+        wer.update(preds.cpu().numpy(), toks[sl], tlens[sl], el.cpu().numpy())
+    return wer.compute()
+
+
+def phase_train_quantize(dev, card, report):
+    """14e: train the toy on the 50-utterance corpus (seed 1) as
+    train_ctc_model does, then zero-shot quantize it and serve on the
+    card: fp32 WER <= 0.02, W8A8 dynamic and calibrated WER <= 0.08."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from qasr_tpu_torch.models.ctc_model import ASRModel
+    from qasr_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    t0 = time.perf_counter()
+    texts, audio, lens = make_corpus(50, seed=1)
+    model = ASRModel.from_config(toy_config(), seed=0)
+    toks, tlens = tokenize(texts, model.vocabulary)
+    tr = Trainer(model, TrainConfig(lr=TOY_LR, warmup_steps=0, max_steps=TOY_STEPS,
+                                    log_every=10 ** 9, grad_clip=TOY_CLIP), device=dev)
+    rng = np.random.default_rng(0)
+    loss = math.inf
+    for _ in range(TOY_STEPS):
+        idx = rng.choice(len(texts), size=TOY_BATCH, replace=False)
+        loss = tr.train_step((audio[idx], lens[idx], toks[idx], tlens[idx]))
+    t_train = time.perf_counter() - t0
+    params = copy.deepcopy(model.params)
+    wer = {"fp32": corpus_wer(model, texts, audio, lens, dev, mode="fp32")}
+    for name in ("w8a8_dyn", "w8a8"):
+        m = ASRModel.from_config(toy_config(), seed=0)
+        m.params = copy.deepcopy(params)
+        m.set_quant_bit(8)
+        if name == "w8a8_dyn":
+            m.set_dynamic(True)
+        m.bn_folding()
+        if name == "w8a8":
+            with torch.no_grad():
+                cal = [m.frontend(torch.from_numpy(audio[i:i + 4]).to(dev),
+                                  torch.from_numpy(lens[i:i + 4]).to(dev), dither=0.0)
+                       for i in range(0, 20, 4)]
+            m.calibrate(cal, device=dev)
+        wer[name] = corpus_wer(m, texts, audio, lens, dev)
+    report["train_quantize"] = {"loss": loss, "wer": wer, "train_s": t_train,
+                                "seconds": time.perf_counter() - t0}
+    log(f"[14e] toy trained {TOY_STEPS} steps B={TOY_BATCH} on the card in {t_train:.1f} s "
+        f"(final loss {loss:.4f}); corpus WER fp32 {wer['fp32']:.4f} (bound {TOY_FP32_WER}), "
+        f"W8A8 dynamic {wer['w8a8_dyn']:.4f}, W8A8 calibrated {wer['w8a8']:.4f} (bound "
+        f"{TOY_W8A8_WER}) [{card}]")
+    if not (wer["fp32"] <= TOY_FP32_WER and wer["w8a8_dyn"] <= TOY_W8A8_WER
+            and wer["w8a8"] <= TOY_W8A8_WER):
+        raise AssertionError(f"14e WER above its bounds: {wer}")
+
+
+def phase_training(chk, dev, card, report):
+    """Phase 14; returns (kernels line rows, the main path's counts)."""
+    t_phase = time.perf_counter()
+    rows, parts = [], {}
+
+    def part(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        parts[name] = time.perf_counter() - t0
+        return out
+    part("14a rnnt_loss", phase_rnnt_loss, chk, dev, card, rows)
+    counts = part("14b golden records", phase_train_golden, dev, report)
+    part("14c steps", phase_train_steps, dev, card, report)
+    part("14d CLIs", phase_train_cli, dev, report)
+    part("14e train, quantize, serve", phase_train_quantize, dev, card, report)
+    log("[14] seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()))
+    report["training_part_seconds"] = parts
+    report["training_per_kernel"] = rows
+    report["training_seconds"] = time.perf_counter() - t_phase
+    log(f"[14] phase 14 took {report['training_seconds']:.1f} s")
+    return rows, counts
+
+
+def rnnt_loss_row(chk, rows, counts):
+    """Kernel 10's entry of the kernels line, at the B=16 x 15 s lattice."""
+    r = next(r for r in rows if r["shape"] == "rnnt_loss B=16 T=375 U=166")
+    return {"name": "rnnt_loss", "route": "cuda", "shape": r["shape"],
+            "source": "qasr_tpu_torch/kernels/csrc/rnnt_loss.cu",
+            "replaces": "none: the lax.scan over anti-diagonals differentiated by autodiff, "
+                        "qasr_tpu/models/rnnt.py:156-216 (rnnt_loss_wavefront)",
+            "launches": counts["rnnt_loss"], "max_abs_err": chk.max_err["rnnt_loss"],
+            "ms": r["device_ms"], "call_ms": r["call_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound"][0], "bound_by": r["bound"][1], "library_ms": None,
+            "library_call_ms": None, "forward_ms": r["forward_device_ms"],
+            "barrier_rounds": r["barrier_rounds"]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="PyTorch port smoke test on one GPU")
     ap.add_argument("--report", help="also write a JSON report of every number here")
+    ap.add_argument("--only", choices=("training",),
+                    help="run the build and this phase alone (a partial run: it prints no "
+                         "result line)")
     args = ap.parse_args()
 
     import torch
@@ -5406,6 +6027,18 @@ def main() -> int:
                   ptxas=info.log)
 
     chk = Checker()
+    if args.only == "training":
+        rows, counts = phase_training(chk, dev, card, report)
+        report["kernels"] = [rnnt_loss_row(chk, rows, counts)]
+        report["seconds"] = time.perf_counter() - t_start
+        if args.report:
+            os.makedirs(os.path.dirname(os.path.abspath(args.report)), exist_ok=True)
+            with open(args.report, "w") as f:
+                json.dump(report, f, indent=1)
+        log(card)
+        print(json.dumps({"kernels": report["kernels"]}), flush=True)
+        log(f"partial run (--only training) passed in {report['seconds']:.1f} s")
+        return 0
     phase_requant(chk, dev)
     phase_dw(chk, dev)
     phase_pw(chk, dev)
@@ -5443,6 +6076,7 @@ def main() -> int:
     g_rows, g_counts = phase_grouped(chk, dev, card, report, (model, tables["static_e"]))
     s_rows, s_counts = phase_streaming(chk, dev, card, report)
     t_rows, t_counts = phase_transducer(chk, dev, card, report)
+    tr_rows, tr_counts = phase_training(chk, dev, card, report)
 
     rows = report["quartznet_per_kernel"] + report["conformer_per_kernel"]
     kernels = []
@@ -5539,6 +6173,8 @@ def main() -> int:
         row = kernel_row(kind, replaces, r, t_counts[kind])
         row["source"] = "qasr_tpu_torch/kernels/csrc/rnnt_decoder.cu"
         kernels.append(row)
+    # phase 14: Kernel 10 (launches: the transducer's golden training steps of 14b)
+    kernels.append(rnnt_loss_row(chk, tr_rows, tr_counts))
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     log(f"[6] whole smoke run {report['seconds']:.1f} s")

@@ -15,7 +15,8 @@ linear, the speaker head's embedding layers (linear + BN) and final layer.
 ``stream_state_from_jax`` carries a cache-aware Conformer stream's state
 (``frozen_stream_init`` / ``frozen_stream_step``) across;
 ``rnnt_model_from_jax`` a transducer (``RNNTModel``) with its ranges and
-frozen host tables.
+frozen host tables; ``novograd_state_from_jax`` a training optimizer's
+state (its leaves in optax's order).
 Nothing here imports jax.
 """
 from __future__ import annotations
@@ -145,3 +146,18 @@ def rnnt_model_from_jax(jm: Any):
         pm.__class__ = EncDecRNNTBPEModel
         pm.tokenizer = BPETokenizer(tok.path)
     return pm
+
+
+def novograd_state_from_jax(opt_state: Any) -> list:
+    """A JAX package optimizer state (``NovogradState(step, m, v)``, or the
+    tuple ``optax.chain`` keeps, e.g. with a clip's empty state first) as
+    its leaves in optax's order (numpy), what the port's optimizers'
+    ``load_state_leaves`` (and ``Trainer.restore``) take.  Walks the
+    named tuples, tuples, lists and dicts (keys sorted) without jax."""
+    if isinstance(opt_state, dict):
+        return [x for k in sorted(opt_state) for x in novograd_state_from_jax(opt_state[k])]
+    if isinstance(opt_state, (list, tuple)):
+        return [x for v in opt_state for x in novograd_state_from_jax(v)]
+    if opt_state is None:
+        return []
+    return [np.asarray(opt_state)]

@@ -113,20 +113,26 @@ def collate_batch(batch, quantum: int = BUCKET_QUANTUM):
 class DataLoader:
     """Batches of ``collate_batch`` over a dataset, in order or shuffled by
     ``np.random.default_rng(seed)`` (the JAX package's order for the same
-    seed)."""
+    seed); ``drop_last`` drops a short last batch."""
 
-    def __init__(self, dataset, batch_size: int, shuffle: bool = False, seed: int = 0):
+    def __init__(self, dataset, batch_size: int, shuffle: bool = False, seed: int = 0,
+                 drop_last: bool = False):
         self.ds = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
+        self.drop_last = drop_last
 
     def __len__(self) -> int:
-        return -(-len(self.ds) // self.batch_size)
+        n = len(self.ds)
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def __iter__(self) -> Iterator:
         idx = list(range(len(self.ds)))
         if self.shuffle:
             np.random.default_rng(self.seed).shuffle(idx)
         for i in range(0, len(idx), self.batch_size):
-            yield collate_batch([self.ds[j] for j in idx[i:i + self.batch_size]])
+            chunk = idx[i:i + self.batch_size]
+            if self.drop_last and len(chunk) < self.batch_size:
+                return
+            yield collate_batch([self.ds[j] for j in chunk])

@@ -53,6 +53,8 @@ _SIGNATURES = {
     "qasr_rnnt_greedy": [_P] * 11 + [_I, _F, _P, _P],
     "qasr_cluster_exchange": [_I] * 4 + [_P, _P],
     "qasr_empty_launch": [_I] * 6 + [_P],
+    "qasr_rnnt_loss_fwd": [_P] * 7 + [_I] * 3 + [_P],
+    "qasr_rnnt_loss_bwd": [_P] * 9 + [_I] * 3 + [_P],
 }
 
 _lock = threading.Lock()

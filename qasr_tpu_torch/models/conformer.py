@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from qasr_tpu_torch.device import no_tf32
+from qasr_tpu_torch.ops.dropout import dropout as drop
 from qasr_tpu_torch.quantize.ranges import params_to_device
 
 
@@ -271,6 +272,17 @@ def encoder_params_to_device(params, device) -> Dict[str, Any]:
     return tree
 
 
+def encoder_params_view(leaves) -> Dict[str, Any]:
+    """A tree of torch leaves in the host layout (the trainer's params) as
+    ``conformer_encoder_apply`` reads it: the subsampler's HWIO conv
+    kernels as OIHW views, so gradients reach the leaves."""
+    if "convs" not in leaves["pre_encode"]:
+        return leaves
+    convs = [{k: {"w": c["w"].permute(3, 2, 0, 1), "b": c["b"]} for k, c in blk.items()}
+             for blk in leaves["pre_encode"]["convs"]]
+    return dict(leaves, pre_encode=dict(leaves["pre_encode"], convs=convs))
+
+
 @functools.lru_cache(maxsize=16)
 def position_tables(t: int, d_model: int, device: torch.device):
     """(the (2T-1, d) sinusoid table, the (T, T) rel-shift index
@@ -382,15 +394,19 @@ def encoder_masks(cfg: ConformerConfig, t: int, lens: torch.Tensor):
 
 
 def conformer_encoder_apply(params, cfg: ConformerConfig, x: torch.Tensor, lens: torch.Tensor,
-                            *, train: bool = False,
+                            *, train: bool = False, generator: Optional[torch.Generator] = None,
                             bn_stats: Optional[List] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(B, T, F) float32 features -> ((B, T', d) encodings, lens'), the
-    eval graph (no dropout), float32 with TF32 off.  ``params`` from
-    ``encoder_params_to_device``; ``bn_stats``, a list, collects each conv
-    module's pre-BN (mean, var)."""
-    if train:
-        raise NotImplementedError("train-mode dropout is not ported (ROADMAP queue A "
-                                  "item 8, training)")
+    """(B, T, F) float32 features -> ((B, T', d) encodings, lens'), float32
+    with TF32 off.  ``params`` from ``encoder_params_to_device`` (or
+    ``encoder_params_view`` of trainable leaves); ``bn_stats``, a list,
+    collects each conv module's pre-BN (mean, var).  With ``train`` and a
+    ``generator``, ``cfg.dropout`` drops each sublayer's output before its
+    residual, the four places the JAX package applies it (``dropout_emb``
+    and ``dropout_att`` are not applied there either); BN keeps its
+    running statistics."""
+    def dropout(y):
+        return drop(y, cfg.dropout, generator) if train else y
+
     with no_tf32():
         if cfg.subsampling:
             x, lens = conv_subsampling(params["pre_encode"], cfg, x, lens)
@@ -404,17 +420,18 @@ def conformer_encoder_apply(params, cfg: ConformerConfig, x: torch.Tensor, lens:
         pad_mask = ~valid
         u, v = params.get("pos_bias_u"), params.get("pos_bias_v")
         for lp in params["layers"]:
-            x = 0.5 * _feed_forward(lp["ff1"], _layer_norm(lp["norm_ff1"], x)) + x
+            x = 0.5 * dropout(_feed_forward(lp["ff1"], _layer_norm(lp["norm_ff1"], x))) + x
             y = _layer_norm(lp["norm_att"], x)
             if cfg.self_attention_model == "rel_pos":
                 y = rel_attention(lp["att"], y, pos_emb, idx, att_mask,
                                   lp.get("pos_bias_u", u), lp.get("pos_bias_v", v), cfg.n_heads)
             else:
                 y = abs_attention(lp["att"], y, att_mask, cfg.n_heads)
-            x = y + x
-            x = conformer_conv_module(lp["conv"], _layer_norm(lp["norm_conv"], x), pad_mask,
-                                      stats_out=bn_stats, padding=cfg.dw_padding) + x
-            x = 0.5 * _feed_forward(lp["ff2"], _layer_norm(lp["norm_ff2"], x)) + x
+            x = dropout(y) + x
+            x = dropout(conformer_conv_module(lp["conv"], _layer_norm(lp["norm_conv"], x),
+                                              pad_mask, stats_out=bn_stats,
+                                              padding=cfg.dw_padding)) + x
+            x = 0.5 * dropout(_feed_forward(lp["ff2"], _layer_norm(lp["norm_ff2"], x))) + x
             x = _layer_norm(lp["norm_out"], x)
         if "out_proj" in params:
             x = _apply_linear(params["out_proj"], x)

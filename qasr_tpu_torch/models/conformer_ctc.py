@@ -1,6 +1,7 @@
 """Conformer-CTC: the Conformer encoder with a linear or LSTM CTC head, its
 zero-shot quantization workflow, its frozen integer serving path and its
-checkpoints (port of qasr_tpu/models/conformer_ctc.py without training).
+checkpoints and its training loss (port of qasr_tpu/models/conformer_ctc.py
+without QAT).
 
 ``ConformerCTC`` holds the host state (configs, numpy float params, the
 calibrated range state, the frozen host tables).  ``quantize_encoder``
@@ -41,11 +42,18 @@ from qasr_tpu_torch.models.conformer import (
     _linear,
     conformer_encoder_apply,
     encoder_params_to_device,
+    encoder_params_view,
     init_conformer_params,
 )
 from qasr_tpu_torch.models.ctc_model import _pcm_f32
-from qasr_tpu_torch.models.lstm_decoder import init_lstm_decoder, lstm_decoder_forward, lstm_shape
+from qasr_tpu_torch.models.lstm_decoder import (
+    init_lstm_decoder,
+    lstm_decoder_forward,
+    lstm_decoder_log_probs,
+    lstm_shape,
+)
 from qasr_tpu_torch.ops.features import MelFrontend, preprocessor_config_from_dict
+from qasr_tpu_torch.ops.spec_augment import spec_augment
 from qasr_tpu_torch.quantize.conformer_freeze import (
     DEFAULT_PLAN,
     ConformerPlan,
@@ -65,6 +73,7 @@ from qasr_tpu_torch.quantize.conformer_ptq import (
 )
 from qasr_tpu_torch.quantize.conformer_synth import get_synthetic_conformer_data
 from qasr_tpu_torch.quantize.ranges import params_to_device, qstate_to_device, qstate_to_host
+from qasr_tpu_torch.train.ctc_loss import ctc_loss
 
 
 def _tree_to_json(t):
@@ -355,6 +364,44 @@ class ConformerCTC:
             eq, _ = _act_quant(qs["dec_in"], enc, None, self.enc_qcfg)
             logits = _qlinear(qp["decoder"], eq, kernels)
         return torch.log_softmax(logits, dim=-1), el
+
+    # -- training -------------------------------------------------------------
+
+    def loss_from_features(self, params, feats: torch.Tensor, feat_lens: torch.Tensor,
+                           targets: torch.Tensor, tlens: torch.Tensor, *,
+                           generator: Optional[torch.Generator] = None, spec_aug=None,
+                           reduction: str = "mean_batch") -> torch.Tensor:
+        """The CTC loss of float features (B, T, F) through the float
+        encoder and head, differentiable in ``params`` (torch leaves in the
+        host layout, e.g. a trainer's).  With a ``generator`` it is the
+        training loss: ``spec_aug`` masks and the encoder's dropout drawn
+        from it."""
+        train = generator is not None
+        if spec_aug is not None and train:
+            feats = spec_augment(feats, spec_aug, generator)
+        enc, el = conformer_encoder_apply(encoder_params_view(params["encoder"]), self.ccfg,
+                                          feats, feat_lens, train=train, generator=generator)
+        if self.decoder_kind == "lstm":
+            lp = lstm_decoder_log_probs(params["decoder"], enc)
+        else:
+            with no_tf32():
+                lp = torch.log_softmax(enc @ params["decoder"]["w"] + params["decoder"]["b"],
+                                       dim=-1)
+        return ctc_loss(lp, el, targets, tlens, self.blank_id, reduction)
+
+    def loss_fn(self, params, audio, alens, targets, tlens, *,
+                generator: Optional[torch.Generator] = None, spec_aug=None, qat=None):
+        """The CTC loss of a padded float32 PCM batch (on ``params``'
+        device) for (B, L) targets: the frontend (dithered when a
+        ``generator`` is given), then ``loss_from_features``.  This is the
+        float training loss; the JAX package's eval-mode loss of a
+        calibrated model (its PTQ forward) is not ported."""
+        if qat is not None:
+            raise NotImplementedError("qat=: Conformer QAT is not ported (ROADMAP queue A "
+                                      "item 8, QAT)")
+        feats, feat_lens = self.frontend(_pcm_f32(audio), alens, generator=generator)
+        return self.loss_from_features(params, feats, feat_lens, targets, tlens,
+                                       generator=generator, spec_aug=spec_aug)
 
     def forward(self, audio, alens, device=None, plan: ConformerPlan = DEFAULT_PLAN,
                 kernels: bool = True):

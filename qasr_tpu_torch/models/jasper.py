@@ -36,6 +36,7 @@ import torch.nn.functional as F
 from qasr_tpu_torch.device import no_tf32
 from qasr_tpu_torch.kernels.checks import act_dtype, join_planes, signed_planes, split_planes
 from qasr_tpu_torch.models.config import DecoderConfig, EncoderConfig, QuantConfig
+from qasr_tpu_torch.ops.dropout import dropout as drop
 from qasr_tpu_torch.ops.quant_prims import (
     QTensor,
     mask_values,
@@ -438,12 +439,18 @@ class FloatExec:
     ``bn_stats`` gathers the per-channel (mean, var with Bessel's
     correction) over (batch, time) of every pre-BN conv output, the
     statistics data-free synthesis matches to the BN running statistics.
-    Params are torch tensors on the input's device."""
+    Params are torch tensors on the input's device.  With ``train`` and a
+    ``generator``, each activation is followed by its block's dropout; BN
+    still normalizes with the params' mean and var (which train as
+    params), as the JAX package's FloatExec does."""
 
-    def __init__(self, params, *, activation: str, collect_bn_stats: bool = False):
+    def __init__(self, params, *, activation: str, collect_bn_stats: bool = False,
+                 train: bool = False, generator: Optional[torch.Generator] = None):
         self.params = params
         self.activation_kind = activation
         self.collect = collect_bn_stats
+        self.train = train
+        self.generator = generator
         self.bn_stats: List[Tuple[torch.Tensor, torch.Tensor]] = []
 
     def masked_conv(self, site, spec: ConvSpec, x, lens):
@@ -463,7 +470,8 @@ class FloatExec:
         return torch.maximum(out, res_out)
 
     def activation(self, x, dropout: float):
-        return _apply_activation(x, self.activation_kind)
+        y = _apply_activation(x, self.activation_kind)
+        return drop(y, dropout, self.generator) if self.train else y
 
     def group_shuffle(self, x, groups):
         return group_shuffle(x, groups)

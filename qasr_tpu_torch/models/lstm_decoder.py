@@ -70,6 +70,11 @@ def _run_lstm(p, x: torch.Tensor, reverse: bool) -> torch.Tensor:
 def lstm_decoder_forward(params: Dict[str, Any], enc: torch.Tensor) -> torch.Tensor:
     """enc (B, T, D) float32 -> log-probs (B, T, V+1); ``params`` as torch
     tensors on enc's device."""
+    return lstm_decoder_log_probs(params, enc)
+
+
+def lstm_decoder_log_probs(params: Dict[str, Any], enc: torch.Tensor) -> torch.Tensor:
+    """``lstm_decoder_forward`` with gradients (the training path)."""
     with no_tf32():
         x = enc.to(torch.float32)
         for layer in params["lstm"]:

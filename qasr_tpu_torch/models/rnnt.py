@@ -1,11 +1,12 @@
-"""RNN-Transducer serving: prediction network, joint, greedy and beam
-decoding (port of qasr_tpu/models/rnnt.py without the loss, which comes
-with training).
+"""RNN-Transducer: prediction network, joint, the loss, greedy and beam
+decoding (port of qasr_tpu/models/rnnt.py).
 
   - the prediction network: an embedding (its blank row is the
     start-of-sequence input) and an LSTM stack, gates ordered i, f, g, o;
   - the joint: project the encoder frame and the prediction, add,
     activation, project to the vocabulary plus blank;
+  - the loss: the lattice's blank and label log-probs gathered from the
+    joint's log-softmax, their NLL in Kernel 10 (kernels/rnnt_loss.py);
   - greedy decoding: a host loop over device-stepped cells (at most
     ``max_symbols_per_step`` symbols a frame, the prediction network
     advanced only where a symbol was emitted), its carry threaded through
@@ -31,6 +32,8 @@ import numpy as np
 import torch
 
 from qasr_tpu_torch.device import no_tf32
+from qasr_tpu_torch.kernels.rnnt_loss import NEG_INF
+from qasr_tpu_torch.kernels.rnnt_loss import rnnt_loss as kernel_rnnt_loss
 
 
 @dataclass(frozen=True)
@@ -115,19 +118,31 @@ def pred_step(params, cfg: RNNTConfig, token: torch.Tensor, state: LSTMState
     return x, LSTMState(torch.stack(hs), torch.stack(cs))
 
 
-@torch.no_grad()
-def pred_network(params, cfg: RNNTConfig, targets: torch.Tensor) -> torch.Tensor:
+def pred_outputs(params, cfg: RNNTConfig, targets: torch.Tensor) -> torch.Tensor:
     """Teacher-forced prediction network over (B, U) targets -> (B, U+1, H),
-    the start-of-sequence (blank) step first."""
+    the start-of-sequence (blank) step first; differentiable in the params
+    (the training path)."""
     b = targets.shape[0]
     sos = torch.full((b, 1), cfg.blank_id, dtype=targets.dtype, device=targets.device)
-    tokens = torch.cat([sos, targets], dim=1)
-    state = lstm_init_state(cfg, b, targets.device)
+    x_all = params["embed"][torch.cat([sos, targets], dim=1).to(torch.int64)]
+    h = [torch.zeros((b, cfg.pred_hidden), dtype=torch.float32, device=targets.device)
+         for _ in params["lstm"]]
+    c = list(h)
     outs = []
-    for u in range(tokens.shape[1]):
-        out, state = pred_step(params, cfg, tokens[:, u], state)
-        outs.append(out)
+    with no_tf32():
+        for u in range(x_all.shape[1]):
+            x = x_all[:, u]
+            for li, lp in enumerate(params["lstm"]):
+                h[li], c[li] = _lstm_cell(lp, x, h[li], c[li])
+                x = h[li]
+            outs.append(x)
     return torch.stack(outs, dim=1)
+
+
+@torch.no_grad()
+def pred_network(params, cfg: RNNTConfig, targets: torch.Tensor) -> torch.Tensor:
+    """``pred_outputs`` without gradients."""
+    return pred_outputs(params, cfg, targets)
 
 
 def _activation(x: torch.Tensor, kind: str) -> torch.Tensor:
@@ -140,16 +155,99 @@ def _activation(x: torch.Tensor, kind: str) -> torch.Tensor:
     return x
 
 
-@torch.no_grad()
-def joint(params, cfg: RNNTConfig, enc: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
+def joint_logits(params, cfg: RNNTConfig, enc: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
     """(B, T, De) x (B, U+1, Dp) -> (B, T, U+1, V+1) logits: project both,
-    add, activation, project to the vocabulary."""
+    add, activation, project to the vocabulary (differentiable)."""
     jp = params["joint"]
     with no_tf32():
         f = enc @ jp["enc"]["w"] + jp["enc"]["b"]
         g = pred @ jp["pred"]["w"] + jp["pred"]["b"]
         x = _activation(f[:, :, None, :] + g[:, None, :, :], cfg.activation)
         return x @ jp["out"]["w"] + jp["out"]["b"]
+
+
+@torch.no_grad()
+def joint(params, cfg: RNNTConfig, enc: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
+    """``joint_logits`` without gradients."""
+    return joint_logits(params, cfg, enc, pred)
+
+
+# ---------------------------------------------------------------------------
+# the RNNT loss
+# ---------------------------------------------------------------------------
+
+
+def lattice_log_probs(log_probs: torch.Tensor, targets: torch.Tensor, blank_id: int):
+    """(B, T, U+1, V+1) log-probs -> (blank (B, T, U+1), emit (B, T, U)):
+    the blank's and each next target label's log-prob at every lattice
+    cell, gathered so that autograd scatters the gradients back."""
+    b, t, u1, _ = log_probs.shape
+    idx = targets[:, None, :u1 - 1, None].to(torch.int64).expand(b, t, u1 - 1, 1)
+    return log_probs[..., blank_id], torch.gather(log_probs[:, :, :u1 - 1], 3, idx)[..., 0]
+
+
+def _reduce(nll: torch.Tensor, target_lengths: torch.Tensor, reduction: str) -> torch.Tensor:
+    if reduction == "mean_batch":
+        return nll.mean()
+    if reduction == "sum":
+        return nll.sum()
+    if reduction == "none":
+        return nll
+    if reduction == "mean":
+        return (nll / target_lengths.to(nll).clamp_min(1)).mean()
+    raise ValueError(reduction)
+
+
+def _rnnt_nll_rowscan(blank_lp: torch.Tensor, emit_lp: torch.Tensor,
+                      input_lengths: torch.Tensor, target_lengths: torch.Tensor) -> torch.Tensor:
+    """The JAX package's row-scan recursion (a loop over T of an in-row
+    loop over U), for the tests: (B,) NLL."""
+    b, t_max, u1 = blank_lp.shape
+    dev = blank_lp.device
+    neg = torch.full((b,), NEG_INF, dtype=blank_lp.dtype, device=dev)
+    u_valid = torch.arange(u1, device=dev)[None, :] <= target_lengths.to(dev)[:, None]
+
+    def row(horiz, t):
+        vals, carry = [], neg
+        for u in range(u1):
+            carry = horiz[:, 0] if u == 0 else torch.logaddexp(horiz[:, u],
+                                                                carry + emit_lp[:, t, u - 1])
+            vals.append(carry)
+        return torch.where(u_valid, torch.stack(vals, dim=1), NEG_INF)
+
+    vals, carry = [], neg
+    for u in range(u1):
+        carry = torch.zeros((b,), dtype=blank_lp.dtype, device=dev) if u == 0 \
+            else carry + emit_lp[:, 0, u - 1]
+        vals.append(carry)
+    alphas = [torch.where(u_valid, torch.stack(vals, dim=1), NEG_INF)]
+    for t in range(1, t_max):
+        alphas.append(row(alphas[-1] + blank_lp[:, t - 1], t))
+    alphas = torch.stack(alphas)                     # (T, B, U+1)
+    ti = input_lengths.to(dev, torch.int64) - 1
+    ui = target_lengths.to(dev, torch.int64)
+    bi = torch.arange(b, device=dev)
+    return -(alphas[ti, bi, ui] + blank_lp[bi, ti, ui])
+
+
+def rnnt_loss(log_probs: torch.Tensor, targets: torch.Tensor, input_lengths: torch.Tensor,
+              target_lengths: torch.Tensor, blank_id: int, reduction: str = "mean_batch",
+              impl: str = "wavefront") -> torch.Tensor:
+    """The transducer's negative log-likelihood of (B, T, U+1, V+1)
+    log-softmaxed joint outputs for (B, U) targets, reduced as the CTC loss
+    is ('mean_batch', 'sum', 'mean', 'none').  The lattice runs in Kernel
+    10 on CUDA tensors (its plain wavefront on CPU tensors);
+    ``impl="rowscan"`` runs the row-scan recursion instead (tests)."""
+    blank_lp, emit_lp = lattice_log_probs(log_probs, targets, blank_id)
+    il = input_lengths.to(log_probs.device)
+    tl = target_lengths.to(log_probs.device)
+    if impl == "rowscan":
+        nll = _rnnt_nll_rowscan(blank_lp, emit_lp, il, tl)
+    elif impl == "wavefront":
+        nll = kernel_rnnt_loss(blank_lp, emit_lp, il, tl)
+    else:
+        raise ValueError(f"unknown impl {impl!r}")
+    return _reduce(nll, tl, reduction)
 
 
 def _joint_logprobs(params, cfg: RNNTConfig, e: torch.Tensor, g: torch.Tensor) -> torch.Tensor:

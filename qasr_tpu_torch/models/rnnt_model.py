@@ -1,5 +1,5 @@
-"""The transducer ASR model's serving path (port of
-qasr_tpu/models/rnnt_model.py without training).
+"""The transducer ASR model's serving path and training loss (port of
+qasr_tpu/models/rnnt_model.py without QAT).
 
 ``RNNTModel`` composes the mel frontend, an encoder (a Jasper / QuartzNet
 block stack in float32, or a Conformer) and the transducer head of
@@ -36,6 +36,7 @@ from qasr_tpu_torch.models.conformer import (
     ConformerConfig,
     conformer_encoder_apply,
     encoder_params_to_device,
+    encoder_params_view,
     init_conformer_params,
 )
 from qasr_tpu_torch.models.ctc_model import _pcm_f32
@@ -50,8 +51,12 @@ from qasr_tpu_torch.models.rnnt import (
     beam_decode_one,
     greedy_decode,
     init_rnnt_params,
+    joint_logits,
+    pred_outputs,
+    rnnt_loss,
 )
 from qasr_tpu_torch.ops.features import MelFrontend, preprocessor_config_from_dict
+from qasr_tpu_torch.ops.spec_augment import spec_augment
 from qasr_tpu_torch.quantize.conformer_freeze import (
     conformer_tables_to_device,
     freeze_conformer,
@@ -268,6 +273,46 @@ class RNNTModel:
             return conformer_encoder_apply(self._enc_float(dev), self.plan, feats, feat_lens)
         ex = FloatExec(self._enc_float(dev), activation=self.plan.activation)
         return encoder_forward(ex, self.plan, feats, feat_lens)
+
+    # -- training -------------------------------------------------------------
+
+    def loss_from_features(self, params, feats: torch.Tensor, feat_lens: torch.Tensor,
+                           targets: torch.Tensor, tlens: torch.Tensor, *,
+                           generator: Optional[torch.Generator] = None, spec_aug=None,
+                           reduction: str = "mean_batch") -> torch.Tensor:
+        """The RNNT loss of float features (B, T, F) through the float
+        encoder, the prediction network and the joint, differentiable in
+        ``params`` (torch leaves in the host layout); the lattice in Kernel
+        10 on CUDA.  With a ``generator``: ``spec_aug`` and the encoder's
+        dropout drawn from it."""
+        train = generator is not None
+        if spec_aug is not None and train:
+            feats = spec_augment(feats, spec_aug, generator)
+        if self.encoder_kind == "conformer":
+            enc, enc_lens = conformer_encoder_apply(encoder_params_view(params["encoder"]),
+                                                    self.plan, feats, feat_lens, train=train,
+                                                    generator=generator)
+        else:
+            ex = FloatExec(params["encoder"], activation=self.plan.activation, train=train,
+                           generator=generator)
+            enc, enc_lens = encoder_forward(ex, self.plan, feats, feat_lens)
+        pred = pred_outputs(params["rnnt"], self.rnnt_cfg, targets)
+        logits = joint_logits(params["rnnt"], self.rnnt_cfg, enc, pred)
+        return rnnt_loss(torch.log_softmax(logits, dim=-1), targets, enc_lens, tlens,
+                         self.rnnt_cfg.blank_id, reduction)
+
+    def loss_fn(self, params, audio, alens, targets, tlens, *,
+                generator: Optional[torch.Generator] = None, spec_aug=None, qat=None):
+        """The RNNT loss of a padded float32 PCM batch for (B, U) targets:
+        the frontend (dithered when a ``generator`` is given), then
+        ``loss_from_features``; the float training loss (the JAX package's
+        eval-mode loss of a calibrated encoder is not ported)."""
+        if qat is not None:
+            raise NotImplementedError("qat=: Conformer QAT is not ported (ROADMAP queue A "
+                                      "item 8, QAT)")
+        feats, feat_lens = self.frontend(_pcm_f32(audio), alens, generator=generator)
+        return self.loss_from_features(params, feats, feat_lens, targets, tlens,
+                                       generator=generator, spec_aug=spec_aug)
 
     @torch.no_grad()
     def encode(self, audio, alens, device=None):

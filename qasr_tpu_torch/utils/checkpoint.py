@@ -1,5 +1,5 @@
-"""The native ``.qasr`` model archive and array trees on disk (port of
-qasr_tpu/utils/checkpoint.py without the training checkpoints).
+"""The native ``.qasr`` model archive, array trees on disk and the
+training checkpoints (port of qasr_tpu/utils/checkpoint.py).
 
 A ``.qasr`` is a tar.gz of ``model_config.yaml`` (the model's config dict,
 with the restore metadata under the reserved ``_qasr_meta`` key),
@@ -9,6 +9,11 @@ with the restore metadata under the reserved ``_qasr_meta`` key),
 convs/1/w``), the JAX package's spelling, so archives written by either
 package restore in the other.  The YAML goes through ``utils/yaml_io.py``
 (no PyYAML).
+
+A training checkpoint is one ``.npz``: ``params/...`` (the host params),
+``opt/<i>`` (the optimizer state's leaves in optax's order: for Novograd
+NovogradState(step, m, v)), ``step`` and optional ``qstate/...``, so a JAX
+checkpoint resumes in the port and the port's in the JAX package.
 """
 from __future__ import annotations
 
@@ -128,3 +133,42 @@ def load_qasr(path: str) -> Tuple[Dict[str, Any], Dict[str, np.ndarray], Dict[st
             flat = {k: z[k] for k in z.files}
         artifacts = extract_artifacts(td)
     return cfg, flat, artifacts
+
+
+# ---------------------------------------------------------------------------
+# training checkpoints
+# ---------------------------------------------------------------------------
+
+
+def _host(a) -> np.ndarray:
+    return a.detach().cpu().numpy() if hasattr(a, "detach") else np.asarray(a)
+
+
+def save_training_ckpt(path: str, params: Any, opt_state: Any, step: int,
+                       qstate: Optional[Any] = None) -> None:
+    """``opt_state``: an optimizer with ``state_leaves()`` (train/optim.py)
+    or the list of its leaves."""
+    leaves = opt_state.state_leaves() if hasattr(opt_state, "state_leaves") else opt_state
+    tree = {"params": params, "opt": [_host(x) for x in leaves], "step": np.asarray(step)}
+    if qstate is not None:
+        tree["qstate"] = qstate
+    save_arrays(path, tree)
+
+
+def load_training_ckpt(path: str, params_tpl: Any, opt_state_tpl: Any = None,
+                       qstate_tpl: Optional[Any] = None):
+    """(params in ``params_tpl``'s structure, the optimizer's state leaves
+    (a list, in order; their count checked against ``opt_state_tpl``'s
+    ``state_leaves()`` when given), the step, the range state or None)."""
+    with np.load(_npz_path(path), allow_pickle=False) as z:
+        flat = {k: z[k] for k in z.files}
+    params = unflatten_into(params_tpl, flat, "params/")
+    n = sum(1 for k in flat if k.startswith("opt/"))
+    opt = [flat[f"opt/{i}"] for i in range(n)]
+    if opt_state_tpl is not None and hasattr(opt_state_tpl, "state_leaves") \
+            and len(opt_state_tpl.state_leaves()) != n:
+        raise ValueError(f"{path}: {n} optimizer leaves, the optimizer has "
+                         f"{len(opt_state_tpl.state_leaves())}")
+    step = int(flat["step"])
+    qstate = unflatten_into(qstate_tpl, flat, "qstate/") if qstate_tpl is not None else None
+    return params, opt, step, qstate

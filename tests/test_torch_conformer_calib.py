@@ -10,7 +10,9 @@ seed in both packages, seeded numpy inputs with unequal lengths:
     the integer cores under both of its QASR_FAST_IDIV forms);
 (b) the float encoder and its pad-masked BN statistics: within rtol 1e-5
     (float32 GEMMs and convs in two libraries; measured 2.3e-7 on the
-    encodings);
+    encodings); its train mode equals it bit for bit without a generator
+    or at dropout 0, and differs at dropout 0.1 (the draws' parity is
+    test_torch_train.py's);
 (c) calibration over 2 batches with every integer flag and static
     attention on the linear variant: min / max and percentile 99.9 give
     the JAX package's range state bit for bit ('dec_in' included), and
@@ -195,9 +197,16 @@ def test_float_encoder_and_bn_stats_match_jax(subsampling, change):
         np.testing.assert_allclose(pm_.numpy(), jm_, rtol=FLOAT_RTOL,
                                    atol=FLOAT_RTOL * np.abs(jm_).max())
         np.testing.assert_allclose(pv.numpy(), jv, rtol=FLOAT_RTOL)
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
-        conformer_encoder_apply(encoder_params_to_device(pm.params["encoder"], "cpu"), pm.ccfg,
-                                torch.from_numpy(x), torch.from_numpy(lens), train=True)
+    # train mode (ported since): dropout only where a generator draws it
+    dev_params = encoder_params_to_device(pm.params["encoder"], "cpu")
+
+    def train(cfg, gen):
+        return conformer_encoder_apply(dev_params, cfg, torch.from_numpy(x),
+                                       torch.from_numpy(lens), train=True, generator=gen)[0]
+    assert torch.equal(train(pm.ccfg, None), pe)
+    assert torch.equal(train(pm.ccfg, torch.Generator().manual_seed(0)), pe)   # dropout 0
+    dropped = dataclasses.replace(pm.ccfg, dropout=0.1)
+    assert not torch.equal(train(dropped, torch.Generator().manual_seed(0)), pe)
 
 
 # ---------------------------------------------------------------------------
