@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port (qasr_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--report PATH] [--only training]
+    python3 chip_smoke.py [--report PATH] [--only training|rnnt_loss]
 
 Drives the port's serving paths on the card, the frozen W6A6 QuartzNet15x5
 in its dyadic modes (static_e and static_e16 on FrozenExecFused,
@@ -299,20 +299,26 @@ phase exits non-zero before the result line.  Phases:
    record's frames, card == CPU (a float near-tie within 1e-4 printed
    instead); phase 13's seconds.
 
-14. Training (``--only training`` runs the build and this phase alone, a
-   partial run without the result line): (a) Kernel 10 (the RNNT loss,
-   ``kernels/csrc/rnnt_loss.cu``) forward and backward at (B, T, U) in
-   RNNT_LOSS_SHAPES with ragged lengths against its plain version in
-   float32 and in float64 (the truth): the NLL within RNNT_NLL_RTOL of
-   float64, each gradient no farther from float64 than twice the float32
-   plain version (floor RNNT_GRAD_FLOOR) and at most RNNT_GRAD_ATOL; timed
-   at RNNT_LOSS_TIMED beside the plain version, its byte bound and its
-   latency floor of 2 (T + U) barrier rounds; (b) the golden training
-   records (``qasr_tpu_torch/train/golden.py``: 3 Novograd steps of
-   QuartzNet15x5, the Conformer-CTC 16 x 256 and the Conformer-Transducer
-   at full width on B=2 x 200 seeded frames, written by the JAX package)
-   held at golden.py's bounds, the transducer's steps on Kernel 10 alone
-   (its launches counted from 0, rnnt_loss_plain's 0); (c) full-width
+14. Training (``--only training`` runs the build and this phase alone,
+   ``--only rnnt_loss`` the build and 14a, partial runs without the result
+   line): (a) Kernel 10 (the RNNT loss, ``kernels/csrc/rnnt_loss.cu``),
+   both entries (from the joint's logits, and from the lattice's log-probs)
+   forward and backward at (B, T, U) in RNNT_LOSS_SHAPES at V+1 = 29 and
+   at RNNT_LOSS_BPE at V+1 = 1,025, ragged lengths, against its plain
+   versions in float32 and in float64 (the truth): the NLL within
+   RNNT_NLL_RTOL of float64, each gradient no farther from float64 than
+   twice the float32 plain version (floor RNNT_GRAD_FLOOR) and at most
+   RNNT_GRAD_ATOL; the logits entry timed at RNNT_LOSS_TIMED (each of its
+   three kernels) beside the log-softmax chain around the log-probs entry
+   (the yardstick), both peak memories, the plain versions, the byte
+   bound, the latency floor (the round-floor kernel for T + U rounds on
+   the lattice's grid) and the lattice's clock64 stamps a round; (b) the
+   golden training records (``qasr_tpu_torch/train/golden.py``: 3 Novograd
+   steps of QuartzNet15x5, the Conformer-CTC 16 x 256 and the
+   Conformer-Transducer at full width on B=2 x 200 seeded frames, written
+   by the JAX package) held at golden.py's bounds, the transducer's steps
+   on Kernel 10's logits entry alone (3 launches a step counted from 0;
+   the log-probs entry and both plain versions 0); (c) full-width
    training steps on one fixed two-tone batch, median of 5 after 2
    warm-ups by CUDA events: QuartzNet15x5 B=32 x 15 s with the YAML's
    spec-augment, the Conformer-CTC B=32 x 15 s and the Transducer B=16 x
@@ -372,7 +378,7 @@ PW_BT = ((3, 203), (1, 1), (1, 37))
 HBM_BYTES_PER_S, INT8_OPS_PER_S = 3.35e12, 1979e12
 KERNELS = ("dw_conv", "pw_gemm", "requant", "int_attention", "conv_block", "lin_epilogue",
            "ffn_ln", "dense_conv", "int_attention_cached", "conv_block_cached", "rnnt_pred",
-           "rnnt_joint", "rnnt_greedy", "rnnt_loss")
+           "rnnt_joint", "rnnt_greedy", "rnnt_loss", "rnnt_loss_from_logits")
 # the launches of each rnnt_greedy form (kernels/rnnt_decoder.py: rnnt_greedy.forms)
 # and of each conv_block_cached form (kernels/conv_block.py: conv_block_cached.forms)
 GREEDY_FORMS = ("rnnt_greedy_resident", "rnnt_greedy_streamed")
@@ -389,7 +395,9 @@ KERNEL_SYMBOLS = {"dw_conv": "dw_conv_kernel",
                   "conv_block_cached": ("conv_block_cached_kernel", "conv_block_cached_stage"),
                   "rnnt_pred": "rnnt_pred_step_kernel", "rnnt_joint": "rnnt_joint_kernel",
                   "rnnt_greedy": "rnnt_greedy_kernel",
-                  "rnnt_loss": ("rnnt_alpha_kernel", "rnnt_beta_grad_kernel")}
+                  "rnnt_loss": ("rnnt_diag_kernel", "rnnt_lattice_kernel", "rnnt_occ_kernel"),
+                  "rnnt_loss_from_logits": ("rnnt_lse_kernel", "rnnt_lattice_kernel",
+                                            "rnnt_grad_kernel")}
 # phase 12: the cache-aware stream (NeMo's cache-aware streaming Conformers
 # keep 70 frames of left context), its cache forms' check grid, its feed
 # sizes (40 ms, 160 ms: the timed one, 1 s) and length, and the windowed
@@ -526,14 +534,15 @@ def wrappers():
     from qasr_tpu_torch.kernels.pw_gemm import pw_gemm
     from qasr_tpu_torch.kernels.requant import requant
     from qasr_tpu_torch.kernels.rnnt_decoder import rnnt_greedy, rnnt_joint, rnnt_pred_step
-    from qasr_tpu_torch.kernels.rnnt_loss import rnnt_loss
+    from qasr_tpu_torch.kernels.rnnt_loss import rnnt_loss, rnnt_loss_from_logits
 
     return {"dw_conv": dw_conv, "pw_gemm": pw_gemm, "requant": requant,
             "int_attention": int_attention, "conv_block": conv_block,
             "lin_epilogue": lin_epilogue, "ffn_ln": ffn_ln, "dense_conv": dense_conv,
             "int_attention_cached": int_attention_cached,
             "conv_block_cached": conv_block_cached, "rnnt_pred": rnnt_pred_step,
-            "rnnt_joint": rnnt_joint, "rnnt_greedy": rnnt_greedy, "rnnt_loss": rnnt_loss}
+            "rnnt_joint": rnnt_joint, "rnnt_greedy": rnnt_greedy, "rnnt_loss": rnnt_loss,
+            "rnnt_loss_from_logits": rnnt_loss_from_logits}
 
 
 def planned(counts):
@@ -5403,17 +5412,24 @@ def phase_transducer(chk, dev, card, report):
 # phase 14: training
 # ---------------------------------------------------------------------------
 
-# 14a: Kernel 10's check grid (B, T, U) and its timed shapes (a B=16 x 15 s
-# transducer batch with 166-character targets, and a longer lattice)
+# 14a: Kernel 10's check grid (B, T, U) at V+1 = 29 characters and its
+# BPE-width shape (B, T, U) at V+1 = 1,025 (a 1,024-piece vocabulary; 48
+# pieces for a 15 s utterance); the timed shapes (a B=16 x 15 s transducer
+# batch with 166-character targets, a longer lattice, the BPE width)
 RNNT_LOSS_SHAPES = ((1, 1, 0), (1, 1, 5), (4, 37, 0), (4, 37, 12), (16, 375, 166), (3, 500, 300))
-RNNT_LOSS_TIMED = ((16, 375, 166), (3, 500, 300))
 RNNT_LOSS_V = 28                   # the character labels; blank is V
+RNNT_LOSS_BPE, RNNT_BPE_V = (16, 375, 48), 1024
+RNNT_LOSS_TIMED = ((16, 375, 166, RNNT_LOSS_V), (3, 500, 300, RNNT_LOSS_V),
+                   (16, 375, 48, RNNT_BPE_V))
 # the NLL relative to the float64 plain version, and each gradient's largest
 # |difference| from it: no farther than 2x the float32 plain version's own,
 # with a floor, and at most RNNT_GRAD_ATOL (both bounds set from the card's
 # worst, NLL 4.7e-8 and gradients 6e-8, NVIDIA H100 700 W, with room; the
 # NLL's was 1e-5 at first)
 RNNT_NLL_RTOL, RNNT_GRAD_FLOOR, RNNT_GRAD_ATOL = 1e-6, 1e-5, 1e-6
+# the kernels of each entry (symbols in the profiler's names)
+RNNT_LOGITS_KERNELS = ("rnnt_lse_kernel", "rnnt_lattice_kernel", "rnnt_grad_kernel")
+RNNT_LP_KERNELS = ("rnnt_diag_kernel", "rnnt_lattice_kernel", "rnnt_occ_kernel")
 # NeMo's examples/asr/conf/quartznet_15x5.yaml: SpecCutout 5 x (120 frames x
 # 50 mels); its blocks' dropout is 0.0
 QN_SPEC_AUGMENT = {"rect_masks": 5, "rect_time": 120, "rect_freq": 50}
@@ -5517,48 +5533,111 @@ def train_batch(b, labels, seed, dev):
     return tuple(torch.from_numpy(a).to(dev) for a in (audio, lens, toks, tl))
 
 
-def rnnt_loss_inputs(rng, b, t, u, dev):
-    """float64 (blank (B, T, U+1), emit (B, T, U)) of random joint logits'
-    log-softmax, ragged lengths (row 0 at the full T and U) on ``dev``."""
+def rnnt_loss_inputs(rng, b, t, u, v, dev):
+    """(logits (B, T, U+1, V+1) float32, targets (B, U), lengths int32) on
+    ``dev``: random joint logits, ragged lengths (row 0 at the full T and
+    U)."""
     import numpy as np
     import torch
 
-    logits = torch.from_numpy(rng.normal(size=(b, t, u + 1, RNNT_LOSS_V + 1))).to(dev)
-    lp = torch.log_softmax(logits, dim=-1)
-    tg = torch.from_numpy(rng.integers(0, RNNT_LOSS_V, size=(b, u))).to(dev)
-    emit = torch.gather(lp[:, :, :u], 3, tg[:, None, :, None].expand(b, t, u, 1))[..., 0]
+    logits = torch.from_numpy(rng.normal(size=(b, t, u + 1, v + 1)).astype(np.float32)).to(dev)
+    tg = torch.from_numpy(rng.integers(0, v, size=(b, u))).to(dev)
     il = rng.integers(max(1, t // 2), t + 1, size=b)
     tl = rng.integers(0, u + 1, size=b)
     il[0], tl[0] = t, u
-    return (lp[..., RNNT_LOSS_V].contiguous(), emit.contiguous(),
-            torch.from_numpy(il.astype(np.int32)).to(dev),
+    return (logits, tg, torch.from_numpy(il.astype(np.int32)).to(dev),
             torch.from_numpy(tl.astype(np.int32)).to(dev))
 
 
-def rnnt_loss_grads(fn, blank, emit, il, tl, w):
-    """(nll, d(w . nll)/d blank, d(w . nll)/d emit) of one loss function."""
+def rnnt_loss_grads(fn, xs, rest, w):
+    """(nll, d(w . nll)/d x for each x of ``xs``) of fn(*xs, *rest)."""
     import torch
 
-    blank = blank.detach().clone().requires_grad_()
-    emit = emit.detach().clone().requires_grad_()
-    nll = fn(blank, emit, il, tl)
-    gb, ge = torch.autograd.grad((nll * w).sum(), (blank, emit))
-    return nll.detach(), gb, ge
+    xs = [x.detach().clone().requires_grad_() for x in xs]
+    nll = fn(*xs, *rest)
+    return (nll.detach(), *torch.autograd.grad((nll * w).sum(), xs))
 
 
-def rnnt_loss_bound(b, t, u, il, tl):
-    """(bound_ms, bound_by): the bytes Kernel 10's function must move (the
-    lattice cells these lengths use, read once; both gradients written
-    whole; the NLL) over HBM; its operations (a few a cell) are far below
-    their peak."""
-    cells = int((il.long() * (tl.long() + 1)).sum() + (il.long() * tl.long()).sum())
-    nbytes = 4 * cells + 4 * b * t * (2 * u + 1) + 4 * b
+def rnnt_loss_bound(b, t, u, v1, il, tl):
+    """(bound_ms, bound_by): the bytes Kernel 10's function of the logits
+    must move (the logits of the lattice cells these lengths use, read
+    once; their gradient written whole; targets, lengths, the NLL) over
+    HBM; its operations (~8 float32 a logit) are far below their peak."""
+    cells = int((il.long() * (tl.long() + 1)).sum())
+    nbytes = 4 * cells * v1 + 4 * b * t * (u + 1) * v1 + 4 * b * u + 12 * b
     return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
 
 
+def rnnt_lp_bound(b, t, u, il, tl):
+    """(bound_ms, bound_by) of the log-probs entry: the lattice cells'
+    blank and emit log-probs these lengths use, read once; both gradients
+    written whole; lengths and the NLL."""
+    cells = int((il.long() * (tl.long() + 1)).sum() + (il.long() * tl.long()).sum())
+    nbytes = 4 * cells + 4 * b * t * (2 * u + 1) + 12 * b
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def kernels_ms(fn, symbols):
+    """(device ms a call of fn() summed over ``symbols``, how it was read,
+    each symbol's ms or None): each kernel read on its own (device_ms
+    counts one record a call, and a trace that dropped one kernel's records
+    would pass for all); if any fell back to events, one events reading of
+    whole calls."""
+    parts = {sym: device_ms(fn, sym) for sym in symbols}
+    if all(by == "profiler" for _, by in parts.values()):
+        return sum(ms for ms, _ in parts.values()), "profiler", {k: v[0] for k, v in
+                                                                 parts.items()}
+    ms = next(ms for ms, by in parts.values() if by == "events")
+    return ms, "events", {k: (v[0] if v[1] == "profiler" else None) for k, v in parts.items()}
+
+
+def peak_gib(fn):
+    """Peak device memory (GiB) above what was allocated, over one fn()."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+
+
+def lattice_stamps(K10, logits, tg, il, tl, blank):
+    """The lattice kernel's clock64 stamps on these inputs (two-sided):
+    median cycles a round of row 0's alpha and beta blocks (its full T and
+    U) spends waiting for its staged row, at the barrier, issuing the next
+    row's copies, on thread 0's cell, on the stores, and in all (one
+    round's first stamp to the next's), over the rounds where thread 0's
+    cell (u = 0) is inside the diagonal."""
+    import statistics as st
+
+    import torch
+
+    b, t, u1, _ = logits.shape
+    lx, tg32, il32, tl32 = K10.logits_inputs(logits, tg, il, tl)
+    _, bd, ed = K10.cell_pass(lx, tg32, il32, tl32, blank)
+    stamps = torch.zeros((2 * b, t + u1 - 1, K10.STAMPS), dtype=torch.int64, device=lx.device)
+    K10.lattice(bd, ed, il32, tl32, t, True, stamps=stamps)
+    torch.cuda.synchronize()
+    tb, ub = int(il32[0].clamp(1, t)), int(tl32[0].clamp(0, u1 - 1))
+    out = {}
+    # alpha's round d - 1 holds diagonal d, beta's round i diagonal tb - 1 + ub - i
+    for side, blk, rounds in (("alpha", 0, range(0, tb - 1)), ("beta", 1, range(ub, tb + ub))):
+        s = stamps[blk].double().cpu()
+        parts = {name: st.median((s[rounds.start:rounds.stop, k + 1]
+                                  - s[rounds.start:rounds.stop, k]).tolist())
+                 for k, name in enumerate(("wait", "barrier", "issue", "cell", "stores"))}
+        parts["round"] = st.median((s[rounds.start + 1:rounds.stop, 0]
+                                    - s[rounds.start:rounds.stop - 1, 0]).tolist())
+        out[side] = dict(parts, rounds=len(rounds))
+    return out
+
+
 def phase_rnnt_loss(chk, dev, card, rows):
-    """14a: Kernel 10 against its plain version (float32) and the plain
-    version in float64 (the truth) on the card; the timed shapes."""
+    """14a: both entries of Kernel 10 against their plain versions (float32)
+    and the plain versions in float64 (the truth) on the card; the timed
+    shapes beside the log-softmax chain, the bound and the latency floor."""
     import numpy as np
     import torch
 
@@ -5566,74 +5645,142 @@ def phase_rnnt_loss(chk, dev, card, rows):
 
     rng = np.random.default_rng(14)
     worst = {"nll_rel": 0.0, "grad_ratio": 0.0}
-    for b, t, u in RNNT_LOSS_SHAPES:
-        blank64, emit64, il, tl = rnnt_loss_inputs(rng, b, t, u, dev)
+    shapes = [s + (RNNT_LOSS_V,) for s in RNNT_LOSS_SHAPES] + [RNNT_LOSS_BPE + (RNNT_BPE_V,)]
+    for b, t, u, v in shapes:
+        x, tg, il, tl = rnnt_loss_inputs(rng, b, t, u, v, dev)
         w = torch.from_numpy(rng.uniform(0.5, 1.5, size=b).astype(np.float32)).to(dev)
-        blank, emit = blank64.float(), emit64.float()
-        got = rnnt_loss_grads(K10.rnnt_loss, blank, emit, il, tl, w)
-        plain = rnnt_loss_grads(K10.rnnt_loss_plain, blank, emit, il, tl, w)
-        truth = rnnt_loss_grads(K10.rnnt_loss_plain, blank.double(), emit.double(), il, tl,
-                                w.double())
-        torch.cuda.synchronize()
-        nll_rel = float(((got[0].double() - truth[0]).abs() / truth[0].abs()).max())
-        worst["nll_rel"] = max(worst["nll_rel"], nll_rel)
-        if not nll_rel <= RNNT_NLL_RTOL:
-            raise AssertionError(f"14a rnnt_loss B={b} T={t} U={u}: NLL {nll_rel:.3g} relative "
-                                 f"from float64, above {RNNT_NLL_RTOL}")
-        errs = []
-        for i, what in ((1, "d blank"), (2, "d emit")):
-            if got[i].numel() == 0:
-                continue
-            ek = float((got[i].double() - truth[i]).abs().max())
-            ep = float((plain[i].double() - truth[i]).abs().max())
-            if not ek <= min(max(2 * ep, RNNT_GRAD_FLOOR), RNNT_GRAD_ATOL):
-                raise AssertionError(f"14a rnnt_loss B={b} T={t} U={u} {what}: {ek:.3g} from "
-                                     f"float64, the plain float32 version {ep:.3g}")
-            errs.append((what, ek, ep))
-            worst["grad_ratio"] = max(worst["grad_ratio"],
-                                      ek / min(max(2 * ep, RNNT_GRAD_FLOOR), RNNT_GRAD_ATOL))
-            chk.max_err["rnnt_loss"] = max(chk.max_err["rnnt_loss"], ek)
-        chk.max_err["rnnt_loss"] = max(chk.max_err["rnnt_loss"],
-                                       float((got[0].double() - truth[0]).abs().max()))
-        chk.n += 1
-        log(f"[14a] rnnt_loss B={b} T={t} U={u}: NLL {nll_rel:.2e} relative from float64; "
-            + "; ".join(f"{what} {ek:.2e} (plain float32 {ep:.2e})" for what, ek, ep in errs))
-        if (b, t, u) in RNNT_LOSS_TIMED:
-            bl = blank.detach().clone().requires_grad_()
-            em = emit.detach().clone().requires_grad_()
-
-            def kern():
-                return torch.autograd.grad(K10.rnnt_loss(bl, em, il, tl).sum(), (bl, em))
-
-            def plain_fn():
-                return torch.autograd.grad(K10.rnnt_loss_plain(bl, em, il, tl).sum(), (bl, em))
-            call = statistics.median(cuda_ms(kern, reps=10))
-            # each kernel read on its own: device_ms counts one record a call,
-            # and a trace that dropped one kernel's records would pass for
-            # both; its events fallback times whole calls (both kernels)
-            fwd_ms, by_f = device_ms(kern, "rnnt_alpha_kernel")
-            bwd_ms, by_b = device_ms(kern, "rnnt_beta_grad_kernel")
-            if by_f == by_b == "profiler":
-                dev_ms, by = fwd_ms + bwd_ms, "profiler"
-            else:
-                dev_ms, by = (fwd_ms if by_f == "events" else bwd_ms), "events"
-                fwd_ms = fwd_ms if by_f == "profiler" else None
-            pk = statistics.median(cuda_ms(plain_fn, reps=3, warmup=1))
-            bnd = rnnt_loss_bound(b, t, u, il, tl)
-            rounds = 2 * (t + u)
-            rows.append({"shape": f"rnnt_loss B={b} T={t} U={u}", "kernel": "rnnt_loss",
-                         "call_ms": call, "device_ms": dev_ms, "device_ms_by": by,
-                         "forward_device_ms": fwd_ms, "plain_ms": pk, "bound": bnd,
-                         "barrier_rounds": rounds, "library_call_ms": None,
-                         "library_device_ms": None, "library_device_ms_by": None})
-            fwd = "not read" if fwd_ms is None else f"{fwd_ms:.4f}"
-            log(f"[14a] rnnt_loss B={b} T={t} U={u} forward + backward: {dev_ms:.4f} ms device "
-                f"({by}; forward {fwd}; {call:.4f} ms call), plain {pk:.3f} ms, bound "
-                f"{bnd[0]:.5f} ms ({bnd[1]}), latency floor {rounds} dependent barrier rounds, "
-                f"library: none [{card}]")
+        with torch.no_grad():
+            bl, em = K10.lattice_log_probs(torch.log_softmax(x.double(), dim=-1), tg, v)
+        entries = (
+            ("rnnt_loss_from_logits", K10.rnnt_loss_from_logits,
+             K10.rnnt_loss_from_logits_plain, [x], (tg, il, tl, v), ("d logits",)),
+            ("rnnt_loss", K10.rnnt_loss, K10.rnnt_loss_plain, [bl.float(), em.float()],
+             (il, tl), ("d blank", "d emit")))
+        for kind, kern, plain_fn, xs, rest, names in entries:
+            got = rnnt_loss_grads(kern, xs, rest, w)
+            plain = rnnt_loss_grads(plain_fn, xs, rest, w)
+            truth = rnnt_loss_grads(plain_fn, [z.double() for z in xs], rest, w.double())
+            torch.cuda.synchronize()
+            nll_rel = float(((got[0].double() - truth[0]).abs() / truth[0].abs()).max())
+            worst["nll_rel"] = max(worst["nll_rel"], nll_rel)
+            what_shape = f"{kind} B={b} T={t} U={u} V+1={v + 1}"
+            if not nll_rel <= RNNT_NLL_RTOL:
+                raise AssertionError(f"14a {what_shape}: NLL {nll_rel:.3g} relative from "
+                                     f"float64, above {RNNT_NLL_RTOL}")
+            errs = []
+            for i, what in enumerate(names, start=1):
+                if got[i].numel() == 0:
+                    continue
+                ek = float((got[i].double() - truth[i]).abs().max())
+                ep = float((plain[i].double() - truth[i]).abs().max())
+                allowed = min(max(2 * ep, RNNT_GRAD_FLOOR), RNNT_GRAD_ATOL)
+                if not ek <= allowed:
+                    raise AssertionError(f"14a {what_shape} {what}: {ek:.3g} from float64, "
+                                         f"the plain float32 version {ep:.3g}")
+                errs.append((what, ek, ep))
+                worst["grad_ratio"] = max(worst["grad_ratio"], ek / allowed)
+                chk.max_err[kind] = max(chk.max_err[kind], ek)
+            chk.max_err[kind] = max(chk.max_err[kind],
+                                    float((got[0].double() - truth[0]).abs().max()))
+            chk.n += 1
+            log(f"[14a] {what_shape}: NLL {nll_rel:.2e} relative from float64; "
+                + "; ".join(f"{what} {ek:.2e} (plain float32 {ep:.2e})" for what, ek, ep in errs))
+            del got, plain, truth
+        del bl, em
+        if (b, t, u, v) in RNNT_LOSS_TIMED:
+            rows.append(rnnt_loss_timed(K10, x, tg, il, tl, v, card))
+        del x
+        torch.cuda.empty_cache()
     log(f"[14a] worst: NLL {worst['nll_rel']:.2e} relative (bound {RNNT_NLL_RTOL}), gradient "
         f"error / allowed {worst['grad_ratio']:.3f}")
     return worst
+
+
+def rnnt_loss_timed(K10, x, tg, il, tl, v, card):
+    """14a's timed row at one shape: Kernel 10 from the logits forward +
+    backward (device ms of its three kernels, the call, the forward), the
+    log-softmax chain around its log-probs entry (torch.log_softmax, the
+    gather, Kernel 10, autograd's scatter and log-softmax backward: the
+    structure the loss had before the logits entry) as the yardstick, peak
+    memory of both, the plain version, the byte bound, the latency floor
+    (the round-floor kernel on the lattice's grid for T + U rounds) and
+    the lattice's clock64 stamps."""
+    import statistics
+
+    import torch
+
+    b, t, u1, v1 = x.shape
+    u = u1 - 1
+    xg = x.detach().clone().requires_grad_()
+
+    def kern():
+        return torch.autograd.grad(K10.rnnt_loss_from_logits(xg, tg, il, tl, v).sum(), xg)
+
+    def chain():
+        bl, em = K10.lattice_log_probs(torch.log_softmax(xg, dim=-1), tg, v)
+        return torch.autograd.grad(K10.rnnt_loss(bl, em, il, tl).sum(), xg)
+
+    def plain_fn():
+        return torch.autograd.grad(
+            K10.rnnt_loss_from_logits_plain(xg, tg, il, tl, v).sum(), xg)
+
+    with torch.no_grad():
+        lps = [z.contiguous().requires_grad_() for z in
+               K10.lattice_log_probs(torch.log_softmax(x, dim=-1), tg, v)]
+
+    def lp_kern():
+        return torch.autograd.grad(K10.rnnt_loss(*lps, il, tl).sum(), lps)
+
+    def lp_plain():
+        return torch.autograd.grad(K10.rnnt_loss_plain(*lps, il, tl).sum(), lps)
+
+    call = statistics.median(cuda_ms(kern, reps=10))
+    dev_ms, by, parts = kernels_ms(kern, RNNT_LOGITS_KERNELS)
+    fwd = None if None in (parts["rnnt_lse_kernel"], parts["rnnt_lattice_kernel"]) else \
+        parts["rnnt_lse_kernel"] + parts["rnnt_lattice_kernel"]
+    chain_call = statistics.median(cuda_ms(chain, reps=10))
+    chain_ms, chain_by = device_ms(chain)
+    chain_k10, chain_k10_by, _ = kernels_ms(chain, RNNT_LP_KERNELS)
+    mem, chain_mem = peak_gib(kern), peak_gib(chain)
+    pk = statistics.median(cuda_ms(plain_fn, reps=2, warmup=1))
+    lp_call = statistics.median(cuda_ms(lp_kern, reps=10))
+    lp_ms, lp_by, _ = kernels_ms(lp_kern, RNNT_LP_KERNELS)
+    lp_pk = statistics.median(cuda_ms(lp_plain, reps=2, warmup=1))
+    bnd = rnnt_loss_bound(b, t, u, v1, il, tl)
+    lp_bnd = rnnt_lp_bound(b, t, u, il, tl)
+    threads = K10.lattice_threads(u)
+    floor_ms, floor_by = device_ms(lambda: K10.round_floor(2 * b, threads, t + u),
+                                   "rnnt_round_floor_kernel")
+    stamps = lattice_stamps(K10, x, tg, il, tl, v)
+    shape = f"rnnt_loss_from_logits B={b} T={t} U={u} V+1={v1}"
+    row = {"shape": shape, "kernel": "rnnt_loss_from_logits", "call_ms": call,
+           "device_ms": dev_ms, "device_ms_by": by, "kernel_ms": parts, "forward_device_ms": fwd,
+           "plain_ms": pk, "bound": bnd, "rounds": t + u, "floor_ms": floor_ms,
+           "floor_by": floor_by, "lattice_threads": threads, "stamps_cycles": stamps,
+           "peak_gib": mem, "chain_device_ms": chain_ms, "chain_device_ms_by": chain_by,
+           "chain_kernel10_ms": chain_k10, "chain_kernel10_ms_by": chain_k10_by,
+           "chain_call_ms": chain_call, "chain_peak_gib": chain_mem,
+           "lp_device_ms": lp_ms, "lp_device_ms_by": lp_by, "lp_call_ms": lp_call,
+           "lp_plain_ms": lp_pk, "lp_bound": lp_bnd,
+           "library_call_ms": None, "library_device_ms": None, "library_device_ms_by": None}
+    fmt = lambda z: "not read" if z is None else f"{z:.4f}"  # noqa: E731
+    log(f"[14a] {shape} forward + backward: {dev_ms:.4f} ms device ({by}; cell pass "
+        f"{fmt(parts['rnnt_lse_kernel'])}, lattice {fmt(parts['rnnt_lattice_kernel'])}, "
+        f"gradient {fmt(parts['rnnt_grad_kernel'])}; {call:.4f} ms call), peak {mem:.3f} GiB; "
+        f"yardstick (log-softmax chain around the log-probs entry) {chain_ms:.4f} ms device "
+        f"({chain_by}; its Kernel 10 {chain_k10:.4f}; {chain_call:.4f} ms call), peak "
+        f"{chain_mem:.3f} GiB; plain {pk:.3f} ms; bound {bnd[0]:.5f} ms ({bnd[1]}), latency "
+        f"floor {floor_ms:.4f} ms ({t + u} rounds of {threads} threads, {floor_by}); library: "
+        f"none [{card}]")
+    log(f"[14a] rnnt_loss (the log-probs entry) B={b} T={t} U={u} forward + backward: "
+        f"{lp_ms:.4f} ms device ({lp_by}; {lp_call:.4f} ms call), plain {lp_pk:.3f} ms, bound "
+        f"{lp_bnd[0]:.5f} ms ({lp_bnd[1]})")
+    log(f"[14a] {shape} lattice stamps (median cycles a round: wait, barrier, issue, cell, "
+        f"stores, round): " + "; ".join(
+            f"{side} {d['wait']:.0f}, {d['barrier']:.0f}, {d['issue']:.0f}, {d['cell']:.0f}, "
+            f"{d['stores']:.0f}, {d['round']:.0f} ({d['rounds']} rounds)"
+            for side, d in stamps.items()))
+    return row
 
 
 def phase_train_golden(dev, report):
@@ -5649,18 +5796,22 @@ def phase_train_golden(dev, report):
         model = G.train_model(name)
         start = G.start_norms(model)
         tr = G.make_trainer(name, model, dev)
+        plains = (K10.rnnt_loss_plain, K10.rnnt_loss_from_logits_plain)
         if name == "rnnt_conformer16x256":
             reset_counts()
-            K10.rnnt_loss_plain.launches = 0
+            for w in plains:
+                w.launches = 0
         rec = G.train_record(name, dev, tr)
         if name == "rnnt_conformer16x256":
             counts = read_counts()
-            counts["rnnt_loss_plain"] = K10.rnnt_loss_plain.launches
-            want = planned({"rnnt_loss": 2 * G.STEPS})
+            counts["rnnt_loss_plain"] = sum(w.launches for w in plains)
+            # a step: the cell pass and the lattice forward, the gradient
+            # pass backward; the log-probs entry not at all
+            want = planned({"rnnt_loss_from_logits": 3 * G.STEPS})
             got = {k: counts.get(k, 0) for k in want}
             if got != want or counts["rnnt_loss_plain"]:
                 raise AssertionError(f"14b transducer steps launched {counts}, planned {want} "
-                                     f"and no rnnt_loss_plain")
+                                     f"and no plain version")
         cmp = G.compare_train_record(rec, G.load_record(name), start)
         out[name] = {"record": rec, "compare": cmp}
         log(f"[14b] {name}: losses {rec['losses']}; step-1 loss {cmp['loss1']:.2e} relative "
@@ -5674,8 +5825,9 @@ def phase_train_golden(dev, report):
             raise AssertionError(f"14b {name}: {cmp['failures'][:5]}")
         del tr, model
         torch.cuda.empty_cache()
-    log(f"[14b] transducer golden steps: rnnt_loss {counts['rnnt_loss']} launches, "
-        f"rnnt_loss_plain {counts['rnnt_loss_plain']}")
+    log(f"[14b] transducer golden steps: rnnt_loss_from_logits "
+        f"{counts['rnnt_loss_from_logits']} launches, rnnt_loss {counts['rnnt_loss']}, the plain "
+        f"versions {counts['rnnt_loss_plain']}")
     report["train_golden"] = {k: v["compare"] for k, v in out.items()}
     return counts
 
@@ -5705,7 +5857,8 @@ def profile_step(fn):
         us = ev.self_cuda_time_total if us is None else us
         total += us
         by_kernel.append((us / 1e3, ev.count, ev.key[:90]))
-        if "rnnt_alpha" in ev.key or "rnnt_beta" in ev.key:
+        if any(sym in ev.key for sym in KERNEL_SYMBOLS["rnnt_loss_from_logits"]
+               + KERNEL_SYMBOLS["rnnt_loss"]):
             groups["rnnt_loss"] += us
         elif "ctc_loss" in ev.key:
             groups["ctc_loss"] += us
@@ -5755,9 +5908,9 @@ def phase_train_steps(dev, card, report):
         tr.apply()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        n0 = K10.rnnt_loss.launches
+        n0 = K10.rnnt_loss_from_logits.launches
         times = cuda_ms(lambda: tr.train_step(batch), reps=5, warmup=2)
-        launches = (K10.rnnt_loss.launches - n0) / 7
+        launches = (K10.rnnt_loss_from_logits.launches - n0) / 7
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         step_ms = statistics.median(times)
         wb_ms = statistics.median(cuda_ms(tr.sync_model, reps=5, warmup=1))
@@ -5972,26 +6125,38 @@ def phase_training(chk, dev, card, report):
     return rows, counts
 
 
-def rnnt_loss_row(chk, rows, counts):
-    """Kernel 10's entry of the kernels line, at the B=16 x 15 s lattice."""
-    r = next(r for r in rows if r["shape"] == "rnnt_loss B=16 T=375 U=166")
-    return {"name": "rnnt_loss", "route": "cuda", "shape": r["shape"],
-            "source": "qasr_tpu_torch/kernels/csrc/rnnt_loss.cu",
-            "replaces": "none: the lax.scan over anti-diagonals differentiated by autodiff, "
-                        "qasr_tpu/models/rnnt.py:156-216 (rnnt_loss_wavefront)",
-            "launches": counts["rnnt_loss"], "max_abs_err": chk.max_err["rnnt_loss"],
-            "ms": r["device_ms"], "call_ms": r["call_ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound"][0], "bound_by": r["bound"][1], "library_ms": None,
-            "library_call_ms": None, "forward_ms": r["forward_device_ms"],
-            "barrier_rounds": r["barrier_rounds"]}
+def rnnt_loss_rows(chk, rows, counts):
+    """Kernel 10's entries of the kernels line at the B=16 x 15 s lattice:
+    from the logits (the training path's) and from the log-probs (off the
+    main path since training takes the logits)."""
+    r = next(r for r in rows if r["shape"] == "rnnt_loss_from_logits B=16 T=375 U=166 V+1=29")
+    src = "qasr_tpu_torch/kernels/csrc/rnnt_loss.cu"
+    scan = ("the lax.scan over anti-diagonals differentiated by autodiff, "
+            "qasr_tpu/models/rnnt.py:156-216 (rnnt_loss_wavefront)")
+    common = {"route": "cuda", "source": src, "library_ms": None, "library_call_ms": None,
+              "floor_ms": r["floor_ms"], "rounds": r["rounds"]}
+    return [
+        {"name": "rnnt_loss_from_logits", "shape": r["shape"],
+         "replaces": "none: rnnt_loss(log_softmax(logits)), "
+                     f"qasr_tpu/models/rnnt_model.py:227-228, {scan}",
+         "launches": counts["rnnt_loss_from_logits"],
+         "max_abs_err": chk.max_err["rnnt_loss_from_logits"], "ms": r["device_ms"],
+         "call_ms": r["call_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+         "bound_by": r["bound"][1], "forward_ms": r["forward_device_ms"],
+         "yardstick_ms": r["chain_device_ms"], **common},
+        {"name": "rnnt_loss", "shape": r["shape"].replace("rnnt_loss_from_logits", "rnnt_loss"),
+         "replaces": f"none: {scan}", "launches": counts["rnnt_loss"],
+         "max_abs_err": chk.max_err["rnnt_loss"], "ms": r["lp_device_ms"],
+         "call_ms": r["lp_call_ms"], "plain_ms": r["lp_plain_ms"],
+         "bound_ms": r["lp_bound"][0], "bound_by": r["lp_bound"][1], **common}]
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description="PyTorch port smoke test on one GPU")
     ap.add_argument("--report", help="also write a JSON report of every number here")
-    ap.add_argument("--only", choices=("training",),
-                    help="run the build and this phase alone (a partial run: it prints no "
-                         "result line)")
+    ap.add_argument("--only", choices=("training", "rnnt_loss"),
+                    help="run the build and phase 14 (training) or 14a (rnnt_loss) alone (a "
+                         "partial run: it prints no result line)")
     args = ap.parse_args()
 
     import torch
@@ -6027,9 +6192,15 @@ def main() -> int:
                   ptxas=info.log)
 
     chk = Checker()
-    if args.only == "training":
-        rows, counts = phase_training(chk, dev, card, report)
-        report["kernels"] = [rnnt_loss_row(chk, rows, counts)]
+    if args.only:
+        if args.only == "training":
+            rows, counts = phase_training(chk, dev, card, report)
+            report["kernels"] = rnnt_loss_rows(chk, rows, counts)
+        else:
+            rows = []
+            phase_rnnt_loss(chk, dev, card, rows)
+            report["kernels"] = []
+            report["training_per_kernel"] = rows
         report["seconds"] = time.perf_counter() - t_start
         if args.report:
             os.makedirs(os.path.dirname(os.path.abspath(args.report)), exist_ok=True)
@@ -6037,7 +6208,7 @@ def main() -> int:
                 json.dump(report, f, indent=1)
         log(card)
         print(json.dumps({"kernels": report["kernels"]}), flush=True)
-        log(f"partial run (--only training) passed in {report['seconds']:.1f} s")
+        log(f"partial run (--only {args.only}) passed in {report['seconds']:.1f} s")
         return 0
     phase_requant(chk, dev)
     phase_dw(chk, dev)
@@ -6173,8 +6344,9 @@ def main() -> int:
         row = kernel_row(kind, replaces, r, t_counts[kind])
         row["source"] = "qasr_tpu_torch/kernels/csrc/rnnt_decoder.cu"
         kernels.append(row)
-    # phase 14: Kernel 10 (launches: the transducer's golden training steps of 14b)
-    kernels.append(rnnt_loss_row(chk, tr_rows, tr_counts))
+    # phase 14: Kernel 10's two entries (launches: the transducer's golden
+    # training steps of 14b, on the logits entry)
+    kernels.extend(rnnt_loss_rows(chk, tr_rows, tr_counts))
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     log(f"[6] whole smoke run {report['seconds']:.1f} s")

@@ -94,10 +94,8 @@ def train_config(raw: Dict[str, Any]):
 def make_dataset(dcfg: Dict[str, Any], labels, tokenizer):
     from qasr_tpu_torch.data.dataset import AudioToCharDataset
 
-    if dcfg.get("trim_silence"):
-        raise NotImplementedError("trim_silence: the port's datasets do not trim")
     kw = dict(sample_rate=dcfg.get("sample_rate", 16000), max_duration=dcfg.get("max_duration"),
-              min_duration=dcfg.get("min_duration"))
+              min_duration=dcfg.get("min_duration"), trim=dcfg.get("trim_silence", False))
     if tokenizer is not None:
         from qasr_tpu_torch.models.ctc_bpe_model import AudioToBPEDataset
 

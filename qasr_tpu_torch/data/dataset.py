@@ -55,14 +55,16 @@ def read_manifest(path: str) -> List[ManifestEntry]:
 class AudioToCharDataset:
     """(float32 audio, label ids) pairs from one or more comma-separated
     manifests: entries outside [min_duration, max_duration] or whose
-    transcript does not parse are dropped."""
+    transcript does not parse are dropped; ``trim`` cuts each item's
+    leading and trailing silence (``trim_silence``)."""
 
     def __init__(self, manifest_filepath: str, labels: Sequence[str],
                  sample_rate: int = 16000, max_duration: Optional[float] = None,
                  min_duration: Optional[float] = None, normalize_transcripts: bool = True,
-                 parser: str = "en"):
+                 parser: str = "en", trim: bool = False):
         self.labels = list(labels)
         self.sample_rate = sample_rate
+        self.trim = trim
         self.parser = make_parser(self.labels, parser, do_normalize=normalize_transcripts)
         self.items = []
         for path in manifest_filepath.split(","):
@@ -81,7 +83,7 @@ class AudioToCharDataset:
     def __getitem__(self, i: int):
         e, tokens = self.items[i]
         sig = read_audio(e.audio_file, self.sample_rate, offset=e.offset,
-                         duration=e.duration or None)
+                         duration=e.duration or None, trim=self.trim)
         return sig, np.asarray(tokens, np.int32)
 
 

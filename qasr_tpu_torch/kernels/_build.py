@@ -53,8 +53,12 @@ _SIGNATURES = {
     "qasr_rnnt_greedy": [_P] * 11 + [_I, _F, _P, _P],
     "qasr_cluster_exchange": [_I] * 4 + [_P, _P],
     "qasr_empty_launch": [_I] * 6 + [_P],
-    "qasr_rnnt_loss_fwd": [_P] * 7 + [_I] * 3 + [_P],
-    "qasr_rnnt_loss_bwd": [_P] * 9 + [_I] * 3 + [_P],
+    "qasr_rnnt_lse": [_P] * 7 + [_I] * 5 + [_P],
+    "qasr_rnnt_diag": [_P] * 6 + [_I] * 3 + [_P],
+    "qasr_rnnt_lattice": [_P] * 10 + [_I] * 4 + [_P],
+    "qasr_rnnt_grad": [_P] * 11 + [_I] * 5 + [_P],
+    "qasr_rnnt_occ": [_P] * 9 + [_I] * 3 + [_P],
+    "qasr_rnnt_round_floor": [_I] * 3 + [_P, _P],
 }
 
 _lock = threading.Lock()

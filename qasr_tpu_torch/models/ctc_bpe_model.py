@@ -64,13 +64,15 @@ class EncDecCTCModelBPE(ASRModel):
 class AudioToBPEDataset:
     """(float32 audio, token ids) pairs from one or more comma-separated
     manifests, tokenized by ``tokenizer``: entries outside the duration
-    limits or with no tokens are dropped."""
+    limits or with no tokens are dropped; ``trim`` cuts each item's leading
+    and trailing silence (``trim_silence``)."""
 
     def __init__(self, manifest_filepath: str, tokenizer: TokenizerSpec,
                  sample_rate: int = 16000, max_duration: Optional[float] = None,
-                 min_duration: Optional[float] = None):
+                 min_duration: Optional[float] = None, trim: bool = False):
         self.tokenizer = tokenizer
         self.sample_rate = sample_rate
+        self.trim = trim
         self.items = []
         for path in manifest_filepath.split(","):
             for e in read_manifest(path):
@@ -88,5 +90,5 @@ class AudioToBPEDataset:
     def __getitem__(self, i: int):
         e, ids = self.items[i]
         sig = read_audio(e.audio_file, self.sample_rate, offset=e.offset,
-                         duration=e.duration or None)
+                         duration=e.duration or None, trim=self.trim)
         return sig, np.asarray(ids, np.int32)

@@ -5,8 +5,10 @@ decoding (port of qasr_tpu/models/rnnt.py).
     start-of-sequence input) and an LSTM stack, gates ordered i, f, g, o;
   - the joint: project the encoder frame and the prediction, add,
     activation, project to the vocabulary plus blank;
-  - the loss: the lattice's blank and label log-probs gathered from the
-    joint's log-softmax, their NLL in Kernel 10 (kernels/rnnt_loss.py);
+  - the loss: Kernel 10 (kernels/rnnt_loss.py) from the joint's logits
+    (``rnnt_loss_from_logits``, training's), or from the lattice's blank
+    and label log-probs gathered from log-softmaxed outputs
+    (``rnnt_loss``, the JAX package's API);
   - greedy decoding: a host loop over device-stepped cells (at most
     ``max_symbols_per_step`` symbols a frame, the prediction network
     advanced only where a symbol was emitted), its carry threaded through
@@ -32,8 +34,9 @@ import numpy as np
 import torch
 
 from qasr_tpu_torch.device import no_tf32
-from qasr_tpu_torch.kernels.rnnt_loss import NEG_INF
+from qasr_tpu_torch.kernels.rnnt_loss import NEG_INF, lattice_log_probs
 from qasr_tpu_torch.kernels.rnnt_loss import rnnt_loss as kernel_rnnt_loss
+from qasr_tpu_torch.kernels.rnnt_loss import rnnt_loss_from_logits as kernel_rnnt_loss_from_logits
 
 
 @dataclass(frozen=True)
@@ -177,15 +180,6 @@ def joint(params, cfg: RNNTConfig, enc: torch.Tensor, pred: torch.Tensor) -> tor
 # ---------------------------------------------------------------------------
 
 
-def lattice_log_probs(log_probs: torch.Tensor, targets: torch.Tensor, blank_id: int):
-    """(B, T, U+1, V+1) log-probs -> (blank (B, T, U+1), emit (B, T, U)):
-    the blank's and each next target label's log-prob at every lattice
-    cell, gathered so that autograd scatters the gradients back."""
-    b, t, u1, _ = log_probs.shape
-    idx = targets[:, None, :u1 - 1, None].to(torch.int64).expand(b, t, u1 - 1, 1)
-    return log_probs[..., blank_id], torch.gather(log_probs[:, :, :u1 - 1], 3, idx)[..., 0]
-
-
 def _reduce(nll: torch.Tensor, target_lengths: torch.Tensor, reduction: str) -> torch.Tensor:
     if reduction == "mean_batch":
         return nll.mean()
@@ -247,6 +241,19 @@ def rnnt_loss(log_probs: torch.Tensor, targets: torch.Tensor, input_lengths: tor
         nll = kernel_rnnt_loss(blank_lp, emit_lp, il, tl)
     else:
         raise ValueError(f"unknown impl {impl!r}")
+    return _reduce(nll, tl, reduction)
+
+
+def rnnt_loss_from_logits(logits: torch.Tensor, targets: torch.Tensor,
+                          input_lengths: torch.Tensor, target_lengths: torch.Tensor,
+                          blank_id: int, reduction: str = "mean_batch") -> torch.Tensor:
+    """``rnnt_loss(torch.log_softmax(logits), ...)`` of the joint's
+    (B, T, U+1, V+1) logits, reduced the same way: Kernel 10 from the
+    logits on CUDA tensors (no log-softmax tensor; the backward writes the
+    logits' gradient), the plain version on CPU tensors."""
+    dev = logits.device
+    il, tl = input_lengths.to(dev), target_lengths.to(dev)
+    nll = kernel_rnnt_loss_from_logits(logits, targets.to(dev), il, tl, blank_id)
     return _reduce(nll, tl, reduction)
 
 

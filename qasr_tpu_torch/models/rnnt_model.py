@@ -53,7 +53,7 @@ from qasr_tpu_torch.models.rnnt import (
     init_rnnt_params,
     joint_logits,
     pred_outputs,
-    rnnt_loss,
+    rnnt_loss_from_logits,
 )
 from qasr_tpu_torch.ops.features import MelFrontend, preprocessor_config_from_dict
 from qasr_tpu_torch.ops.spec_augment import spec_augment
@@ -282,8 +282,8 @@ class RNNTModel:
                            reduction: str = "mean_batch") -> torch.Tensor:
         """The RNNT loss of float features (B, T, F) through the float
         encoder, the prediction network and the joint, differentiable in
-        ``params`` (torch leaves in the host layout); the lattice in Kernel
-        10 on CUDA.  With a ``generator``: ``spec_aug`` and the encoder's
+        ``params`` (torch leaves in the host layout); the loss in Kernel 10
+        from the joint's logits on CUDA.  With a ``generator``: ``spec_aug`` and the encoder's
         dropout drawn from it."""
         train = generator is not None
         if spec_aug is not None and train:
@@ -298,8 +298,8 @@ class RNNTModel:
             enc, enc_lens = encoder_forward(ex, self.plan, feats, feat_lens)
         pred = pred_outputs(params["rnnt"], self.rnnt_cfg, targets)
         logits = joint_logits(params["rnnt"], self.rnnt_cfg, enc, pred)
-        return rnnt_loss(torch.log_softmax(logits, dim=-1), targets, enc_lens, tlens,
-                         self.rnnt_cfg.blank_id, reduction)
+        return rnnt_loss_from_logits(logits, targets, enc_lens, tlens, self.rnnt_cfg.blank_id,
+                                     reduction)
 
     def loss_fn(self, params, audio, alens, targets, tlens, *,
                 generator: Optional[torch.Generator] = None, spec_aug=None, qat=None):
